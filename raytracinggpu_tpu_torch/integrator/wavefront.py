@@ -1,0 +1,206 @@
+"""Wavefront path-tracing integrator (port of
+``raytracinggpu_tpu/integrator/wavefront.py``, pairs traversal only).
+
+The whole ray batch advances in lockstep through a Python loop over depth;
+material branches are masks merged with ``torch.where``, and the per-depth
+stacks feed a backward composite with the reference's recurrence
+
+    ans = indirect_albedo[i] * ans + direct_color[i]   (only where diffuse)
+
+Material semantics (same formulas, same epsilons):
+
+- mirror:   u' = u - 2(u.N)N, origin offset +eps*N
+- refract:  Snell with medium tracking via the ray's refraction index, N
+            flipped when exiting, total internal reflection; the TIR ray
+            keeps its medium, the transmitted ray takes the entered one's
+- diffuse:  shadow ray toward the point light, occluded iff the shadow
+            hit's squared distance <= |L-P_adj|^2; direct =
+            intensity/(4 pi |L-P|^2) * max(N.w,0) * albedo/pi; a
+            cosine-weighted bounce that RESETS the medium to 1.0
+- miss:     the lane's ray is left unchanged
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raytracinggpu_tpu_torch.core.rays import RayBatch
+from raytracinggpu_tpu_torch.core.rng import cosine_hemisphere
+from raytracinggpu_tpu_torch.core.vec import Vec3, fma, sqrt, vgather, vwhere
+from raytracinggpu_tpu_torch.ops.pairs_trace import (
+    intersect_tris_pairs,
+    intersect_tris_pairs_shadow,
+)
+from raytracinggpu_tpu_torch.ops.sphere import INF, intersect_spheres
+from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
+
+PI = float(np.float32(np.pi))
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor    # (R,), INF on miss
+    obj: torch.Tensor  # (R,) int32 object id, -1 on miss
+    N: Vec3            # unit normal (masked lanes arbitrary)
+    P: Vec3            # hit point O + t*u (masked lanes arbitrary)
+
+
+def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hit:
+    """Scene-wide nearest hit: the sphere pass plus the mesh pass merged by
+    min-t.  The mesh holds the highest object id and the reference scans
+    ids ascending with a strict `<`, so the mesh wins only strictly."""
+    t_s, obj_s, N_s = intersect_spheres(O, u, scene.spheres)
+
+    if scene.pairs_mesh is None:
+        t, obj, N = t_s, obj_s, N_s
+    else:
+        # the nearest sphere hit caps useful mesh distances
+        mh, N_m = intersect_tris_pairs(
+            O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
+            subg=cfg.pairs_subgroup, blk=cfg.pairs_block)
+        nn = N_m.norm()
+        N_m = N_m / torch.where(nn > 0.0, nn, 1.0)
+
+        use_mesh = mh.t < t_s
+        t = torch.where(use_mesh, mh.t, t_s)
+        obj = torch.where(use_mesh, cfg.mesh_object_id, obj_s)
+        obj = torch.where(t < INF, obj, -1)
+        N = vwhere(use_mesh, N_m, N_s)
+
+    hit = obj >= 0
+    t_safe = torch.where(hit, t, 0.0)  # avoid inf*0 NaN on miss lanes
+    P = u.fma(t_safe, O)
+    return Hit(t=t, obj=obj, N=N, P=P)
+
+
+def occlusion_distance(scene: SceneTables, cfg: RenderConfig, O: Vec3,
+                       u: Vec3, Lv: Vec3, active=None):
+    """Nearest-hit distance for the shadow ray (occlusion only compares t
+    against |L - P_adj|^2).
+
+    active: (R,) bool — lanes whose occlusion result is provably unused
+    (non-diffuse, missed, or N.wl <= 0).  Lanes a sphere already occludes
+    drop out too: min(t_sph, t_mesh) can only shrink, so the predicate is
+    unchanged.  Inactive lanes may return the sphere-only distance."""
+    t_sph, _, _ = intersect_spheres(O, u, scene.spheres)
+    if scene.pairs_mesh is None:
+        return t_sph
+    if active is not None:
+        active = active & ~(t_sph * t_sph <= Lv.norm2())
+    t_mesh = intersect_tris_pairs_shadow(
+        O, u, scene.pairs_mesh, cfg.eps_leaf, cap=Lv.norm(),
+        subg=cfg.pairs_subgroup, blk=cfg.pairs_block, active=active)
+    return torch.minimum(t_sph, t_mesh)
+
+
+class TraceStats(NamedTuple):
+    """Per-depth lane counts, (D,) int64 tensors."""
+
+    hit: torch.Tensor
+    mirror: torch.Tensor
+    refract: torch.Tensor
+    tir: torch.Tensor
+    diffuse: torch.Tensor
+    shadowed: torch.Tensor
+
+
+def _depth_step(scene: SceneTables, cfg: RenderConfig, ray: RayBatch, r1, r2):
+    """One bounce of the whole batch: (next RayBatch, is_diff, direct,
+    albedo, counts (6,))."""
+    mats = scene.materials
+    eps = float(np.float32(cfg.eps_bounce))
+    O, u, ri = ray
+
+    h = intersect_all(scene, cfg, O, u)
+    hit = h.obj >= 0
+    oid = torch.clamp_min(h.obj, 0).long()  # lanes masked by `hit`
+    N, P = h.N, h.P
+
+    is_mirror = hit & mats.mirror[oid]
+    in_ri_o = mats.in_ri[oid]
+    out_ri_o = mats.out_ri[oid]
+    is_refr = hit & (~mats.mirror[oid]) & (in_ri_o != out_ri_o)
+    is_diff = hit & (~is_mirror) & (~is_refr)
+
+    # ---- mirror ----
+    u_mir = (-N).fma(2.0 * u.dot(N), u)
+    O_mir = N.fma(eps, P)
+
+    # ---- refraction ----
+    out2in = ri == out_ri_o
+    ratio = torch.where(out2in, out_ri_o / in_ri_o, in_ri_o / out_ri_o)
+    N2 = vwhere(out2in, N, -N)
+    cosi = u.dot(N2)
+    sin2t = ratio * ratio * fma(-cosi, cosi, 1.0)
+    denser_to_lighter = torch.where(out2in, ri > in_ri_o, ri > out_ri_o)
+    is_tir = is_refr & denser_to_lighter & (sin2t > 1.0)
+    u_tir = (-N2).fma(2.0 * cosi, u)
+    O_tir = N2.fma(eps, P)
+    u_ref = N2.fma(-sqrt(torch.clamp_min(1.0 - sin2t, 0.0)),
+                   (-N2).fma(cosi, u) * ratio)
+    O_ref = (-N2).fma(eps, P)
+    ri_ref = torch.where(out2in, in_ri_o, out_ri_o)
+
+    # ---- diffuse ----
+    P_adj = N.fma(eps, P)
+    Lv = scene.L - P_adj
+    shadow_dir = Lv.normalized()
+    LP = scene.L - P
+    wl = LP.normalized()
+    ndwl = N.dot(wl)
+    # shadow work is provably unused where the lane is not diffuse or the
+    # light is behind the surface (the direct term is exactly zero)
+    sh_active = is_diff & (ndwl > 0.0)
+    t_sh = occlusion_distance(scene, cfg, P_adj, shadow_dir, Lv,
+                              active=sh_active)
+    occluded = t_sh * t_sh <= Lv.norm2()
+
+    lum = scene.intensity / (4.0 * PI * LP.norm2()) * torch.clamp_min(ndwl, 0.0)
+    alb = vgather(mats.albedo, oid)
+    lit = is_diff & (~occluded)
+    direct = alb * torch.where(lit, lum / PI, 0.0)
+
+    u_dif = cosine_hemisphere(r1, r2, N)
+
+    # ---- merge next-ray state; misses keep their ray unchanged ----
+    not_tir = is_refr & ~is_tir
+    O2 = vwhere(is_mirror, O_mir, O)
+    u2 = vwhere(is_mirror, u_mir, u)
+    O2 = vwhere(is_tir, O_tir, vwhere(not_tir, O_ref, O2))
+    u2 = vwhere(is_tir, u_tir, vwhere(not_tir, u_ref, u2))
+    ri2 = torch.where(not_tir, ri_ref, ri)
+    O2 = vwhere(is_diff, P_adj, O2)
+    u2 = vwhere(is_diff, u_dif, u2)
+    ri2 = torch.where(is_diff, 1.0, ri2)  # bounce rays reset the medium
+
+    counts = torch.stack([
+        hit.sum(), is_mirror.sum(), is_refr.sum(), is_tir.sum(),
+        is_diff.sum(),
+        # counted only where the shadow query is meaningful
+        (sh_active & occluded).sum(),
+    ])
+    return RayBatch(O2, u2, ri2), is_diff, direct, alb, counts
+
+
+def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
+          uniforms: torch.Tensor) -> tuple[Vec3, TraceStats]:
+    """Path-trace a ray batch to its final color.
+
+    O, u: primary rays, components (R,).  uniforms: (max_depth, 2, R) U(0,1]
+    — the two per-depth uniforms of the diffuse bounce, drawn outside so a
+    test can inject identical numbers.  Returns (color Vec3 (R,),
+    TraceStats)."""
+    ray = RayBatch.make(O, u)  # primary rays start in medium 1.0
+    steps = []
+    for d in range(uniforms.shape[0]):
+        ray, *out = _depth_step(scene, cfg, ray, uniforms[d, 0], uniforms[d, 1])
+        steps.append(out)
+
+    # ---- backward composite ----
+    ans = Vec3.zeros(O.x.shape, device=O.x.device)
+    for is_diff, direct, alb, _ in reversed(steps):
+        ans = vwhere(is_diff, alb.fma(ans, direct), ans)
+
+    counts = torch.stack([s[3] for s in steps])  # (D, 6)
+    return ans, TraceStats(*counts.T)

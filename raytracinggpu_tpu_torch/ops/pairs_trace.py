@@ -1,0 +1,445 @@
+"""Pairs mesh traversal: cluster-packed tiles, per-subgroup culling
+bitmask, and the two mesh queries of the main path (port of
+``raytracinggpu_tpu/ops/pairs_trace.py``).
+
+The host build is the JAX package's numpy code: the reference midpoint
+BVH is cut into clusters of <= 128 triangles, the clusters are packed
+greedily in Morton order into 128-slot tiles, and every slot carries 32
+field rows (0-15 the factorized Moller-Trumbore constants, 16 the original
+triangle id as f32, 17-25 the vertex normals).  Culling tests each ray
+against the per-cluster MEMBER boxes and ORs the hits per tile and per
+subgroup of ``subg`` consecutive rays into a (W, R/subg) int32 bitmask.
+
+The inner loop -- Moller-Trumbore over every (ray, slot) whose tile bit is
+set for the ray's subgroup -- is the JAX package's Pallas ``_pairs_kernel``
+in two specializations:
+
+- B1, closest hit with the geometric-normal payload
+  (``pairs_closest``): lexicographic min of (t, original id), winner's Ng;
+- B2, shadow (``pairs_shadow``): the nearest t only.
+
+Each has a hand-written CUDA kernel (``csrc/pairs_trace.cu``, launched by
+``ops/_kernels.py``) and, here, a plain PyTorch version of the same
+function.  The public wrappers dispatch on the tensor's device: a CPU
+tensor runs the plain version, a CUDA tensor launches the kernel (or
+raises).  Both compute every sum left to right in f32 with a reciprocal
+and multiplies (never a divide); with the kernel built ``--fmad=false``
+the two agree bit for bit on the card.
+
+Left out of this port so far: the compaction ladder (exact by
+construction, tuned for the TPU), the smooth payload (B3), the payload-less
+closest hit (B0) and the streamed supertiles (B4).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from raytracinggpu_tpu_torch.core.vec import Vec3
+
+INF = 1e9 + 9
+INF32 = float(np.float32(INF))  # the value every f32 comparison sees: 1e9
+TILE_T = 128          # triangles per cluster tile
+NUM_FIELDS = 32       # rows 0-15: MT constants; 16: original tri id;
+                      # 17-25: vertex normals na/nb/nc; 26-31: pad
+NUM_RF_ROWS = 16      # ray-feature rows: [u, w=O x u, O, 0-pad]
+DEF_BLK = 4096        # ray padding granularity (RenderConfig.pairs_block)
+DEF_SUBG = 16         # rays per culling subgroup
+_IDX_BIG = np.int32(2**30)  # id of padding slots
+# Elements of one (ray chunk x slots) intermediate in the plain versions.
+_PLAIN_ELEMS = 1 << 22
+
+
+class PairsMeshTables(NamedTuple):
+    """Cluster-tiled device tables.
+
+    fields: (NUM_FIELDS, Tc) f32 per-slot constants in cluster-slot order
+        (0-2 Ng, 3-5 e2 x A, 6-8 e2, 9-11 e1 x A, 12-14 e1, 15 A.Ng,
+        16 original BVH-order triangle id, 17-25 vertex normals).
+    tile_aabb: (nc, 8) f32 [mn.xyz, mx.xyz, pad, pad] union box per tile.
+    slot_src: (Tc,) int32 original tri id per slot (-1 on padding).
+    member_aabb: (nm, 8) per-cluster boxes (the culling boxes);
+    member_tile: (nm,) owning tile; member_slot: (Tc,) member id per slot
+        (-1 on padding).
+    """
+
+    fields: torch.Tensor
+    tile_aabb: torch.Tensor
+    slot_src: torch.Tensor
+    member_aabb: torch.Tensor
+    member_tile: torch.Tensor
+    member_slot: torch.Tensor
+
+
+class TriHit(NamedTuple):
+    """Closest mesh hit: t (R,) f32, INF on a miss; idx (R,) int32 original
+    BVH-order triangle id, 0 on a miss."""
+
+    t: torch.Tensor
+    idx: torch.Tensor
+
+
+def tile_width(tab: PairsMeshTables) -> int:
+    """Tile lane width of a built table (the slot array is exactly nc
+    tiles of tile_t slots)."""
+    return tab.slot_src.shape[0] // tab.tile_aabb.shape[0]
+
+
+# ---------------------------------------------------------------- host build
+
+def _cluster_slots(bvh, tile_t: int = TILE_T, cut_tris: int | None = None):
+    """Host: cluster ranges -> (slot_src (nc*tile_t,), nc, members).
+
+    The cluster cut (shallowest subtrees <= tile_t tris) is packed greedily
+    in Morton order of the cluster box centers, first-fit within a window
+    of recent tiles and under a box-growth bound, so spatial neighbours
+    merge and the union boxes stay tight.  Packed tiles are not ascending
+    in original id, which is why the closest hit breaks exact-t ties
+    lexicographically on (t, original id)."""
+    from raytracinggpu_tpu_torch.accel.bvh import cluster_cut
+    from raytracinggpu_tpu_torch.accel.lbvh import morton_codes
+
+    cut = cluster_cut(bvh, max_tris=min(cut_tris or tile_t, tile_t, 128))
+    # A degenerate midpoint partition can leave a LEAF larger than
+    # max_tris; split any oversized cluster into <= tile_t chunks (same
+    # box; conservative) so no slot overflows its tile.
+    c_starts, c_ends, c_mn, c_mx = [], [], [], []
+    for ci in range(len(cut.starts)):
+        s, e = int(cut.starts[ci]), int(cut.ends[ci])
+        while s < e:
+            c_starts.append(s)
+            c_ends.append(min(s + tile_t, e))
+            c_mn.append(cut.mn[ci])
+            c_mx.append(cut.mx[ci])
+            s += tile_t
+    cut = cut._replace(
+        starts=np.asarray(c_starts, np.int32),
+        ends=np.asarray(c_ends, np.int32),
+        mn=np.stack(c_mn).astype(np.float32),
+        mx=np.stack(c_mx).astype(np.float32),
+    )
+    centers = (cut.mn + cut.mx) * 0.5
+    order = np.argsort(morton_codes(centers), kind="stable")
+    WINDOW = 8
+    mesh_vol = float(np.prod(cut.mx.max(axis=0) - cut.mn.min(axis=0)))
+    MAX_TILE_VOL = 0.02 * mesh_vol * (tile_t / 128.0)
+    groups: list[list] = []  # [cluster ids, size, mn(3,), mx(3,)]
+    for ci in order:
+        size = int(cut.ends[ci] - cut.starts[ci])
+        placed = False
+        for g in groups[-WINDOW:]:
+            if g[1] + size > tile_t:
+                continue
+            mn = np.minimum(g[2], cut.mn[ci])
+            mx = np.maximum(g[3], cut.mx[ci])
+            if float(np.prod(mx - mn)) > MAX_TILE_VOL:
+                continue
+            g[0].append(ci)
+            g[1] += size
+            g[2], g[3] = mn, mx
+            placed = True
+            break
+        if not placed:
+            groups.append([[ci], size, cut.mn[ci].copy(), cut.mx[ci].copy()])
+    nc = len(groups)
+    slot_src = np.full(nc * tile_t, -1, np.int32)
+    member_slot = np.full(nc * tile_t, -1, np.int32)
+    member_tile: list[int] = []
+    member_aabb_rows: list[np.ndarray] = []
+    for j, g in enumerate(groups):
+        k = j * tile_t
+        for ci in g[0]:
+            s, e = int(cut.starts[ci]), int(cut.ends[ci])
+            m = len(member_tile)
+            member_tile.append(j)
+            row = np.zeros(8, np.float32)
+            row[0:3], row[3:6] = cut.mn[ci], cut.mx[ci]
+            member_aabb_rows.append(row)
+            slot_src[k : k + (e - s)] = np.arange(s, e, dtype=np.int32)
+            member_slot[k : k + (e - s)] = m
+            k += e - s
+    members = (
+        np.stack(member_aabb_rows, axis=0),
+        np.asarray(member_tile, np.int32),
+        member_slot,
+    )
+    return slot_src, nc, members
+
+
+def fields_from_corners(A, B, C, slot_src, na=None, nb=None, nc=None):
+    """(NUM_FIELDS, Tc) numpy field rows from BVH-ordered corners gathered
+    per slot; na/nb/nc are optional (T, 3) vertex normals -> rows 17-25."""
+    idx = np.maximum(slot_src, 0)
+
+    def g(v):
+        return np.where((slot_src >= 0)[:, None], v[idx], 0.0)
+
+    Ag, Bg, Cg = g(A), g(B), g(C)
+    e1 = Bg - Ag
+    e2 = Cg - Ag
+    ng = np.cross(e1, e2)
+    Tc = slot_src.shape[0]
+    rows = [
+        ng.T, np.cross(e2, Ag).T, e2.T, np.cross(e1, Ag).T, e1.T,
+        (Ag * ng).sum(axis=1)[None, :],
+        np.where(slot_src >= 0, slot_src, _IDX_BIG).astype(A.dtype)[None, :],
+    ]
+    for v in (na, nb, nc):
+        rows.append(np.zeros((3, Tc), A.dtype) if v is None else g(v).T)
+    f = np.concatenate(rows, axis=0)
+    pad = np.zeros((NUM_FIELDS - f.shape[0], Tc), A.dtype)
+    return np.concatenate([f, pad], axis=0)
+
+
+def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
+                       vnb=None, vnc=None,
+                       cut_tris: int | None = None) -> PairsMeshTables:
+    """Host-side build from BVH-ordered triangle corners (T, 3); the tables
+    land on ``device``.  cut_tris is the cluster-cut granularity (member-box
+    tightness); results do not depend on it."""
+    if tile_t <= 0 or tile_t % 32:
+        raise ValueError(f"tile_t must be a positive multiple of 32, got {tile_t}")
+    A = np.asarray(A, np.float32)
+    B = np.asarray(B, np.float32)
+    C = np.asarray(C, np.float32)
+    slot_src, nc, (m_aabb, m_tile, m_slot) = _cluster_slots(
+        bvh, tile_t, cut_tris=cut_tris)
+    f = fields_from_corners(A, B, C, slot_src, na=vna, nb=vnb, nc=vnc)
+
+    aabb = np.zeros((nc, 8), np.float32)
+    for j in range(nc):
+        ids = slot_src[j * tile_t : (j + 1) * tile_t]
+        ids = ids[ids >= 0]
+        pts = np.concatenate([A[ids], B[ids], C[ids]], axis=0)
+        aabb[j, 0:3] = pts.min(axis=0)
+        aabb[j, 3:6] = pts.max(axis=0)
+    # member boxes refit tightly from the triangles
+    for m in range(m_aabb.shape[0]):
+        ids = slot_src[m_slot == m]
+        pts = np.concatenate([A[ids], B[ids], C[ids]], axis=0)
+        m_aabb[m, 0:3] = pts.min(axis=0)
+        m_aabb[m, 3:6] = pts.max(axis=0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return PairsMeshTables(
+        fields=t(f), tile_aabb=t(aabb), slot_src=t(slot_src),
+        member_aabb=t(m_aabb), member_tile=t(m_tile), member_slot=t(m_slot),
+    )
+
+
+# ------------------------------------------------------------------ culling
+
+def slab_enter_exit(O: Vec3, u: Vec3, aabb):
+    """Per-ray slab intervals against every box, (n_boxes, R) layout
+    (port of ``ops/pallas_trace.slab_enter_exit``).  ``1/u`` gives +-inf
+    and ``0*inf`` NaN; ``torch.minimum``/``maximum`` propagate NaN as
+    ``jnp.minimum``/``maximum`` do, so a NaN lane culls identically."""
+    big = float(np.float32(3.4e38))
+    shape = (aabb.shape[0], O.x.shape[0])
+    enter = torch.full(shape, -big, device=O.x.device)
+    exit_ = torch.full(shape, big, device=O.x.device)
+    for ax, (Oc, uc) in enumerate(((O.x, u.x), (O.y, u.y), (O.z, u.z))):
+        rc = 1.0 / uc
+        t0 = (aabb[:, ax, None] - Oc[None, :]) * rc[None, :]
+        t1 = (aabb[:, 3 + ax, None] - Oc[None, :]) * rc[None, :]
+        enter = torch.maximum(enter, torch.minimum(t0, t1))
+        exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
+    # exit >= enter (NOT strict): a zero-thickness box of planar geometry
+    # has enter == exit at the hit plane; culling stays conservative.
+    hit = (exit_ >= enter) & (exit_ >= 0.0)
+    return enter, exit_, hit
+
+
+def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
+    """Culling to a packed per-subgroup active-tile bitmask: (W, R/subg)
+    int32, bit j of word (w, sg) set iff tile 32w+j is active for subgroup
+    sg.  A member box is active for a ray when the ray's slab interval hits
+    it (and enters it no later than ``cap``, for rays in ``active``); a tile
+    is active for a subgroup when any ray of the subgroup activates any of
+    its member boxes.  Bit 31 is the int32 sign bit (two's complement)."""
+    boxes, member_tile = members
+    R = O.x.shape[0]
+    S = R // subg
+    W = -(-nc // 32)
+    nb = boxes.shape[0]
+    # batch the slab tests over boxes: the (nb, R) intermediates would
+    # otherwise grow with the mesh
+    MB = 512
+    mi = torch.zeros((nc, S), dtype=torch.int32, device=O.x.device)
+    for b0 in range(0, nb, MB):
+        bs = boxes[b0 : b0 + MB]
+        nbb = bs.shape[0]
+        enter, _exit, hit = slab_enter_exit(O, u, bs)
+        if cap is not None:
+            hit = hit & (enter <= cap[None, :])
+        if active is not None:
+            hit = hit & active[None, :]
+        h = hit.reshape(nbb, S, subg).any(dim=2).to(torch.int32)
+        mi.index_add_(0, member_tile[b0 : b0 + nbb].long(), h)
+    act = F.pad((mi > 0).to(torch.int64), (0, 0, 0, W * 32 - nc))
+    sh = torch.arange(32, dtype=torch.int64, device=O.x.device)
+    words = (act.reshape(W, 32, S) << sh[None, :, None]).sum(dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _ray_feature_rows(O: Vec3, u: Vec3) -> torch.Tensor:
+    """(16, R) ray-feature rows: [u(3), w=O x u(3), O(3), 0-pad]."""
+    w = O.cross(u)
+    rows = [u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z]
+    z = torch.zeros_like(u.x)
+    rows += [z] * (NUM_RF_ROWS - len(rows))
+    return torch.stack(rows, dim=0).contiguous()
+
+
+def _prep(O, u, cap, blk, active=None):
+    """Pad the ray axis to a multiple of blk: padding lanes carry O=0,
+    u=(1,1,1), cap=0 and active=False, as the JAX package pads them.
+    Returns (O, u, cap, active, R) with R the unpadded ray count."""
+    R = O.x.shape[0]
+    pad = (-R) % blk
+    if pad:
+        O = Vec3(*(F.pad(c, (0, pad)) for c in O))
+        u = Vec3(*(F.pad(c, (0, pad), value=1.0) for c in u))
+        if cap is not None:
+            cap = F.pad(cap, (0, pad))
+        if active is not None:
+            active = F.pad(active, (0, pad))
+    return O, u, cap, active, R
+
+
+# ------------------------------------------------- plain versions of B1, B2
+
+def _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi):
+    """Masked Moller-Trumbore t for rays [lo, hi) against every slot:
+    (hi-lo, Tc) f32, INF where the slot's tile is culled for the ray's
+    subgroup or the test fails.  The arithmetic order is the kernel's."""
+    Tc = fields.shape[1]
+    nc = Tc // tile_t
+    tiles = torch.arange(nc, device=fields.device)
+    sg = torch.arange(lo, hi, device=fields.device) // subg
+    word = bits[tiles // 32][:, sg]                            # (nc, n)
+    on = ((word >> (tiles % 32)[:, None]) & 1).bool().T        # (n, nc)
+    on = on.repeat_interleave(tile_t, dim=1)                   # (n, Tc)
+    ux, uy, uz, wx, wy, wz, Ox, Oy, Oz = (rfT[k, lo:hi, None]
+                                          for k in range(9))
+    row = lambda k: fields[k][None, :]
+    denom = ux * row(0) + uy * row(1) + uz * row(2)
+    bnum = (ux * row(3) + uy * row(4) + uz * row(5)) - (
+        wx * row(6) + wy * row(7) + wz * row(8))
+    gnum = (wx * row(12) + wy * row(13) + wz * row(14)) - (
+        ux * row(9) + uy * row(10) + uz * row(11))
+    tnum = row(15) - (Ox * row(0) + Oy * row(1) + Oz * row(2))
+    rden = 1.0 / denom
+    beta = bnum * rden
+    gamma = gnum * rden
+    tval = tnum * rden
+    bary_ok = torch.minimum(torch.minimum(beta, gamma),
+                            1.0 - beta - gamma) >= 0.0
+    eps = float(np.float32(max(float(eps_leaf), 0.0)))
+    valid = on & (denom != 0.0) & bary_ok & (tval > eps)
+    return torch.where(valid, tval, INF32)
+
+
+def _plain_chunks(R: int, Tc: int, subg: int):
+    n = max(subg, _PLAIN_ELEMS // max(Tc, 1) // subg * subg)
+    return ((lo, min(lo + n, R)) for lo in range(0, R, n))
+
+
+def pairs_closest_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Plain PyTorch B1: (t, idx, nx, ny, nz) per ray.  t is the nearest
+    valid hit (INF when none), idx the smallest original id among the
+    slots at that t (0 on a miss), N that slot's unnormalized Ng (rows
+    0-2; zeros on a miss)."""
+    R = rfT.shape[1]
+    outs = []
+    for lo, hi in _plain_chunks(R, fields.shape[1], subg):
+        t = _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)
+        tmin = t.amin(dim=1).clamp_max(INF32)
+        hit = tmin < INF32
+        win = (t == tmin[:, None]) & hit[:, None]
+        ids = torch.where(win, fields[16][None, :], float(_IDX_BIG))
+        slot = ids.argmin(dim=1)
+        idx = torch.where(hit, fields[16][slot].to(torch.int32), 0)
+        n = [torch.where(hit, fields[k][slot], 0.0) for k in range(3)]
+        outs.append((tmin, idx, *n))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def pairs_shadow_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Plain PyTorch B2: the nearest valid hit t per ray (INF when none)."""
+    R = rfT.shape[1]
+    return torch.cat([
+        _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)
+        .amin(dim=1).clamp_max(INF32)
+        for lo, hi in _plain_chunks(R, fields.shape[1], subg)])
+
+
+# ------------------------------------------- device dispatch of B1 and B2
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"pairs kernels run on CUDA or CPU tensors, got {x.device}")
+    return False
+
+
+def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B1 on the tensors' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if _on_cuda(rfT):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t)
+    return pairs_closest_plain(rfT, fields, bits, eps_leaf, subg, tile_t)
+
+
+def pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B2 on the tensors' device (see pairs_closest)."""
+    if _on_cuda(rfT):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t)
+    return pairs_shadow_plain(rfT, fields, bits, eps_leaf, subg, tile_t)
+
+
+# ------------------------------------------------------------ public queries
+
+def cast_inputs(O: Vec3, u: Vec3, tab: PairsMeshTables, subg: int,
+                blk: int, cap=None, active=None):
+    """The kernel inputs of one cast: (rfT (16, Rp), bits (W, Rp/subg), R)
+    for the rays padded to Rp, a multiple of blk; outputs past R are
+    padding."""
+    O, u, cap, active, R = _prep(O, u, cap, blk, active)
+    bits = _pair_bits(O, u, tab.tile_aabb.shape[0], subg,
+                      (tab.member_aabb, tab.member_tile), cap=cap,
+                      active=active)
+    return _ray_feature_rows(O, u), bits, R
+
+
+def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
+                         eps_leaf: float, cap=None, subg: int = DEF_SUBG,
+                         blk: int = DEF_BLK):
+    """Closest hit over the cluster-tiled mesh with the geometric-normal
+    payload.  Returns (TriHit, N) with the ORIGINAL (BVH-order) triangle
+    index and the winner's unnormalized Ng.  ``cap`` (R,) culls tiles the
+    ray enters beyond it (the caller's nearest sphere hit)."""
+    rfT, bits, R = cast_inputs(O, u, tab, subg, blk, cap=cap)
+    t, idx, nx, ny, nz = (o[:R] for o in pairs_closest(
+        rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab)))
+    return TriHit(t=t, idx=idx), Vec3(nx, ny, nz)
+
+
+def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,
+                                eps_leaf: float, cap=None,
+                                subg: int = DEF_SUBG, blk: int = DEF_BLK,
+                                active=None):
+    """Nearest mesh hit distance only (occlusion query; ``cap`` = |L-P|
+    culls tiles beyond the light).  ``active`` (R,) bool: lanes whose
+    occlusion result is unused contribute no culling bits; a lane whose
+    whole subgroup is inactive returns INF."""
+    rfT, bits, R = cast_inputs(O, u, tab, subg, blk, cap=cap, active=active)
+    return pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg,
+                        tile_width(tab))[:R]

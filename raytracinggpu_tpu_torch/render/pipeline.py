@@ -1,0 +1,187 @@
+"""Single-frame render pipeline (port of
+``raytracinggpu_tpu/render/pipeline.py``, fixed camera and pairs traversal):
+
+    raygen (camera + Box-Muller jitter)  ->  wavefront trace  ->  average spp
+
+Samples run in groups of ``cfg.spp_fuse`` whose rays form one wavefront;
+each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays.  The
+uniforms are keyed per (sample, row) with the threefry key that
+``render_frame`` is given, and every sample's radiance is added to the
+accumulator in sample order, so the frame is bitwise independent of the
+group size.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from raytracinggpu_tpu_torch.core.rng import (
+    Key,
+    PRNGKey,
+    box_muller_jitter,
+    fold_in,
+    row_uniforms,
+)
+from raytracinggpu_tpu_torch.core.vec import Vec3
+from raytracinggpu_tpu_torch.integrator.wavefront import TraceStats, trace
+from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
+
+
+class Camera(NamedTuple):
+    """Camera position and basis (0-d component tensors).  The fixed-view
+    configs use the identity basis and C=(0,0,55) with fov pi/3."""
+
+    C: Vec3   # position
+    bx: Vec3  # right
+    by: Vec3  # up
+    bz: Vec3  # basis z (+z; the forward component comes from a negative z)
+
+    @staticmethod
+    def fixed(device, c=(0.0, 0.0, 55.0)) -> "Camera":
+        """Identity basis at ``c``."""
+        return Camera(
+            C=Vec3.const(*c, device=device),
+            bx=Vec3.const(1.0, 0.0, 0.0, device=device),
+            by=Vec3.const(0.0, 1.0, 0.0, device=device),
+            bz=Vec3.const(0.0, 0.0, 1.0, device=device),
+        )
+
+    @staticmethod
+    def default(cfg: RenderConfig, device) -> "Camera":
+        """The config's default view: the identity basis at cfg.camera_c.
+        The realtime camera (yaw/pitch basis, point quirk) is not ported."""
+        return Camera.fixed(device, cfg.camera_c)
+
+
+def pixel_centers(cfg: RenderConfig, rows: np.ndarray, device):
+    """Per-pixel screen offsets (ux, uy) for the given rows and the focal
+    z: ux = x - W/2 + 0.5, uy = H/2 - y - 0.5, z = -W / (2 tan(fov/2))."""
+    W, H = cfg.width, cfg.height
+    x = np.arange(W, dtype=np.float32)
+    y = np.asarray(rows).astype(np.float32)
+    nr = y.shape[0]
+    ux = np.broadcast_to((x - W / 2.0 + 0.5)[None, :], (nr, W)).reshape(-1)
+    uy = np.broadcast_to((H / 2.0 - y - 0.5)[:, None], (nr, W)).reshape(-1)
+    z = float(np.float32(-W / (2.0 * np.tan(cfg.fov / 2.0))))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(ux), t(uy), z
+
+
+def raygen(cfg: RenderConfig, cam: Camera, gx, gy, rows) -> tuple[Vec3, Vec3]:
+    """Primary rays for one sample with jitter offsets (gx, gy):
+    u = normalize(bx (ux+gx) + by (uy+gy) + bz z), O = C."""
+    ux, uy, z = pixel_centers(cfg, rows, gx.device)
+    d = cam.bx * (ux + gx) + cam.by * (uy + gy) + cam.bz * z
+    u = d.normalized()
+    R = ux.shape[0]
+    O = Vec3(*(c.expand(R) for c in cam.C))
+    return O, u
+
+
+def chunk_size(cfg: RenderConfig, R: int) -> int:
+    """Rays per cast for an R-ray wavefront: near-equal casts of at most
+    cfg.pairs_chunk rays, each a whole number of cfg.pairs_block rays."""
+    n_chunks = -(-R // cfg.pairs_chunk)
+    per = -(-R // n_chunks)
+    return min(cfg.pairs_chunk, -(-per // cfg.pairs_block) * cfg.pairs_block)
+
+
+def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
+                  uniforms):
+    """Trace a wavefront in casts of ``chunk_size`` rays.  Padding rays
+    have zero origin and direction (they miss everything) and are dropped.
+    Returns (color Vec3 (R,), TraceStats summed over casts)."""
+    R = u.x.shape[0]
+    chunk = chunk_size(cfg, R)
+    pad = (-R) % chunk
+    padv = lambda c: F.pad(c, (0, pad))
+    O = Vec3(*map(padv, O))
+    u = Vec3(*map(padv, u))
+    uniforms = padv(uniforms)
+    cols, stats = [], None
+    for lo in range(0, R + pad, chunk):
+        sl = lambda c: c[..., lo:lo + chunk]
+        col, st = trace(scene, cfg, Vec3(*map(sl, O)), Vec3(*map(sl, u)),
+                        sl(uniforms))
+        cols.append(col)
+        stats = st if stats is None else TraceStats(*(a + b for a, b in
+                                                      zip(stats, st)))
+    col = Vec3(*(torch.cat(c)[:R] for c in zip(*cols)))
+    return col, stats
+
+
+def group_size(cfg: RenderConfig, n_s: int) -> int:
+    """Samples per wavefront: the largest divisor of n_s not above
+    cfg.spp_fuse."""
+    g = max(1, min(cfg.spp_fuse, n_s))
+    while n_s % g:
+        g -= 1
+    return g
+
+
+def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
+                rows: np.ndarray, sample_ids) -> tuple[Vec3, TraceStats]:
+    """Accumulated (unaveraged) radiance for a set of global rows over a set
+    of global sample ids.  Returns (color Vec3 (nr*W,), TraceStats summed).
+
+    Samples trace in groups of cfg.spp_fuse (the largest divisor of the
+    sample count not above it); a group's rays concatenate into one
+    wavefront, sample-major."""
+    dev = scene.device
+    W, D = cfg.width, cfg.max_depth
+    R = len(rows) * W
+    sample_ids = [int(s) for s in sample_ids]
+    n_s = len(sample_ids)
+    g = group_size(cfg, n_s)
+    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=dev)
+    acc = Vec3.zeros((R,), device=dev)
+    stats = None
+    for g0 in range(0, n_s, g):
+        Os, us, uns = [], [], []
+        for s in sample_ids[g0:g0 + g]:
+            un = row_uniforms(fold_in(key, s), rows_t, W, D)  # (D+1, 2, R)
+            gx, gy = box_muller_jitter(un[0, 0], un[0, 1], cfg.sigma)
+            O, u = raygen(cfg, cam, gx, gy, rows)
+            Os.append(O)
+            us.append(u)
+            uns.append(un[1:])
+        O = Vec3(*(torch.cat(c) for c in zip(*Os)))
+        u = Vec3(*(torch.cat(c) for c in zip(*us)))
+        col, st = trace_chunked(scene, cfg, O, u, torch.cat(uns, dim=-1))
+        for i in range(g):
+            acc = acc + Vec3(*(c[i * R:(i + 1) * R] for c in col))
+        stats = st if stats is None else TraceStats(*(a + b for a, b in
+                                                      zip(stats, st)))
+    return acc, stats
+
+
+def render_frame(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key):
+    """Render one frame: (H, W, 3) float32 radiance on the scene's device
+    and the summed TraceStats.  Per sample, Box-Muller jitter then a full
+    trace; colors averaged over cfg.spp samples."""
+    W, H, spp = cfg.width, cfg.height, cfg.spp
+    rows = np.arange(H, dtype=np.int32)
+    acc, stats = render_rows(scene, cfg, cam, key, rows, range(spp))
+    col = acc / float(spp)
+    img = torch.stack([c.reshape(H, W) for c in col], dim=-1)
+    return img, stats
+
+
+def render_preset_frame(scene: SceneTables, cfg: RenderConfig, seed: int = 0,
+                        cam: Camera | None = None):
+    """Host entry: (numpy image HxWx3 float32, TraceStats of numpy arrays)
+    at ``PRNGKey(seed)``."""
+    dev = scene.device
+    if cam is None:
+        cam = Camera.default(cfg, dev)
+    img, stats = render_frame(scene, cfg, cam, PRNGKey(seed, dev))
+    return img.cpu().numpy(), TraceStats(*(s.cpu().numpy() for s in stats))
+
+
+def rays_per_frame(cfg: RenderConfig) -> int:
+    """Reference ray-count formula: every depth adds one bounce ray and one
+    shadow ray -> W*H*spp*(2*depth+1)."""
+    return cfg.width * cfg.height * cfg.spp * (2 * cfg.max_depth + 1)

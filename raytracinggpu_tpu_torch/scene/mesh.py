@@ -1,0 +1,75 @@
+"""Triangle mesh assembly: OBJ -> transforms -> BVH -> BVH-ordered corners
+(port of ``raytracinggpu_tpu/scene/mesh.py``, reference builder only).
+
+The host dereferences the face indices once into per-triangle corner
+arrays (A, B, C) in BVH leaf order, so the device tables need no index
+indirection.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from raytracinggpu_tpu_torch.accel.bvh import FlatBVH, build_bvh
+from raytracinggpu_tpu_torch.scene.obj import ObjMesh, read_obj
+
+
+def rescale(vertices: np.ndarray, scale: float, offset) -> np.ndarray:
+    """v -> v*scale + offset."""
+    return (vertices * np.float32(scale) + np.asarray(offset, np.float32)).astype(
+        np.float32
+    )
+
+
+@dataclass
+class MeshData:
+    """Host-side mesh in BVH (leaf) triangle order."""
+
+    A: np.ndarray  # (T, 3) first corner, BVH order
+    B: np.ndarray
+    C: np.ndarray
+    na: np.ndarray  # (T, 3) per-corner vertex normals (zeros when absent)
+    nb: np.ndarray
+    nc: np.ndarray
+    bvh: FlatBVH
+
+
+def build_mesh(obj: ObjMesh) -> MeshData:
+    """Dereference indices, build the reference midpoint BVH over the
+    triangle soup, and reorder the per-triangle tables into BVH leaf
+    order."""
+    V = obj.vertices
+    A = V[obj.vtx[:, 0]]
+    B = V[obj.vtx[:, 1]]
+    C = V[obj.vtx[:, 2]]
+    bvh = build_bvh(A, B, C)
+    o = bvh.order
+
+    has_n = obj.normals.shape[0] > 0 and (obj.nrm >= 0).all()
+    if has_n:
+        na = obj.normals[obj.nrm[:, 0]]
+        nb = obj.normals[obj.nrm[:, 1]]
+        nc = obj.normals[obj.nrm[:, 2]]
+    else:
+        na = nb = nc = np.zeros_like(A)
+
+    return MeshData(
+        A=A[o].copy(),
+        B=B[o].copy(),
+        C=C[o].copy(),
+        na=na[o].copy(),
+        nb=nb[o].copy(),
+        nc=nc[o].copy(),
+        bvh=bvh,
+    )
+
+
+def load_cat_mesh(path: str, embed_transform: bool, scale: float | None,
+                  offset) -> MeshData:
+    """Load + transform the cat mesh per launcher config
+    (array_bvh: rescale(0.6, (0,-10,0)) only)."""
+    obj = read_obj(path, embed_transform=embed_transform)
+    if scale is not None:
+        obj.vertices = rescale(obj.vertices, scale, offset)
+    return build_mesh(obj)

@@ -1,0 +1,116 @@
+"""Scene device tables and static render configuration (port of
+``raytracinggpu_tpu/scene/scene.py``).
+
+Typed SoA tables -- one sphere table, the pairs mesh tables -- plus a
+materials table indexed by object id: spheres 0..S-1, then the mesh at id
+S, the reference's insertion order.  Only the pairs tables are built; the
+dense, pallas and bvh tables of the JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from raytracinggpu_tpu_torch.core.vec import Vec3
+from raytracinggpu_tpu_torch.ops.pairs_trace import (
+    PairsMeshTables,
+    build_pairs_tables,
+)
+from raytracinggpu_tpu_torch.ops.sphere import SphereTable
+from raytracinggpu_tpu_torch.scene.mesh import MeshData
+
+
+class Materials(NamedTuple):
+    """Per-object material columns, indexed by object id."""
+
+    albedo: Vec3          # (M,)
+    mirror: torch.Tensor  # (M,) bool
+    in_ri: torch.Tensor   # (M,)
+    out_ri: torch.Tensor  # (M,)
+
+
+class SceneTables(NamedTuple):
+    """Everything the integrator needs on the device."""
+
+    spheres: SphereTable
+    materials: Materials
+    pairs_mesh: PairsMeshTables | None
+    L: Vec3       # point light position (0-d components)
+    intensity: Any  # light intensity (0-d f32)
+
+    @property
+    def device(self) -> torch.device:
+        return self.spheres.cx.device
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Static parameters of one render: the fields of the JAX package's
+    ``RenderConfig`` that the main path reads, with its defaults.  The
+    traversal is always ``pairs`` with geometric normals and the fixed
+    camera; ``convert.render_config_from_dict`` rejects a JAX config that
+    asks for anything else."""
+
+    name: str = "global"
+    width: int = 512
+    height: int = 512
+    spp: int = 32
+    max_depth: int = 5          # CLI <num_bounces>
+    sigma: float = 0.2          # AA jitter
+    eps_bounce: float = 1e-4    # bounce offset
+    eps_leaf: float = 1e-4      # mesh leaf t epsilon
+    fov: float = float(np.pi / 3)
+    camera_c: tuple = (0.0, 0.0, 55.0)
+    mesh_object_id: int = 6     # -1 when the scene has no mesh
+    spp_fuse: int = 4           # samples folded into one wavefront
+    pairs_subgroup: int = 64    # rays per culling subgroup
+    pairs_block: int = 4096     # ray padding granularity of a cast
+    pairs_tile: int = 128       # triangles per packed tile
+    pairs_cut: int = 0          # cluster-cut granularity; 0 = min(tile, 128)
+    pairs_chunk: int = 524288   # rays per cast (bounds the culling and
+                                # integrator intermediates)
+
+
+def build_scene_tables(
+    spheres: list,
+    materials: list,
+    L,
+    intensity: float,
+    mesh: MeshData | None,
+    device,
+    mesh_albedo=(0.25, 0.25, 0.25),
+    pairs_tile: int = 128,
+    pairs_cut: int = 0,
+) -> SceneTables:
+    """Assemble the device tables from host data on ``device``.
+
+    spheres: list of (center(3,), radius); materials: matching list of
+    (albedo(3,), mirror, in_ri, out_ri).  The mesh (diffuse, albedo 0.25)
+    is appended as the last object id.
+    """
+    mats = list(materials)
+    if mesh is not None:
+        mats.append((mesh_albedo, False, 1.0, 1.0))
+    t = lambda a: torch.tensor(a, device=device)
+    alb = np.array([m[0] for m in mats], np.float32)
+    pairs = None
+    if mesh is not None:
+        pairs = build_pairs_tables(
+            mesh.A, mesh.B, mesh.C, mesh.bvh, device, tile_t=pairs_tile,
+            vna=mesh.na, vnb=mesh.nb, vnc=mesh.nc, cut_tris=pairs_cut or None)
+    Lf = np.asarray(L, np.float32)
+    return SceneTables(
+        spheres=SphereTable.from_list(spheres, device),
+        materials=Materials(
+            albedo=Vec3(t(alb[:, 0]), t(alb[:, 1]), t(alb[:, 2])),
+            mirror=t(np.array([m[1] for m in mats], bool)),
+            in_ri=t(np.array([m[2] for m in mats], np.float32)),
+            out_ri=t(np.array([m[3] for m in mats], np.float32)),
+        ),
+        pairs_mesh=pairs,
+        L=Vec3.const(*(float(v) for v in Lf), device=device),
+        intensity=torch.tensor(np.float32(intensity), device=device),
+    )

@@ -1,0 +1,253 @@
+"""The port's hand-written CUDA kernels and their wrappers
+(raytracinggpu_tpu_torch/ops/_kernels.py, ops/pairs_trace.py dispatch).
+
+This file imports neither jax nor the JAX package, so it also runs on a
+machine that has only the port's dependencies:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+The cases marked ``cuda`` need a CUDA device and nvcc; they build the
+kernels and hold each one bit for bit against its plain PyTorch version
+(the kernels are compiled with --fmad=false, so every product and sum
+rounds as PyTorch's eager ops round it).  Without a device they skip.
+The other cases check the wrappers' dispatch and input checks on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from raytracinggpu_tpu_torch.core.rng import cosine_hemisphere
+from raytracinggpu_tpu_torch.core.vec import Vec3
+from raytracinggpu_tpu_torch.integrator.wavefront import intersect_all
+from raytracinggpu_tpu_torch.ops import _kernels
+from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+from raytracinggpu_tpu_torch.ops.sphere import intersect_spheres
+from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+torch.set_num_threads(2)
+
+SUBG, BLK, EPS = 64, 4096, 1e-4
+KINDS = ("camera", "scattered", "depth1")
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return build_preset("array_bvh", "cpu")
+
+
+def _rays(kind, cfg, tables, R, seed=0):
+    """(O, u) Vec3 on the CPU: a fan from the camera, random rays inside
+    the box, or diffuse bounce rays leaving the primary hits."""
+    rng = np.random.default_rng(seed)
+    if kind == "scattered":
+        O = rng.uniform(-25, 25, (3, R)).astype(np.float32)
+    else:
+        O = np.tile(np.float32([[0.0], [0.0], [55.0]]), (1, R))
+    d = rng.normal(size=(3, R)).astype(np.float32)
+    if kind != "scattered":
+        d[2] = -np.abs(d[2]) * 4.0 - 2.0  # toward the cat
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    O = Vec3(*(torch.from_numpy(c.copy()) for c in O))
+    u = Vec3(*(torch.from_numpy(c.copy()) for c in d))
+    if kind == "depth1":
+        h = intersect_all(tables, cfg, O, u)
+        r = torch.from_numpy((1.0 - rng.random((2, R))).astype(np.float32))
+        u = cosine_hemisphere(r[0], r[1], h.N)
+        O = h.N.fma(1e-4, h.P)
+    return O, u
+
+
+def _cast(scene, kind, R, device, seed=0, shadow=False, capped=True):
+    cfg, tables = scene
+    O, u = _rays(kind, cfg, tables, R, seed)
+    O = Vec3(*(c.to(device) for c in O))
+    u = Vec3(*(c.to(device) for c in u))
+    tab = pt.PairsMeshTables(*(t.to(device) for t in tables.pairs_mesh))
+    spheres = type(tables.spheres)(*(c.to(device) for c in tables.spheres))
+    cap = intersect_spheres(O, u, spheres)[0] if capped else None
+    active = None
+    if shadow:
+        g = torch.Generator().manual_seed(seed)
+        active = (torch.rand(R, generator=g) < 0.6).to(device)
+    rfT, bits, _ = pt.cast_inputs(O, u, tab, SUBG, BLK, cap=cap,
+                                  active=active)
+    return tab, O, u, cap, active, rfT, bits
+
+
+# ------------------------------------------------------------- CPU cases
+
+def test_plain_closest_is_exact_against_brute_force(scene):
+    """Culling is exact: the plain version over the culled tiles finds the
+    same nearest hit as Moller-Trumbore over every slot."""
+    tab, _, _, _, _, rfT, bits = _cast(scene, "camera", 2048, "cpu", seed=8,
+                                       capped=False)
+    all_on = torch.full_like(bits, -1)
+    got = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    want = pt.pairs_closest_plain(rfT, tab.fields, all_on, EPS, SUBG, 128)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0] < pt.INF32).sum() > 100
+
+
+def test_cpu_tensors_run_the_plain_versions(scene):
+    tab, _, _, _, _, rfT, bits = _cast(scene, "camera", 4096, "cpu")
+    before = dict(_kernels.LAUNCHES)
+    got = pt.pairs_closest(rfT, tab.fields, bits, EPS, SUBG, 128)
+    want = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(pt.pairs_shadow(rfT, tab.fields, bits, EPS, SUBG, 128),
+                       pt.pairs_shadow_plain(rfT, tab.fields, bits, EPS,
+                                             SUBG, 128))
+    assert _kernels.LAUNCHES == before  # nothing was launched
+    t, idx, nx, ny, nz = got
+    miss = t >= pt.INF32
+    assert miss.any() and (~miss).any()
+    assert (idx[miss] == 0).all() and (nx[miss] == 0).all()
+    assert idx.dtype == torch.int32 and t.dtype == torch.float32
+
+
+def test_other_devices_raise():
+    x = torch.empty(4, device="meta")
+    with pytest.raises(ValueError):
+        pt.pairs_shadow(x, x, x, EPS, SUBG, 128)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "bits", "tiles"])
+def test_kernel_wrappers_check_their_inputs(bad):
+    R, Tc = 256, 256
+    rfT = torch.zeros(16, R)
+    fields = torch.zeros(32, Tc)
+    bits = torch.zeros(1, R // SUBG, dtype=torch.int32)
+    if bad == "dtype":
+        fields = fields.double()
+    elif bad == "contiguity":
+        rfT = torch.zeros(R, 16).T
+    elif bad == "bits":
+        bits = torch.zeros(1, R // SUBG + 1, dtype=torch.int32)
+    else:
+        fields = torch.zeros(32, Tc + 32)
+    with pytest.raises(ValueError):
+        _kernels.pairs_closest(rfT, fields, bits, EPS, SUBG, 128)
+    with pytest.raises(ValueError):
+        _kernels.pairs_shadow(rfT, fields, bits, EPS, SUBG, 128)
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _kernels.find_nvcc()
+
+
+def _tie_table():
+    """Two tiles holding the same triangle (z = 0, facing +z) under the
+    original ids 7 (tile 0) and 3 (tile 1), and 128 rays straight down on
+    it: every ray hits both slots at the same t."""
+    T = 8
+    A = np.full((T, 3), 50.0, np.float32)
+    B, C = A + np.float32([1, 0, 0]), A + np.float32([0, 1, 0])
+    for i in (3, 7):
+        A[i], B[i], C[i] = (-10, -10, 0), (10, -10, 0), (-10, 10, 0)
+    slot_src = np.full(256, -1, np.int32)
+    slot_src[0], slot_src[128] = 7, 3
+    fields = torch.from_numpy(pt.fields_from_corners(A, B, C, slot_src))
+    xy = np.random.default_rng(0).uniform(-8, 0, (2, 128)).astype(np.float32)
+    O = Vec3(torch.from_numpy(xy[0]), torch.from_numpy(xy[1]),
+             torch.full((128,), 5.0))
+    z = torch.zeros(128)
+    rfT = pt._ray_feature_rows(O, Vec3(z, z, z - 1.0))
+    bits = torch.full((1, 128 // SUBG), -1, dtype=torch.int32)  # all on
+    return rfT, fields, bits
+
+
+def _check_tie(t, idx, nx, ny, nz):
+    assert torch.equal(t, torch.full_like(t, 5.0))
+    assert (idx == 3).all()  # the lowest original id, not the first slot
+    assert (nz > 0).all() and (nx == 0).all() and (ny == 0).all()
+
+
+def test_plain_closest_breaks_ties_by_lowest_id():
+    rfT, fields, bits = _tie_table()
+    _check_tie(*pt.pairs_closest_plain(rfT, fields, bits, EPS, SUBG, 128))
+    assert torch.equal(pt.pairs_shadow_plain(rfT, fields, bits, EPS, SUBG,
+                                             128), torch.full((128,), 5.0))
+
+
+# ------------------------------------------------------------ CUDA cases
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_closest_kernel_bitwise_equals_plain(scene, kind):
+    _need_cuda()
+    tab, O, u, cap, _, rfT, bits = _cast(scene, kind, 8192, "cuda")
+    n0 = _kernels.LAUNCHES["pairs_closest"]
+    got = _kernels.pairs_closest(rfT, tab.fields, bits, EPS, SUBG, 128)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pairs_closest"] == n0 + 1
+    want = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a, b)
+    assert (want[0] < pt.INF32).any()
+    # the public wrapper launches the kernel for CUDA tensors
+    hit, _ = pt.intersect_tris_pairs(O, u, tab, EPS, cap=cap, subg=SUBG,
+                                     blk=BLK)
+    assert _kernels.LAUNCHES["pairs_closest"] == n0 + 2
+    assert torch.equal(hit.t, want[0][:O.x.shape[0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_shadow_kernel_bitwise_equals_plain(scene, kind):
+    _need_cuda()
+    tab, O, u, cap, active, rfT, bits = _cast(scene, kind, 8192, "cuda",
+                                              shadow=True)
+    n0 = _kernels.LAUNCHES["pairs_shadow"]
+    got = _kernels.pairs_shadow(rfT, tab.fields, bits, EPS, SUBG, 128)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pairs_shadow"] == n0 + 1
+    want = pt.pairs_shadow_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    assert got.is_cuda and torch.equal(got, want)
+    t = pt.intersect_tris_pairs_shadow(O, u, tab, EPS, cap=cap, subg=SUBG,
+                                       blk=BLK, active=active)
+    assert _kernels.LAUNCHES["pairs_shadow"] == n0 + 2
+    assert torch.equal(t, want[:O.x.shape[0]])
+
+
+@pytest.mark.cuda
+def test_kernels_break_ties_and_ignore_bits_past_the_table():
+    _need_cuda()
+    rfT, fields, bits = (x.cuda() for x in _tie_table())
+    _check_tie(*(x.cpu() for x in _kernels.pairs_closest(
+        rfT, fields, bits, EPS, SUBG, 128)))
+    t = _kernels.pairs_shadow(rfT, fields, bits, EPS, SUBG, 128)
+    assert torch.equal(t.cpu(), torch.full((128,), 5.0))
+
+
+@pytest.mark.cuda
+def test_small_frame_on_cuda_matches_cpu():
+    """The 48x48 spp2 d2 frame pads its one 8192-ray cast with 3584
+    zero-direction rays: the kernels must take them.  Against the CPU
+    frame: the card's log/sin/cos differ in the last bits, so the bound
+    is tests/test_golden.py's (fewer than 0.5% of pixels off by more than
+    1e-4*|g| + 1.0)."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+
+    size = dict(width=48, height=48, spp=2, max_depth=2)
+    frames = []
+    for dev in ("cpu", "cuda"):
+        cfg, tables = build_preset("array_bvh", dev, **size)
+        _kernels.reset_launches()
+        frames.append(render_preset_frame(tables, cfg, seed=0))
+    assert _kernels.LAUNCHES == {"pairs_closest": 2, "pairs_shadow": 2}
+    (img_c, st_c), (img_g, st_g) = frames
+    assert np.isfinite(img_g).all()
+    assert st_g.hit.tolist() == [48 * 48 * 2] * 2
+    bad = np.abs(img_g - img_c) > 1e-4 * np.abs(img_c) + 1.0
+    assert bad.any(-1).mean() < 0.005
