@@ -6,23 +6,46 @@ Phases, in order; any failed check exits nonzero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch,
    CUDA and nvcc versions;
-2. build: compile the hand-written kernels (csrc/pairs_trace.cu) with
-   nvcc for sm_90a and load them;
+2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3)
+   with nvcc for sm_90a and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once while keeping the inputs the frame gives each
    kernel at depths 0 and 1 of its first cast (4 samples fused, 524,288
-   rays); on those inputs the kernels must equal their plain PyTorch
-   versions bit for bit;
+   rays); on those inputs B1 and B2 must equal their plain PyTorch
+   versions bit for bit, and so must B0, whose (t, idx) must also equal
+   B1's on the closest casts;
 4. headline frame: render the main-path frame through the public entry
    points with the launch counters zeroed just before; the image must be
-   finite and equal the phase-3 frame (same seed), every ray must hit the enclosed scene at every depth, some
-   shadow rays must be occluded, and each kernel must have launched once
-   per cast; then time three frames and print Mray/s;
+   finite and equal the phase-3 frame (same seed), every ray must hit the
+   enclosed scene at every depth, some shadow rays must be occluded, B1
+   and B2 must have launched once per cast and B3 and B0 never; then time
+   three frames and print Mray/s;
 5. timings: each kernel against its plain version on the casts kept in
    phase 3;
 6. production anchor: the 512x512 spp 8 depth 3 seed 0 frame's mean must
    lie within 1% of the JAX package's CPU render of the same frame; the
-   JAX package's TPU record is printed beside it (see ANCHOR_* below).
+   JAX package's TPU record is printed beside it (see ANCHOR_* below);
+7. realtime loop (the ``realtime`` preset, 512x512, spp 20, depth 3,
+   seed 0; smooth normals, so every closest cast runs B3):
+   a. the loop's first frame (``step`` from ``init_state``) with the
+      inputs of B3's and B2's depth-0 and depth-1 casts kept; on them B3,
+      B2 and B0 must equal their plain versions bit for bit, and B0's
+      (t, idx) B3's; B3 must launch 30 times and B1 never;
+   b. realtime anchor: the same frame through ``render_rows`` must equal
+      the step's frame, hit the enclosed scene with every ray at every
+      depth, and its mean must lie within 1% of the JAX package's CPU
+      render (ANCHOR_RT_* below);
+   c. ``run_loop`` over LOOP_FRAMES frames with the counters zeroed just
+      before: B3 launched 30 times a frame and B1 never; frames, rng_frame
+      and the light angle advanced; the image finite; the last display
+      the tonemap of the average; ms per frame (the call's wall time over
+      its frames), FPS and Mray/s printed;
+   d. checkpoint: save, load and step reproduce the uninterrupted next
+      frame bit for bit;
+   e. timings of B3 and B0 against their plain versions on the kept casts;
+8. mesh query: ``intersect_tris_pairs(payload=None)``, the public query,
+   on the realtime frame's primary rays with the counters zeroed: it must
+   launch B0 once and give B3's (t, idx) on the same rays.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is the JSON result.  Without a CUDA device the script exits
@@ -48,6 +71,17 @@ import time
 ANCHOR_TPU_MEAN = 102257.789
 ANCHOR_CPU_MEAN = 104758.80389216123
 ANCHOR_RTOL = 0.01
+# Realtime anchor: frame 1 of the loop (realtime, 512x512, spp 20, depth 3,
+# light at angle atan2(40, 0) + 0.02, key fold_in(PRNGKey(0), 0), the
+# default quirk camera), the JAX package's CPU render in 32-row bands
+# (PERF.md, "Realtime anchor", gives the command), same 1% limit.
+ANCHOR_RT_CPU_MEAN = 74500.95069729118
+LOOP_FRAMES = 6
+
+# ptxas names the kernel template's modes pairs_kernel<0..3>
+_MODES = {"ILi0E": "pairs_shadow", "ILi1E": "pairs_closest_idx",
+          "ILi2E": "pairs_closest", "ILi3E": "pairs_closest_smooth"}
+_REPLACES = "raytracinggpu_tpu/ops/pairs_trace.py:513"
 
 
 def _fail(msg: str) -> None:
@@ -117,6 +151,252 @@ def _capture_casts(render, per_kernel: int):
     return kept, out
 
 
+def _check_casts(kept, plan, tab, cfg, err, label):
+    """Hold each kept cast's kernel bitwise against its plain version on
+    the cast's inputs.  ``plan`` maps a captured kernel to the closest-hit
+    kernels that run on its casts too (B0 on a closest cast), which must
+    also equal their plain versions and give the captured kernel's (t,
+    idx).  Adds to ``err`` {kernel: max abs error}; returns the casts as
+    [(name, depth, kernels, args)]."""
+    import torch
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    casts = []
+    for kname, extra in plan.items():
+        if len(kept[kname]) != 2:
+            _fail(f"{kname}: captured {len(kept[kname])} casts, expected 2")
+        for depth, (rfT, bits) in enumerate(kept[kname]):
+            name = f"{label} depth{depth} {kname}"
+            args = (rfT, tab.fields, bits, cfg.eps_leaf, cfg.pairs_subgroup,
+                    pt.tile_width(tab))
+            outs = {}
+            for k in (kname, *extra):
+                got = getattr(_kernels, k)(*args)
+                want = getattr(pt, f"{k}_plain")(*args)
+                if k == "pairs_shadow":
+                    got, want = (got,), (want,)
+                torch.cuda.synchronize()
+                e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                if k == kname:
+                    hits = int((want[0] < pt.INF32).sum())
+                    pairs = int(sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                                    for w in bits.flatten().tolist()))
+                    print(f"cast {name}: rfT {tuple(rfT.shape)}, bits "
+                          f"{tuple(bits.shape)}, {hits} mesh hits, {pairs} "
+                          f"(subgroup, tile) pairs")
+                print(f"  {k} vs plain: "
+                      f"{'bitwise equal' if same else f'DIFFER (max abs {e})'}")
+                if not same:
+                    _fail(f"{k} differs from its plain version on {name}")
+                err[k] = max(err[k], e)
+                outs[k] = got
+            for k in extra:
+                if not all(torch.equal(a, b) for a, b in
+                           zip(outs[k][:2], outs[kname][:2])):
+                    _fail(f"{k}'s (t, idx) differ from {kname}'s on {name}")
+                print(f"  {k} (t, idx) == {kname} (t, idx)")
+            casts.append((name, depth, (kname, *extra), args))
+    return casts
+
+
+def _time_casts(casts, timing, card):
+    """Time every kernel of every cast against its plain version; keeps
+    the depth-1 times in ``timing`` {kernel: (ms, plain_ms)}."""
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    for name, depth, kernels, args in casts:
+        for k in kernels:
+            kern = getattr(_kernels, k)
+            plain = getattr(pt, f"{k}_plain")
+            ms = _time_ms(lambda: kern(*args), 20)
+            plain_ms = _time_ms(lambda: plain(*args), 3)
+            if depth == 1:
+                timing[k] = (ms, plain_ms)
+            print(f"timing {k} on the {name} cast ({args[0].shape[1]} "
+                  f"rays): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on "
+                  f"{card}")
+
+
+def _realtime(device, card, err, timing):
+    """Phase 7 (module docstring).  Returns the loop's launch counts and,
+    for phase 8, (config, scene tables, kept casts)."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey, fold_in
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.image_io import tonemap
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, chunk_size, group_size, rays_per_frame, render_rows)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.checkpoint import load_state, save_state
+
+    t0 = time.perf_counter()
+    cfg, tables = build_preset("realtime", device)
+    torch.cuda.synchronize()
+    W, H, spp = cfg.width, cfg.height, cfg.spp
+    g = group_size(cfg, spp)
+    per_frame = (spp // g) * cfg.max_depth * -(-g * W * H
+                                               // chunk_size(cfg, g * W * H))
+    print(f"scene: realtime {W}x{H} spp {spp} depth {cfg.max_depth}, smooth "
+          f"normals {cfg.smooth_normals}, {per_frame} closest casts a frame, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    if ((W, H, spp, cfg.max_depth, per_frame) != (512, 512, 20, 3, 30)
+            or not cfg.smooth_normals):
+        _fail("the realtime preset is not 512x512 spp 20 depth 3 with smooth "
+              "normals and 30 closest casts a frame")
+    want = lambda n: {"pairs_closest_smooth": n * per_frame,
+                      "pairs_shadow": n * per_frame, "pairs_closest": 0,
+                      "pairs_closest_idx": 0}
+
+    # a. the first frame, casts kept
+    state0 = rt.init_state(cfg, tables, seed=0)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    kept, (state1, disp1) = _capture_casts(
+        lambda: rt.step(tables, cfg, state0), 2)
+    torch.cuda.synchronize()
+    first = dict(_kernels.LAUNCHES)
+    print(f"realtime frame 1 (casts kept): {time.perf_counter() - t0:.3f} s, "
+          f"launches {first}")
+    if first != want(1):
+        _fail(f"realtime frame 1 launches {first}, expected {want(1)}")
+    casts = _check_casts(kept, {"pairs_closest_smooth": ("pairs_closest_idx",),
+                                "pairs_shadow": ()},
+                         tables.pairs_mesh, cfg, err, "realtime")
+
+    # b. realtime anchor: frame 1 through render_rows
+    angle0 = np.float32(np.arctan2(float(tables.L.z), float(tables.L.x)))
+    angle1 = np.float32(angle0 + np.float32(0.02))
+    if float(state1.light_angle) != float(angle1):
+        _fail(f"frame 1 light angle {float(state1.light_angle)} != {angle1}")
+    acc, stats = render_rows(rt.orbit_light(tables, angle1), cfg,
+                             Camera.default(cfg, device),
+                             fold_in(PRNGKey(0, device), 0),
+                             np.arange(H, dtype=np.int32), range(spp))
+    img = torch.stack([(c / float(spp)).reshape(H, W) for c in acc], dim=-1)
+    hit = stats.hit.tolist()
+    mean = float(img.double().mean())
+    rel = (mean - ANCHOR_RT_CPU_MEAN) / ANCHOR_RT_CPU_MEAN
+    print(f"realtime anchor: frame 1 mean {mean:.3f} vs the JAX package on "
+          f"CPU {ANCHOR_RT_CPU_MEAN:.3f} (rel {rel:+.6f}, limit "
+          f"{ANCHOR_RTOL}); hit per depth {hit}, shadowed "
+          f"{stats.shadowed.tolist()}")
+    if not torch.equal(img, state1.accum):
+        _fail("render_rows of frame 1 differs from the loop's frame 1")
+    if any(h != W * H * spp for h in hit):
+        _fail(f"rays escaped the realtime scene: hit {hit} != {W * H * spp}")
+    if int(stats.shadowed.sum()) <= 0:
+        _fail("no shadow ray was occluded in the realtime frame")
+    if not abs(rel) <= ANCHOR_RTOL:
+        _fail(f"realtime anchor mean {mean} off by {rel:.4%}")
+
+    # c. the loop
+    # run_loop's own mean skips the first frame, whose time also holds the
+    # enqueue of frame 2; the whole call's wall time over the frame count
+    # is the rate the loop sustains, and is the one reported
+    pipe = io.BytesIO()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, summary = rt.run_loop(tables, cfg, LOOP_FRAMES, seed=0,
+                                 raw_pipe=pipe, print_every=0)
+    torch.cuda.synchronize()
+    frame_s = (time.perf_counter() - t0) / LOOP_FRAMES
+    loop_launches = dict(_kernels.LAUNCHES)
+    print(f"realtime loop: {LOOP_FRAMES} frames, {frame_s * 1e3:.3f} ms per "
+          f"frame, {1 / frame_s:.3f} FPS, "
+          f"{rays_per_frame(cfg) / frame_s / 1e6:.3f} Mray/s "
+          f"({rays_per_frame(cfg)} rays a frame; run_loop's own mean "
+          f"{summary['mean_ms']:.3f} ms, first frame "
+          f"{summary['first_frame_ms']:.3f} ms), launches {loop_launches}, "
+          f"on {card}")
+    if loop_launches != want(LOOP_FRAMES):
+        _fail(f"loop launches {loop_launches}, expected "
+              f"{want(LOOP_FRAMES)}")
+    angle = angle0
+    for _ in range(LOOP_FRAMES):
+        angle = np.float32(angle + np.float32(0.02))
+    got = (int(state.frames), int(state.rng_frame), float(state.light_angle))
+    if got != (LOOP_FRAMES, LOOP_FRAMES, float(angle)):
+        _fail(f"loop state (frames, rng_frame, light angle) {got}, expected "
+              f"{(LOOP_FRAMES, LOOP_FRAMES, float(angle))}")
+    if not bool(torch.isfinite(state.accum).all()):
+        _fail("realtime image has non-finite values")
+    shown = np.frombuffer(pipe.getvalue(), np.uint8).reshape(
+        LOOP_FRAMES, H, W, 3)
+    if not np.array_equal(shown[0], disp1.cpu().numpy()):
+        _fail("the loop's first display differs from frame 1's")
+    avg = (state.accum / state.frames.to(torch.float32)).cpu().numpy()
+    if not np.array_equal(shown[-1], tonemap(avg)):
+        _fail("the last display is not the tonemap of the average")
+
+    # d. checkpoint: save, load and step == the uninterrupted next frame
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        save_state(path, state)
+        resumed = load_state(path, device)
+    a, disp_a = rt.step(tables, cfg, resumed)
+    b, disp_b = rt.step(tables, cfg, state)
+    if not (torch.equal(a.accum, b.accum) and torch.equal(disp_a, disp_b)
+            and int(a.frames) == LOOP_FRAMES + 1):
+        _fail("a resumed checkpoint stepped to another frame")
+    print(f"checkpoint: frame {LOOP_FRAMES + 1} after save/load is bitwise "
+          "the uninterrupted one")
+
+    # e. timings on the kept casts
+    _time_casts(casts, timing, card)
+    return loop_launches, (cfg, tables, casts)
+
+
+def _mesh_query(cfg, tables, casts, err):
+    """Phase 8 (module docstring): the public payload-less query on the
+    primary rays of the realtime frame's first cast.  Returns its launch
+    counts."""
+    import torch
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    rfT = next(args[0] for _, depth, ks, args in casts
+               if depth == 0 and ks[0] == "pairs_closest_smooth")
+    u = Vec3(*(rfT[i].clone() for i in (0, 1, 2)))   # rfT rows: u, O x u, O
+    O = Vec3(*(rfT[i].clone() for i in (6, 7, 8)))
+    tab = tables.pairs_mesh
+    kw = dict(subg=cfg.pairs_subgroup, blk=cfg.pairs_block)
+    _kernels.reset_launches()
+    hit = pt.intersect_tris_pairs(O, u, tab, cfg.eps_leaf, payload=None, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    expected = {"pairs_closest_idx": 1, "pairs_closest": 0,
+                "pairs_shadow": 0, "pairs_closest_smooth": 0}
+    print(f"mesh query: {O.x.shape[0]} primary rays, "
+          f"{int((hit.t < pt.INF32).sum())} mesh hits, launches {launches}")
+    if launches != expected:
+        _fail(f"mesh query launches {launches}, expected {expected}")
+    smooth, _ = pt.intersect_tris_pairs(O, u, tab, cfg.eps_leaf,
+                                        payload="smooth", **kw)
+    rf, bits, R = pt.cast_inputs(O, u, tab, **kw)
+    plain = pt.pairs_closest_idx_plain(rf, tab.fields, bits, cfg.eps_leaf,
+                                       cfg.pairs_subgroup, pt.tile_width(tab))
+    for a, b, what in ((hit.t, plain[0][:R], "plain t"),
+                       (hit.idx, plain[1][:R], "plain idx"),
+                       (hit.t, smooth.t, "B3's t"),
+                       (hit.idx, smooth.idx, "B3's idx")):
+        e = _max_abs_err(a, b)
+        err["pairs_closest_idx"] = max(err["pairs_closest_idx"], e)
+        if not torch.equal(a, b):
+            _fail(f"mesh query: B0 differs from {what} (max abs {e})")
+    print("mesh query: B0 bitwise equal to its plain version and to B3's "
+          "(t, idx)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -126,7 +406,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from raytracinggpu_tpu_torch.ops import _kernels
-    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
     from raytracinggpu_tpu_torch.render.pipeline import (
         Camera, chunk_size, group_size, rays_per_frame, render_frame)
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
@@ -154,9 +433,8 @@ def main() -> int:
     entry = "?"
     for line in info["ptxas"].splitlines():
         if "Compiling entry function" in line:
-            # the template argument tells the two specializations apart
-            entry = ("pairs_closest" if "ILb1E" in line else
-                     "pairs_shadow" if "ILb0E" in line else "?")
+            # the template argument tells the specializations apart
+            entry = next((k for m, k in _MODES.items() if m in line), "?")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {entry}: {line.strip()}")
 
@@ -170,8 +448,6 @@ def main() -> int:
           f"subgroup {cfg.pairs_subgroup}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     tab = tables.pairs_mesh
-    tw = pt.tile_width(tab)
-    subg = cfg.pairs_subgroup
     cam = Camera.default(cfg, device)
     g = group_size(cfg, cfg.spp)
     R_group = g * cfg.width * cfg.height
@@ -186,33 +462,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"capture frame: {time.perf_counter() - t0:.3f} s; casts of "
           f"{chunk} rays ({g} samples per wavefront)")
-    err = {"pairs_closest": 0.0, "pairs_shadow": 0.0}
-    casts = {}
-    for kname, plain in (("pairs_closest", pt.pairs_closest_plain),
-                         ("pairs_shadow", pt.pairs_shadow_plain)):
-        if len(kept[kname]) != 2:
-            _fail(f"{kname}: captured {len(kept[kname])} casts, expected 2")
-        for depth, (rfT, bits) in enumerate(kept[kname]):
-            name = f"depth{depth}_{kname.split('_')[1]}"
-            casts[name] = (rfT, bits)
-            args = (rfT, tab.fields, bits, cfg.eps_leaf, subg, tw)
-            got = getattr(_kernels, kname)(*args)
-            want = plain(*args)
-            if kname == "pairs_shadow":
-                got, want = (got,), (want,)
-            torch.cuda.synchronize()
-            e = max(_max_abs_err(a, b) for a, b in zip(got, want))
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            hits = int((want[0] < pt.INF32).sum())
-            pairs = int(sum(bin(int(w) & 0xFFFFFFFF).count("1")
-                            for w in bits.flatten().tolist()))
-            print(f"cast {name}: rfT {tuple(rfT.shape)}, bits "
-                  f"{tuple(bits.shape)}, {hits} mesh hits, {pairs} "
-                  f"(subgroup, tile) pairs, {kname} vs plain "
-                  f"{'bitwise equal' if same else f'DIFFER (max abs {e})'}")
-            if not same:
-                _fail(f"{kname} differs from its plain version on {name}")
-            err[kname] = max(err[kname], e)
+    err = {k: 0.0 for k in _kernels.LAUNCHES}
+    casts = _check_casts(kept, {"pairs_closest": ("pairs_closest_idx",),
+                                "pairs_shadow": ()},
+                         tab, cfg, err, "array_bvh")
 
     # ---- 4. headline frame -----------------------------------------------
     _kernels.reset_launches()
@@ -234,9 +487,10 @@ def main() -> int:
         _fail(f"rays escaped the enclosed scene: hit {hit} != {n_rays}")
     if int(stats.shadowed.sum()) <= 0:
         _fail("no shadow ray was occluded")
-    for k, n in launches.items():
-        if n != n_casts:
-            _fail(f"{k} launched {n} times in the frame, expected {n_casts}")
+    expected = {"pairs_closest": n_casts, "pairs_shadow": n_casts,
+                "pairs_closest_smooth": 0, "pairs_closest_idx": 0}
+    if launches != expected:
+        _fail(f"launches in the frame {launches}, expected {expected}")
     times = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -251,18 +505,9 @@ def main() -> int:
 
     # ---- 5. kernel timings -----------------------------------------------
     # every captured cast is timed; the JSON line reports the depth-1 ones
-    timing = {}
-    for cname, (rfT, bits) in casts.items():
-        kname = "pairs_" + cname.split("_")[1]
-        kern = getattr(_kernels, kname)
-        plain = getattr(pt, f"{kname}_plain")
-        args = (rfT, tab.fields, bits, cfg.eps_leaf, subg, tw)
-        ms = _time_ms(lambda: kern(*args), 20)
-        plain_ms = _time_ms(lambda: plain(*args), 3)
-        if cname.startswith("depth1"):
-            timing[kname] = (ms, plain_ms)
-        print(f"timing {kname} on the {cname} cast ({rfT.shape[1]} rays): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    # (B1 and B2 here, B3 and B0 on the realtime casts of phase 7)
+    timing_main = {}
+    _time_casts(casts, timing_main, card)
 
     # ---- 6. production anchor --------------------------------------------
     import dataclasses
@@ -278,13 +523,24 @@ def main() -> int:
     if not abs(rel) <= ANCHOR_RTOL:
         _fail(f"anchor mean {mean} off by {rel:.4%}")
 
+    # ---- 7. realtime loop ------------------------------------------------
+    timing_rt = {}
+    loop_launches, (rcfg, rtab, rcasts) = _realtime(device, card, err,
+                                                    timing_rt)
+
+    # ---- 8. mesh query ---------------------------------------------------
+    query_launches = _mesh_query(rcfg, rtab, rcasts, err)
+
     src = "raytracinggpu_tpu_torch/csrc/pairs_trace.cu"
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src,
-         "replaces": "raytracinggpu_tpu/ops/pairs_trace.py:513",
-         "launches": launches[k], "max_abs_err": err[k],
+        {"name": k, "route": "cuda", "source": src, "replaces": _REPLACES,
+         "launches": counts[k], "max_abs_err": err[k],
          "ms": timing[k][0], "plain_ms": timing[k][1]}
-        for k in ("pairs_closest", "pairs_shadow")]}))
+        for k, counts, timing in (
+            ("pairs_closest", launches, timing_main),
+            ("pairs_shadow", launches, timing_main),
+            ("pairs_closest_smooth", loop_launches, timing_rt),
+            ("pairs_closest_idx", query_launches, timing_rt))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

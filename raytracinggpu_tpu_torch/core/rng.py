@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracinggpu_tpu_torch.core.vec import Vec3, sqrt
+from raytracinggpu_tpu_torch.core.vec import Vec3, cos, log, sin, sqrt
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -111,12 +111,20 @@ def row_uniforms(key_s: Key, rows, W: int, depth: int) -> torch.Tensor:
     return u.permute(1, 2, 0, 3).reshape(depth + 1, 2, -1)
 
 
+def box_muller_terms(r1, r2, sigma: float):
+    """The factors of the Box-Muller jitter: (mag, cos 2 pi r2, sin 2 pi r2)
+    with mag = sigma sqrt(-2 ln r1).  Where XLA fuses the jitter into a
+    sum, the product mag*cos enters an FMA; ``render.pipeline.raygen`` does
+    the same with these factors."""
+    mag = float(sigma) * sqrt(-2.0 * log(r1))
+    return mag, cos(2.0 * math.pi * r2), sin(2.0 * math.pi * r2)
+
+
 def box_muller_jitter(r1, r2, sigma: float):
     """Anti-aliasing pixel jitter:
     (sigma*sqrt(-2 ln r1) cos(2 pi r2), sigma*sqrt(-2 ln r1) sin(2 pi r2))."""
-    mag = float(sigma) * sqrt(-2.0 * torch.log(r1))
-    return (mag * torch.cos(2.0 * math.pi * r2),
-            mag * torch.sin(2.0 * math.pi * r2))
+    mag, c, s = box_muller_terms(r1, r2, sigma)
+    return mag * c, mag * s
 
 
 def tangent_frame(N: Vec3) -> tuple[Vec3, Vec3]:
@@ -138,8 +146,8 @@ def tangent_frame(N: Vec3) -> tuple[Vec3, Vec3]:
 def cosine_hemisphere(r1, r2, N: Vec3) -> Vec3:
     """Cosine-weighted hemisphere sample around N:
     x = cos(2 pi r1) sqrt(1-r2), y = sin(2 pi r1) sqrt(1-r2), z = sqrt(r2)."""
-    x = torch.cos(2.0 * math.pi * r1) * sqrt(1.0 - r2)
-    y = torch.sin(2.0 * math.pi * r1) * sqrt(1.0 - r2)
+    x = cos(2.0 * math.pi * r1) * sqrt(1.0 - r2)
+    y = sin(2.0 * math.pi * r1) * sqrt(1.0 - r2)
     z = sqrt(r2)
     t1, t2 = tangent_frame(N)
     return N.fma(z, t1.fma(x, t2 * y))

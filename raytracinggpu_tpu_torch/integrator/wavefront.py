@@ -1,5 +1,6 @@
 """Wavefront path-tracing integrator (port of
-``raytracinggpu_tpu/integrator/wavefront.py``, pairs traversal only).
+``raytracinggpu_tpu/integrator/wavefront.py``, pairs traversal only, with
+geometric or smooth mesh normals).
 
 The whole ray batch advances in lockstep through a Python loop over depth;
 material branches are masks merged with ``torch.where``, and the per-depth
@@ -55,10 +56,13 @@ def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hi
     if scene.pairs_mesh is None:
         t, obj, N = t_s, obj_s, N_s
     else:
-        # the nearest sphere hit caps useful mesh distances
+        # the nearest sphere hit caps useful mesh distances; the kernel
+        # tracks the winner's normal (geometric, or the realtime preset's
+        # Phong-interpolated vertex normal)
         mh, N_m = intersect_tris_pairs(
             O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
-            subg=cfg.pairs_subgroup, blk=cfg.pairs_block)
+            subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
+            payload="smooth" if cfg.smooth_normals else "geom")
         nn = N_m.norm()
         N_m = N_m / torch.where(nn > 0.0, nn, 1.0)
 

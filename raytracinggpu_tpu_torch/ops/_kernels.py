@@ -33,8 +33,22 @@ NVCC_FLAGS = (
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# Each launch wrapper: (C function, field rows its kernel reads, output
+# dtypes).  The C functions take (rfT, fields, bits, R, Tc, W, subg,
+# tile_t, eps, *outputs, stream).
+_SPECS = {
+    "pairs_closest": ("rt_pairs_closest", 17, (torch.float32, torch.int32)
+                      + (torch.float32,) * 3),
+    "pairs_shadow": ("rt_pairs_shadow", 17, (torch.float32,)),
+    "pairs_closest_smooth": ("rt_pairs_closest_smooth", 26,
+                             (torch.float32, torch.int32)
+                             + (torch.float32,) * 3),
+    "pairs_closest_idx": ("rt_pairs_closest_idx", 17,
+                          (torch.float32, torch.int32)),
+}
+
 # Kernel launches since the last reset_launches(), by wrapper.
-LAUNCHES = {"pairs_closest": 0, "pairs_shadow": 0}
+LAUNCHES = {name: 0 for name in _SPECS}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -91,18 +105,17 @@ def load():
         BUILD_INFO.update(build())
         lib = ctypes.CDLL(BUILD_INFO["library"])
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_pairs_closest.argtypes = [p, p, p, i, i, i, i, i, fl,
-                                         p, p, p, p, p, p]
-        lib.rt_pairs_closest.restype = i
-        lib.rt_pairs_shadow.argtypes = [p, p, p, i, i, i, i, i, fl, p, p]
-        lib.rt_pairs_shadow.restype = i
+        for cfun, _, dts in _SPECS.values():
+            fn = getattr(lib, cfun)
+            fn.argtypes = [p, p, p, i, i, i, i, i, fl] + [p] * len(dts) + [p]
+            fn.restype = i
         lib.rt_cuda_error_string.argtypes = [i]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(rfT, fields, bits, subg, tile_t):
+def _check(rfT, fields, bits, subg, tile_t, field_rows):
     dev = rfT.device
     for name, x, dt in (("rfT", rfT, torch.float32),
                         ("fields", fields, torch.float32),
@@ -113,15 +126,16 @@ def _check(rfT, fields, bits, subg, tile_t):
                              f"{dev}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
     R, Tc, W = rfT.shape[1], fields.shape[1], bits.shape[0]
-    if rfT.shape[0] < 9 or fields.shape[0] < 17:
-        raise ValueError("rfT needs 9 feature rows and fields 17 rows")
+    if rfT.shape[0] < 9 or fields.shape[0] < field_rows:
+        raise ValueError(f"rfT needs 9 feature rows and fields {field_rows} "
+                         f"rows, got {rfT.shape[0]} and {fields.shape[0]}")
     if subg <= 0 or R % subg or bits.shape[1] != R // subg:
         raise ValueError(f"bits {tuple(bits.shape)} do not match R={R}, "
                          f"subg={subg}")
     if tile_t <= 0 or Tc % tile_t or W * 32 < Tc // tile_t:
         raise ValueError(f"fields width {Tc} does not hold whole tiles of "
                          f"{tile_t} for {W} bitmask words")
-    if max(R, Tc) * 17 >= 2**31:
+    if max(R * 9, Tc * field_rows) >= 2**31:
         raise ValueError("kernel indices are 32-bit: cast too large")
     return R, Tc, W
 
@@ -132,39 +146,46 @@ def _raise_on(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
-    """B1 kernel: (t, idx, nx, ny, nz) per ray; see ops/pairs_trace."""
-    R, Tc, W = _check(rfT, fields, bits, subg, tile_t)
-    new = lambda dt: torch.empty(R, dtype=dt, device=rfT.device)
-    t, idx = new(torch.float32), new(torch.int32)
-    nx, ny, nz = (new(torch.float32) for _ in range(3))
+def _launch(name, rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Check the inputs, allocate the outputs and launch kernel ``name`` on
+    PyTorch's current stream; returns the output tuple."""
+    cfun, field_rows, dts = _SPECS[name]
+    R, Tc, W = _check(rfT, fields, bits, subg, tile_t, field_rows)
+    outs = tuple(torch.empty(R, dtype=dt, device=rfT.device) for dt in dts)
     if R == 0:
-        return t, idx, nx, ny, nz
+        return outs
     lib = load()
     with torch.cuda.device(rfT.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt_pairs_closest(
+        err = getattr(lib, cfun)(
             rfT.data_ptr(), fields.data_ptr(), bits.data_ptr(), R, Tc, W,
-            subg, tile_t, max(float(eps_leaf), 0.0), t.data_ptr(),
-            idx.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-            stream)
-    _raise_on(lib, err, "pairs_closest")
-    LAUNCHES["pairs_closest"] += 1
-    return t, idx, nx, ny, nz
+            subg, tile_t, max(float(eps_leaf), 0.0),
+            *(o.data_ptr() for o in outs), stream)
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B1 kernel: (t, idx, nx, ny, nz) per ray, N the winner's Ng; see
+    ops/pairs_trace."""
+    return _launch("pairs_closest", rfT, fields, bits, eps_leaf, subg, tile_t)
+
+
+def pairs_closest_smooth(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B3 kernel: (t, idx, nx, ny, nz) per ray, N the winner's
+    Phong-interpolated vertex normal; see ops/pairs_trace."""
+    return _launch("pairs_closest_smooth", rfT, fields, bits, eps_leaf, subg,
+                   tile_t)
+
+
+def pairs_closest_idx(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B0 kernel: (t, idx) per ray; see ops/pairs_trace."""
+    return _launch("pairs_closest_idx", rfT, fields, bits, eps_leaf, subg,
+                   tile_t)
 
 
 def pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B2 kernel: the nearest hit t per ray; see ops/pairs_trace."""
-    R, Tc, W = _check(rfT, fields, bits, subg, tile_t)
-    t = torch.empty(R, dtype=torch.float32, device=rfT.device)
-    if R == 0:
-        return t
-    lib = load()
-    with torch.cuda.device(rfT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt_pairs_shadow(
-            rfT.data_ptr(), fields.data_ptr(), bits.data_ptr(), R, Tc, W,
-            subg, tile_t, max(float(eps_leaf), 0.0), t.data_ptr(), stream)
-    _raise_on(lib, err, "pairs_shadow")
-    LAUNCHES["pairs_shadow"] += 1
-    return t
+    return _launch("pairs_shadow", rfT, fields, bits, eps_leaf, subg,
+                   tile_t)[0]

@@ -12,10 +12,13 @@ subgroup of ``subg`` consecutive rays into a (W, R/subg) int32 bitmask.
 
 The inner loop -- Moller-Trumbore over every (ray, slot) whose tile bit is
 set for the ray's subgroup -- is the JAX package's Pallas ``_pairs_kernel``
-in two specializations:
+in four specializations:
 
 - B1, closest hit with the geometric-normal payload
   (``pairs_closest``): lexicographic min of (t, original id), winner's Ng;
+- B3, closest hit with the smooth payload (``pairs_closest_smooth``): the
+  same winner, N its Phong-interpolated vertex normal (field rows 17-25);
+- B0, closest hit without a payload (``pairs_closest_idx``): t and id;
 - B2, shadow (``pairs_shadow``): the nearest t only.
 
 Each has a hand-written CUDA kernel (``csrc/pairs_trace.cu``, launched by
@@ -27,8 +30,7 @@ and multiplies (never a divide); with the kernel built ``--fmad=false``
 the two agree bit for bit on the card.
 
 Left out of this port so far: the compaction ladder (exact by
-construction, tuned for the TPU), the smooth payload (B3), the payload-less
-closest hit (B0) and the streamed supertiles (B4).
+construction, tuned for the TPU) and the streamed supertiles (B4).
 """
 from __future__ import annotations
 
@@ -309,12 +311,13 @@ def _prep(O, u, cap, blk, active=None):
     return O, u, cap, active, R
 
 
-# ------------------------------------------------- plain versions of B1, B2
+# --------------------------------------------- plain versions of B0-B3
 
 def _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi):
-    """Masked Moller-Trumbore t for rays [lo, hi) against every slot:
-    (hi-lo, Tc) f32, INF where the slot's tile is culled for the ray's
-    subgroup or the test fails.  The arithmetic order is the kernel's."""
+    """Masked Moller-Trumbore for rays [lo, hi) against every slot:
+    (t, beta, gamma), each (hi-lo, Tc) f32; t is INF where the slot's tile
+    is culled for the ray's subgroup or the test fails.  The arithmetic
+    order is the kernel's."""
     Tc = fields.shape[1]
     nc = Tc // tile_t
     tiles = torch.arange(nc, device=fields.device)
@@ -339,7 +342,7 @@ def _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi):
                             1.0 - beta - gamma) >= 0.0
     eps = float(np.float32(max(float(eps_leaf), 0.0)))
     valid = on & (denom != 0.0) & bary_ok & (tval > eps)
-    return torch.where(valid, tval, INF32)
+    return torch.where(valid, tval, INF32), beta, gamma
 
 
 def _plain_chunks(R: int, Tc: int, subg: int):
@@ -347,36 +350,65 @@ def _plain_chunks(R: int, Tc: int, subg: int):
     return ((lo, min(lo + n, R)) for lo in range(0, R, n))
 
 
-def pairs_closest_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
-    """Plain PyTorch B1: (t, idx, nx, ny, nz) per ray.  t is the nearest
-    valid hit (INF when none), idx the smallest original id among the
-    slots at that t (0 on a miss), N that slot's unnormalized Ng (rows
-    0-2; zeros on a miss)."""
+def _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, payload):
+    """Plain closest hit: (t, idx) plus, for payload "geom" or "smooth",
+    the winner's (nx, ny, nz).  t is the nearest valid hit (INF when
+    none), idx the smallest original id among the slots at that t (0 on a
+    miss), N that slot's unnormalized Ng (rows 0-2) or its vertex normals
+    (rows 17-25) weighted by its own alpha, beta and gamma, summed left to
+    right; zeros on a miss."""
     R = rfT.shape[1]
     outs = []
     for lo, hi in _plain_chunks(R, fields.shape[1], subg):
-        t = _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)
+        t, beta, gamma = _plain_slot_t(rfT, fields, bits, eps_leaf, subg,
+                                       tile_t, lo, hi)
         tmin = t.amin(dim=1).clamp_max(INF32)
         hit = tmin < INF32
         win = (t == tmin[:, None]) & hit[:, None]
         ids = torch.where(win, fields[16][None, :], float(_IDX_BIG))
         slot = ids.argmin(dim=1)
-        idx = torch.where(hit, fields[16][slot].to(torch.int32), 0)
-        n = [torch.where(hit, fields[k][slot], 0.0) for k in range(3)]
-        outs.append((tmin, idx, *n))
+        out = [tmin, torch.where(hit, fields[16][slot].to(torch.int32), 0)]
+        if payload == "geom":
+            n = [fields[k][slot] for k in range(3)]
+        elif payload == "smooth":
+            b = beta.gather(1, slot[:, None])[:, 0]
+            g = gamma.gather(1, slot[:, None])[:, 0]
+            a = 1.0 - b - g
+            n = [fields[17 + k][slot] * a + fields[20 + k][slot] * b
+                 + fields[23 + k][slot] * g for k in range(3)]
+        else:
+            n = []
+        out += [torch.where(hit, c, 0.0) for c in n]
+        outs.append(out)
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def pairs_closest_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Plain PyTorch B1: (t, idx, nx, ny, nz) per ray, N the winner's Ng."""
+    return _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, "geom")
+
+
+def pairs_closest_smooth_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Plain PyTorch B3: (t, idx, nx, ny, nz) per ray, N the winner's
+    na*alpha + nb*beta + nc*gamma."""
+    return _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, "smooth")
+
+
+def pairs_closest_idx_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Plain PyTorch B0: (t, idx) per ray."""
+    return _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, None)
 
 
 def pairs_shadow_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
     """Plain PyTorch B2: the nearest valid hit t per ray (INF when none)."""
     R = rfT.shape[1]
     return torch.cat([
-        _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)
+        _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)[0]
         .amin(dim=1).clamp_max(INF32)
         for lo, hi in _plain_chunks(R, fields.shape[1], subg)])
 
 
-# ------------------------------------------- device dispatch of B1 and B2
+# ------------------------------------------------ device dispatch of B0-B3
 
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.is_cuda:
@@ -386,23 +418,40 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return False
 
 
-def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
-    """B1 on the tensors' device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+def _dispatch(name, plain, rfT, fields, bits, eps_leaf, subg, tile_t):
+    """Kernel ``name`` of ``ops/_kernels`` for a CUDA tensor, ``plain`` for
+    a CPU tensor."""
     if _on_cuda(rfT):
         from raytracinggpu_tpu_torch.ops import _kernels
 
-        return _kernels.pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t)
-    return pairs_closest_plain(rfT, fields, bits, eps_leaf, subg, tile_t)
+        return getattr(_kernels, name)(rfT, fields, bits, eps_leaf, subg,
+                                       tile_t)
+    return plain(rfT, fields, bits, eps_leaf, subg, tile_t)
+
+
+def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B1 on the tensors' device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    return _dispatch("pairs_closest", pairs_closest_plain, rfT, fields, bits,
+                     eps_leaf, subg, tile_t)
+
+
+def pairs_closest_smooth(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B3 on the tensors' device (see pairs_closest)."""
+    return _dispatch("pairs_closest_smooth", pairs_closest_smooth_plain, rfT,
+                     fields, bits, eps_leaf, subg, tile_t)
+
+
+def pairs_closest_idx(rfT, fields, bits, eps_leaf, subg, tile_t):
+    """B0 on the tensors' device (see pairs_closest)."""
+    return _dispatch("pairs_closest_idx", pairs_closest_idx_plain, rfT,
+                     fields, bits, eps_leaf, subg, tile_t)
 
 
 def pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B2 on the tensors' device (see pairs_closest)."""
-    if _on_cuda(rfT):
-        from raytracinggpu_tpu_torch.ops import _kernels
-
-        return _kernels.pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t)
-    return pairs_shadow_plain(rfT, fields, bits, eps_leaf, subg, tile_t)
+    return _dispatch("pairs_shadow", pairs_shadow_plain, rfT, fields, bits,
+                     eps_leaf, subg, tile_t)
 
 
 # ------------------------------------------------------------ public queries
@@ -421,15 +470,22 @@ def cast_inputs(O: Vec3, u: Vec3, tab: PairsMeshTables, subg: int,
 
 def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
                          eps_leaf: float, cap=None, subg: int = DEF_SUBG,
-                         blk: int = DEF_BLK):
-    """Closest hit over the cluster-tiled mesh with the geometric-normal
-    payload.  Returns (TriHit, N) with the ORIGINAL (BVH-order) triangle
-    index and the winner's unnormalized Ng.  ``cap`` (R,) culls tiles the
-    ray enters beyond it (the caller's nearest sphere hit)."""
+                         blk: int = DEF_BLK, payload: str | None = None):
+    """Closest hit over the cluster-tiled mesh: TriHit with the ORIGINAL
+    (BVH-order) triangle index.  ``cap`` (R,) culls tiles the ray enters
+    beyond it (the caller's nearest sphere hit).
+
+    payload: None | "geom" | "smooth".  When set, the kernel also tracks
+    the winner's normal (geometric Ng, or the Phong-interpolated vertex
+    normal from field rows 17-25) and the return becomes (TriHit, N), N
+    unnormalized."""
+    kernel = {None: pairs_closest_idx, "geom": pairs_closest,
+              "smooth": pairs_closest_smooth}[payload]
     rfT, bits, R = cast_inputs(O, u, tab, subg, blk, cap=cap)
-    t, idx, nx, ny, nz = (o[:R] for o in pairs_closest(
-        rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab)))
-    return TriHit(t=t, idx=idx), Vec3(nx, ny, nz)
+    out = [o[:R] for o in kernel(rfT, tab.fields, bits, eps_leaf, subg,
+                                 tile_width(tab))]
+    hit = TriHit(t=out[0], idx=out[1])
+    return (hit, Vec3(*out[2:])) if payload else hit
 
 
 def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,

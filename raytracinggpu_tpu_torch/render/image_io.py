@@ -1,4 +1,6 @@
-"""Tone mapping (port of ``raytracinggpu_tpu/render/image_io.py::tonemap``).
+"""Tone mapping and PNG output (port of
+``raytracinggpu_tpu/render/image_io.py``: ``tonemap``, ``tonemap_device``
+and the stdlib ``write_png``).
 
 The reference writes its PNGs after a gamma-2.2 tone map with a 255 clamp
 and a raw char cast: ``byte = (char) min(pow(radiance, 1/2.2), 255.0)``.
@@ -7,7 +9,11 @@ the hundreds after the power, and the clamp does the rest.
 """
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+import torch
 
 
 def tonemap(img) -> np.ndarray:
@@ -18,3 +24,30 @@ def tonemap(img) -> np.ndarray:
     img = np.asarray(img, np.float64)
     out = np.minimum(np.power(np.maximum(img, 0.0), 1.0 / 2.2), 255.0)
     return out.astype(np.uint8)
+
+
+def tonemap_device(img: torch.Tensor) -> torch.Tensor:
+    """``tonemap`` on the tensor's device: the same formula in float64,
+    uint8 out, so it equals ``tonemap`` of the same image."""
+    out = torch.clamp_min(img.double(), 0.0).pow(1.0 / 2.2).clamp_max(255.0)
+    return out.to(torch.uint8)
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (filter 0,
+    stdlib zlib)."""
+    rgb = np.asarray(rgb, np.uint8)
+    h, w, c = rgb.shape
+    if c != 3:
+        raise ValueError(f"need an (H, W, 3) image, got {rgb.shape}")
+    raw = b"".join(b"\x00" + rgb[i].tobytes() for i in range(h))
+    png = (b"\x89PNG\r\n\x1a\n"
+           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+           + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

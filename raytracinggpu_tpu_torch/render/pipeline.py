@@ -1,5 +1,5 @@
 """Single-frame render pipeline (port of
-``raytracinggpu_tpu/render/pipeline.py``, fixed camera and pairs traversal):
+``raytracinggpu_tpu/render/pipeline.py``, pairs traversal):
 
     raygen (camera + Box-Muller jitter)  ->  wavefront trace  ->  average spp
 
@@ -21,27 +21,30 @@ import torch.nn.functional as F
 from raytracinggpu_tpu_torch.core.rng import (
     Key,
     PRNGKey,
-    box_muller_jitter,
+    box_muller_terms,
     fold_in,
     row_uniforms,
 )
-from raytracinggpu_tpu_torch.core.vec import Vec3
+from raytracinggpu_tpu_torch.core.vec import Vec3, cos, fma, sin
 from raytracinggpu_tpu_torch.integrator.wavefront import TraceStats, trace
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
 
 
 class Camera(NamedTuple):
     """Camera position and basis (0-d component tensors).  The fixed-view
-    configs use the identity basis and C=(0,0,55) with fov pi/3."""
+    configs use the identity basis and C=(0,0,55) with fov pi/3; the
+    realtime camera carries a yaw/pitch basis."""
 
     C: Vec3   # position
     bx: Vec3  # right
     by: Vec3  # up
-    bz: Vec3  # basis z (+z; the forward component comes from a negative z)
+    bz: Vec3  # basis z: the reference's rotate() re-derives bz = bx x by,
+    #           (0,0,+1) at yaw = pitch = 0, and the forward component of a
+    #           ray comes from bz * z with z = -W/(2 tan(fov/2)) negative
 
     @staticmethod
     def fixed(device, c=(0.0, 0.0, 55.0)) -> "Camera":
-        """Identity basis at ``c``."""
+        """Identity basis at ``c`` (== from_yaw_pitch(c, 0, 0))."""
         return Camera(
             C=Vec3.const(*c, device=device),
             bx=Vec3.const(1.0, 0.0, 0.0, device=device),
@@ -51,9 +54,31 @@ class Camera(NamedTuple):
 
     @staticmethod
     def default(cfg: RenderConfig, device) -> "Camera":
-        """The config's default view: the identity basis at cfg.camera_c.
-        The realtime camera (yaw/pitch basis, point quirk) is not ported."""
+        """The config's default view: quirk (realtime) configs start at the
+        reference camera's yaw 0, pitch 0.3; the fixed configs use the
+        identity basis at cfg.camera_c."""
+        if cfg.camera_point_quirk:
+            return Camera.from_yaw_pitch(cfg.camera_c, 0.0, 0.3, device)
         return Camera.fixed(device, cfg.camera_c)
+
+    @staticmethod
+    def from_yaw_pitch(c, yaw, pitch, device) -> "Camera":
+        """The reference's basis (realtime_render.cu rotate()): yaw about +Y,
+        then pitch about the new right axis, re-orthogonalized with cross
+        products and normalized.  ``c`` is a position tuple or a Vec3 of
+        0-d tensors; yaw and pitch are rounded to f32 first."""
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+        yaw, pitch = f32(yaw), f32(pitch)
+        bx = Vec3.const(1.0, 0.0, 0.0, device=device)
+        by = Vec3.const(0.0, 1.0, 0.0, device=device)
+        bz = Vec3.const(0.0, 0.0, -1.0, device=device)
+        bx = bx * cos(yaw) + bz * sin(yaw)
+        bz = by.cross(bx)
+        by = by * cos(pitch) - bz * sin(pitch)
+        bz = bx.cross(by)
+        C = c if isinstance(c, Vec3) else Vec3.const(*c, device=device)
+        return Camera(C=C, bx=bx.normalized(), by=by.normalized(),
+                      bz=bz.normalized())
 
 
 def pixel_centers(cfg: RenderConfig, rows: np.ndarray, device):
@@ -70,15 +95,29 @@ def pixel_centers(cfg: RenderConfig, rows: np.ndarray, device):
     return t(ux), t(uy), z
 
 
-def raygen(cfg: RenderConfig, cam: Camera, gx, gy, rows) -> tuple[Vec3, Vec3]:
-    """Primary rays for one sample with jitter offsets (gx, gy):
-    u = normalize(bx (ux+gx) + by (uy+gy) + bz z), O = C."""
-    ux, uy, z = pixel_centers(cfg, rows, gx.device)
-    d = cam.bx * (ux + gx) + cam.by * (uy + gy) + cam.bz * z
-    u = d.normalized()
+def raygen(cfg: RenderConfig, cam: Camera, jitter, rows) -> tuple[Vec3, Vec3]:
+    """Primary rays for one sample, O = C.  ``jitter`` is
+    ``core.rng.box_muller_terms``' (mag, c, s): the pixel jitter is
+    (gx, gy) = (mag c, mag s), each product fused into the sum it enters,
+    as XLA fuses it.
+
+    Fixed configs: u = normalize(bx (ux+gx) + by (uy+gy) + bz z).
+    Camera point quirk (realtime): the reference builds the point
+    C + bz z + bx ux + by uy and normalizes it plus the world-frame jitter
+    (gx, gy, 0) as the direction.  The sums round as XLA:CPU rounds them:
+    it fuses bx ux into the sum before it, not by uy."""
+    mag, c, s = jitter
+    ux, uy, z = pixel_centers(cfg, rows, mag.device)
     R = ux.shape[0]
-    O = Vec3(*(c.expand(R) for c in cam.C))
-    return O, u
+    O = Vec3(*(a.expand(R) for a in cam.C))
+    if cfg.camera_point_quirk:
+        d = Vec3(*(fma(bx, ux, o + bz * z) + by * uy for o, bx, by, bz in
+                   zip(O, cam.bx, cam.by, cam.bz)))
+        d = Vec3(fma(mag, c, d.x), fma(mag, s, d.y), d.z)
+    else:
+        d = (cam.bx * fma(mag, c, ux) + cam.by * fma(mag, s, uy)
+             + cam.bz * z)
+    return O, d.normalized()
 
 
 def chunk_size(cfg: RenderConfig, R: int) -> int:
@@ -143,8 +182,8 @@ def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
         Os, us, uns = [], [], []
         for s in sample_ids[g0:g0 + g]:
             un = row_uniforms(fold_in(key, s), rows_t, W, D)  # (D+1, 2, R)
-            gx, gy = box_muller_jitter(un[0, 0], un[0, 1], cfg.sigma)
-            O, u = raygen(cfg, cam, gx, gy, rows)
+            jitter = box_muller_terms(un[0, 0], un[0, 1], cfg.sigma)
+            O, u = raygen(cfg, cam, jitter, rows)
             Os.append(O)
             us.append(u)
             uns.append(un[1:])

@@ -1,17 +1,25 @@
 """Scene presets (port of ``raytracinggpu_tpu/scene/presets.py``).
 
-``make_config`` knows every preset of the JAX package but ``realtime``
-(smooth normals and the realtime camera, which raise); ``build_preset``
-builds the ported one, ``array_bvh`` (different-versions/array_bvh.cu of
-the reference: the six wall spheres plus the cat, rescaled by 0.6 and
-moved by (0, -10, 0)).  The other presets need code paths not ported yet
-(mesh-less scenes, the embedded OBJ transform) and raise.
+``make_config`` knows every preset of the JAX package; ``build_preset``
+builds the ported ones:
+
+- ``array_bvh`` (different-versions/array_bvh.cu of the reference): the
+  six wall spheres plus the cat, rescaled by 0.6 and moved by (0, -10, 0);
+- ``realtime`` (realtime_render.cu): the same cat, a floor of radius 940,
+  the light at (0, 15, 40), fov pi/2, smooth normals, the camera point
+  quirk, 20 spp and depth 3.
+
+The other presets need code paths not ported yet (mesh-less scenes, the
+embedded OBJ transform) and raise.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import replace
 
-from raytracinggpu_tpu_torch.scene.mesh import load_cat_mesh
+import numpy as np
+
+from raytracinggpu_tpu_torch.scene.mesh import MeshData, load_cat_mesh
 from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
 from raytracinggpu_tpu_torch.scene.scene import (
     RenderConfig,
@@ -20,7 +28,7 @@ from raytracinggpu_tpu_torch.scene.scene import (
 )
 
 PRESET_NAMES = ("cpu", "global", "optimized", "array_bvh", "realtime", "showcase")
-PORTED_PRESETS = ("array_bvh",)
+PORTED_PRESETS = ("array_bvh", "realtime")
 
 _WALL_ALBEDOS = {
     "fore": (0.0, 1.0, 0.0),     # green fore wall
@@ -58,9 +66,9 @@ def make_config(preset: str, **overrides) -> RenderConfig:
     elif preset == "optimized":
         base.update(sigma=0.2, eps_bounce=1e-4, eps_leaf=0.0)
     elif preset == "realtime":
-        raise NotImplementedError(
-            "the realtime preset needs smooth normals and the realtime "
-            "camera, which are not ported yet")
+        base.update(sigma=0.2, eps_bounce=1e-4, eps_leaf=1e-3,
+                    fov=float(np.pi / 2), smooth_normals=True,
+                    camera_point_quirk=True, spp=20, max_depth=3)
     elif preset == "showcase":
         base.update(sigma=0.2, eps_bounce=1e-4, eps_leaf=1e-4,
                     mesh_object_id=-1)
@@ -70,20 +78,30 @@ def make_config(preset: str, **overrides) -> RenderConfig:
     return replace(cfg, **overrides) if overrides else cfg
 
 
-def build_preset(preset: str, device, **config_overrides
-                 ) -> tuple[RenderConfig, SceneTables]:
-    """Build (config, scene tables on ``device``) for a named preset; the
-    cat OBJ is loaded from ``CAT_OBJ_PATH`` with the preset's transform."""
+def build_preset(preset: str, device, mesh: MeshData | None = None,
+                 **config_overrides) -> tuple[RenderConfig, SceneTables]:
+    """Build (config, scene tables on ``device``) for a named preset.  The
+    cat OBJ is loaded from ``CAT_OBJ_PATH`` with the preset's transform,
+    unless ``mesh`` gives an already-built MeshData."""
     cfg = make_config(preset, **config_overrides)
     if preset not in PORTED_PRESETS:
         raise NotImplementedError(
             f"preset {preset!r} is not ported yet (ported: {PORTED_PRESETS})")
-    spheres, mats = wall_spheres(floor_radius=990.0)
-    mesh = load_cat_mesh(CAT_OBJ_PATH, False, 0.6, (0.0, -10.0, 0.0))
+    realtime = preset == "realtime"
+    spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
+    L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
+    if mesh is None:
+        mesh = load_cat_mesh(CAT_OBJ_PATH, False, 0.6, (0.0, -10.0, 0.0))
+    if cfg.smooth_normals and not np.any(mesh.na):
+        # A mesh without vertex normals: Phong interpolation of the all-zero
+        # fallback normals would give N = 0 and NaN bounce rays.
+        warnings.warn("mesh has no vertex normals; smooth_normals disabled "
+                      "(geometric normals used instead)", stacklevel=2)
+        cfg = replace(cfg, smooth_normals=False)
     tables = build_scene_tables(
-        spheres, mats, L=(-10.0, 20.0, 40.0), intensity=3e10, mesh=mesh,
-        device=device, mesh_albedo=(0.25, 0.25, 0.25),
-        pairs_tile=cfg.pairs_tile, pairs_cut=cfg.pairs_cut,
+        spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
+        mesh_albedo=(0.25, 0.25, 0.25), pairs_tile=cfg.pairs_tile,
+        pairs_cut=cfg.pairs_cut,
     )
     return _autotune_pairs(cfg, tables, config_overrides), tables
 

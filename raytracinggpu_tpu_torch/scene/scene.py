@@ -49,10 +49,10 @@ class SceneTables(NamedTuple):
 @dataclass(frozen=True)
 class RenderConfig:
     """Static parameters of one render: the fields of the JAX package's
-    ``RenderConfig`` that the main path reads, with its defaults.  The
-    traversal is always ``pairs`` with geometric normals and the fixed
-    camera; ``convert.render_config_from_dict`` rejects a JAX config that
-    asks for anything else."""
+    ``RenderConfig`` that the ported paths read, with its defaults.  The
+    traversal is always ``pairs`` and the mesh never animated;
+    ``convert.render_config_from_dict`` rejects a JAX config that asks for
+    anything else."""
 
     name: str = "global"
     width: int = 512
@@ -64,6 +64,9 @@ class RenderConfig:
     eps_leaf: float = 1e-4      # mesh leaf t epsilon
     fov: float = float(np.pi / 3)
     camera_c: tuple = (0.0, 0.0, 55.0)
+    smooth_normals: bool = False   # realtime: Phong-interpolated mesh normals
+    camera_point_quirk: bool = False  # realtime: cam.C added into the ray
+                                      # direction (see pipeline.raygen)
     mesh_object_id: int = 6     # -1 when the scene has no mesh
     spp_fuse: int = 4           # samples folded into one wavefront
     pairs_subgroup: int = 64    # rays per culling subgroup

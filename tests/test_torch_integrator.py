@@ -140,8 +140,12 @@ def test_unported_modes_raise(scene):
     """A JAX config that asks for a mode the integrator does not render is
     refused where it enters the port."""
     jcfg = scene[0]
-    for over in ({"traversal": "dense"}, {"smooth_normals": True},
-                 {"camera_point_quirk": True}):
+    for over in ({"traversal": "dense"}, {"traversal": "pallas"},
+                 {"animate_mesh": True}):
         with pytest.raises(NotImplementedError):
             render_config_from_dict(
                 dataclasses.asdict(dataclasses.replace(jcfg, **over)))
+    # the realtime modes are ported
+    smooth = dataclasses.replace(jcfg, smooth_normals=True,
+                                 camera_point_quirk=True)
+    assert render_config_from_dict(dataclasses.asdict(smooth)).smooth_normals

@@ -7,10 +7,11 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The cases marked ``cuda`` need a CUDA device and nvcc; they build the
-kernels and hold each one bit for bit against its plain PyTorch version
-(the kernels are compiled with --fmad=false, so every product and sum
-rounds as PyTorch's eager ops round it).  Without a device they skip.
-The other cases check the wrappers' dispatch and input checks on the CPU.
+kernels and hold each one (B0-B3) bit for bit against its plain PyTorch
+version (the kernels are compiled with --fmad=false, so every product and
+sum rounds as PyTorch's eager ops round it).  Without a device they skip.
+The other cases check the plain versions against brute force and the
+wrappers' dispatch and input checks on the CPU.
 """
 import numpy as np
 import pytest
@@ -28,6 +29,9 @@ torch.set_num_threads(2)
 
 SUBG, BLK, EPS = 64, 4096, 1e-4
 KINDS = ("camera", "scattered", "depth1")
+# closest-hit wrappers: (name, payload of intersect_tris_pairs, outputs)
+CLOSEST = (("pairs_closest", "geom", 5), ("pairs_closest_smooth", "smooth", 5),
+           ("pairs_closest_idx", None, 2))
 
 
 @pytest.fixture(scope="module")
@@ -76,31 +80,68 @@ def _cast(scene, kind, R, device, seed=0, shadow=False, capped=True):
 
 # ------------------------------------------------------------- CPU cases
 
-def test_plain_closest_is_exact_against_brute_force(scene):
-    """Culling is exact: the plain version over the culled tiles finds the
-    same nearest hit as Moller-Trumbore over every slot."""
+def _exact_against_brute_force(scene, name, n_out):
     tab, _, _, _, _, rfT, bits = _cast(scene, "camera", 2048, "cpu", seed=8,
                                        capped=False)
     all_on = torch.full_like(bits, -1)
-    got = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
-    want = pt.pairs_closest_plain(rfT, tab.fields, all_on, EPS, SUBG, 128)
+    plain = getattr(pt, f"{name}_plain")
+    got = plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    want = plain(rfT, tab.fields, all_on, EPS, SUBG, 128)
+    assert len(got) == n_out
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert (got[0] < pt.INF32).sum() > 100
 
 
+def test_plain_closest_is_exact_against_brute_force(scene):
+    """Culling is exact: the plain version over the culled tiles finds the
+    same nearest hit as Moller-Trumbore over every slot."""
+    _exact_against_brute_force(scene, "pairs_closest", 5)
+
+
+@pytest.mark.parametrize("name,payload,n_out", CLOSEST[1:])
+def test_plain_smooth_and_idx_are_exact_against_brute_force(scene, name,
+                                                            payload, n_out):
+    """The same for B3 (its payload included) and B0."""
+    _exact_against_brute_force(scene, name, n_out)
+
+
+def test_plain_closest_versions_agree(scene):
+    """B0, B1 and B3 pick the same (t, idx); B3's N is the winner's
+    vertex normals weighted by its barycentrics, a unit-length blend of
+    unit normals here (the cat's OBJ normals), and points the way Ng
+    does on almost every hit."""
+    tab, _, _, _, _, rfT, bits = _cast(scene, "depth1", 4096, "cpu", seed=2)
+    args = (rfT, tab.fields, bits, EPS, SUBG, 128)
+    b1 = pt.pairs_closest_plain(*args)
+    b3 = pt.pairs_closest_smooth_plain(*args)
+    b0 = pt.pairs_closest_idx_plain(*args)
+    for a, b, c in zip(b0, b1, b3):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    hit = b1[0] < pt.INF32
+    assert hit.sum() > 100
+    ns = torch.stack(b3[2:])[:, hit]
+    ng = torch.stack(b1[2:])[:, hit]
+    assert (ns.norm(dim=0) > 0.5).all() and (ns.norm(dim=0) < 1.01).all()
+    assert ((ns * ng).sum(dim=0) > 0).float().mean() > 0.95
+    assert all((c[~hit] == 0).all() for c in b3[2:])
+
+
 def test_cpu_tensors_run_the_plain_versions(scene):
     tab, _, _, _, _, rfT, bits = _cast(scene, "camera", 4096, "cpu")
     before = dict(_kernels.LAUNCHES)
-    got = pt.pairs_closest(rfT, tab.fields, bits, EPS, SUBG, 128)
-    want = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for name, _, _ in CLOSEST:
+        got = getattr(pt, name)(rfT, tab.fields, bits, EPS, SUBG, 128)
+        want = getattr(pt, f"{name}_plain")(rfT, tab.fields, bits, EPS,
+                                            SUBG, 128)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     assert torch.equal(pt.pairs_shadow(rfT, tab.fields, bits, EPS, SUBG, 128),
                        pt.pairs_shadow_plain(rfT, tab.fields, bits, EPS,
                                              SUBG, 128))
     assert _kernels.LAUNCHES == before  # nothing was launched
-    t, idx, nx, ny, nz = got
+    t, idx, nx, ny, nz = got = pt.pairs_closest_smooth(
+        rfT, tab.fields, bits, EPS, SUBG, 128)
     miss = t >= pt.INF32
     assert miss.any() and (~miss).any()
     assert (idx[miss] == 0).all() and (nx[miss] == 0).all()
@@ -113,24 +154,34 @@ def test_other_devices_raise():
         pt.pairs_shadow(x, x, x, EPS, SUBG, 128)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "contiguity", "bits", "tiles"])
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "bits", "tiles",
+                                 "rows"])
 def test_kernel_wrappers_check_their_inputs(bad):
+    """Every wrapper refuses what its kernel does not take; B3 reads the
+    vertex-normal rows 17-25, so it needs 26 field rows where the others
+    need 17."""
     R, Tc = 256, 256
     rfT = torch.zeros(16, R)
     fields = torch.zeros(32, Tc)
     bits = torch.zeros(1, R // SUBG, dtype=torch.int32)
+    names = list(_kernels.LAUNCHES)
     if bad == "dtype":
         fields = fields.double()
     elif bad == "contiguity":
         rfT = torch.zeros(R, 16).T
     elif bad == "bits":
         bits = torch.zeros(1, R // SUBG + 1, dtype=torch.int32)
-    else:
+    elif bad == "tiles":
         fields = torch.zeros(32, Tc + 32)
-    with pytest.raises(ValueError):
-        _kernels.pairs_closest(rfT, fields, bits, EPS, SUBG, 128)
-    with pytest.raises(ValueError):
-        _kernels.pairs_shadow(rfT, fields, bits, EPS, SUBG, 128)
+    else:
+        fields = torch.zeros(25, Tc)
+        names = ["pairs_closest_smooth"]
+    assert set(_kernels.LAUNCHES) == {"pairs_closest", "pairs_shadow",
+                                      "pairs_closest_smooth",
+                                      "pairs_closest_idx"}
+    for name in names:
+        with pytest.raises(ValueError):
+            getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -151,7 +202,9 @@ def _tie_table():
         A[i], B[i], C[i] = (-10, -10, 0), (10, -10, 0), (-10, 10, 0)
     slot_src = np.full(256, -1, np.int32)
     slot_src[0], slot_src[128] = 7, 3
-    fields = torch.from_numpy(pt.fields_from_corners(A, B, C, slot_src))
+    n = np.tile(np.float32([0, 0, 1]), (T, 1))  # vertex normals, for B3
+    fields = torch.from_numpy(pt.fields_from_corners(A, B, C, slot_src,
+                                                     n, n, n))
     xy = np.random.default_rng(0).uniform(-8, 0, (2, 128)).astype(np.float32)
     O = Vec3(torch.from_numpy(xy[0]), torch.from_numpy(xy[1]),
              torch.full((128,), 5.0))
@@ -161,15 +214,19 @@ def _tie_table():
     return rfT, fields, bits
 
 
-def _check_tie(t, idx, nx, ny, nz):
+def _check_tie(t, idx, *n):
     assert torch.equal(t, torch.full_like(t, 5.0))
     assert (idx == 3).all()  # the lowest original id, not the first slot
-    assert (nz > 0).all() and (nx == 0).all() and (ny == 0).all()
+    if n:
+        nx, ny, nz = n
+        assert (nz > 0).all() and (nx == 0).all() and (ny == 0).all()
 
 
 def test_plain_closest_breaks_ties_by_lowest_id():
     rfT, fields, bits = _tie_table()
-    _check_tie(*pt.pairs_closest_plain(rfT, fields, bits, EPS, SUBG, 128))
+    for name, _, _ in CLOSEST:
+        _check_tie(*getattr(pt, f"{name}_plain")(rfT, fields, bits, EPS,
+                                                 SUBG, 128))
     assert torch.equal(pt.pairs_shadow_plain(rfT, fields, bits, EPS, SUBG,
                                              128), torch.full((128,), 5.0))
 
@@ -183,21 +240,30 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
-def test_closest_kernel_bitwise_equals_plain(scene, kind):
+@pytest.mark.parametrize("name,payload,n_out", CLOSEST)
+def test_closest_kernel_bitwise_equals_plain(scene, kind, name, payload,
+                                             n_out):
     _need_cuda()
     tab, O, u, cap, _, rfT, bits = _cast(scene, kind, 8192, "cuda")
-    n0 = _kernels.LAUNCHES["pairs_closest"]
-    got = _kernels.pairs_closest(rfT, tab.fields, bits, EPS, SUBG, 128)
+    kernel = getattr(_kernels, name)
+    n0 = _kernels.LAUNCHES[name]
+    got = kernel(rfT, tab.fields, bits, EPS, SUBG, 128)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["pairs_closest"] == n0 + 1
-    want = pt.pairs_closest_plain(rfT, tab.fields, bits, EPS, SUBG, 128)
+    assert _kernels.LAUNCHES[name] == n0 + 1
+    want = getattr(pt, f"{name}_plain")(rfT, tab.fields, bits, EPS, SUBG, 128)
+    assert len(got) == len(want) == n_out
     for a, b in zip(got, want):
         assert a.is_cuda and torch.equal(a, b)
     assert (want[0] < pt.INF32).any()
-    # the public wrapper launches the kernel for CUDA tensors
-    hit, _ = pt.intersect_tris_pairs(O, u, tab, EPS, cap=cap, subg=SUBG,
-                                     blk=BLK)
-    assert _kernels.LAUNCHES["pairs_closest"] == n0 + 2
+    # B0's (t, idx) are B1's
+    b1 = _kernels.pairs_closest(rfT, tab.fields, bits, EPS, SUBG, 128)
+    assert torch.equal(got[0], b1[0]) and torch.equal(got[1], b1[1])
+    # the public query launches the kernel for CUDA tensors
+    hit = pt.intersect_tris_pairs(O, u, tab, EPS, cap=cap, subg=SUBG, blk=BLK,
+                                  payload=payload)
+    if payload:
+        hit = hit[0]
+    assert _kernels.LAUNCHES[name] == n0 + 2 + (name == "pairs_closest")
     assert torch.equal(hit.t, want[0][:O.x.shape[0]])
 
 
@@ -223,8 +289,9 @@ def test_shadow_kernel_bitwise_equals_plain(scene, kind):
 def test_kernels_break_ties_and_ignore_bits_past_the_table():
     _need_cuda()
     rfT, fields, bits = (x.cuda() for x in _tie_table())
-    _check_tie(*(x.cpu() for x in _kernels.pairs_closest(
-        rfT, fields, bits, EPS, SUBG, 128)))
+    for name, _, _ in CLOSEST:
+        _check_tie(*(x.cpu() for x in getattr(_kernels, name)(
+            rfT, fields, bits, EPS, SUBG, 128)))
     t = _kernels.pairs_shadow(rfT, fields, bits, EPS, SUBG, 128)
     assert torch.equal(t.cpu(), torch.full((128,), 5.0))
 
@@ -245,7 +312,9 @@ def test_small_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    assert _kernels.LAUNCHES == {"pairs_closest": 2, "pairs_shadow": 2}
+    assert _kernels.LAUNCHES == {"pairs_closest": 2, "pairs_shadow": 2,
+                                 "pairs_closest_smooth": 0,
+                                 "pairs_closest_idx": 0}
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2

@@ -112,18 +112,45 @@ def test_config_and_autotuned_subgroup(both):
         j = dataclasses.asdict(
             __import__("raytracinggpu_tpu.scene.presets", fromlist=["x"])
             .make_config(name))
-        if name == "realtime":  # smooth normals + the realtime camera
-            with pytest.raises(NotImplementedError):
-                render_config_from_dict(j)
-            with pytest.raises(NotImplementedError):
-                make_config(name)
-        else:
-            assert render_config_from_dict(j) == make_config(name)
+        assert render_config_from_dict(j) == make_config(name)
+    rt = make_config("realtime")
+    assert (rt.smooth_normals, rt.camera_point_quirk, rt.spp,
+            rt.max_depth, rt.eps_leaf) == (True, True, 20, 3, 1e-3)
 
 
 def test_unported_presets_raise():
-    with pytest.raises(NotImplementedError):
-        build_preset("realtime", "cpu")
+    for name in ("cpu", "global", "optimized", "showcase"):
+        with pytest.raises(NotImplementedError):
+            build_preset(name, "cpu")
+
+
+def test_realtime_tables_bitwise():
+    """The realtime scene: the floor of radius 940, the light at
+    (0, 15, 40), the same cat tables (vertex normals in rows 17-25)."""
+    jcfg, jtab = j_build_preset("realtime", traversal="pairs")
+    jtab = jax.tree.map(np.asarray, jtab)
+    pcfg, ptab = build_preset("realtime", "cpu")
+    assert render_config_from_dict(dataclasses.asdict(jcfg)) == pcfg
+    for f in ("cx", "cy", "cz", "radius"):
+        _same(getattr(ptab.spheres, f).numpy(), getattr(jtab.spheres, f))
+    for c in range(3):
+        _same(ptab.L[c].numpy(), jtab.L[c])
+    assert float(ptab.spheres.radius[1]) == 940.0
+    assert [float(c) for c in ptab.L] == [0.0, 15.0, 40.0]
+    _same(ptab.pairs_mesh.fields.numpy(), jtab.pairs_mesh.fields)
+    assert (ptab.pairs_mesh.fields[17:26] != 0).any()
+
+
+def test_mesh_without_normals_falls_back_to_geometric_normals():
+    from raytracinggpu_tpu_torch.scene.mesh import load_cat_mesh
+
+    mesh = load_cat_mesh(CAT_OBJ_PATH, False, 0.6, (0.0, -10.0, 0.0))
+    z = np.zeros_like(mesh.na)
+    bare = dataclasses.replace(mesh, na=z, nb=z, nc=z)
+    with pytest.warns(UserWarning, match="no vertex normals"):
+        cfg, _ = build_preset("realtime", "cpu", mesh=bare)
+    assert not cfg.smooth_normals and cfg.camera_point_quirk
+    assert build_preset("realtime", "cpu", mesh=mesh)[0].smooth_normals
 
 
 def test_convert_roundtrip_bitwise(both):
