@@ -6,8 +6,9 @@ Phases, in order; any failed check exits nonzero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch,
    CUDA and nvcc versions;
-2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3)
-   with nvcc for sm_90a and load them;
+2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
+   csrc/pallas_trace.cu: B5, B6) with nvcc for sm_90a, one process per
+   source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once while keeping the inputs the frame gives each
    kernel at depths 0 and 1 of its first cast (4 samples fused, 524,288
@@ -45,11 +46,36 @@ Phases, in order; any failed check exits nonzero:
    e. timings of B3 and B0 against their plain versions on the kept casts;
 8. mesh query: ``intersect_tris_pairs(payload=None)``, the public query,
    on the realtime frame's primary rays with the counters zeroed: it must
-   launch B0 once and give B3's (t, idx) on the same rays.
+   launch B0 once and give B3's (t, idx) on the same rays;
+9. the tiled-kernel traversal (``traversal="pallas"``, csrc/pallas_trace.cu:
+   B5 closest hit, B6 shadow):
+   a. the headline frame with traversal="pallas", the inputs of B5's and
+      B6's depth-0 and depth-1 casts kept; on them B5 and B6 must equal
+      their plain versions bit for bit;
+   b. the same frame again with the counters zeroed: finite, equal to the
+      capture frame, every ray hits at every depth, some shadow rays
+      occluded, B5 and B6 launched once per cast and B0-B3 never; three
+      frames timed, Mray/s printed beside the pairs headline of phase 4;
+   c. on the kept depth-0 rays with no cap: B5's (t, idx) through
+      ``intersect_tris_pallas`` must equal B0's through
+      ``intersect_tris_pairs(payload=None)``, and the dense oracle
+      (``intersect_tris_dense``, full f32) must agree on hit/miss, t within
+      rtol 1e-5 and idx on >= 99.9% of hits;
+   d. the production anchor (phase 6) and the realtime frame 1 (phase 7b,
+      smooth normals: the fused smooth-normal recovery runs) rendered
+      through the pallas traversal, each mean within 1% of the JAX
+      package's CPU render;
+   e. B5 and B6 timed against their plain versions on the depth-1 casts,
+      with the (subgroup, tile) visits and Moller-Trumbore tests of each
+      cast.
 
-The next-to-last line is a JSON object with one entry per kernel; the
-last line is the JSON result.  Without a CUDA device the script exits
-nonzero at once and prints no result.
+The next-to-last line is a JSON object with one entry per kernel (its
+launches on the main path of its phase, its largest error against the
+plain version, its time and the plain version's on a depth-1 cast, and
+the bound: the larger of the cast's Moller-Trumbore tests x
+FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes it must move over
+PEAK_BYTES_S); the last line is the JSON result.  Without a CUDA device
+the script exits nonzero at once and prints no result.
 """
 from __future__ import annotations
 
@@ -78,10 +104,29 @@ ANCHOR_RTOL = 0.01
 ANCHOR_RT_CPU_MEAN = 74500.95069729118
 LOOP_FRAMES = 6
 
-# ptxas names the kernel template's modes pairs_kernel<0..3>
+# ptxas names the kernel templates' modes pairs_kernel<0..3> and
+# pallas_kernel<false/true>
 _MODES = {"ILi0E": "pairs_shadow", "ILi1E": "pairs_closest_idx",
-          "ILi2E": "pairs_closest", "ILi3E": "pairs_closest_smooth"}
-_REPLACES = "raytracinggpu_tpu/ops/pairs_trace.py:513"
+          "ILi2E": "pairs_closest", "ILi3E": "pairs_closest_smooth",
+          "ILb0E": "pallas_shadow", "ILb1E": "pallas_closest"}
+# (source, the TPU kernel it replaces) per kernel
+_PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
+          "raytracinggpu_tpu/ops/pairs_trace.py:513")
+_ORIGIN = {
+    "pairs_closest": _PAIRS, "pairs_shadow": _PAIRS,
+    "pairs_closest_smooth": _PAIRS, "pairs_closest_idx": _PAIRS,
+    "pallas_closest": ("raytracinggpu_tpu_torch/csrc/pallas_trace.cu",
+                       "raytracinggpu_tpu/ops/pallas_trace.py:214"),
+    "pallas_shadow": ("raytracinggpu_tpu_torch/csrc/pallas_trace.cu",
+                      "raytracinggpu_tpu/ops/pallas_trace.py:310"),
+}
+# The bound of a kernel (on-chip-measurement guide, NVIDIA's H100 SXM
+# data sheet): f32 outside the tensor cores, and device memory.  One
+# Moller-Trumbore test is 39 f32 operations: 30 multiplies, 8 adds and
+# subtractions, one reciprocal (the 5 comparisons are not counted).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+FLOP_PER_TEST = 39
 
 
 def _fail(msg: str) -> None:
@@ -123,12 +168,46 @@ def _max_abs_err(a, b) -> float:
     return float(torch.nan_to_num(d, nan=math.inf).max())
 
 
+def _mt_tests(kernel, args) -> tuple[int, int]:
+    """(subgroup, tile) visits and Moller-Trumbore tests of one cast, from
+    its culling input: a ray tests every slot of every tile its subgroup
+    keeps (set bits of the pairs bitmask, the count of a tiled list)."""
+    import torch
+
+    subg = args[4]
+    if kernel.startswith("pallas"):
+        visits = int(args[2][:, 0].clamp_min(0).sum())
+        tile_t = 128
+    else:
+        w = args[2].to(torch.int64) & 0xFFFFFFFF
+        visits = int(sum(int(((w >> b) & 1).sum()) for b in range(32)))
+        tile_t = args[5]
+    return visits, visits * tile_t * subg
+
+
+def _bound(kernel, args, outs) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the cast's operations over the
+    f32 peak and the bytes it must move (the 9 ray-feature rows and the
+    field rows read once, the culling input read once, the outputs written
+    once) over the memory rate."""
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    rfT, fields, cull = args[:3]
+    field_rows = _kernels._SPECS[kernel][1]
+    nbytes = (9 * rfT.shape[1] + field_rows * fields.shape[1]) * 4 \
+        + cull.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
+    ops_s = _mt_tests(kernel, args)[1] * FLOP_PER_TEST / PEAK_F32_FLOPS
+    bytes_s = nbytes / PEAK_BYTES_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
 def _capture_casts(render, per_kernel: int):
     """Run render() with each kernel's launch wrapper wrapped so that the
     inputs of its first ``per_kernel`` launches are kept.  The wrapped
     function is the real wrapper, which launches and counts as always; the
-    originals are put back afterwards.  Returns ({kernel: [(rfT, bits),
-    ...]} in launch order, render's result)."""
+    originals are put back afterwards.  Returns ({kernel: [(rfT, culling
+    input), ...]} in launch order, render's result)."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
     kept = {k: [] for k in _kernels.LAUNCHES}
@@ -201,23 +280,35 @@ def _check_casts(kept, plan, tab, cfg, err, label):
     return casts
 
 
-def _time_casts(casts, timing, card):
-    """Time every kernel of every cast against its plain version; keeps
-    the depth-1 times in ``timing`` {kernel: (ms, plain_ms)}."""
+def _time_casts(casts, timing, card, depths=(0, 1)):
+    """Time every kernel of the casts at ``depths`` against its plain
+    version; keeps the depth-1 times and bound in ``timing`` {kernel:
+    (ms, plain_ms, bound_ms, bound_by)}."""
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
 
     for name, depth, kernels, args in casts:
+        if depth not in depths:
+            continue
         for k in kernels:
             kern = getattr(_kernels, k)
-            plain = getattr(pt, f"{k}_plain")
+            plain = getattr(pat if k.startswith("pallas") else pt,
+                            f"{k}_plain")
             ms = _time_ms(lambda: kern(*args), 20)
             plain_ms = _time_ms(lambda: plain(*args), 3)
+            out = kern(*args)
+            bound_ms, bound_by = _bound(k, args,
+                                        out if isinstance(out, tuple)
+                                        else (out,))
+            visits, tests = _mt_tests(k, args)
             if depth == 1:
-                timing[k] = (ms, plain_ms)
+                timing[k] = (ms, plain_ms, bound_ms, bound_by)
             print(f"timing {k} on the {name} cast ({args[0].shape[1]} "
-                  f"rays): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on "
-                  f"{card}")
+                  f"rays, {visits} (subgroup, tile) visits, {tests} MT "
+                  f"tests): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; roofline share "
+                  f"{bound_ms / ms:.1%}) on {card}")
 
 
 def _realtime(device, card, err, timing):
@@ -251,9 +342,9 @@ def _realtime(device, card, err, timing):
             or not cfg.smooth_normals):
         _fail("the realtime preset is not 512x512 spp 20 depth 3 with smooth "
               "normals and 30 closest casts a frame")
-    want = lambda n: {"pairs_closest_smooth": n * per_frame,
-                      "pairs_shadow": n * per_frame, "pairs_closest": 0,
-                      "pairs_closest_idx": 0}
+    want = lambda n: {**{k: 0 for k in _kernels.LAUNCHES},
+                      "pairs_closest_smooth": n * per_frame,
+                      "pairs_shadow": n * per_frame}
 
     # a. the first frame, casts kept
     state0 = rt.init_state(cfg, tables, seed=0)
@@ -373,8 +464,8 @@ def _mesh_query(cfg, tables, casts, err):
     hit = pt.intersect_tris_pairs(O, u, tab, cfg.eps_leaf, payload=None, **kw)
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
-    expected = {"pairs_closest_idx": 1, "pairs_closest": 0,
-                "pairs_shadow": 0, "pairs_closest_smooth": 0}
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected["pairs_closest_idx"] = 1
     print(f"mesh query: {O.x.shape[0]} primary rays, "
           f"{int((hit.t < pt.INF32).sum())} mesh hits, launches {launches}")
     if launches != expected:
@@ -394,6 +485,177 @@ def _mesh_query(cfg, tables, casts, err):
             _fail(f"mesh query: B0 differs from {what} (max abs {e})")
     print("mesh query: B0 bitwise equal to its plain version and to B3's "
           "(t, idx)")
+    return launches
+
+
+def _pallas(device, card, err, timing, pairs_mrays):
+    """Phase 9 (module docstring).  Returns the headline frame's launch
+    counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey, fold_in
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+    from raytracinggpu_tpu_torch.ops.triangle import intersect_tris_dense
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, chunk_size, group_size, rays_per_frame, render_frame,
+        render_rows)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+    # a. the capture frame
+    t0 = time.perf_counter()
+    cfg, tables = build_preset("array_bvh", device, width=512, height=512,
+                               spp=32, max_depth=5, traversal="pallas")
+    torch.cuda.synchronize()
+    tab = tables.pallas_mesh
+    print(f"scene: array_bvh pallas, {tab.n_tiles} tiles of {pat.TILE_T} "
+          f"triangles, subgroup {cfg.pallas_subgroup}, ray sort "
+          f"{cfg.ray_sort}, built in {time.perf_counter() - t0:.2f} s")
+    cam = Camera.default(cfg, device)
+    g = group_size(cfg, cfg.spp)
+    R_group = g * cfg.width * cfg.height
+    chunk = chunk_size(cfg, R_group, "pallas")
+    n_casts = (cfg.spp // g) * cfg.max_depth * -(-R_group // chunk)
+    t0 = time.perf_counter()
+    kept, (cap_img, _) = _capture_casts(
+        lambda: render_frame(tables, cfg, cam, PRNGKey(0, device)), 2)
+    torch.cuda.synchronize()
+    print(f"pallas capture frame: {time.perf_counter() - t0:.3f} s; casts "
+          f"of {chunk} rays")
+    casts = []
+    for k in ("pallas_closest", "pallas_shadow"):
+        if len(kept[k]) != 2:
+            _fail(f"{k}: captured {len(kept[k])} casts, expected 2")
+        for depth, (rfT, lists) in enumerate(kept[k]):
+            args = (rfT, tab.fields, lists, cfg.eps_leaf,
+                    cfg.pallas_subgroup)
+            got = getattr(_kernels, k)(*args)
+            want = getattr(pat, f"{k}_plain")(*args)
+            if k == "pallas_shadow":
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+            err[k] = max(err[k], e)
+            visits, tests = _mt_tests(k, args)
+            print(f"cast pallas depth{depth} {k}: rfT {tuple(rfT.shape)}, "
+                  f"lists {tuple(lists.shape)}, "
+                  f"{int((want[0] < pat.INF32).sum())} mesh hits, {visits} "
+                  f"(subgroup, tile) visits, {tests} MT tests; vs plain: "
+                  f"{'bitwise equal' if e == 0.0 else f'DIFFER ({e})'}")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"{k} differs from its plain version at depth {depth}")
+            casts.append((f"pallas depth{depth}", depth, (k,), args))
+
+    # b. the headline frame through the pallas traversal
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    n_rays = cfg.width * cfg.height * cfg.spp
+    hit = stats.hit.tolist()
+    print(f"pallas headline frame: {time.perf_counter() - t0:.3f} s, "
+          f"launches {launches} (expected {n_casts} each of B5, B6), hit "
+          f"per depth {hit}, shadowed {stats.shadowed.tolist()}, image "
+          f"mean {float(img.mean()):.3f}")
+    if not bool(torch.isfinite(img).all()):
+        _fail("pallas headline image has non-finite values")
+    if not torch.equal(img, cap_img):
+        _fail("pallas: the same seed gave another frame than the capture")
+    if any(h != n_rays for h in hit):
+        _fail(f"pallas: rays escaped the enclosed scene: hit {hit}")
+    if int(stats.shadowed.sum()) <= 0:
+        _fail("pallas: no shadow ray was occluded")
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
+    if launches != expected:
+        _fail(f"pallas launches in the frame {launches}, expected {expected}")
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_frame(tables, cfg, cam, PRNGKey(i + 1, device))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    mrays = rays_per_frame(cfg) / min(times) / 1e6
+    print(f"pallas headline: {mrays:.3f} Mray/s (array_bvh {cfg.width}x"
+          f"{cfg.height} spp{cfg.spp} d{cfg.max_depth} pallas, frame times "
+          f"{[round(t, 4) for t in times]} s) beside "
+          f"the pairs headline {pairs_mrays:.3f} Mray/s of this call, on "
+          f"{card}")
+
+    # c. B5 against B0 and the dense oracle on the depth-0 rays, uncapped
+    rfT = kept["pallas_closest"][0][0]
+    u = Vec3(*(rfT[i].clone() for i in (0, 1, 2)))   # rows: u, O x u, O
+    O = Vec3(*(rfT[i].clone() for i in (6, 7, 8)))
+    b5 = pat.intersect_tris_pallas(O, u, tab, cfg.eps_leaf, sort_rays=False,
+                                   subg=cfg.pallas_subgroup)
+    b0 = pt.intersect_tris_pairs(O, u, tables.pairs_mesh, cfg.eps_leaf,
+                                 subg=cfg.pairs_subgroup,
+                                 blk=cfg.pairs_block, payload=None)
+    torch.cuda.synchronize()
+    if not (torch.equal(b5.t, b0.t) and torch.equal(b5.idx, b0.idx)):
+        n = int(((b5.t != b0.t) | (b5.idx != b0.idx)).sum())
+        _fail(f"B5 and B0 differ on {n} uncapped depth-0 rays")
+    dense = [intersect_tris_dense(
+        Vec3(*(c[lo:lo + cfg.ray_chunk] for c in O)),
+        Vec3(*(c[lo:lo + cfg.ray_chunk] for c in u)), tables.mesh,
+        cfg.eps_leaf, cfg.tri_block) for lo in range(0, O.x.shape[0],
+                                                     cfg.ray_chunk)]
+    t_d = torch.cat([d.t for d in dense])
+    i_d = torch.cat([d.idx for d in dense])
+    hit5, hitd = b5.t < pat.INF32, t_d < pat.INF32
+    both = hit5 & hitd
+    rel = float(((b5.t - t_d).abs() / t_d.abs())[both].max()) \
+        if bool(both.any()) else 0.0
+    same_idx = float((b5.idx == i_d)[both].float().mean())
+    print(f"B5 vs B0 on {O.x.shape[0]} uncapped depth-0 rays: (t, idx) "
+          f"bitwise equal, {int(hit5.sum())} mesh hits; dense oracle: "
+          f"hit/miss {'identical' if torch.equal(hit5, hitd) else 'DIFFER'}"
+          f", t max rel diff {rel:.3g}, idx equal on {same_idx:.6f} of hits")
+    if not torch.equal(hit5, hitd) or rel > 1e-5 or same_idx < 0.999:
+        _fail("B5 disagrees with the dense oracle")
+
+    # d. both anchors through the pallas traversal
+    acfg = dataclasses.replace(cfg, spp=8, max_depth=3)
+    aimg, _ = render_frame(tables, acfg, cam, PRNGKey(0, device))
+    mean = float(aimg.double().mean())
+    rel = (mean - ANCHOR_CPU_MEAN) / ANCHOR_CPU_MEAN
+    print(f"pallas anchor: 512x512 spp8 d3 seed 0 mean {mean:.3f} vs the JAX "
+          f"package on CPU {ANCHOR_CPU_MEAN:.3f} (rel {rel:+.6f}, limit "
+          f"{ANCHOR_RTOL})")
+    if not abs(rel) <= ANCHOR_RTOL:
+        _fail(f"pallas anchor mean {mean} off by {rel:.4%}")
+    rcfg, rtab = build_preset("realtime", device, traversal="pallas")
+    angle1 = np.float32(np.float32(np.arctan2(float(rtab.L.z),
+                                              float(rtab.L.x)))
+                        + np.float32(0.02))
+    W, H, spp = rcfg.width, rcfg.height, rcfg.spp
+    acc, rstats = render_rows(rt.orbit_light(rtab, angle1), rcfg,
+                              Camera.default(rcfg, device),
+                              fold_in(PRNGKey(0, device), 0),
+                              np.arange(H, dtype=np.int32), range(spp))
+    rimg = torch.stack([(c / float(spp)).reshape(H, W) for c in acc], dim=-1)
+    mean = float(rimg.double().mean())
+    rel = (mean - ANCHOR_RT_CPU_MEAN) / ANCHOR_RT_CPU_MEAN
+    print(f"pallas realtime anchor: frame 1 (smooth normals {rcfg.smooth_normals}) "
+          f"mean {mean:.3f} vs the JAX package on CPU "
+          f"{ANCHOR_RT_CPU_MEAN:.3f} (rel {rel:+.6f}, limit {ANCHOR_RTOL}); "
+          f"hit per depth {rstats.hit.tolist()}")
+    if not rcfg.smooth_normals:
+        _fail("the realtime preset lost its smooth normals")
+    if any(h != W * H * spp for h in rstats.hit.tolist()):
+        _fail("pallas: rays escaped the realtime scene")
+    if not abs(rel) <= ANCHOR_RTOL:
+        _fail(f"pallas realtime anchor mean {mean} off by {rel:.4%}")
+
+    # e. timings on the depth-1 casts
+    _time_casts(casts, timing, card, depths=(1,))
     return launches
 
 
@@ -487,8 +749,8 @@ def main() -> int:
         _fail(f"rays escaped the enclosed scene: hit {hit} != {n_rays}")
     if int(stats.shadowed.sum()) <= 0:
         _fail("no shadow ray was occluded")
-    expected = {"pairs_closest": n_casts, "pairs_shadow": n_casts,
-                "pairs_closest_smooth": 0, "pairs_closest_idx": 0}
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
     if launches != expected:
         _fail(f"launches in the frame {launches}, expected {expected}")
     times = []
@@ -531,16 +793,25 @@ def main() -> int:
     # ---- 8. mesh query ---------------------------------------------------
     query_launches = _mesh_query(rcfg, rtab, rcasts, err)
 
-    src = "raytracinggpu_tpu_torch/csrc/pairs_trace.cu"
+    # ---- 9. the tiled-kernel traversal -----------------------------------
+    timing_pallas = {}
+    pallas_launches = _pallas(device, card, err, timing_pallas, mrays)
+
+    # no single PyTorch call computes a masked Moller-Trumbore closest hit
+    # or nearest t, so library_ms is null for every kernel
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": _REPLACES,
-         "launches": counts[k], "max_abs_err": err[k],
-         "ms": timing[k][0], "plain_ms": timing[k][1]}
+        {"name": k, "route": "cuda", "source": _ORIGIN[k][0],
+         "replaces": _ORIGIN[k][1], "launches": counts[k],
+         "max_abs_err": err[k], "ms": timing[k][0], "plain_ms": timing[k][1],
+         "bound_ms": timing[k][2], "bound_by": timing[k][3],
+         "library_ms": None}
         for k, counts, timing in (
             ("pairs_closest", launches, timing_main),
             ("pairs_shadow", launches, timing_main),
             ("pairs_closest_smooth", loop_launches, timing_rt),
-            ("pairs_closest_idx", query_launches, timing_rt))]}))
+            ("pairs_closest_idx", query_launches, timing_rt),
+            ("pallas_closest", pallas_launches, timing_pallas),
+            ("pallas_shadow", pallas_launches, timing_pallas))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -2,19 +2,22 @@
 
 Each module sits at the same relative path as its JAX counterpart, so a
 reader finds ``raytracinggpu_tpu/ops/pairs_trace.py`` ported in
-``raytracinggpu_tpu_torch/ops/pairs_trace.py``.  The slice ported so far is
-the main render path: the ``array_bvh`` preset (six wall spheres plus the
-cat mesh) rendered with ``traversal="pairs"``.
+``raytracinggpu_tpu_torch/ops/pairs_trace.py``.  Ported so far: the
+``array_bvh`` preset (six wall spheres plus the cat mesh) and the
+``realtime`` preset and loop, with the ``pairs``, ``pallas`` and ``dense``
+mesh traversals.
 
 - ``core``: SoA ``Vec3`` over torch tensors, ``RayBatch``, and a threefry2x32
   counter PRNG that reproduces ``jax.random``'s bits.
 - ``scene`` / ``accel``: the numpy host build (OBJ parse, reference
-  midpoint BVH, cluster-packed pairs tables) and the device tables.
-- ``ops``: sphere intersection, the pairs culling, and the two mesh
+  midpoint BVH, the triangle, tiled and cluster-packed pairs tables) and
+  the device tables.
+- ``ops``: sphere intersection, the pairs and tiled cullings, the mesh
   queries whose inner loops are hand-written CUDA kernels
-  (``csrc/pairs_trace.cu``, built on first use by ``ops/_kernels.py``).
-- ``integrator`` / ``render``: the wavefront integrator and the frame
-  pipeline.
+  (``csrc/pairs_trace.cu``, ``csrc/pallas_trace.cu``, built on first use
+  by ``ops/_kernels.py``), and the dense matrix-product oracle.
+- ``integrator`` / ``render``: the wavefront integrator, the frame
+  pipeline and the realtime loop.
 - ``convert``: carries the JAX package's host tables across (tests).
 
 The package imports torch and numpy only: never jax, never

@@ -18,7 +18,9 @@ import torch
 from raytracinggpu_tpu_torch.core.rng import Key
 from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.ops.pairs_trace import PairsMeshTables
+from raytracinggpu_tpu_torch.ops.pallas_trace import PallasMeshTables
 from raytracinggpu_tpu_torch.ops.sphere import SphereTable
+from raytracinggpu_tpu_torch.ops.triangle import TriTables
 from raytracinggpu_tpu_torch.render.realtime import RenderState
 from raytracinggpu_tpu_torch.scene.scene import (
     Materials,
@@ -27,9 +29,10 @@ from raytracinggpu_tpu_torch.scene.scene import (
 )
 
 
-# The JAX RenderConfig's mode fields and the one value of each the port
-# renders.
-_PORTED_MODES = {"traversal": "pairs", "animate_mesh": False}
+# The JAX RenderConfig's mode fields the port's RenderConfig lacks, and the
+# one value of each the port renders (RenderConfig itself refuses the
+# traversals it does not render).
+_PORTED_MODES = {"animate_mesh": False}
 
 
 def _t(a, device):
@@ -37,20 +40,35 @@ def _t(a, device):
 
 
 def scene_tables_from_numpy(tables_np, device) -> SceneTables:
-    """The JAX package's SceneTables (numpy leaves) -> the port's."""
-    s, m, p = tables_np.spheres, tables_np.materials, tables_np.pairs_mesh
+    """The JAX package's SceneTables (numpy leaves) -> the port's.  A JAX
+    table without pairs tables (its pairs build refused the mesh) gives a
+    port table without them, and ``traversal="pairs"`` then runs as
+    ``pallas``."""
+    s, m = tables_np.spheres, tables_np.materials
     t = lambda a: _t(a, device)
-    pairs = None
-    if p is not None:
-        pairs = PairsMeshTables(*(t(getattr(p, f))
+    v = lambda a: Vec3(t(a.x), t(a.y), t(a.z))
+    tri = pallas = pairs = None
+    if tables_np.mesh is not None:
+        d = tables_np.mesh
+        tri = TriTables(mt=t(d.mt), ng=v(d.ng), na=v(d.na), nb=v(d.nb),
+                        nc=v(d.nc), cornersT=t(d.cornersT),
+                        n_tri=int(d.n_tri))
+    if tables_np.pallas_mesh is not None:
+        p = tables_np.pallas_mesh
+        pallas = PallasMeshTables(fields=t(p.fields), fieldsT=t(p.fieldsT),
+                                  tile_aabb=t(p.tile_aabb),
+                                  n_tiles=int(p.n_tiles))
+    if tables_np.pairs_mesh is not None:
+        pairs = PairsMeshTables(*(t(getattr(tables_np.pairs_mesh, f))
                                   for f in PairsMeshTables._fields))
     return SceneTables(
         spheres=SphereTable(t(s.cx), t(s.cy), t(s.cz), t(s.radius)),
-        materials=Materials(
-            albedo=Vec3(t(m.albedo.x), t(m.albedo.y), t(m.albedo.z)),
-            mirror=t(m.mirror), in_ri=t(m.in_ri), out_ri=t(m.out_ri)),
+        materials=Materials(albedo=v(m.albedo), mirror=t(m.mirror),
+                            in_ri=t(m.in_ri), out_ri=t(m.out_ri)),
+        mesh=tri,
+        pallas_mesh=pallas,
         pairs_mesh=pairs,
-        L=Vec3(t(tables_np.L.x), t(tables_np.L.y), t(tables_np.L.z)),
+        L=v(tables_np.L),
         intensity=t(tables_np.intensity),
     )
 
@@ -58,8 +76,8 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
 def render_config_from_dict(d: dict) -> RenderConfig:
     """The port's RenderConfig from the fields of ``d`` it has; the JAX
     package's other fields (its TPU tuning knobs) are dropped.  Raises
-    NotImplementedError for a mode the port does not render: a traversal
-    other than ``pairs``, or the animated mesh."""
+    NotImplementedError for a mode the port does not render: the ``bvh``
+    traversal, or the animated mesh."""
     unported = {k: d[k] for k, ok in _PORTED_MODES.items()
                 if k in d and d[k] != ok}
     if unported:

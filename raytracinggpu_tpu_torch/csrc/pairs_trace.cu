@@ -18,24 +18,16 @@
 //   bits   (W, R / subg) i32, bit j of word (w, sg) set iff tile 32w+j is
 //          active for ray subgroup sg (rays sg*subg .. sg*subg+subg-1);
 //          bits naming tiles past Tc / tile_t are ignored.
-//   A ray evaluates every slot of every tile active for its subgroup:
-//     denom = u.Ng;  beta = (u.(e2 x A) - w.e2) / denom;
-//     gamma = (w.e1 - u.(e1 x A)) / denom;  t = (A.Ng - O.Ng) / denom,
-//   each division a multiply by rden = 1/denom, every sum left to right.
-//   A slot hits when denom != 0, min(beta, gamma, alpha) >= 0 with
-//   alpha = 1 - beta - gamma, and t > eps.  The closest modes keep the
+//   A ray runs the Moller-Trumbore test of mt.cuh on every slot of every
+//   tile active for its subgroup.  The closest modes keep the
 //   lexicographic min of (t, id); B1 also keeps the winner's Ng, B3 the
 //   winner's na*alpha + nb*beta + nc*gamma (per component, summed left to
 //   right), computed when the slot wins the update, where its beta and
 //   gamma are at hand.  A ray whose min is not below INF (1e9 in f32)
 //   gets t = INF, idx 0, N = 0.  B2 keeps min(INF, t).
 //
-// Numerics: build with --fmad=false and IEEE division (no fast math), so
-// every product and sum is rounded on its own, as PyTorch's eager
-// elementwise ops round them: the kernels are then bitwise equal to the
-// plain versions in ops/pairs_trace.py.  The barycentric test is written
-// as a conjunction of >= comparisons, which is false on NaN exactly as
-// the NaN-propagating min of the reference is (fminf would drop a NaN).
+// Numerics (mt.cuh): with --fmad=false and IEEE division the kernels are
+// bitwise equal to the plain versions in ops/pairs_trace.py.
 //
 // What bounds it on this card: each active (ray, slot) pair costs 17
 // field loads and ~45 f32 operations with no reuse across rays in
@@ -53,9 +45,10 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 namespace {
 
-constexpr float kInf = 1e9f;               // 1e9+9 rounded to f32
 constexpr float kIdxBig = 1073741824.0f;   // 2^30: id of padding slots
 constexpr int kThreads = 128;
 
@@ -74,9 +67,7 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
              float* __restrict__ ny_out, float* __restrict__ nz_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const float ux = rfT[r], uy = rfT[R + r], uz = rfT[2 * R + r];
-  const float wx = rfT[3 * R + r], wy = rfT[4 * R + r], wz = rfT[5 * R + r];
-  const float ox = rfT[6 * R + r], oy = rfT[7 * R + r], oz = rfT[8 * R + r];
+  const Ray q = load_ray(rfT, R, r);
   const int S = R / subg;
   const int sg = r / subg;
   const int n_tiles = Tc / tile_t;
@@ -94,37 +85,26 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
       word &= word - 1u;
       const float* f = fields + (32 * w + j) * tile_t;
       for (int k = 0; k < tile_t; ++k, ++f) {
-        const float n0 = f[0], n1 = f[Tc], n2 = f[2 * Tc];
-        const float denom = ux * n0 + uy * n1 + uz * n2;
-        const float bnum = (ux * f[3 * Tc] + uy * f[4 * Tc] + uz * f[5 * Tc]) -
-                           (wx * f[6 * Tc] + wy * f[7 * Tc] + wz * f[8 * Tc]);
-        const float gnum =
-            (wx * f[12 * Tc] + wy * f[13 * Tc] + wz * f[14 * Tc]) -
-            (ux * f[9 * Tc] + uy * f[10 * Tc] + uz * f[11 * Tc]);
-        const float tnum = f[15 * Tc] - (ox * n0 + oy * n1 + oz * n2);
-        const float rden = 1.0f / denom;
-        const float beta = bnum * rden;
-        const float gamma = gnum * rden;
-        const float tval = tnum * rden;
-        const float alpha = 1.0f - beta - gamma;
-        const bool valid = denom != 0.0f && beta >= 0.0f && gamma >= 0.0f &&
-                           alpha >= 0.0f && tval > eps;
-        if (!valid) continue;
+        const MTHit h = mt_test(q, f, Tc, eps);
+        if (!h.valid) continue;
         if constexpr (kMode == kShadow) {
-          if (tval < best_t) best_t = tval;
+          if (h.t < best_t) best_t = h.t;
         } else {
           const float id = f[16 * Tc];
-          if (tval < best_t || (tval == best_t && id < best_id)) {
-            best_t = tval;
+          if (h.t < best_t || (h.t == best_t && id < best_id)) {
+            best_t = h.t;
             best_id = id;
             if constexpr (kMode == kGeom) {
-              bnx = n0;
-              bny = n1;
-              bnz = n2;
+              bnx = h.n0;
+              bny = h.n1;
+              bnz = h.n2;
             } else if constexpr (kMode == kSmooth) {
-              bnx = f[17 * Tc] * alpha + f[20 * Tc] * beta + f[23 * Tc] * gamma;
-              bny = f[18 * Tc] * alpha + f[21 * Tc] * beta + f[24 * Tc] * gamma;
-              bnz = f[19 * Tc] * alpha + f[22 * Tc] * beta + f[25 * Tc] * gamma;
+              bnx = f[17 * Tc] * h.alpha + f[20 * Tc] * h.beta +
+                    f[23 * Tc] * h.gamma;
+              bny = f[18 * Tc] * h.alpha + f[21 * Tc] * h.beta +
+                    f[24 * Tc] * h.gamma;
+              bnz = f[19 * Tc] * h.alpha + f[22 * Tc] * h.beta +
+                    f[25 * Tc] * h.gamma;
             }
           }
         }

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator (port of
-``raytracinggpu_tpu/integrator/wavefront.py``, pairs traversal only, with
-geometric or smooth mesh normals).
+``raytracinggpu_tpu/integrator/wavefront.py``: the pairs, pallas and dense
+traversals, with geometric or smooth mesh normals).
 
 The whole ray batch advances in lockstep through a Python loop over depth;
 material branches are masks merged with ``torch.where``, and the per-depth
@@ -34,7 +34,18 @@ from raytracinggpu_tpu_torch.ops.pairs_trace import (
     intersect_tris_pairs,
     intersect_tris_pairs_shadow,
 )
+from raytracinggpu_tpu_torch.ops.pallas_trace import (
+    barycentrics_from_rows,
+    intersect_tris_pallas,
+    intersect_tris_shadow,
+)
 from raytracinggpu_tpu_torch.ops.sphere import INF, intersect_spheres
+from raytracinggpu_tpu_torch.ops.triangle import (
+    geometric_normal,
+    intersect_tris_dense,
+    phong,
+    smooth_normal,
+)
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
 
 PI = float(np.float32(np.pi))
@@ -47,22 +58,56 @@ class Hit(NamedTuple):
     P: Vec3            # hit point O + t*u (masked lanes arbitrary)
 
 
+def _effective_traversal(cfg: RenderConfig, scene: SceneTables) -> str:
+    """'pairs' runs as 'pallas' when the scene has a mesh but no pairs
+    tables (a JAX table whose mesh the pairs build refused); mesh-less
+    scenes keep their configured traversal (no mesh query runs)."""
+    if (cfg.traversal == "pairs" and scene.mesh is not None
+            and scene.pairs_mesh is None):
+        return "pallas"
+    return cfg.traversal
+
+
+def _fused_smooth_recovery(scene: SceneTables, O: Vec3, u: Vec3, mh):
+    """The winner's Phong normal (unnormalized) from ONE (R, 25) row gather
+    of [fieldsT, cornersT[:, :9]]: the barycentrics from the MT field row,
+    then alpha*na + beta*nb + gamma*nc from the vertex normals."""
+    rec = torch.cat([scene.pallas_mesh.fieldsT, scene.mesh.cornersT[:, :9]],
+                    dim=1)
+    rows = rec[mh.idx.long()]
+    beta, gamma = barycentrics_from_rows(O, u, lambda k: rows[:, k])
+    return phong(rows, 1.0 - beta - gamma, beta, gamma, col=16)
+
+
 def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hit:
     """Scene-wide nearest hit: the sphere pass plus the mesh pass merged by
     min-t.  The mesh holds the highest object id and the reference scans
     ids ascending with a strict `<`, so the mesh wins only strictly."""
     t_s, obj_s, N_s = intersect_spheres(O, u, scene.spheres)
 
-    if scene.pairs_mesh is None:
+    if scene.mesh is None:
         t, obj, N = t_s, obj_s, N_s
     else:
-        # the nearest sphere hit caps useful mesh distances; the kernel
-        # tracks the winner's normal (geometric, or the realtime preset's
-        # Phong-interpolated vertex normal)
-        mh, N_m = intersect_tris_pairs(
-            O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
-            subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
-            payload="smooth" if cfg.smooth_normals else "geom")
+        traversal = _effective_traversal(cfg, scene)
+        if traversal == "pairs":
+            # the nearest sphere hit caps useful mesh distances; the kernel
+            # tracks the winner's normal (geometric, or the realtime
+            # preset's Phong-interpolated vertex normal)
+            mh, N_m = intersect_tris_pairs(
+                O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
+                subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
+                payload="smooth" if cfg.smooth_normals else "geom")
+        elif traversal == "pallas":
+            mh = intersect_tris_pallas(
+                O, u, scene.pallas_mesh, cfg.eps_leaf,
+                sort_rays=cfg.ray_sort, cap=t_s, subg=cfg.pallas_subgroup)
+            N_m = (_fused_smooth_recovery(scene, O, u, mh)
+                   if cfg.smooth_normals else geometric_normal(scene.mesh, mh))
+        else:  # dense
+            mh = intersect_tris_dense(O, u, scene.mesh, cfg.eps_leaf,
+                                      cfg.tri_block)
+            N_m = (smooth_normal if cfg.smooth_normals
+                   else geometric_normal)(scene.mesh, mh)
         nn = N_m.norm()
         N_m = N_m / torch.where(nn > 0.0, nn, 1.0)
 
@@ -81,15 +126,27 @@ def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hi
 def occlusion_distance(scene: SceneTables, cfg: RenderConfig, O: Vec3,
                        u: Vec3, Lv: Vec3, active=None):
     """Nearest-hit distance for the shadow ray (occlusion only compares t
-    against |L - P_adj|^2).
+    against |L - P_adj|^2).  The pairs and pallas traversals run their
+    shadow kernels with the distance to the light as the cap; dense reuses
+    the full closest hit.
 
     active: (R,) bool — lanes whose occlusion result is provably unused
-    (non-diffuse, missed, or N.wl <= 0).  Lanes a sphere already occludes
-    drop out too: min(t_sph, t_mesh) can only shrink, so the predicate is
-    unchanged.  Inactive lanes may return the sphere-only distance."""
+    (non-diffuse, missed, or N.wl <= 0).  The pairs traversal skips their
+    mesh work, and that of lanes a sphere already occludes: min(t_sph,
+    t_mesh) can only shrink, so the predicate is unchanged.  Inactive lanes
+    may return the sphere-only distance."""
+    traversal = _effective_traversal(cfg, scene)
+    if scene.mesh is not None and traversal == "dense":
+        sh = intersect_all(scene, cfg, O, u)
+        return torch.where(sh.obj >= 0, sh.t, INF)
     t_sph, _, _ = intersect_spheres(O, u, scene.spheres)
-    if scene.pairs_mesh is None:
+    if scene.mesh is None:
         return t_sph
+    if traversal == "pallas":
+        t_mesh = intersect_tris_shadow(
+            O, u, scene.pallas_mesh, cfg.eps_leaf, cap=Lv.norm(),
+            sort_rays=cfg.ray_sort, subg=cfg.pallas_subgroup)
+        return torch.minimum(t_sph, t_mesh)
     if active is not None:
         active = active & ~(t_sph * t_sph <= Lv.norm2())
     t_mesh = intersect_tris_pairs_shadow(

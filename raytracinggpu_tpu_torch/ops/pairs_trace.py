@@ -27,7 +27,9 @@ function.  The public wrappers dispatch on the tensor's device: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (or
 raises).  Both compute every sum left to right in f32 with a reciprocal
 and multiplies (never a divide); with the kernel built ``--fmad=false``
-the two agree bit for bit on the card.
+the two agree bit for bit on the card.  The slab test, the ray padding,
+the plain Moller-Trumbore core and the device dispatch are the tiled
+traversal's (``ops/pallas_trace.py``), as in the JAX package.
 
 Left out of this port so far: the compaction ladder (exact by
 construction, tuned for the TPU) and the streamed supertiles (B4).
@@ -41,18 +43,23 @@ import torch
 import torch.nn.functional as F
 
 from raytracinggpu_tpu_torch.core.vec import Vec3
+from raytracinggpu_tpu_torch.ops.pallas_trace import (
+    INF32,
+    TILE_T,
+    dispatch,
+    mt_slots,
+    pad_rays,
+    plain_chunks,
+    slab_enter_exit,
+)
+from raytracinggpu_tpu_torch.ops.triangle import TriHit
 
-INF = 1e9 + 9
-INF32 = float(np.float32(INF))  # the value every f32 comparison sees: 1e9
-TILE_T = 128          # triangles per cluster tile
 NUM_FIELDS = 32       # rows 0-15: MT constants; 16: original tri id;
                       # 17-25: vertex normals na/nb/nc; 26-31: pad
 NUM_RF_ROWS = 16      # ray-feature rows: [u, w=O x u, O, 0-pad]
 DEF_BLK = 4096        # ray padding granularity (RenderConfig.pairs_block)
 DEF_SUBG = 16         # rays per culling subgroup
 _IDX_BIG = np.int32(2**30)  # id of padding slots
-# Elements of one (ray chunk x slots) intermediate in the plain versions.
-_PLAIN_ELEMS = 1 << 22
 
 
 class PairsMeshTables(NamedTuple):
@@ -74,14 +81,6 @@ class PairsMeshTables(NamedTuple):
     member_aabb: torch.Tensor
     member_tile: torch.Tensor
     member_slot: torch.Tensor
-
-
-class TriHit(NamedTuple):
-    """Closest mesh hit: t (R,) f32, INF on a miss; idx (R,) int32 original
-    BVH-order triangle id, 0 on a miss."""
-
-    t: torch.Tensor
-    idx: torch.Tensor
 
 
 def tile_width(tab: PairsMeshTables) -> int:
@@ -233,27 +232,6 @@ def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
 
 # ------------------------------------------------------------------ culling
 
-def slab_enter_exit(O: Vec3, u: Vec3, aabb):
-    """Per-ray slab intervals against every box, (n_boxes, R) layout
-    (port of ``ops/pallas_trace.slab_enter_exit``).  ``1/u`` gives +-inf
-    and ``0*inf`` NaN; ``torch.minimum``/``maximum`` propagate NaN as
-    ``jnp.minimum``/``maximum`` do, so a NaN lane culls identically."""
-    big = float(np.float32(3.4e38))
-    shape = (aabb.shape[0], O.x.shape[0])
-    enter = torch.full(shape, -big, device=O.x.device)
-    exit_ = torch.full(shape, big, device=O.x.device)
-    for ax, (Oc, uc) in enumerate(((O.x, u.x), (O.y, u.y), (O.z, u.z))):
-        rc = 1.0 / uc
-        t0 = (aabb[:, ax, None] - Oc[None, :]) * rc[None, :]
-        t1 = (aabb[:, 3 + ax, None] - Oc[None, :]) * rc[None, :]
-        enter = torch.maximum(enter, torch.minimum(t0, t1))
-        exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
-    # exit >= enter (NOT strict): a zero-thickness box of planar geometry
-    # has enter == exit at the hit plane; culling stays conservative.
-    hit = (exit_ >= enter) & (exit_ >= 0.0)
-    return enter, exit_, hit
-
-
 def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
     """Culling to a packed per-subgroup active-tile bitmask: (W, R/subg)
     int32, bit j of word (w, sg) set iff tile 32w+j is active for subgroup
@@ -295,22 +273,6 @@ def _ray_feature_rows(O: Vec3, u: Vec3) -> torch.Tensor:
     return torch.stack(rows, dim=0).contiguous()
 
 
-def _prep(O, u, cap, blk, active=None):
-    """Pad the ray axis to a multiple of blk: padding lanes carry O=0,
-    u=(1,1,1), cap=0 and active=False, as the JAX package pads them.
-    Returns (O, u, cap, active, R) with R the unpadded ray count."""
-    R = O.x.shape[0]
-    pad = (-R) % blk
-    if pad:
-        O = Vec3(*(F.pad(c, (0, pad)) for c in O))
-        u = Vec3(*(F.pad(c, (0, pad), value=1.0) for c in u))
-        if cap is not None:
-            cap = F.pad(cap, (0, pad))
-        if active is not None:
-            active = F.pad(active, (0, pad))
-    return O, u, cap, active, R
-
-
 # --------------------------------------------- plain versions of B0-B3
 
 def _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi):
@@ -325,29 +287,8 @@ def _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi):
     word = bits[tiles // 32][:, sg]                            # (nc, n)
     on = ((word >> (tiles % 32)[:, None]) & 1).bool().T        # (n, nc)
     on = on.repeat_interleave(tile_t, dim=1)                   # (n, Tc)
-    ux, uy, uz, wx, wy, wz, Ox, Oy, Oz = (rfT[k, lo:hi, None]
-                                          for k in range(9))
-    row = lambda k: fields[k][None, :]
-    denom = ux * row(0) + uy * row(1) + uz * row(2)
-    bnum = (ux * row(3) + uy * row(4) + uz * row(5)) - (
-        wx * row(6) + wy * row(7) + wz * row(8))
-    gnum = (wx * row(12) + wy * row(13) + wz * row(14)) - (
-        ux * row(9) + uy * row(10) + uz * row(11))
-    tnum = row(15) - (Ox * row(0) + Oy * row(1) + Oz * row(2))
-    rden = 1.0 / denom
-    beta = bnum * rden
-    gamma = gnum * rden
-    tval = tnum * rden
-    bary_ok = torch.minimum(torch.minimum(beta, gamma),
-                            1.0 - beta - gamma) >= 0.0
-    eps = float(np.float32(max(float(eps_leaf), 0.0)))
-    valid = on & (denom != 0.0) & bary_ok & (tval > eps)
-    return torch.where(valid, tval, INF32), beta, gamma
-
-
-def _plain_chunks(R: int, Tc: int, subg: int):
-    n = max(subg, _PLAIN_ELEMS // max(Tc, 1) // subg * subg)
-    return ((lo, min(lo + n, R)) for lo in range(0, R, n))
+    tval, beta, gamma, ok = mt_slots(rfT, fields, eps_leaf, lo, hi)
+    return torch.where(on & ok, tval, INF32), beta, gamma
 
 
 def _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, payload):
@@ -359,7 +300,7 @@ def _plain_closest(rfT, fields, bits, eps_leaf, subg, tile_t, payload):
     right; zeros on a miss."""
     R = rfT.shape[1]
     outs = []
-    for lo, hi in _plain_chunks(R, fields.shape[1], subg):
+    for lo, hi in plain_chunks(R, fields.shape[1], subg):
         t, beta, gamma = _plain_slot_t(rfT, fields, bits, eps_leaf, subg,
                                        tile_t, lo, hi)
         tmin = t.amin(dim=1).clamp_max(INF32)
@@ -405,53 +346,34 @@ def pairs_shadow_plain(rfT, fields, bits, eps_leaf, subg, tile_t):
     return torch.cat([
         _plain_slot_t(rfT, fields, bits, eps_leaf, subg, tile_t, lo, hi)[0]
         .amin(dim=1).clamp_max(INF32)
-        for lo, hi in _plain_chunks(R, fields.shape[1], subg)])
+        for lo, hi in plain_chunks(R, fields.shape[1], subg)])
 
 
 # ------------------------------------------------ device dispatch of B0-B3
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.is_cuda:
-        return True
-    if x.device.type != "cpu":
-        raise ValueError(f"pairs kernels run on CUDA or CPU tensors, got {x.device}")
-    return False
-
-
-def _dispatch(name, plain, rfT, fields, bits, eps_leaf, subg, tile_t):
-    """Kernel ``name`` of ``ops/_kernels`` for a CUDA tensor, ``plain`` for
-    a CPU tensor."""
-    if _on_cuda(rfT):
-        from raytracinggpu_tpu_torch.ops import _kernels
-
-        return getattr(_kernels, name)(rfT, fields, bits, eps_leaf, subg,
-                                       tile_t)
-    return plain(rfT, fields, bits, eps_leaf, subg, tile_t)
-
-
 def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B1 on the tensors' device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
-    return _dispatch("pairs_closest", pairs_closest_plain, rfT, fields, bits,
-                     eps_leaf, subg, tile_t)
+    return dispatch("pairs_closest", pairs_closest_plain, rfT, fields, bits,
+                    eps_leaf, subg, tile_t)
 
 
 def pairs_closest_smooth(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B3 on the tensors' device (see pairs_closest)."""
-    return _dispatch("pairs_closest_smooth", pairs_closest_smooth_plain, rfT,
-                     fields, bits, eps_leaf, subg, tile_t)
+    return dispatch("pairs_closest_smooth", pairs_closest_smooth_plain, rfT,
+                    fields, bits, eps_leaf, subg, tile_t)
 
 
 def pairs_closest_idx(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B0 on the tensors' device (see pairs_closest)."""
-    return _dispatch("pairs_closest_idx", pairs_closest_idx_plain, rfT,
-                     fields, bits, eps_leaf, subg, tile_t)
+    return dispatch("pairs_closest_idx", pairs_closest_idx_plain, rfT,
+                    fields, bits, eps_leaf, subg, tile_t)
 
 
 def pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B2 on the tensors' device (see pairs_closest)."""
-    return _dispatch("pairs_shadow", pairs_shadow_plain, rfT, fields, bits,
-                     eps_leaf, subg, tile_t)
+    return dispatch("pairs_shadow", pairs_shadow_plain, rfT, fields, bits,
+                    eps_leaf, subg, tile_t)
 
 
 # ------------------------------------------------------------ public queries
@@ -461,7 +383,7 @@ def cast_inputs(O: Vec3, u: Vec3, tab: PairsMeshTables, subg: int,
     """The kernel inputs of one cast: (rfT (16, Rp), bits (W, Rp/subg), R)
     for the rays padded to Rp, a multiple of blk; outputs past R are
     padding."""
-    O, u, cap, active, R = _prep(O, u, cap, blk, active)
+    O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
     bits = _pair_bits(O, u, tab.tile_aabb.shape[0], subg,
                       (tab.member_aabb, tab.member_tile), cap=cap,
                       active=active)

@@ -1,10 +1,11 @@
 """Single-frame render pipeline (port of
-``raytracinggpu_tpu/render/pipeline.py``, pairs traversal):
+``raytracinggpu_tpu/render/pipeline.py``):
 
     raygen (camera + Box-Muller jitter)  ->  wavefront trace  ->  average spp
 
 Samples run in groups of ``cfg.spp_fuse`` whose rays form one wavefront;
-each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays.  The
+each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays
+(pairs, pallas) or ``cfg.ray_chunk`` rays (dense; ``chunk_size``).  The
 uniforms are keyed per (sample, row) with the threefry key that
 ``render_frame`` is given, and every sample's radiance is added to the
 accumulator in sample order, so the frame is bitwise independent of the
@@ -26,7 +27,12 @@ from raytracinggpu_tpu_torch.core.rng import (
     row_uniforms,
 )
 from raytracinggpu_tpu_torch.core.vec import Vec3, cos, fma, sin
-from raytracinggpu_tpu_torch.integrator.wavefront import TraceStats, trace
+from raytracinggpu_tpu_torch.integrator.wavefront import (
+    TraceStats,
+    _effective_traversal,
+    trace,
+)
+from raytracinggpu_tpu_torch.ops.pallas_trace import BLK_R
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
 
 
@@ -120,12 +126,21 @@ def raygen(cfg: RenderConfig, cam: Camera, jitter, rows) -> tuple[Vec3, Vec3]:
     return O, d.normalized()
 
 
-def chunk_size(cfg: RenderConfig, R: int) -> int:
-    """Rays per cast for an R-ray wavefront: near-equal casts of at most
-    cfg.pairs_chunk rays, each a whole number of cfg.pairs_block rays."""
+def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs") -> int:
+    """Rays per cast for an R-ray wavefront.  pairs and pallas: near-equal
+    casts of at most cfg.pairs_chunk rays, each a whole number of
+    cfg.pairs_block (pairs) or BLK_R (pallas) rays, so that the culling
+    subgroups, and with them every ray's result, do not depend on the
+    cast size.  (The JAX package caps a pallas cast at 2^17 rays for the
+    TPU's scalar memory; the port has no such limit and takes the pairs
+    cap, so both traversals launch as many casts.)  dense: casts of
+    cfg.ray_chunk rays."""
+    if traversal == "dense":
+        return min(cfg.ray_chunk, R)
+    blk = BLK_R if traversal == "pallas" else cfg.pairs_block
     n_chunks = -(-R // cfg.pairs_chunk)
     per = -(-R // n_chunks)
-    return min(cfg.pairs_chunk, -(-per // cfg.pairs_block) * cfg.pairs_block)
+    return min(cfg.pairs_chunk, -(-per // blk) * blk)
 
 
 def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
@@ -134,7 +149,7 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     have zero origin and direction (they miss everything) and are dropped.
     Returns (color Vec3 (R,), TraceStats summed over casts)."""
     R = u.x.shape[0]
-    chunk = chunk_size(cfg, R)
+    chunk = chunk_size(cfg, R, _effective_traversal(cfg, scene))
     pad = (-R) % chunk
     padv = lambda c: F.pad(c, (0, pad))
     O = Vec3(*map(padv, O))

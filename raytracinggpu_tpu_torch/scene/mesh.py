@@ -34,6 +34,10 @@ class MeshData:
     nc: np.ndarray
     bvh: FlatBVH
 
+    @property
+    def n_tri(self) -> int:
+        return self.A.shape[0]
+
 
 def build_mesh(obj: ObjMesh) -> MeshData:
     """Dereference indices, build the reference midpoint BVH over the

@@ -9,8 +9,10 @@ builds the ported ones:
   the light at (0, 15, 40), fov pi/2, smooth normals, the camera point
   quirk, 20 spp and depth 3.
 
-The other presets need code paths not ported yet (mesh-less scenes, the
-embedded OBJ transform) and raise.
+Both render with any ported traversal (``build_preset(...,
+traversal="pallas")``); every mesh table is built either way, as in the
+JAX package.  The other presets need code paths not ported yet (mesh-less
+scenes, the embedded OBJ transform) and raise.
 """
 from __future__ import annotations
 
@@ -100,8 +102,8 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
         cfg = replace(cfg, smooth_normals=False)
     tables = build_scene_tables(
         spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
-        mesh_albedo=(0.25, 0.25, 0.25), pairs_tile=cfg.pairs_tile,
-        pairs_cut=cfg.pairs_cut,
+        mesh_albedo=(0.25, 0.25, 0.25), tri_block=cfg.tri_block,
+        pairs_tile=cfg.pairs_tile, pairs_cut=cfg.pairs_cut,
     )
     return _autotune_pairs(cfg, tables, config_overrides), tables
 

@@ -1,13 +1,15 @@
 """Where a frame's time goes on the card (counterpart of
 ``raytracinggpu_tpu/utils/profiling.py``).
 
-    python -m raytracinggpu_tpu_torch.utils.profiling [--preset P] [--out FILE.json]
+    python -m raytracinggpu_tpu_torch.utils.profiling [--preset P]
+        [--traversal T] [--out FILE.json]
 
-Renders a frame of preset P on the first CUDA device: the main-path frame
-(``array_bvh``, 512x512, spp 32, depth 5; the default) or the realtime
-loop's frame (``realtime``, 512x512, spp 20, depth 3, its default camera;
-the loop adds only the accumulation and the tone map).  One frame warms
-up, then one frame for each of
+Renders a frame of preset P with mesh traversal T (``pairs``, the
+default, ``pallas`` or ``dense``) on the first CUDA device: the
+main-path frame (``array_bvh``, 512x512, spp 32, depth 5; the default) or
+the realtime loop's frame (``realtime``, 512x512, spp 20, depth 3, its
+default camera; the loop adds only the accumulation and the tone map).
+One frame warms up, then one frame for each of
 
 - ``frame_ms``: host clock around the frame, ended by
   ``torch.cuda.synchronize()``, no profiler;
@@ -50,6 +52,10 @@ STAGES = (
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_closest_smooth"),
     ("raytracinggpu_tpu_torch.integrator.wavefront", "cosine_hemisphere"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_ray_feature_rows"),
+    ("raytracinggpu_tpu_torch.ops.pallas_trace", "_block_active_tiles"),
+    ("raytracinggpu_tpu_torch.ops._kernels", "pallas_closest"),
+    ("raytracinggpu_tpu_torch.ops._kernels", "pallas_shadow"),
+    ("raytracinggpu_tpu_torch.ops.pallas_trace", "_ray_features16"),
 )
 
 # the frame each preset is profiled at (realtime: the preset's own size)
@@ -133,6 +139,8 @@ def device_kernels(fn, top: int = 12) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=PRESETS, default="array_bvh")
+    ap.add_argument("--traversal", choices=("pairs", "pallas", "dense"),
+                    default="pairs")
     ap.add_argument("--out", help="write the report here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -147,7 +155,8 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    cfg, tables = build_preset(args.preset, dev, **PRESETS[args.preset])
+    cfg, tables = build_preset(args.preset, dev, traversal=args.traversal,
+                               **PRESETS[args.preset])
     cam = Camera.default(cfg, dev)
     frame = lambda seed: render_frame(tables, cfg, cam, PRNGKey(seed, dev))
 
@@ -161,7 +170,7 @@ def main(argv=None) -> int:
     report = {
         "card": card[0] if card else "not read",
         "config": f"{args.preset} {cfg.width}x{cfg.height} spp{cfg.spp} "
-                  f"d{cfg.max_depth} pairs",
+                  f"d{cfg.max_depth} {cfg.traversal}",
         "frame_ms": frame_ms, "peak_bytes": peak, **kern,
         "busy": kern["kernel_ms"] / frame_ms,
         "synchronised_frame_ms": sync_ms,

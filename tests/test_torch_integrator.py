@@ -140,12 +140,18 @@ def test_unported_modes_raise(scene):
     """A JAX config that asks for a mode the integrator does not render is
     refused where it enters the port."""
     jcfg = scene[0]
-    for over in ({"traversal": "dense"}, {"traversal": "pallas"},
-                 {"animate_mesh": True}):
+    for over in ({"traversal": "bvh"}, {"animate_mesh": True}):
         with pytest.raises(NotImplementedError):
             render_config_from_dict(
                 dataclasses.asdict(dataclasses.replace(jcfg, **over)))
-    # the realtime modes are ported
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(scene[2], traversal="bvh")
+    with pytest.raises(ValueError):
+        dataclasses.replace(scene[2], traversal="tiles")
+    # the realtime modes and the pallas and dense traversals are ported
     smooth = dataclasses.replace(jcfg, smooth_normals=True,
                                  camera_point_quirk=True)
     assert render_config_from_dict(dataclasses.asdict(smooth)).smooth_normals
+    for traversal in ("pallas", "dense"):
+        d = dataclasses.asdict(dataclasses.replace(jcfg, traversal=traversal))
+        assert render_config_from_dict(d).traversal == traversal

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers
-(raytracinggpu_tpu_torch/ops/_kernels.py, ops/pairs_trace.py dispatch).
+(raytracinggpu_tpu_torch/ops/_kernels.py, the ops/pairs_trace.py and
+ops/pallas_trace.py dispatch).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -7,11 +8,12 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The cases marked ``cuda`` need a CUDA device and nvcc; they build the
-kernels and hold each one (B0-B3) bit for bit against its plain PyTorch
-version (the kernels are compiled with --fmad=false, so every product and
-sum rounds as PyTorch's eager ops round it).  Without a device they skip.
-The other cases check the plain versions against brute force and the
-wrappers' dispatch and input checks on the CPU.
+kernels and hold each one (B0-B3, B5, B6) bit for bit against its plain
+PyTorch version (the kernels are compiled with --fmad=false, so every
+product and sum rounds as PyTorch's eager ops round it).  Without a device
+they skip.  The other cases check the plain versions against brute force
+and against each other, and the wrappers' dispatch and input checks, on
+the CPU.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.integrator.wavefront import intersect_all
 from raytracinggpu_tpu_torch.ops import _kernels
 from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+from raytracinggpu_tpu_torch.ops import pallas_trace as pat
 from raytracinggpu_tpu_torch.ops.sphere import intersect_spheres
 from raytracinggpu_tpu_torch.scene.presets import build_preset
 
@@ -157,14 +160,14 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "bits", "tiles",
                                  "rows"])
 def test_kernel_wrappers_check_their_inputs(bad):
-    """Every wrapper refuses what its kernel does not take; B3 reads the
-    vertex-normal rows 17-25, so it needs 26 field rows where the others
-    need 17."""
+    """Every pairs wrapper refuses what its kernel does not take; B3 reads
+    the vertex-normal rows 17-25, so it needs 26 field rows where the
+    others need 17.  (The tiled wrappers: test_tiled_wrappers_check_*.)"""
     R, Tc = 256, 256
     rfT = torch.zeros(16, R)
     fields = torch.zeros(32, Tc)
     bits = torch.zeros(1, R // SUBG, dtype=torch.int32)
-    names = list(_kernels.LAUNCHES)
+    names = [n for n in _kernels.LAUNCHES if n.startswith("pairs_")]
     if bad == "dtype":
         fields = fields.double()
     elif bad == "contiguity":
@@ -178,7 +181,8 @@ def test_kernel_wrappers_check_their_inputs(bad):
         names = ["pairs_closest_smooth"]
     assert set(_kernels.LAUNCHES) == {"pairs_closest", "pairs_shadow",
                                       "pairs_closest_smooth",
-                                      "pairs_closest_idx"}
+                                      "pairs_closest_idx", "pallas_closest",
+                                      "pallas_shadow"}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -229,6 +233,158 @@ def test_plain_closest_breaks_ties_by_lowest_id():
                                                  SUBG, 128))
     assert torch.equal(pt.pairs_shadow_plain(rfT, fields, bits, EPS, SUBG,
                                              128), torch.full((128,), 5.0))
+
+
+# ------------------------------------------- tiled traversal (B5, B6), CPU
+
+def _tiled_cast(scene, kind, R, device, seed=0, capped=True):
+    """A tiled cast of ``R`` rays: (tables, O, u, cap, rfT, lists)."""
+    cfg, tables = scene
+    O, u = _rays(kind, cfg, tables, R, seed)
+    O = Vec3(*(c.to(device) for c in O))
+    u = Vec3(*(c.to(device) for c in u))
+    tab = tables.pallas_mesh._replace(**{
+        f: getattr(tables.pallas_mesh, f).to(device)
+        for f in ("fields", "fieldsT", "tile_aabb")})
+    spheres = type(tables.spheres)(*(c.to(device) for c in tables.spheres))
+    cap = intersect_spheres(O, u, spheres)[0] if capped else None
+    rfT, lists, _, _ = pat.cast_inputs(O, u, tab, SUBG, cap=cap)
+    return tab, O, u, cap, rfT, lists
+
+
+def _all_tiles(lists):
+    """Every subgroup lists every tile, ascending."""
+    nt = lists.shape[1] - 1
+    ids = torch.arange(nt, dtype=torch.int32).expand(lists.shape[0], nt)
+    return torch.cat([torch.full((lists.shape[0], 1), nt, dtype=torch.int32),
+                      ids], dim=1).contiguous()
+
+
+def test_tiled_plain_is_exact_against_brute_force(scene):
+    """Tile culling is exact: B5 and B6 over the listed tiles find what
+    they find over every tile."""
+    tab, _, _, _, rfT, lists = _tiled_cast(scene, "camera", 2048, "cpu",
+                                           seed=8, capped=False)
+    args = lambda ls: (rfT, tab.fields, ls, EPS, SUBG)
+    got = pat.pallas_closest_plain(*args(lists))
+    want = pat.pallas_closest_plain(*args(_all_tiles(lists)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[0] < pt.INF32).sum() > 100
+    assert (lists[:, 0] < tab.n_tiles).all()  # culling did cull
+    assert torch.equal(pat.pallas_shadow_plain(*args(lists)),
+                       pat.pallas_shadow_plain(*args(_all_tiles(lists))))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_tiled_closest_equals_pairs_b0_uncapped(scene, kind):
+    """B5 and B0 compute the same closest hit from the same field formulas
+    (field rows 0-15 are equal per triangle, and the pairs tables carry
+    the tiled index as the original id), so uncapped, where both cullings
+    are conservative, they agree bit for bit."""
+    tab, O, u, _, rfT, lists = _tiled_cast(scene, kind, 4096, "cpu", seed=3,
+                                           capped=False)
+    b5 = pat.pallas_closest_plain(rfT, tab.fields, lists, EPS, SUBG)
+    b0 = pt.intersect_tris_pairs(O, u, scene[1].pairs_mesh, EPS, subg=SUBG,
+                                 blk=BLK)
+    assert torch.equal(b5[0], b0.t) and torch.equal(b5[1], b0.idx)
+    assert (b5[0] < pt.INF32).sum() > 50
+
+
+def test_tiled_cpu_tensors_run_the_plain_versions(scene):
+    tab, O, u, cap, rfT, lists = _tiled_cast(scene, "depth1", 4096, "cpu")
+    before = dict(_kernels.LAUNCHES)
+    args = (rfT, tab.fields, lists, EPS, SUBG)
+    t, idx = pat.pallas_closest(*args)
+    want = pat.pallas_closest_plain(*args)
+    assert torch.equal(t, want[0]) and torch.equal(idx, want[1])
+    assert torch.equal(pat.pallas_shadow(*args),
+                       pat.pallas_shadow_plain(*args))
+    hit = pat.intersect_tris_pallas(O, u, tab, EPS, sort_rays=False, cap=cap,
+                                    subg=SUBG)
+    assert torch.equal(hit.t, t) and hit.beta is None
+    assert _kernels.LAUNCHES == before  # nothing was launched
+    miss = t >= pt.INF32
+    assert miss.any() and (~miss).any()
+    assert (idx[miss] == 0).all()
+    assert idx.dtype == torch.int32 and t.dtype == torch.float32
+    assert lists.dtype == torch.int32 and lists.shape == (4096 // SUBG, 33)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "columns", "rays", "rows",
+                                 "tiles"])
+def test_tiled_wrappers_check_their_inputs(bad):
+    """B5 and B6 refuse what they do not take: int32 lists of one row of
+    [count, n_tiles ids] per subgroup, 16 field rows of whole tiles."""
+    R, Tp = 256, 256
+    rfT = torch.zeros(16, R)
+    fields = torch.zeros(16, Tp)
+    lists = torch.zeros(R // SUBG, 1 + Tp // 128, dtype=torch.int32)
+    if bad == "dtype":
+        lists = lists.long()
+    elif bad == "columns":
+        lists = torch.zeros(R // SUBG, 2 + Tp // 128, dtype=torch.int32)
+    elif bad == "rays":
+        rfT = torch.zeros(16, R + 32)
+    elif bad == "rows":
+        fields = torch.zeros(15, Tp)
+    else:
+        fields = torch.zeros(16, Tp + 32)
+    for name in ("pallas_closest", "pallas_shadow"):
+        with pytest.raises(ValueError):
+            getattr(_kernels, name)(rfT, fields, lists, EPS, SUBG)
+
+
+def test_tiled_lists_read_count_ids_only():
+    """A list names the tiles among its first ``count`` ids; later ids
+    and ids outside [0, n_tiles) are ignored (the kernels skip them)."""
+    lists = torch.tensor([[2, 3, 1, 0, 2],
+                          [0, 1, 2, 3, 0],
+                          [3, -1, 7, 2, 0],
+                          [9, 0, 0, 0, 0]], dtype=torch.int32)
+    got = pat._listed_tiles(lists, 4)
+    want = torch.tensor([[0, 1, 0, 1], [0, 0, 0, 0], [0, 0, 1, 0],
+                         [1, 0, 0, 0]], dtype=torch.bool)
+    assert torch.equal(got, want)
+
+
+def _tiled_tie_table():
+    """Triangles 5 and 200 (tiles 0 and 1) are the same triangle at z = 0;
+    the rest lie far away.  128 rays straight down hit both at t = 5."""
+    T = 256
+    A = np.full((T, 3), 50.0, np.float32)
+    B, C = A + np.float32([1, 0, 0]), A + np.float32([0, 1, 0])
+    for i in (5, 200):
+        A[i], B[i], C[i] = (-10, -10, 0), (10, -10, 0), (-10, 10, 0)
+    tab = pat.build_pallas_tables(A, B, C, "cpu")
+    xy = np.random.default_rng(0).uniform(-8, 0, (2, 128)).astype(np.float32)
+    O = Vec3(torch.from_numpy(xy[0]), torch.from_numpy(xy[1]),
+             torch.full((128,), 5.0))
+    z = torch.zeros(128)
+    return tab, O, Vec3(z, z, z - 1.0)
+
+
+def test_tiled_plain_breaks_ties_by_lowest_index():
+    """The lowest index wins an exact-t tie whatever the order of the
+    list (the JAX kernel walks ascending tiles; B5 compares (t, index))."""
+    tab, O, u = _tiled_tie_table()
+    rfT = pat._ray_features16(O, u)
+    for order in ([0, 1], [1, 0]):
+        lists = torch.tensor([[2] + order] * 2, dtype=torch.int32)
+        t, idx = pat.pallas_closest_plain(rfT, tab.fields, lists, EPS, SUBG)
+        assert torch.equal(t, torch.full((128,), 5.0)) and (idx == 5).all()
+    hit = pat.intersect_tris_pallas(O, u, tab, EPS)
+    assert (hit.idx == 5).all()
+    assert torch.equal(pat.intersect_tris_shadow(O, u, tab, EPS),
+                       torch.full((128,), 5.0))
+
+
+@pytest.mark.parametrize("subg", [0, 48, 256])
+def test_tiled_subgroup_must_divide_the_tile(scene, subg):
+    tab = scene[1].pallas_mesh
+    O = Vec3(*(torch.zeros(256) for _ in range(3)))
+    u = Vec3(torch.zeros(256), torch.zeros(256), torch.ones(256))
+    with pytest.raises(ValueError, match="pallas_subgroup"):
+        pat.intersect_tris_pallas(O, u, tab, EPS, subg=subg)
 
 
 # ------------------------------------------------------------ CUDA cases
@@ -314,8 +470,100 @@ def test_small_frame_on_cuda_matches_cpu():
         frames.append(render_preset_frame(tables, cfg, seed=0))
     assert _kernels.LAUNCHES == {"pairs_closest": 2, "pairs_shadow": 2,
                                  "pairs_closest_smooth": 0,
-                                 "pairs_closest_idx": 0}
+                                 "pairs_closest_idx": 0, "pallas_closest": 0,
+                                 "pallas_shadow": 0}
     (img_c, st_c), (img_g, st_g) = frames
+    assert np.isfinite(img_g).all()
+    assert st_g.hit.tolist() == [48 * 48 * 2] * 2
+    bad = np.abs(img_g - img_c) > 1e-4 * np.abs(img_c) + 1.0
+    assert bad.any(-1).mean() < 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capped", [True, False])
+@pytest.mark.parametrize("kind", KINDS)
+def test_tiled_kernels_bitwise_equal_plain(scene, kind, capped):
+    """B5 and B6 against their plain versions on the same lists; the public
+    queries launch them for CUDA tensors, sorted or not."""
+    _need_cuda()
+    tab, O, u, cap, rfT, lists = _tiled_cast(scene, kind, 8192, "cuda",
+                                             capped=capped)
+    args = (rfT, tab.fields, lists, EPS, SUBG)
+    n5, n6 = (_kernels.LAUNCHES[k] for k in ("pallas_closest",
+                                             "pallas_shadow"))
+    got = _kernels.pallas_closest(*args)
+    t6 = _kernels.pallas_shadow(*args)
+    torch.cuda.synchronize()
+    want = pat.pallas_closest_plain(*args)
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(t6, pat.pallas_shadow_plain(*args))
+    assert (want[0] < pt.INF32).any()
+    for sort in (False, True):
+        hit = pat.intersect_tris_pallas(O, u, tab, EPS, sort_rays=sort,
+                                        cap=cap, subg=SUBG)
+        t = pat.intersect_tris_shadow(O, u, tab, EPS, cap=cap,
+                                      sort_rays=sort, subg=SUBG)
+        if not sort:
+            assert torch.equal(hit.t, want[0]) and torch.equal(t, t6)
+    assert _kernels.LAUNCHES["pallas_closest"] == n5 + 3
+    assert _kernels.LAUNCHES["pallas_shadow"] == n6 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_b5_equals_b0_uncapped_on_cuda(scene, kind):
+    """Two kernels, one closest hit (see
+    test_tiled_closest_equals_pairs_b0_uncapped)."""
+    _need_cuda()
+    tab, O, u, _, rfT, lists = _tiled_cast(scene, kind, 8192, "cuda",
+                                           capped=False)
+    b5 = _kernels.pallas_closest(rfT, tab.fields, lists, EPS, SUBG)
+    ptab = pt.PairsMeshTables(*(t.cuda() for t in scene[1].pairs_mesh))
+    b0 = pt.intersect_tris_pairs(O, u, ptab, EPS, subg=SUBG, blk=BLK)
+    assert torch.equal(b5[0], b0.t) and torch.equal(b5[1], b0.idx)
+
+
+@pytest.mark.cuda
+def test_tiled_kernels_break_ties_and_skip_bad_ids():
+    _need_cuda()
+    tab, O, u = _tiled_tie_table()
+    rfT = pat._ray_features16(O, u).cuda()
+    fields = tab.fields.cuda()
+    for order in ([0, 1], [1, 0]):
+        lists = torch.tensor([[2] + order] * 2, dtype=torch.int32).cuda()
+        t, idx = _kernels.pallas_closest(rfT, fields, lists, EPS, SUBG)
+        assert torch.equal(t.cpu(), torch.full((128,), 5.0))
+        assert (idx == 5).all()
+    lists = torch.tensor([[9, -1, 1], [2, 7, 0]], dtype=torch.int32).cuda()
+    args = (rfT, fields, lists, EPS, SUBG)
+    got = _kernels.pallas_closest(*args)
+    want = pat.pallas_closest_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1][:SUBG] == 200).all() and (got[1][SUBG:] == 5).all()
+    assert torch.equal(_kernels.pallas_shadow(*args),
+                       pat.pallas_shadow_plain(*args))
+
+
+@pytest.mark.cuda
+def test_small_pallas_frame_on_cuda_matches_cpu():
+    """The 48x48 spp2 d2 frame through the tiled traversal: one 5120-ray
+    cast per depth (4608 rays and 512 zero-direction padding rays), B5 and
+    B6 once each per cast; the bound of test_small_frame_on_cuda_matches_cpu
+    against the CPU frame."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+
+    size = dict(width=48, height=48, spp=2, max_depth=2, traversal="pallas")
+    frames = []
+    for dev in ("cpu", "cuda"):
+        cfg, tables = build_preset("array_bvh", dev, **size)
+        _kernels.reset_launches()
+        frames.append(render_preset_frame(tables, cfg, seed=0))
+    assert _kernels.LAUNCHES == {"pairs_closest": 0, "pairs_shadow": 0,
+                                 "pairs_closest_smooth": 0,
+                                 "pairs_closest_idx": 0, "pallas_closest": 2,
+                                 "pallas_shadow": 2}
+    (img_c, _), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
     bad = np.abs(img_g - img_c) > 1e-4 * np.abs(img_c) + 1.0
