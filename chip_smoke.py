@@ -120,8 +120,8 @@ _ORIGIN = {
     "pallas_shadow": ("raytracinggpu_tpu_torch/csrc/pallas_trace.cu",
                       "raytracinggpu_tpu/ops/pallas_trace.py:310"),
 }
-# The bound of a kernel (on-chip-measurement guide, NVIDIA's H100 SXM
-# data sheet): f32 outside the tensor cores, and device memory.  One
+# The bound of a kernel (peak rates from NVIDIA's H100 SXM data
+# sheet): f32 outside the tensor cores, and device memory.  One
 # Moller-Trumbore test is 39 f32 operations: 30 multiplies, 8 adds and
 # subtractions, one reciprocal (the 5 comparisons are not counted).
 PEAK_F32_FLOPS = 67e12
