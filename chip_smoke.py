@@ -67,15 +67,48 @@ Phases, in order; any failed check exits nonzero:
       package's CPU render;
    e. B5 and B6 timed against their plain versions on the depth-1 casts,
       with the (subgroup, tile) visits and Moller-Trumbore tests of each
-      cast.
+      cast;
+10. the big-mesh path: bench/big_mesh.py's 200,000-triangle soup through
+    ``Renderer("array_bvh", obj_path=..., bvh_builder="lbvh")`` at
+    512x512, spp 4, depth 2, whose pairs table (2,053 tiles, 262,784
+    slots) is past the 32,768 slots where the JAX package streams its
+    field table in supertiles (B4, run here by B0-B3 over the whole
+    table):
+   a. the host build: its seconds, the tables' sizes and the subgroup;
+   b. one frame with the inputs of the depth-0 and depth-1 closest and
+      shadow casts kept (524,288 rays each) and the peak device memory; on
+      the busiest WINDOW_RAYS rays of each kept cast B1, B2 and B0 must
+      equal their plain versions bit for bit, and so must B3 on a copy of
+      the fields with seeded unit vertex normals (the soup has none); B0's
+      and B3's (t, idx) must equal B1's;
+   c. the frame again with the counters zeroed: finite, equal to the
+      capture frame, every ray hits at every depth, B1 and B2 launched
+      once per cast (BIG_CASTS each) and no other kernel; three frames
+      timed, Mray/s printed;
+   d. the same frame at ``pairs_subgroup=64`` (the soup's is 16) must
+      equal it bit for bit; three frames timed, and B1 and B2 on the
+      depth-1 casts of both subgroups, per Moller-Trumbore test;
+   e. the same scene with ``traversal="pallas"`` (B5, B6): launches, the
+      same hit and shadowed counts per depth, the image's largest
+      difference from the pairs frame, three frames timed;
+   f. the dense oracle on ORACLE_RAYS kept depth-0 rays, uncapped, against
+      B1: t within rtol 1e-5 and idx equal on >= 99.9% of hits; hit/miss
+      identical on >= 99.9% of the rays, and on every ray where it differs
+      the deciding triangle lies within EDGE_MARGIN of its edge by the
+      kernels' own arithmetic, which gives B1's answer (an edge graze that
+      the oracle's matrix-product sums round the other way);
+   g. B1 and B2 timed on the whole depth-1 casts against their bound and
+      against one call of their plain versions, which must equal them bit
+      for bit; the JSON line's ``pairs_b4`` entry holds the sums of both.
 
-The next-to-last line is a JSON object with one entry per kernel (its
-launches on the main path of its phase, its largest error against the
-plain version, its time and the plain version's on a depth-1 cast, and
-the bound: the larger of the cast's Moller-Trumbore tests x
-FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes it must move over
-PEAK_BYTES_S); the last line is the JSON result.  Without a CUDA device
-the script exits nonzero at once and prints no result.
+Each phase prints its wall time.  The next-to-last line is a JSON object
+with one entry per kernel (its launches on the main path of its phase,
+its largest error against the plain version, its time and the plain
+version's on a depth-1 cast, and the bound: the larger of the cast's
+Moller-Trumbore tests x FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes
+it must move over PEAK_BYTES_S); the last line is the JSON result.
+Without a CUDA device the script exits nonzero at once and prints no
+result.
 """
 from __future__ import annotations
 
@@ -103,6 +136,21 @@ ANCHOR_RTOL = 0.01
 # (PERF.md, "Realtime anchor", gives the command), same 1% limit.
 ANCHOR_RT_CPU_MEAN = 74500.95069729118
 LOOP_FRAMES = 6
+# Phase 10: bench/big_mesh.py's soup; the JAX package streams a field
+# table past ST_SLOTS slots in supertiles (B4); the plain versions are
+# held on windows of WINDOW_RAYS rays of each cast (at the soup's 262,784
+# slots they test every slot of 16 rays at a time), the dense oracle on
+# ORACLE_RAYS
+BIG_TRIS = 200_000
+BIG_FRAME = dict(width=512, height=512, spp=4, max_depth=2)
+BIG_CASTS = 4   # casts of each kernel in that frame: 2 depths x 2 chunks
+ST_SLOTS = 32768
+WINDOW_RAYS = 16384
+ORACLE_RAYS = 8192
+# a ray whose hit/miss differs between B1 and the dense oracle must graze
+# an edge: the deciding barycentric within this of 0 (f32 rounding of
+# O(1) sums in another order)
+EDGE_MARGIN = 1e-5
 
 # ptxas names the kernel templates' modes pairs_kernel<0..3> and
 # pallas_kernel<false/true>
@@ -119,6 +167,9 @@ _ORIGIN = {
                        "raytracinggpu_tpu/ops/pallas_trace.py:214"),
     "pallas_shadow": ("raytracinggpu_tpu_torch/csrc/pallas_trace.cu",
                       "raytracinggpu_tpu/ops/pallas_trace.py:310"),
+    # B4, the JAX kernel's streamed-supertile grid: B1 and B2 past ST_SLOTS
+    "pairs_b4": ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
+                 "raytracinggpu_tpu/ops/pairs_trace.py:784"),
 }
 # The bound of a kernel (peak rates from NVIDIA's H100 SXM data
 # sheet): f32 outside the tensor cores, and device memory.  One
@@ -133,6 +184,19 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+class _Laps:
+    """Prints each phase's wall time as it ends: the time since the
+    previous phase ended."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        t = time.perf_counter()
+        print(f"phase {name}: {t - self.t0:.2f} s", flush=True)
+        self.t0 = t
+
+
 def _card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -142,12 +206,13 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, warm: bool = True) -> float:
     """Mean device time of fn over iters launches (CUDA events), after one
-    warm-up call."""
+    warm-up call unless ``warm`` is false."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -230,13 +295,36 @@ def _capture_casts(render, per_kernel: int):
     return kept, out
 
 
-def _check_casts(kept, plan, tab, cfg, err, label):
+def _busiest_window(bits, subg: int, n: int) -> int:
+    """First ray of the n-ray window of whole subgroups whose culling
+    bitmask sets the most (subgroup, tile) bits."""
+    import torch
+
+    w = bits.to(torch.int64) & 0xFFFFFFFF
+    per_sg = sum(((w >> b) & 1).sum(dim=0) for b in range(32))
+    c = torch.cumsum(per_sg, 0)
+    k = n // subg
+    sums = c[k - 1:] - torch.cat([c.new_zeros(1), c[:-k]])
+    return int(sums.argmax()) * subg
+
+
+def _window(rfT, bits, subg: int, n: int):
+    """(rfT, bits) of the busiest n-ray window of a cast (see
+    _busiest_window), contiguous, and the window's first ray."""
+    a = _busiest_window(bits, subg, n)
+    return (rfT[:, a:a + n].contiguous(),
+            bits[:, a // subg:(a + n) // subg].contiguous(), a)
+
+
+def _check_casts(kept, plan, tab, cfg, err, label, fields=None, window=None):
     """Hold each kept cast's kernel bitwise against its plain version on
     the cast's inputs.  ``plan`` maps a captured kernel to the closest-hit
     kernels that run on its casts too (B0 on a closest cast), which must
     also equal their plain versions and give the captured kernel's (t,
-    idx).  Adds to ``err`` {kernel: max abs error}; returns the casts as
-    [(name, depth, kernels, args)]."""
+    idx).  ``fields`` replaces the table's field rows; ``window`` holds
+    the kernels on the busiest ``window`` rays of each cast instead of all
+    of them.  Adds to ``err`` {kernel: max abs error}; returns the casts
+    as [(name, depth, kernels, args)]."""
     import torch
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
@@ -247,8 +335,13 @@ def _check_casts(kept, plan, tab, cfg, err, label):
             _fail(f"{kname}: captured {len(kept[kname])} casts, expected 2")
         for depth, (rfT, bits) in enumerate(kept[kname]):
             name = f"{label} depth{depth} {kname}"
-            args = (rfT, tab.fields, bits, cfg.eps_leaf, cfg.pairs_subgroup,
-                    pt.tile_width(tab))
+            if window:
+                n_rays = rfT.shape[1]
+                rfT, bits, a = _window(rfT, bits, cfg.pairs_subgroup, window)
+                name += (f" rays [{a}, {a + window}) of {n_rays} (the "
+                         "busiest window)")
+            args = (rfT, tab.fields if fields is None else fields, bits,
+                    cfg.eps_leaf, cfg.pairs_subgroup, pt.tile_width(tab))
             outs = {}
             for k in (kname, *extra):
                 got = getattr(_kernels, k)(*args)
@@ -659,6 +752,243 @@ def _pallas(device, card, err, timing, pairs_mrays):
     return launches
 
 
+def _big_mesh(device, card, err):
+    """Phase 10 (module docstring).  Returns (the soup frame's launch
+    counts, the B4 entry's (ms, plain_ms, bound_ms, bound_by))."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch import Renderer
+    from raytracinggpu_tpu_torch.bench.big_mesh import soup_obj
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+    from raytracinggpu_tpu_torch.ops.triangle import intersect_tris_dense
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        chunk_size, group_size, rays_per_frame, render_preset_frame)
+
+    # a. the host build through the public entry point
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "soup.obj")
+        t0 = time.perf_counter()
+        soup_obj(path, BIG_TRIS)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
+                     device=device, **BIG_FRAME)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    cfg, tables = r.cfg, r.scene
+    tab = tables.pairs_mesh
+    if tab is None:
+        _fail("the soup fell back off the pairs tables")
+    nc, Tc = tab.tile_aabb.shape[0], tab.fields.shape[1]
+    print(f"soup: {BIG_TRIS} triangles written in {write_s:.2f} s, Renderer "
+          f"(lbvh) built in {build_s:.2f} s: {nc} pairs tiles, "
+          f"{tab.member_aabb.shape[0]} member boxes, fields "
+          f"{tuple(tab.fields.shape)} ({tab.fields.numel() * 4} bytes), W = "
+          f"{-(-nc // 32)} words, subgroup {cfg.pairs_subgroup}; "
+          f"{tables.pallas_mesh.n_tiles} tiled-traversal tiles")
+    if Tc <= ST_SLOTS:
+        _fail(f"the soup's fields hold {Tc} slots, not past {ST_SLOTS}")
+    W_, H_, spp = cfg.width, cfg.height, cfg.spp
+    g = group_size(cfg, spp)
+    R_group = g * W_ * H_
+    n_casts = (spp // g) * cfg.max_depth * -(-R_group // chunk_size(cfg,
+                                                                   R_group))
+    if n_casts != BIG_CASTS:
+        _fail(f"the soup frame makes {n_casts} casts a kernel, expected "
+              f"{BIG_CASTS}")
+
+    # b. per cast, on the busiest window of each kept cast; B3 on a copy of
+    # the fields with seeded unit vertex normals (the soup has none)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    kept, (cap_img, _) = _capture_casts(lambda: r.render_hdr(seed=0), 2)
+    print(f"soup capture frame: {time.perf_counter() - t0:.3f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f}"
+          f" GiB")
+    nrm = np.random.default_rng(0).standard_normal((3, Tc, 3))
+    nrm /= np.linalg.norm(nrm, axis=2, keepdims=True)
+    fields3 = tab.fields.clone()
+    fields3[17:26] = torch.from_numpy(
+        nrm.transpose(0, 2, 1).reshape(9, Tc).astype(np.float32)).to(device)
+    if not torch.equal(fields3[:17], tab.fields[:17]):
+        _fail("the normals copy changed the rows B0-B2 read")
+    casts = _check_casts(
+        kept, {"pairs_closest": ("pairs_closest_idx", "pairs_closest_smooth"),
+               "pairs_shadow": ()},
+        tab, cfg, err, "soup", fields=fields3, window=WINDOW_RAYS)
+    print(f"soup: B0-B3 held on windows of {WINDOW_RAYS} rays of each kept "
+          f"cast of {kept['pairs_closest'][0][0].shape[1]} rays")
+
+    # c. the frame, counted
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    img, stats = r.render_hdr(seed=0)
+    counted_s = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    n_rays = W_ * H_ * spp
+    print(f"soup frame: {counted_s:.3f} s, launches {launches}, hit per depth "
+          f"{stats.hit.tolist()}, shadowed {stats.shadowed.tolist()}, image "
+          f"mean {float(img.mean()):.3f}")
+    if not np.isfinite(img).all():
+        _fail("the soup frame has non-finite values")
+    if not np.array_equal(img, cap_img):
+        _fail("the soup: the same seed gave another frame than the capture")
+    if any(h != n_rays for h in stats.hit.tolist()):
+        _fail(f"the soup: rays escaped the enclosed scene: {stats.hit}")
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
+    if launches != expected:
+        _fail(f"soup frame launches {launches}, expected {expected}")
+
+    def timed_frames(render):
+        times = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            render(i + 1)   # returns host numpy: synchronous
+            times.append(time.perf_counter() - t0)
+        return times
+
+    times_auto = timed_frames(lambda seed: r.render_hdr(seed=seed))
+    print(f"soup headline: {rays_per_frame(cfg) / min(times_auto) / 1e6:.3f} "
+          f"Mray/s ({rays_per_frame(cfg)} rays a frame, {min(times_auto):.4f} s "
+          f"a frame, frame times {[round(t, 4) for t in times_auto]} s, "
+          f"subgroup {cfg.pairs_subgroup}) on {card}")
+
+    # d. subgroup 64: exact culling, so the same frame; its depth-1 casts
+    cfg64 = dataclasses.replace(cfg, pairs_subgroup=64)
+    kept64, (img64, stats64) = _capture_casts(
+        lambda: render_preset_frame(tables, cfg64, seed=0), 2)
+    if not (np.array_equal(img64, img) and all(
+            np.array_equal(a, b) for a, b in zip(stats64, stats))):
+        _fail(f"the soup frame at subgroup 64 differs from subgroup "
+              f"{cfg.pairs_subgroup}'s")
+    times64 = timed_frames(lambda seed: render_preset_frame(tables, cfg64,
+                                                            seed=seed))
+    print(f"soup frame at subgroup 64: bitwise the subgroup-"
+          f"{cfg.pairs_subgroup} frame; "
+          f"{rays_per_frame(cfg) / min(times64) / 1e6:.3f} Mray/s "
+          f"({min(times64):.4f} s a frame) beside subgroup "
+          f"{cfg.pairs_subgroup}'s "
+          f"{rays_per_frame(cfg) / min(times_auto) / 1e6:.3f} on {card}")
+    for k in ("pairs_closest", "pairs_shadow"):
+        for subg, cast in ((cfg.pairs_subgroup, kept[k][1]),
+                           (64, kept64[k][1])):
+            args = (cast[0], tab.fields, cast[1], cfg.eps_leaf, subg, 128)
+            ms = _time_ms(lambda: getattr(_kernels, k)(*args), 10)
+            visits, tests = _mt_tests(k, args)
+            print(f"timing {k} on the soup depth-1 cast at subgroup {subg}: "
+                  f"{ms:.4f} ms, {visits} (subgroup, tile) visits, {tests} "
+                  f"MT tests, {ms * 1e9 / tests:.3f} ps a test, on {card}")
+
+    # e. the tiled fallback on the same soup
+    cfgp = dataclasses.replace(cfg, traversal="pallas")
+    _kernels.reset_launches()
+    imgp, statsp = render_preset_frame(tables, cfgp, seed=0)
+    launches_p = dict(_kernels.LAUNCHES)
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
+    diff = float(np.abs(imgp.astype(np.float64) - img).max())
+    print(f"soup pallas frame: launches {launches_p}, hit per depth "
+          f"{statsp.hit.tolist()}, shadowed {statsp.shadowed.tolist()}; "
+          f"largest difference from the pairs frame {diff} "
+          f"({'bitwise equal' if np.array_equal(imgp, img) else 'not bitwise'})")
+    if launches_p != expected:
+        _fail(f"soup pallas launches {launches_p}, expected {expected}")
+    if not (np.array_equal(statsp.hit, stats.hit)
+            and np.array_equal(statsp.shadowed, stats.shadowed)):
+        _fail("the soup's pallas frame hit or shadowed other rays")
+    timesp = timed_frames(lambda seed: render_preset_frame(tables, cfgp,
+                                                           seed=seed))
+    print(f"soup pallas: {rays_per_frame(cfg) / min(timesp) / 1e6:.3f} Mray/s "
+          f"({min(timesp):.4f} s a frame) beside pairs "
+          f"{rays_per_frame(cfg) / min(times_auto) / 1e6:.3f} on {card}")
+
+    # f. the dense oracle on kept depth-0 rays, uncapped
+    rfT, _, a = _window(*kept["pairs_closest"][0], cfg.pairs_subgroup,
+                        ORACLE_RAYS)
+    u = Vec3(*(rfT[i].clone() for i in (0, 1, 2)))   # rows: u, O x u, O
+    O = Vec3(*(rfT[i].clone() for i in (6, 7, 8)))
+    b1, _ = pt.intersect_tris_pairs(O, u, tab, cfg.eps_leaf,
+                                    subg=cfg.pairs_subgroup,
+                                    blk=cfg.pairs_block, payload="geom")
+    dense = intersect_tris_dense(O, u, tables.mesh, cfg.eps_leaf,
+                                 cfg.tri_block)
+    hit1, hitd = b1.t < pt.INF32, dense.t < pt.INF32
+    both = hit1 & hitd
+    rel = (float(((b1.t - dense.t).abs() / dense.t.abs())[both].max())
+           if bool(both.any()) else 0.0)
+    same_idx = float((b1.idx == dense.idx)[both].float().mean())
+    # The oracle sums its Moller-Trumbore terms in a matrix product, the
+    # kernels left to right, so a ray that grazes a triangle's edge can
+    # hit by one and miss by the other; in a soup no neighbour takes the
+    # hit.  A flip passes only where the kernels' own arithmetic, with no
+    # culling, puts the deciding triangle within EDGE_MARGIN of its edge
+    # and agrees with B1 (a hit B1 lost to the culling fails).
+    flips = (hit1 != hitd).nonzero().flatten().tolist()
+    margins = []
+    for i in flips:
+        tid = int((b1.idx if hit1[i] else dense.idx)[i])
+        slot = int((tab.fields[16] == tid).nonzero()[0])
+        rf = pt._ray_feature_rows(Vec3(*(c[i:i + 1] for c in O)),
+                                  Vec3(*(c[i:i + 1] for c in u)))
+        _, beta, gamma, ok = pat.mt_slots(rf, tab.fields[:, slot:slot + 1],
+                                          cfg.eps_leaf, 0, 1)
+        m = float(torch.minimum(torch.minimum(beta, gamma),
+                                1.0 - beta - gamma))
+        margins.append(m)
+        if bool(ok) != bool(hit1[i]) or abs(m) > EDGE_MARGIN:
+            _fail(f"soup oracle: ray {a + i} hit/miss differs (B1 "
+                  f"{bool(hit1[i])}, kernel arithmetic {bool(ok)}) on "
+                  f"triangle {tid}, {m} from its edge")
+    print(f"soup oracle: {ORACLE_RAYS} depth-0 rays from ray {a}, uncapped: "
+          f"{int(hit1.sum())} mesh hits; hit/miss identical on "
+          f"{ORACLE_RAYS - len(flips)} rays, {len(flips)} edge grazes differ "
+          f"(barycentric margins {margins}, limit {EDGE_MARGIN}); t max rel "
+          f"diff {rel:.3g}, idx equal on {same_idx:.6f} of hits")
+    if len(flips) > ORACLE_RAYS // 1000 or rel > 1e-5 or same_idx < 0.999:
+        _fail("B1 disagrees with the dense oracle on the soup")
+
+    # g. B1 and B2 on the whole depth-1 casts: the kernel, the bound, and
+    # one call of the plain version (tens of seconds at this width), which
+    # must equal the kernel bit for bit
+    total, bound_bys = [0.0, 0.0, 0.0], set()
+    for k in ("pairs_closest", "pairs_shadow"):
+        rfT, bits = kept[k][1]
+        args = (rfT, tab.fields, bits, cfg.eps_leaf, cfg.pairs_subgroup, 128)
+        kern = getattr(_kernels, k)
+        ms = _time_ms(lambda: kern(*args), 10)
+        got = kern(*args)
+        plain_out = []
+        plain_ms = _time_ms(
+            lambda: plain_out.append(getattr(pt, f"{k}_plain")(*args)), 1,
+            warm=False)
+        got, want = ((got, plain_out[0]) if isinstance(got, tuple)
+                     else ((got,), (plain_out[0],)))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            _fail(f"{k} differs from its plain version on the whole soup "
+                  "depth-1 cast")
+        bound_ms, bound_by = _bound(k, args, got)
+        visits, tests = _mt_tests(k, args)
+        for i, v in enumerate((ms, plain_ms, bound_ms)):
+            total[i] += v
+        bound_bys.add(bound_by)
+        print(f"timing {k} on the soup depth-1 cast ({rfT.shape[1]} rays, "
+              f"{visits} (subgroup, tile) visits, {tests} MT tests): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (bitwise equal), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; roofline share "
+              f"{bound_ms / ms:.1%}) on {card}")
+    print(f"B4 (B1 + B2 on the soup's depth-1 casts): {total[0]:.4f} ms, "
+          f"plain versions {total[1]:.4f} ms, bound {total[2]:.4f} ms")
+    return launches, (*total, "operations" if bound_bys == {"operations"}
+                      else "bytes")
+
+
 def main() -> int:
     import torch
 
@@ -676,12 +1006,14 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    lap = _Laps()
 
     # ---- 1. environment --------------------------------------------------
     card = _card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, torch CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, devices {count}")
+    lap("1 environment")
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -699,6 +1031,7 @@ def main() -> int:
             entry = next((k for m, k in _MODES.items() if m in line), "?")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {entry}: {line.strip()}")
+    lap("2 build")
 
     # ---- 3. per-cast check -----------------------------------------------
     t0 = time.perf_counter()
@@ -728,6 +1061,7 @@ def main() -> int:
     casts = _check_casts(kept, {"pairs_closest": ("pairs_closest_idx",),
                                 "pairs_shadow": ()},
                          tab, cfg, err, "array_bvh")
+    lap("3 per-cast check")
 
     # ---- 4. headline frame -----------------------------------------------
     _kernels.reset_launches()
@@ -764,12 +1098,14 @@ def main() -> int:
     print(f"headline: {mrays:.3f} Mray/s (array_bvh 512x512 spp32 d5 pairs, "
           f"{rays_per_frame(cfg)} rays/frame, frame times "
           f"{[round(t, 4) for t in times]} s) on {card}")
+    lap("4 headline frame")
 
     # ---- 5. kernel timings -----------------------------------------------
     # every captured cast is timed; the JSON line reports the depth-1 ones
     # (B1 and B2 here, B3 and B0 on the realtime casts of phase 7)
     timing_main = {}
     _time_casts(casts, timing_main, card)
+    lap("5 kernel timings")
 
     # ---- 6. production anchor --------------------------------------------
     import dataclasses
@@ -784,18 +1120,34 @@ def main() -> int:
           f"{(mean - ANCHOR_TPU_MEAN) / ANCHOR_TPU_MEAN:+.5f})")
     if not abs(rel) <= ANCHOR_RTOL:
         _fail(f"anchor mean {mean} off by {rel:.4%}")
+    lap("6 production anchor")
 
     # ---- 7. realtime loop ------------------------------------------------
     timing_rt = {}
     loop_launches, (rcfg, rtab, rcasts) = _realtime(device, card, err,
                                                     timing_rt)
+    lap("7 realtime loop")
 
     # ---- 8. mesh query ---------------------------------------------------
     query_launches = _mesh_query(rcfg, rtab, rcasts, err)
+    lap("8 mesh query")
 
     # ---- 9. the tiled-kernel traversal -----------------------------------
     timing_pallas = {}
     pallas_launches = _pallas(device, card, err, timing_pallas, mrays)
+    lap("9 tiled traversal")
+
+    # ---- 10. the big-mesh path -------------------------------------------
+    err_b4 = {k: 0.0 for k in _kernels.LAUNCHES}
+    soup_launches, b4 = _big_mesh(device, card, err_b4)
+    lap("10 big-mesh path")
+    # B4 is B1 and B2 past ST_SLOTS: its launches are theirs in the soup
+    # frame, its error the largest of B0-B3's there, its times the sums of
+    # B1's and B2's on the whole depth-1 casts
+    err["pairs_b4"] = max(err_b4.values())
+    timing_b4 = {"pairs_b4": b4}
+    soup_launches["pairs_b4"] = (soup_launches["pairs_closest"]
+                                 + soup_launches["pairs_shadow"])
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel
@@ -811,7 +1163,8 @@ def main() -> int:
             ("pairs_closest_smooth", loop_launches, timing_rt),
             ("pairs_closest_idx", query_launches, timing_rt),
             ("pallas_closest", pallas_launches, timing_pallas),
-            ("pallas_shadow", pallas_launches, timing_pallas))]}))
+            ("pallas_shadow", pallas_launches, timing_pallas),
+            ("pairs_b4", soup_launches, timing_b4))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

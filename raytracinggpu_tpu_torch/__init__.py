@@ -3,9 +3,15 @@
 Each module sits at the same relative path as its JAX counterpart, so a
 reader finds ``raytracinggpu_tpu/ops/pairs_trace.py`` ported in
 ``raytracinggpu_tpu_torch/ops/pairs_trace.py``.  Ported so far: the
-``array_bvh`` preset (six wall spheres plus the cat mesh) and the
-``realtime`` preset and loop, with the ``pairs``, ``pallas`` and ``dense``
-mesh traversals.
+``array_bvh`` preset (six wall spheres plus the cat mesh, or a custom OBJ
+in the cat's place) and the ``realtime`` preset and loop, with the
+``pairs``, ``pallas`` and ``dense`` mesh traversals and the reference and
+LBVH builders.
+
+- ``api.Renderer`` (exported here) and ``python -m
+  raytracinggpu_tpu_torch.cli render``: the public entry points, on the
+  CUDA device unless the caller asks for the CPU;
+  ``bench/big_mesh.py``: a 200,000-triangle soup through them.
 
 - ``core``: SoA ``Vec3`` over torch tensors, ``RayBatch``, and a threefry2x32
   counter PRNG that reproduces ``jax.random``'s bits.
@@ -27,3 +33,7 @@ kernel.
 """
 
 __version__ = "0.1.0"
+
+from raytracinggpu_tpu_torch.api import Renderer  # noqa: E402
+
+__all__ = ["Renderer"]

@@ -1,0 +1,137 @@
+"""High-level API facade (port of ``raytracinggpu_tpu/api.py``).
+
+One object wraps the preset, scene and pipeline plumbing:
+
+    from raytracinggpu_tpu_torch import Renderer
+
+    r = Renderer("array_bvh", spp=32, max_depth=5)    # on the CUDA device
+    image = r.render()                       # (H, W, 3) uint8
+    hdr, stats = r.render_hdr(seed=1)        # radiance + TraceStats
+    for frame in r.animate(60):              # circulating-light frames
+        ...
+    big = Renderer("array_bvh", obj_path="mesh.obj", bvh_builder="lbvh")
+
+The renderer runs on ``device``, the CUDA device unless the caller asks
+for another (``device="cpu"`` runs every kernel's plain PyTorch version);
+without a CUDA device the default raises.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from raytracinggpu_tpu_torch.render.image_io import tonemap, write_png
+from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+from raytracinggpu_tpu_torch.render.realtime import (
+    init_state,
+    reset_accumulation,
+    step,
+    steps,
+)
+from raytracinggpu_tpu_torch.scene.mesh import (
+    build_mesh,
+    load_cat_mesh,
+    rescale,
+)
+from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH, read_obj
+from raytracinggpu_tpu_torch.scene.presets import (
+    _MESH_TRANSFORM,
+    PRESET_NAMES,
+    build_preset,
+)
+
+
+def render_device(device=None) -> torch.device:
+    """The device to render on: ``device``, or the CUDA device when None.
+    Raises RuntimeError for a CUDA device when PyTorch has none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port renders on the card; pass "
+            "device='cpu' to run the kernels' plain PyTorch versions")
+    return dev
+
+
+class Renderer:
+    """A configured scene + render pipeline.
+
+    Args mirror RenderConfig / the CLI: preset name, resolution, spp,
+    max_depth, traversal mode, plus ``obj_path``/``obj_scale``/``obj_offset``
+    for custom meshes, ``bvh_builder`` ("reference" | "lbvh") and
+    ``device`` (default: the CUDA device).
+    """
+
+    def __init__(self, preset: str = "array_bvh", obj_path: str | None = None,
+                 obj_scale: float | None = None, obj_offset=(0.0, 0.0, 0.0),
+                 bvh_builder: str = "reference", device=None,
+                 **config_overrides):
+        if preset not in PRESET_NAMES:
+            raise ValueError(
+                f"unknown preset {preset!r}; choose from {PRESET_NAMES}")
+        if obj_path is not None and preset == "showcase":
+            raise ValueError(
+                "the 'showcase' preset has no mesh slot; use a mesh preset "
+                "(e.g. 'array_bvh') with obj_path")
+        self.device = render_device(device)
+        mesh = None
+        if obj_path is not None:
+            obj = read_obj(obj_path)
+            if obj_scale is not None or tuple(obj_offset) != (0.0, 0.0, 0.0):
+                # v -> v*scale + offset; an offset alone keeps scale 1
+                obj.vertices = rescale(obj.vertices,
+                                       1.0 if obj_scale is None else obj_scale,
+                                       obj_offset)
+            mesh = build_mesh(obj, builder=bvh_builder)
+        elif bvh_builder != "reference" and preset in _MESH_TRANSFORM:
+            # the preset's cat with the requested BVH builder
+            mesh = load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset],
+                                 builder=bvh_builder)
+        self.cfg, self.scene = build_preset(preset, self.device, mesh=mesh,
+                                            **config_overrides)
+
+    # -- single frames ---------------------------------------------------
+    def render_hdr(self, seed: int = 0, camera=None):
+        """Full-precision radiance (H, W, 3) float32 numpy image and the
+        TraceStats (numpy arrays)."""
+        return render_preset_frame(self.scene, self.cfg, seed=seed, cam=camera)
+
+    def render(self, seed: int = 0, camera=None) -> np.ndarray:
+        """Tonemapped uint8 frame (the reference's gamma-2.2 clamp)."""
+        img, _ = self.render_hdr(seed=seed, camera=camera)
+        return tonemap(img)
+
+    def save(self, path: str, seed: int = 0, camera=None) -> None:
+        write_png(path, self.render(seed=seed, camera=camera))
+
+    # -- progressive / animated ------------------------------------------
+    def animate(self, n_frames: int, seed: int = 0, light_speed: float = 1.0,
+                batch: int = 1, reset_each: bool = True
+                ) -> Iterator[np.ndarray]:
+        """Yield uint8 frames of the circulating-light loop.  batch > 1
+        enqueues that many frames before reading any back
+        (``render.realtime.steps``), bitwise the frames of batch 1;
+        reset_each clears the progressive accumulator every frame (a crisp
+        animation) instead of accumulating (a converging still)."""
+        state = init_state(self.cfg, self.scene, seed)
+        speed = np.float32(light_speed)
+        done = 0
+        while done < n_frames:
+            if batch > 1 and n_frames - done >= batch:
+                state, frames = steps(self.scene, self.cfg, batch, state,
+                                      speed, reset_each=reset_each)
+                yield from frames.cpu().numpy()
+                done += batch
+            else:
+                state, frame = step(self.scene, self.cfg, state, speed)
+                yield frame.cpu().numpy()
+                if reset_each:
+                    state = reset_accumulation(state)
+                done += 1
+
+    # -- multi-device -----------------------------------------------------
+    def render_sharded(self, seed: int = 0, mesh=None):
+        """Multi-device rendering is not ported (ROADMAP A13)."""
+        raise NotImplementedError(
+            "render_sharded is not ported yet (ROADMAP A13: multi-GPU)")

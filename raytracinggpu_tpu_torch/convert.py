@@ -39,11 +39,29 @@ def _t(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _pairs_arrays(p):
+    """The JAX pairs table's arrays in ``PairsMeshTables`` order, with
+    the supertile padding dropped: the JAX package pads ``fields`` past
+    ST_SLOTS (32,768) slots with zero columns up to whole ST_SLOTS blocks
+    for its TPU kernel; the port's tables hold exactly nc * tile_t slots.
+    Raises ValueError if a dropped column is not zero."""
+    arrays = [np.asarray(getattr(p, f)) for f in PairsMeshTables._fields]
+    fields, tile_aabb, slot_src = arrays[:3]
+    nc = tile_aabb.shape[0]
+    Tc = nc * (slot_src.shape[0] // nc)
+    if np.any(fields[:, Tc:]):
+        raise ValueError(f"the pairs fields hold nonzero columns past the "
+                         f"{Tc} slots of their {nc} tiles")
+    arrays[0] = fields[:, :Tc]
+    return arrays
+
+
 def scene_tables_from_numpy(tables_np, device) -> SceneTables:
     """The JAX package's SceneTables (numpy leaves) -> the port's.  A JAX
     table without pairs tables (its pairs build refused the mesh) gives a
     port table without them, and ``traversal="pairs"`` then runs as
-    ``pallas``."""
+    ``pallas``.  The pairs fields lose their supertile padding
+    (``_pairs_arrays``)."""
     s, m = tables_np.spheres, tables_np.materials
     t = lambda a: _t(a, device)
     v = lambda a: Vec3(t(a.x), t(a.y), t(a.z))
@@ -59,8 +77,8 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
                                   tile_aabb=t(p.tile_aabb),
                                   n_tiles=int(p.n_tiles))
     if tables_np.pairs_mesh is not None:
-        pairs = PairsMeshTables(*(t(getattr(tables_np.pairs_mesh, f))
-                                  for f in PairsMeshTables._fields))
+        pairs = PairsMeshTables(*(t(a) for a in
+                                  _pairs_arrays(tables_np.pairs_mesh)))
     return SceneTables(
         spheres=SphereTable(t(s.cx), t(s.cy), t(s.cz), t(s.radius)),
         materials=Materials(albedo=v(m.albedo), mirror=t(m.mirror),

@@ -60,7 +60,8 @@ class Hit(NamedTuple):
 
 def _effective_traversal(cfg: RenderConfig, scene: SceneTables) -> str:
     """'pairs' runs as 'pallas' when the scene has a mesh but no pairs
-    tables (a JAX table whose mesh the pairs build refused); mesh-less
+    tables (the pairs build refused the mesh, here or in the JAX package
+    whose tables were converted); mesh-less
     scenes keep their configured traversal (no mesh query runs)."""
     if (cfg.traversal == "pairs" and scene.mesh is not None
             and scene.pairs_mesh is None):

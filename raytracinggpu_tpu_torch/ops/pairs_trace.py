@@ -31,8 +31,19 @@ the two agree bit for bit on the card.  The slab test, the ray padding,
 the plain Moller-Trumbore core and the device dispatch are the tiled
 traversal's (``ops/pallas_trace.py``), as in the JAX package.
 
+Big meshes (the JAX package's B4, ``_pairs_kernel`` over streamed
+supertiles, ``n_st > 1``): the TPU kernel sweeps the field table in
+``ST_SLOTS``-wide blocks because a program's field block must fit VMEM,
+and carries its running min from one block to the next.  The port's
+kernels read the fields from device memory with 32-bit indices, so B0-B3
+walk every bitmask word and every slot of a table of any width in one
+sweep, and one running min over all slots is the min carried across the
+blocks.  The port therefore pads no table to whole supertiles and has no
+tile-width rule for streaming; ``build_pairs_tables`` refuses only a
+table past ``MAX_SLOTS``, where those indices end.
+
 Left out of this port so far: the compaction ladder (exact by
-construction, tuned for the TPU) and the streamed supertiles (B4).
+construction, tuned for the TPU).
 """
 from __future__ import annotations
 
@@ -60,6 +71,17 @@ NUM_RF_ROWS = 16      # ray-feature rows: [u, w=O x u, O, 0-pad]
 DEF_BLK = 4096        # ray padding granularity (RenderConfig.pairs_block)
 DEF_SUBG = 16         # rays per culling subgroup
 _IDX_BIG = np.int32(2**30)  # id of padding slots
+# The kernels index the (NUM_FIELDS, Tc) field table with 32-bit ints
+# (ops/_kernels._check: Tc * NUM_FIELDS < 2**31), so a table holds at most
+# this many slots (67,108,863; 2**26 - 1).  The JAX package's MAX_SLOTS
+# (2**21) is a TPU scalar-memory budget that the port does not have.
+MAX_SLOTS = (2**31 - 1) // NUM_FIELDS
+
+
+class PairsMeshTooLarge(ValueError):
+    """The mesh's pairs table would pass MAX_SLOTS; the scene build then
+    leaves the pairs tables out and ``traversal="pairs"`` runs as
+    ``pallas``."""
 
 
 class PairsMeshTables(NamedTuple):
@@ -200,7 +222,8 @@ def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
                        cut_tris: int | None = None) -> PairsMeshTables:
     """Host-side build from BVH-ordered triangle corners (T, 3); the tables
     land on ``device``.  cut_tris is the cluster-cut granularity (member-box
-    tightness); results do not depend on it."""
+    tightness); results do not depend on it.  Raises PairsMeshTooLarge
+    past MAX_SLOTS slots."""
     if tile_t <= 0 or tile_t % 32:
         raise ValueError(f"tile_t must be a positive multiple of 32, got {tile_t}")
     A = np.asarray(A, np.float32)
@@ -208,6 +231,11 @@ def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
     C = np.asarray(C, np.float32)
     slot_src, nc, (m_aabb, m_tile, m_slot) = _cluster_slots(
         bvh, tile_t, cut_tris=cut_tris)
+    if nc * tile_t > MAX_SLOTS:
+        raise PairsMeshTooLarge(
+            f"mesh too large for the pairs kernels ({nc} tiles x {tile_t} "
+            f"slots > {MAX_SLOTS}): their field indices are 32-bit; use "
+            "traversal='pallas'")
     f = fields_from_corners(A, B, C, slot_src, na=vna, nb=vnb, nc=vnc)
 
     aabb = np.zeros((nc, 8), np.float32)

@@ -1,6 +1,6 @@
 """Tone mapping and PNG output (port of
-``raytracinggpu_tpu/render/image_io.py``: ``tonemap``, ``tonemap_device``
-and the stdlib ``write_png``).
+``raytracinggpu_tpu/render/image_io.py``: ``tonemap``, ``tonemap_device``,
+the stdlib ``write_png`` and its reader ``read_png``).
 
 The reference writes its PNGs after a gamma-2.2 tone map with a 255 clamp
 and a raw char cast: ``byte = (char) min(pow(radiance, 1/2.2), 255.0)``.
@@ -51,3 +51,44 @@ def write_png(path: str, rgb: np.ndarray) -> None:
            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(png)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit RGB PNG with filters 0 (none), 1 (Sub) and 2 (Up),
+    as ``write_png`` writes them: (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", payload[:10])
+            if (depth, ctype) != (8, 2):
+                raise ValueError(f"{path}: only 8-bit RGB PNGs are read")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + ln
+    raw = zlib.decompress(idat)
+    stride = w * 3
+    img = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    p = 0
+    for i in range(h):
+        filt = raw[p]
+        row = np.frombuffer(raw[p + 1:p + 1 + stride], np.uint8).astype(np.int32)
+        if filt == 1:  # Sub
+            row = row.copy()
+            for j in range(3, stride):
+                row[j] = (row[j] + row[j - 3]) & 0xFF
+        elif filt == 2:  # Up
+            row = (row + prev) & 0xFF
+        elif filt != 0:
+            raise NotImplementedError(f"PNG filter {filt}")
+        img[i] = row.astype(np.uint8)
+        prev = row
+        p += 1 + stride
+    return img.reshape(h, w, 3)

@@ -1,5 +1,5 @@
 """Triangle mesh assembly: OBJ -> transforms -> BVH -> BVH-ordered corners
-(port of ``raytracinggpu_tpu/scene/mesh.py``, reference builder only).
+(port of ``raytracinggpu_tpu/scene/mesh.py``).
 
 The host dereferences the face indices once into per-triangle corner
 arrays (A, B, C) in BVH leaf order, so the device tables need no index
@@ -12,7 +12,10 @@ from dataclasses import dataclass
 import numpy as np
 
 from raytracinggpu_tpu_torch.accel.bvh import FlatBVH, build_bvh
+from raytracinggpu_tpu_torch.accel.lbvh import build_lbvh
 from raytracinggpu_tpu_torch.scene.obj import ObjMesh, read_obj
+
+BUILDERS = {"reference": build_bvh, "lbvh": build_lbvh}
 
 
 def rescale(vertices: np.ndarray, scale: float, offset) -> np.ndarray:
@@ -33,21 +36,28 @@ class MeshData:
     nb: np.ndarray
     nc: np.ndarray
     bvh: FlatBVH
+    n_vertices: int
+    n_normals: int
 
     @property
     def n_tri(self) -> int:
         return self.A.shape[0]
 
 
-def build_mesh(obj: ObjMesh) -> MeshData:
-    """Dereference indices, build the reference midpoint BVH over the
-    triangle soup, and reorder the per-triangle tables into BVH leaf
-    order."""
+def build_mesh(obj: ObjMesh, builder: str = "reference") -> MeshData:
+    """Dereference indices, build the BVH over the triangle soup, and
+    reorder the per-triangle tables into BVH leaf order.
+
+    builder: "reference" (the midpoint split, the reference's semantics)
+    or "lbvh" (Morton-code linear BVH); both emit the same flat layout."""
+    if builder not in BUILDERS:
+        raise ValueError(f"unknown BVH builder {builder!r}; choose from "
+                         f"{tuple(BUILDERS)}")
     V = obj.vertices
     A = V[obj.vtx[:, 0]]
     B = V[obj.vtx[:, 1]]
     C = V[obj.vtx[:, 2]]
-    bvh = build_bvh(A, B, C)
+    bvh = BUILDERS[builder](A, B, C)
     o = bvh.order
 
     has_n = obj.normals.shape[0] > 0 and (obj.nrm >= 0).all()
@@ -66,14 +76,16 @@ def build_mesh(obj: ObjMesh) -> MeshData:
         nb=nb[o].copy(),
         nc=nc[o].copy(),
         bvh=bvh,
+        n_vertices=V.shape[0],
+        n_normals=obj.normals.shape[0],
     )
 
 
 def load_cat_mesh(path: str, embed_transform: bool, scale: float | None,
-                  offset) -> MeshData:
+                  offset, builder: str = "reference") -> MeshData:
     """Load + transform the cat mesh per launcher config
-    (array_bvh: rescale(0.6, (0,-10,0)) only)."""
+    (array_bvh and realtime: rescale(0.6, (0,-10,0)) only)."""
     obj = read_obj(path, embed_transform=embed_transform)
     if scale is not None:
         obj.vertices = rescale(obj.vertices, scale, offset)
-    return build_mesh(obj)
+    return build_mesh(obj, builder=builder)

@@ -11,8 +11,9 @@ builds the ported ones:
 
 Both render with any ported traversal (``build_preset(...,
 traversal="pallas")``); every mesh table is built either way, as in the
-JAX package.  The other presets need code paths not ported yet (mesh-less
-scenes, the embedded OBJ transform) and raise.
+JAX package.  ``mesh=`` puts a custom mesh in the cat's place
+(``api.Renderer(obj_path=...)``).  The other presets need code paths not
+ported yet (mesh-less scenes, the embedded OBJ transform) and raise.
 """
 from __future__ import annotations
 
@@ -39,6 +40,13 @@ _WALL_ALBEDOS = {
     "left": (0.0, 1.0, 1.0),     # cyan left wall
     "right": (1.0, 1.0, 0.0),    # yellow right wall
     "back": (1.0, 0.0, 1.0),     # magenta back wall
+}
+
+# preset -> (embed 0.8/(0,-10,0) in read_obj, rescale scale, rescale
+# offset) of the cat, for the ported presets
+_MESH_TRANSFORM = {
+    "array_bvh": (False, 0.6, (0.0, -10.0, 0.0)),
+    "realtime": (False, 0.6, (0.0, -10.0, 0.0)),
 }
 
 
@@ -80,11 +88,12 @@ def make_config(preset: str, **overrides) -> RenderConfig:
     return replace(cfg, **overrides) if overrides else cfg
 
 
-def build_preset(preset: str, device, mesh: MeshData | None = None,
+def build_preset(preset: str, device, obj_path: str = CAT_OBJ_PATH,
+                 mesh: MeshData | None = None,
                  **config_overrides) -> tuple[RenderConfig, SceneTables]:
     """Build (config, scene tables on ``device``) for a named preset.  The
-    cat OBJ is loaded from ``CAT_OBJ_PATH`` with the preset's transform,
-    unless ``mesh`` gives an already-built MeshData."""
+    cat OBJ is loaded from ``obj_path`` with the preset's transform,
+    unless ``mesh`` gives an already-built MeshData (a custom mesh)."""
     cfg = make_config(preset, **config_overrides)
     if preset not in PORTED_PRESETS:
         raise NotImplementedError(
@@ -93,7 +102,7 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
     spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
     L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
     if mesh is None:
-        mesh = load_cat_mesh(CAT_OBJ_PATH, False, 0.6, (0.0, -10.0, 0.0))
+        mesh = load_cat_mesh(obj_path, *_MESH_TRANSFORM[preset])
     if cfg.smooth_normals and not np.any(mesh.na):
         # A mesh without vertex normals: Phong interpolation of the all-zero
         # fallback normals would give N = 0 and NaN bounce rays.
@@ -113,7 +122,9 @@ def _autotune_pairs(cfg, tables, overrides):
     configured 64 (the cat packs into 40 tiles), unless the caller set
     ``pairs_subgroup``.  The per-cast culling bits depend on the subgroup,
     so the port keeps the JAX package's rule; the thresholds were tuned on
-    the TPU and are for the port to re-measure."""
+    the TPU and are for the port to re-measure.  (The JAX rule's second
+    knob, ``pairs_key_coarse`` from 1024 tiles, coarsens the compaction
+    key, and the port has no compaction.)"""
     if tables.pairs_mesh is None:
         return cfg
     nc = int(tables.pairs_mesh.tile_aabb.shape[0])

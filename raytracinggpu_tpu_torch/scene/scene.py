@@ -8,6 +8,7 @@ tables of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -17,6 +18,7 @@ import torch
 from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.ops.pairs_trace import (
     PairsMeshTables,
+    PairsMeshTooLarge,
     build_pairs_tables,
 )
 from raytracinggpu_tpu_torch.ops.pallas_trace import (
@@ -45,8 +47,8 @@ class SceneTables(NamedTuple):
     mesh: TriTables | None                # None: the scene has no mesh
     pallas_mesh: PallasMeshTables | None  # the tiled traversal's tables
     pairs_mesh: PairsMeshTables | None    # None with a mesh: pairs runs
-                                          # as pallas (a JAX table whose
-                                          # mesh the pairs build refused)
+                                          # as pallas (the pairs build
+                                          # refused the mesh)
     L: Vec3       # point light position (0-d components)
     intensity: Any  # light intensity (0-d f32)
 
@@ -124,7 +126,9 @@ def build_scene_tables(
 
     spheres: list of (center(3,), radius); materials: matching list of
     (albedo(3,), mirror, in_ri, out_ri).  The mesh (diffuse, albedo 0.25)
-    is appended as the last object id.
+    is appended as the last object id.  A mesh past the pairs tables'
+    ceiling (``PairsMeshTooLarge``) gets no pairs tables, with a warning,
+    and ``traversal="pairs"`` then runs as ``pallas``.
     """
     mats = list(materials)
     if mesh is not None:
@@ -138,9 +142,15 @@ def build_scene_tables(
                                nb=mesh.nb, nc=mesh.nc, pad_to=pad_to)
         pallas = build_pallas_tables(mesh.A, mesh.B, mesh.C, device,
                                      pad_to=pad_to)
-        pairs = build_pairs_tables(
-            mesh.A, mesh.B, mesh.C, mesh.bvh, device, tile_t=pairs_tile,
-            vna=mesh.na, vnb=mesh.nb, vnc=mesh.nc, cut_tris=pairs_cut or None)
+        try:
+            pairs = build_pairs_tables(
+                mesh.A, mesh.B, mesh.C, mesh.bvh, device, tile_t=pairs_tile,
+                vna=mesh.na, vnb=mesh.nb, vnc=mesh.nc,
+                cut_tris=pairs_cut or None)
+        except PairsMeshTooLarge as e:
+            warnings.warn(f"pairs kernel unavailable for this mesh ({e}); "
+                          "traversal='pairs' will fall back to 'pallas'",
+                          stacklevel=2)
     Lf = np.asarray(L, np.float32)
     return SceneTables(
         spheres=SphereTable.from_list(spheres, device),

@@ -1,14 +1,18 @@
-"""Where a frame's time goes on the card (counterpart of
-``raytracinggpu_tpu/utils/profiling.py``).
+"""Tracing and profiling (port of ``raytracinggpu_tpu/utils/profiling.py``):
+``PhaseTimer``, ``device_trace`` (a ``torch.profiler`` trace written to a
+directory), ``ray_report`` (a frame's ray counts from its TraceStats), and
+where a frame's time goes on the card:
 
     python -m raytracinggpu_tpu_torch.utils.profiling [--preset P]
-        [--traversal T] [--out FILE.json]
+        [--traversal T] [--obj PATH [--bvh-builder B]] [--out FILE.json]
 
 Renders a frame of preset P with mesh traversal T (``pairs``, the
 default, ``pallas`` or ``dense``) on the first CUDA device: the
-main-path frame (``array_bvh``, 512x512, spp 32, depth 5; the default) or
+main-path frame (``array_bvh``, 512x512, spp 32, depth 5; the default),
 the realtime loop's frame (``realtime``, 512x512, spp 20, depth 3, its
-default camera; the loop adds only the accumulation and the tone map).
+default camera; the loop adds only the accumulation and the tone map), or
+with ``--obj`` the big-mesh frame of ``bench/big_mesh.py`` (the OBJ in the
+cat's place, built with BVH builder B, 512x512, spp 4, depth 2).
 One frame warms up, then one frame for each of
 
 - ``frame_ms``: host clock around the frame, ended by
@@ -32,11 +36,14 @@ import argparse
 import contextlib
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 # (module, function) of each stage, looked up where the caller finds it
@@ -61,6 +68,74 @@ STAGES = (
 # the frame each preset is profiled at (realtime: the preset's own size)
 PRESETS = {"array_bvh": dict(width=512, height=512, spp=32, max_depth=5),
            "realtime": {}}
+# the frame of a custom mesh (--obj): bench/big_mesh.py's
+OBJ_FRAME = dict(width=512, height=512, spp=4, max_depth=2)
+
+
+@dataclass
+class PhaseTimer:
+    """Named host-clock phases; synchronise the device before a phase ends
+    to time device work."""
+
+    phases: dict = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases[name] = (self.phases.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+
+    def report(self) -> str:
+        total = sum(self.phases.values())
+        return " | ".join(f"{k}: {v:.3f}s ({v / total:.0%})"
+                          for k, v in self.phases.items())
+
+
+@contextlib.contextmanager
+def device_trace(out_dir: str | None):
+    """A ``torch.profiler`` trace of the block (host and, with a CUDA
+    device, the card), written to ``out_dir``/trace.json in the Chrome
+    trace format (chrome://tracing, Perfetto); nothing when out_dir is
+    None."""
+    if out_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def ray_report(stats, spp: int, width: int, height: int, wall_s: float) -> dict:
+    """A frame's ray counts from its TraceStats (numpy arrays or tensors):
+    primary, bounce (the hits of every depth) and shadow (the diffuse
+    lanes of every depth) rays, their rate over ``wall_s`` and the per-depth
+    histograms."""
+    a = lambda x: np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.int64)
+    hit, diffuse = a(stats.hit), a(stats.diffuse)
+    primary = width * height * spp
+    bounce, shadow = int(hit.sum()), int(diffuse.sum())
+    total = primary + bounce + shadow
+    return {
+        "primary_rays": primary,
+        "bounce_rays": bounce,
+        "shadow_rays": shadow,
+        "total_rays": total,
+        "mrays_per_sec": total / wall_s / 1e6 if wall_s > 0 else 0.0,
+        "bounce_histogram": hit.tolist(),
+        "tir_histogram": a(stats.tir).tolist(),
+        "shadowed_histogram": a(stats.shadowed).tolist(),
+    }
 
 
 def _sync(device: torch.device) -> None:
@@ -141,22 +216,31 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", choices=PRESETS, default="array_bvh")
     ap.add_argument("--traversal", choices=("pairs", "pallas", "dense"),
                     default="pairs")
+    ap.add_argument("--obj", metavar="PATH",
+                    help="profile this OBJ in the cat's place, at "
+                         "bench/big_mesh.py's frame size")
+    ap.add_argument("--bvh-builder", choices=("reference", "lbvh"),
+                    default="reference")
     ap.add_argument("--out", help="write the report here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
         return 1
 
+    from raytracinggpu_tpu_torch.api import Renderer
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
-    from raytracinggpu_tpu_torch.scene.presets import build_preset
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    cfg, tables = build_preset(args.preset, dev, traversal=args.traversal,
-                               **PRESETS[args.preset])
+    t0 = time.perf_counter()
+    r = Renderer(args.preset, obj_path=args.obj, bvh_builder=args.bvh_builder,
+                 device=dev, traversal=args.traversal,
+                 **(OBJ_FRAME if args.obj else PRESETS[args.preset]))
+    build_s = time.perf_counter() - t0
+    cfg, tables = r.cfg, r.scene
     cam = Camera.default(cfg, dev)
     frame = lambda seed: render_frame(tables, cfg, cam, PRNGKey(seed, dev))
 
@@ -170,14 +254,19 @@ def main(argv=None) -> int:
     report = {
         "card": card[0] if card else "not read",
         "config": f"{args.preset} {cfg.width}x{cfg.height} spp{cfg.spp} "
-                  f"d{cfg.max_depth} {cfg.traversal}",
+                  f"d{cfg.max_depth} {cfg.traversal}"
+                  + (f" obj {os.path.basename(args.obj)} "
+                     f"({args.bvh_builder} BVH, subgroup "
+                     f"{cfg.pairs_subgroup})" if args.obj else ""),
+        "host_build_s": build_s,
         "frame_ms": frame_ms, "peak_bytes": peak, **kern,
         "busy": kern["kernel_ms"] / frame_ms,
         "synchronised_frame_ms": sync_ms,
         "stages": [{"stage": a, "ms": stages[a][0], "calls": stages[a][1]}
                    for _, a in STAGES if a in stages],
     }
-    print(f"card {report['card']}; {report['config']}")
+    print(f"card {report['card']}; {report['config']}; scene built in "
+          f"{build_s:.2f} s")
     print(f"frame {frame_ms:.1f} ms unprofiled, peak memory "
           f"{peak / 2**30:.3f} GiB; profiled: {kern['kernels']} kernels, "
           f"{kern['kernel_ms']:.1f} ms, busy {report['busy']:.3f}")

@@ -387,6 +387,60 @@ def test_tiled_subgroup_must_divide_the_tile(scene, subg):
         pat.intersect_tris_pallas(O, u, tab, EPS, subg=subg)
 
 
+# ------------------------------------- tables past 32,768 slots (B4 sizes)
+
+def _big_table(n_tiles=301, R=4096, subg=SUBG, seed=0):
+    """A synthetic pairs cast at the sizes where the JAX package streams
+    its field table in 32,768-slot supertiles (B4): ``n_tiles`` tiles of
+    128 slots, the last one part padding, holding small random triangles
+    under scrambled original ids, with unit vertex normals (for B3); R
+    random rays; a random bitmask whose last word (tiles 288-319) has
+    every bit set, naming tiles past the table.  Returns (rfT, fields,
+    bits) on the CPU."""
+    rng = np.random.default_rng(seed)
+    T = n_tiles * 128 - 50
+    A = rng.uniform(-20, 20, (T, 3)).astype(np.float32)
+    B = A + rng.standard_normal((T, 3)).astype(np.float32) * 0.5
+    C = A + rng.standard_normal((T, 3)).astype(np.float32) * 0.5
+    n = rng.standard_normal((3, T, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=2, keepdims=True)
+    slot_src = np.full(n_tiles * 128, -1, np.int32)
+    slot_src[:T] = rng.permutation(T).astype(np.int32)
+    fields = torch.from_numpy(pt.fields_from_corners(A, B, C, slot_src, *n))
+    o = rng.uniform(-25, 25, (3, R)).astype(np.float32)
+    d = rng.standard_normal((3, R)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    rfT = pt._ray_feature_rows(Vec3(*map(torch.from_numpy, o)),
+                               Vec3(*map(torch.from_numpy, d)))
+    W = -(-n_tiles // 32)
+    words = rng.integers(0, 2**32, (W, R // subg), dtype=np.uint64)
+    bits = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    bits[-1] = -1
+    return rfT, fields, bits
+
+
+@pytest.mark.parametrize("subg", [16, 64])
+def test_plain_versions_ignore_bits_past_the_table(subg):
+    """On a table past 32,768 slots, bits naming tiles past the table
+    change nothing: the last word with those bits cleared gives the same
+    results."""
+    rfT, fields, bits = _big_table(R=512, subg=subg)
+    n_tiles = fields.shape[1] // 128
+    assert fields.shape[1] > 32768 and n_tiles >= 300
+    assert bits.shape[0] * 32 > n_tiles
+    clean = bits.clone()
+    clean[-1] = (1 << (n_tiles - 32 * (bits.shape[0] - 1))) - 1
+    for name in ("pairs_closest", "pairs_closest_smooth",
+                 "pairs_closest_idx", "pairs_shadow"):
+        plain = getattr(pt, f"{name}_plain")
+        got = plain(rfT, fields, bits, EPS, subg, 128)
+        want = plain(rfT, fields, clean, EPS, subg, 128)
+        got, want = ((got,), (want,)) if name == "pairs_shadow" else (got,
+                                                                     want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        assert (got[0] < pt.INF32).sum() > 20
+
+
 # ------------------------------------------------------------ CUDA cases
 
 def _need_cuda():
@@ -568,3 +622,23 @@ def test_small_pallas_frame_on_cuda_matches_cpu():
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
     bad = np.abs(img_g - img_c) > 1e-4 * np.abs(img_c) + 1.0
     assert bad.any(-1).mean() < 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subg", [16, 64])
+@pytest.mark.parametrize("name", ["pairs_closest", "pairs_closest_smooth",
+                                  "pairs_closest_idx", "pairs_shadow"])
+def test_kernels_bitwise_past_st_slots(name, subg):
+    """B0-B3 on a table past 32,768 slots (301 tiles; the JAX package's B4
+    sizes) with bits naming tiles past the table: bitwise their plain
+    versions, at the subgroups the presets use."""
+    _need_cuda()
+    rfT, fields, bits = (x.cuda() for x in _big_table(subg=subg))
+    assert fields.shape[1] > 32768
+    got = getattr(_kernels, name)(rfT, fields, bits, EPS, subg, 128)
+    torch.cuda.synchronize()
+    want = getattr(pt, f"{name}_plain")(rfT, fields, bits, EPS, subg, 128)
+    if name == "pairs_shadow":
+        got, want = (got,), (want,)
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+    assert (want[0] < pt.INF32).sum() > 100
