@@ -11,10 +11,11 @@ slots, where the JAX package's TPU kernel streams its field table in
     python -m raytracinggpu_tpu_torch.bench.big_mesh [--tris N] [--out FILE]
 
 Prints one row per traversal (host build seconds, the best of three
-warm frames, Mray/s by the reference ray-count formula) and, with
-``--out``, writes the rows as JSON.  Frames are timed on the host clock,
-ended by ``torch.cuda.synchronize()``.  Without a CUDA device it exits
-nonzero.
+warm frames, Mray/s by the reference ray-count formula), then the set-up
+phases (soup write, each host build, each warm-up frame) as a
+``PhaseTimer`` report, and, with ``--out``, writes the rows as JSON.
+Frames are timed on the host clock, ended by
+``torch.cuda.synchronize()``.  Without a CUDA device it exits nonzero.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
     returns the rows (and writes them to ``out`` as JSON when given)."""
     from raytracinggpu_tpu_torch.api import Renderer
     from raytracinggpu_tpu_torch.render.pipeline import rays_per_frame
+    from raytracinggpu_tpu_torch.utils.profiling import PhaseTimer
 
     card = torch.cuda.get_device_name(0)
     rows = {
@@ -73,18 +75,19 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
               f"one {card}; pairs = B1/B2 over the whole field table, "
               "pallas = the tiled fallback (lbvh builder for both)"),
     }
+    timer = PhaseTimer()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, f"soup_{n_tris}.obj")
-        t0 = time.perf_counter()
-        soup_obj(path, n_tris)
-        print(f"wrote the {n_tris}-triangle soup in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        with timer.phase("soup write"):
+            soup_obj(path, n_tris)
         for traversal in ("pairs", "pallas"):
-            t0 = time.perf_counter()
-            r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
-                         width=width, height=height, spp=spp,
-                         max_depth=max_depth, traversal=traversal)
-            build_s = time.perf_counter() - t0
+            build = f"{traversal} host build"
+            with timer.phase(build):
+                r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
+                             width=width, height=height, spp=spp,
+                             max_depth=max_depth, traversal=traversal)
+                torch.cuda.synchronize()
+            build_s = timer.phases[build]
             if traversal == "pairs":
                 tab = r.scene.pairs_mesh
                 if tab is None:
@@ -92,7 +95,8 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
                                        "tables")
                 rows["pairs_tiles"] = int(tab.tile_aabb.shape[0])
                 rows["pairs_field_cols"] = int(tab.fields.shape[1])
-            r.render_hdr(seed=0)  # builds the kernels, fills the allocator
+            with timer.phase(f"{traversal} warm-up frame"):
+                r.render_hdr(seed=0)  # builds the kernels, fills the allocator
             times = []
             for i in range(1, 4):
                 torch.cuda.synchronize()
@@ -107,6 +111,7 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
                 "host_build_s": build_s,
             }
             print(traversal, rows[traversal], flush=True)
+    print(timer.report(), flush=True)
     if out:
         with open(out, "w") as f:
             json.dump(rows, f, indent=1)

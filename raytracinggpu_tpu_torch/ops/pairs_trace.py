@@ -81,7 +81,9 @@ MAX_SLOTS = (2**31 - 1) // NUM_FIELDS
 class PairsMeshTooLarge(ValueError):
     """The mesh's pairs table would pass MAX_SLOTS; the scene build then
     leaves the pairs tables out and ``traversal="pairs"`` runs as
-    ``pallas``."""
+    ``pallas``.  That fallback keeps parity with the JAX package only: at
+    this size the pallas cast's active-tile lists also pass the kernels'
+    32-bit indices, so on the card ``ops/_kernels._check`` refuses it."""
 
 
 class PairsMeshTables(NamedTuple):

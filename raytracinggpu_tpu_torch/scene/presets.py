@@ -88,12 +88,11 @@ def make_config(preset: str, **overrides) -> RenderConfig:
     return replace(cfg, **overrides) if overrides else cfg
 
 
-def build_preset(preset: str, device, obj_path: str = CAT_OBJ_PATH,
-                 mesh: MeshData | None = None,
+def build_preset(preset: str, device, mesh: MeshData | None = None,
                  **config_overrides) -> tuple[RenderConfig, SceneTables]:
     """Build (config, scene tables on ``device``) for a named preset.  The
-    cat OBJ is loaded from ``obj_path`` with the preset's transform,
-    unless ``mesh`` gives an already-built MeshData (a custom mesh)."""
+    cat is loaded with the preset's transform, unless ``mesh`` gives an
+    already-built MeshData (a custom mesh)."""
     cfg = make_config(preset, **config_overrides)
     if preset not in PORTED_PRESETS:
         raise NotImplementedError(
@@ -102,7 +101,7 @@ def build_preset(preset: str, device, obj_path: str = CAT_OBJ_PATH,
     spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
     L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
     if mesh is None:
-        mesh = load_cat_mesh(obj_path, *_MESH_TRANSFORM[preset])
+        mesh = load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset])
     if cfg.smooth_normals and not np.any(mesh.na):
         # A mesh without vertex normals: Phong interpolation of the all-zero
         # fallback normals would give N = 0 and NaN bounce rays.

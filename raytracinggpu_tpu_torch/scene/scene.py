@@ -128,7 +128,9 @@ def build_scene_tables(
     (albedo(3,), mirror, in_ri, out_ri).  The mesh (diffuse, albedo 0.25)
     is appended as the last object id.  A mesh past the pairs tables'
     ceiling (``PairsMeshTooLarge``) gets no pairs tables, with a warning,
-    and ``traversal="pairs"`` then runs as ``pallas``.
+    and ``traversal="pairs"`` then runs as ``pallas``, as in the JAX
+    package.  That fallback is for parity only: on the card a mesh that
+    large also passes the pallas lists' 32-bit indices (ROADMAP A10b).
     """
     mats = list(materials)
     if mesh is not None:
