@@ -7,8 +7,8 @@ Phases, in order; any failed check exits nonzero:
 1. environment: the card's name and power limit (nvidia-smi), torch,
    CUDA and nvcc versions;
 2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
-   csrc/pallas_trace.cu: B5, B6) with nvcc for sm_90a, one process per
-   source, and load them;
+   csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e)
+   with nvcc for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once while keeping the inputs the frame gives each
    kernel at depths 0 and 1 of its first cast (4 samples fused, 524,288
@@ -100,14 +100,41 @@ Phases, in order; any failed check exits nonzero:
    g. B1 and B2 timed on the whole depth-1 casts against their bound, and
       on the casts' busiest windows (those of 10b) against their plain
       versions and the bound; the JSON line's ``pairs_b4`` entry holds the
-      sums of both kernels' window numbers.
+      sums of both kernels' window numbers;
+11. the probes (bench/micro_kernel.py, csrc/micro_kernel.cu: B7a tile
+    slope, B7b mask in the kernel, B7c uniform branch, B7d row gather, B7e
+    pair slope):
+   a. at the entry point's defaults (PROBE_DEFAULT: 131,072 rays, 31
+      tiles) and at the main path's cast size (PROBE_CAST: 524,288 rays,
+      the cat's 40 tiles) every configuration of every probe (B7a at each
+      L, B7b and its control, B7c under both masks, B7d, B7e at subgroups
+      8, 16, 32, 64 and each L) must equal its plain version bit for bit;
+   b. the entry point, ``bench.micro_kernel.main([])``, with the counters
+      zeroed just before: every probe launched, no trace kernel; its
+      timing tables (each case checked again inside), then the same
+      tables at PROBE_CAST; B7d's one-call PyTorch version
+      (``torch.index_select``) timed beside it;
+12. the sweep and the last presets:
+   a. ``bench.sweep.run_sweep`` on array_bvh 512x512, spps (8, 32) x
+      bounces (3, 5), ``traversal="pairs"``, the counters zeroed just
+      before: B1 and B2 launched once per cast of every frame, finite
+      positive times, the (32, 5) cell's Mray/s beside the headline;
+   b. one 512x512 spp 8 depth 5 frame of each of ``cpu``, ``global``,
+      ``optimized`` and ``showcase``: finite, every ray hits at every
+      depth (``cpu`` loses the few rays the JAX package loses there, see
+      CPU_PRESET_HITS), B1 and B2 launched once per cast (no kernel for the
+      mesh-less ``showcase``), Mray/s over two more frames; ``showcase``
+      must send lanes through the mirror and refraction branches, and
+      prints its total-internal-reflection lanes.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
 its largest error against the plain version, its time and the plain
 version's on a depth-1 cast, and the bound: the larger of the cast's
 Moller-Trumbore tests x FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes
-it must move over PEAK_BYTES_S); the last line is the JSON result.
+it must move over PEAK_BYTES_S; a probe's numbers are those of one
+configuration at PROBE_DEFAULT, replayed from a CUDA graph, see
+_PROBE_ROW); the last line is the JSON result.
 Without a CUDA device the script exits nonzero at once and prints no
 result.
 """
@@ -153,14 +180,37 @@ ORACLE_RAYS = 8192
 # O(1) sums in another order)
 EDGE_MARGIN = 1e-5
 
-# ptxas names the kernel templates' modes pairs_kernel<0..3> and
-# pallas_kernel<false/true>
-_MODES = {"ILi0E": "pairs_shadow", "ILi1E": "pairs_closest_idx",
-          "ILi2E": "pairs_closest", "ILi3E": "pairs_closest_smooth",
-          "ILb0E": "pallas_shadow", "ILb1E": "pallas_closest"}
+# Phase 11: (rays, tiles) of the probe entry point's defaults and of the
+# main path's casts (the cat's pairs tiles)
+PROBE_DEFAULT = (131072, 31)
+PROBE_CAST = (524288, 40)
+
+# Phase 12: the `cpu` preset's scene is not quite closed to its own rays:
+# in the JAX package's CPU render of the frame phase 12b renders (512x512,
+# spp 8, depth 5, seed 0, the dense traversal; PERF.md, "The cpu preset's
+# lost rays", gives the command) a few rays of 2,097,152 miss everything
+# from depth 2 on.  The port must lose as many, to HIT_RTOL of the rays.
+CPU_PRESET_HITS = (2097152, 2097152, 2097145, 2097133, 2097126)
+HIT_RTOL = 1e-5
+
+# ptxas names the kernel templates' modes pairs_kernel<0..3>,
+# pallas_kernel<false/true> and block_mask_kernel<false/true>
+_MODES = {"pairs_kernelILi0E": "pairs_shadow",
+          "pairs_kernelILi1E": "pairs_closest_idx",
+          "pairs_kernelILi2E": "pairs_closest",
+          "pairs_kernelILi3E": "pairs_closest_smooth",
+          "pallas_kernelILb0E": "pallas_shadow",
+          "pallas_kernelILb1E": "pallas_closest",
+          "tile_slope_kernel": "probe_tile_slope",
+          "block_mask_kernelILb1E": "probe_block_mask",
+          "block_mask_kernelILb0E": "probe_block_mask (control)",
+          "uniform_branch_kernel": "probe_uniform_branch",
+          "row_gather_kernel": "probe_row_gather",
+          "pair_slope_kernel": "probe_pair_slope"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
+_MICRO = "raytracinggpu_tpu_torch/csrc/micro_kernel.cu"
 _ORIGIN = {
     "pairs_closest": _PAIRS, "pairs_shadow": _PAIRS,
     "pairs_closest_smooth": _PAIRS, "pairs_closest_idx": _PAIRS,
@@ -171,10 +221,28 @@ _ORIGIN = {
     # B4, the JAX kernel's streamed-supertile grid: B1 and B2 past ST_SLOTS
     "pairs_b4": ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
                  "raytracinggpu_tpu/ops/pairs_trace.py:784"),
+    "probe_tile_slope": (_MICRO, "raytracinggpu_tpu/bench/micro_kernel.py:75"),
+    "probe_block_mask": (_MICRO,
+                         "raytracinggpu_tpu/bench/micro_kernel.py:128"),
+    "probe_uniform_branch": (_MICRO,
+                             "raytracinggpu_tpu/bench/micro_kernel.py:189"),
+    "probe_row_gather": (_MICRO,
+                         "raytracinggpu_tpu/bench/micro_kernel.py:233"),
+    "probe_pair_slope": (_MICRO,
+                         "raytracinggpu_tpu/bench/micro_kernel.py:312"),
+}
+# The configuration of each probe that the JSON line reports, at
+# PROBE_DEFAULT: (key of bench.micro_kernel.main's result, its case)
+_PROBE_ROW = {
+    "probe_tile_slope": ("slope", dict(L=8)),
+    "probe_block_mask": ("dma", None),
+    "probe_uniform_branch": ("branch", dict(name="all_true")),
+    "probe_row_gather": ("gather", None),
+    "probe_pair_slope": ("pairslope", dict(subg=64, L=4)),
 }
 # The bound of a kernel (peak rates from NVIDIA's H100 SXM data
 # sheet): f32 outside the tensor cores, and device memory.  One
-# Moller-Trumbore test is 39 f32 operations: 30 multiplies, 8 adds and
+# Moller-Trumbore test is 39 f32 operations: 21 multiplies, 17 adds and
 # subtractions, one reciprocal (the 5 comparisons are not counted).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -199,29 +267,20 @@ class _Laps:
 
 
 def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        _fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from raytracinggpu_tpu_torch.bench._timing import card_line
+
+    try:
+        return card_line()
+    except RuntimeError as e:
+        _fail(str(e))
 
 
 def _time_ms(fn, iters: int) -> float:
     """Mean device time of fn over iters launches (CUDA events), after one
     warm-up call."""
-    import torch
+    from raytracinggpu_tpu_torch.bench._timing import timed
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters) * 1e3
 
 
 def _max_abs_err(a, b) -> float:
@@ -275,7 +334,7 @@ def _capture_casts(render, per_kernel: int):
     input), ...]} in launch order, render's result)."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
-    kept = {k: [] for k in _kernels.LAUNCHES}
+    kept = {k: [] for k in _kernels._SPECS}  # the trace kernels
     orig = {k: getattr(_kernels, k) for k in kept}
 
     def keeping(k):
@@ -989,6 +1048,232 @@ def _big_mesh(device, card, err):
                       else "bytes")
 
 
+def _probe_bound(tests: int, nbytes: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a probe: its MT tests' operations over the
+    f32 peak, or the bytes it must move over the memory rate, the larger."""
+    ops_s = tests * FLOP_PER_TEST / PEAK_F32_FLOPS
+    bytes_s = nbytes / PEAK_BYTES_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def _probe_cases(mk, R, n_tiles, device):
+    """Every configuration the probe entry point runs, at R rays and
+    n_tiles tiles: (wrapper name, label, kernel, plain version, args)."""
+    import numpy as np
+    import torch
+
+    rf, tri = mk.cast_inputs(R, n_tiles, 0, device)
+    rng = np.random.default_rng(1)
+    for L in (0, 1, 2, 4, 8):
+        yield ("probe_tile_slope", f"L={L}", mk.tile_slope,
+               mk.tile_slope_plain, (mk.tile_lists(R, L, device), rf, tri))
+    for mask in (True, False):
+        yield ("probe_block_mask", "mask" if mask else "control",
+               mk.block_mask, mk.block_mask_plain, (rf, mask))
+    for frac in (1.0, 0.25):
+        m = (rng.random((R // mk.SUBG, mk.TILE)) < frac).astype(np.int32)
+        yield ("probe_uniform_branch", f"{frac:g} true", mk.uniform_branch,
+               mk.uniform_branch_plain,
+               (torch.from_numpy(m).to(device), rf, tri))
+    table = torch.from_numpy(rng.random((mk.GATHER_ROWS, mk.TILE),
+                                        dtype=np.float32)).to(device)
+    idx = torch.from_numpy(rng.integers(0, mk.GATHER_ROWS, (R, 1))
+                           .astype(np.int32)).to(device)
+    yield ("probe_row_gather", f"{mk.GATHER_ROWS}-row table", mk.row_gather,
+           mk.row_gather_plain, (idx, table))
+    for subg in (8, 16, 32, 64):
+        for L in (0, 1, 2, 4):
+            yield ("probe_pair_slope", f"subgroup {subg} L={L}",
+                   mk.pair_slope, mk.pair_slope_plain,
+                   (mk.pair_lists(R, n_tiles, subg, L, device), rf, tri,
+                    subg))
+
+
+def _probes(device, card, err):
+    """Phase 11 (module docstring).  Returns (the entry point's launch
+    counts, {probe: (ms, plain_ms, bound_ms, bound_by)}, B7d's
+    library_ms)."""
+    import torch
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+    from raytracinggpu_tpu_torch.bench._timing import timed
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    # a. every configuration bitwise, at both sizes
+    for R, n_tiles in (PROBE_DEFAULT, PROBE_CAST):
+        t0 = time.perf_counter()
+        n = 0
+        for name, label, kernel, plain, args in _probe_cases(mk, R, n_tiles,
+                                                             device):
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            e = _max_abs_err(got, want)
+            err[name] = max(err[name], e)
+            if not (got.is_cuda and torch.equal(got, want)):
+                _fail(f"{name} ({label}) differs from its plain version at "
+                      f"{R} rays, {n_tiles} tiles (max abs {e})")
+            if name in ("probe_tile_slope", "probe_pair_slope") \
+                    and bool((got < mk.MISS).any()) != ("L=0" not in label):
+                _fail(f"{name} ({label}): hits with no visit, or none with "
+                      "some")
+            n += 1
+        print(f"probes at {R} rays, {n_tiles} tiles: {n} configurations of "
+              f"{len(_kernels.PROBES)} kernels bitwise equal to their plain "
+              f"versions ({time.perf_counter() - t0:.2f} s)")
+
+    # b. the entry point, counted, then its tables at the cast size
+    R, n_tiles = PROBE_DEFAULT
+    _kernels.reset_launches()
+    res = mk.main([])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    print(f"probe entry point: launches {launches} on {card}")
+    for k, n in launches.items():
+        if (n > 0) != (k in _kernels.PROBES):
+            _fail(f"the probe entry point launched {k} {n} times")
+    iters = 30
+    print(f"the same tables at {PROBE_CAST[0]} rays, {PROBE_CAST[1]} tiles, "
+          f"on {card}:")
+    mk.bench_pair_slope(*PROBE_CAST, iters, device)
+    mk.bench_tile_slope(*PROBE_CAST, iters, device)
+    mk.bench_dma_smem(PROBE_CAST[0], iters, device)
+    mk.bench_scalar_branch(*PROBE_CAST, iters, device)
+    mk.bench_inkernel_gather(PROBE_CAST[0], iters, device)
+
+    timing = {}
+    for name, (key, want) in _PROBE_ROW.items():
+        case = res[key] if want is None else next(
+            c for c in res[key] if all(c[k] == v for k, v in want.items()))
+        bound_ms, bound_by = _probe_bound(case.get("tests", 0),
+                                          case["nbytes"])
+        timing[name] = (case["s"] * 1e3, case["plain_s"] * 1e3, bound_ms,
+                        bound_by)
+        print(f"timing {name} ({want or ''}; {R} rays, {n_tiles} tiles, "
+              f"{case.get('tests', 0)} MT tests, {case['nbytes']} bytes): "
+              f"kernel {timing[name][0]:.4f} ms, plain {timing[name][1]:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}; roofline share "
+              f"{bound_ms / timing[name][0]:.1%}) on {card}")
+    # B7d's one PyTorch call, on the inputs the entry point used (seed 0)
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.random((mk.GATHER_ROWS, mk.TILE),
+                                        dtype=np.float32)).to(device)
+    idx = torch.from_numpy(rng.integers(0, mk.GATHER_ROWS, (R, 1))
+                           .astype(np.int32)).to(device)[:, 0]
+    if not torch.equal(torch.index_select(table, 0, idx),
+                       res["gather"]["out"]):
+        _fail("torch.index_select differs from the row-gather kernel")
+    library_ms = timed(lambda: torch.index_select(table, 0, idx), 300,
+                       graph=True) * 1e3
+    print(f"timing torch.index_select on probe_row_gather's inputs: "
+          f"{library_ms:.4f} ms beside the kernel's "
+          f"{timing['probe_row_gather'][0]:.4f} ms, on {card}")
+    return launches, timing, library_ms
+
+
+def _sweep_and_presets(device, card, headline_mrays):
+    """Phase 12 (module docstring)."""
+    import torch
+    from raytracinggpu_tpu_torch.bench.sweep import run_sweep
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, chunk_size, group_size, rays_per_frame, render_frame)
+    from raytracinggpu_tpu_torch.scene.presets import (
+        build_preset, make_config)
+
+    def casts(cfg):
+        g = group_size(cfg, cfg.spp)
+        R_group = g * cfg.width * cfg.height
+        return (cfg.spp // g) * cfg.max_depth * -(-R_group
+                                                  // chunk_size(cfg, R_group))
+
+    # a. the sweep through the public function
+    spps, bounces, repeats = (8, 32), (3, 5), 3
+    _kernels.reset_launches()
+    res = run_sweep(preset="array_bvh", width=512, height=512, spps=spps,
+                    bounces=bounces, repeats=repeats, traversal="pairs",
+                    device=device)
+    launches = dict(_kernels.LAUNCHES)
+    frames = 1 + max(1, repeats - 1)
+    n_casts = frames * sum(
+        casts(make_config("array_bvh", width=512, height=512, spp=s,
+                          max_depth=b)) for s in spps for b in bounces)
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
+    print(f"sweep: launches {launches} (expected {n_casts} each of B1, B2)")
+    if launches != expected:
+        _fail(f"sweep launches {launches}, expected {expected}")
+    if sorted(res) != sorted((s, b) for s in spps for b in bounces):
+        _fail(f"sweep cells {sorted(res)}")
+    for cell, r in res.items():
+        if not all(math.isfinite(r[k]) and r[k] > 0
+                   for k in ("first_s", "steady_s", "mrays")):
+            _fail(f"sweep cell {cell}: {r}")
+    print(f"sweep cell spp 32 x depth 5: {res[(32, 5)]['mrays']:.3f} Mray/s "
+          f"(the mean of {frames - 1} frames) beside the headline "
+          f"{headline_mrays:.3f} Mray/s (the best of 3) of this call, on "
+          f"{card}")
+
+    # b. one frame of each of the other presets
+    for preset in ("cpu", "global", "optimized", "showcase"):
+        t0 = time.perf_counter()
+        cfg, tables = build_preset(preset, device, width=512, height=512,
+                                   spp=8, max_depth=5)
+        cam = Camera.default(cfg, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _kernels.reset_launches()
+        img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        n = 0 if tables.mesh is None else casts(cfg)
+        expected = {k: 0 for k in _kernels.LAUNCHES}
+        expected.update(pairs_closest=n, pairs_shadow=n)
+        n_rays = cfg.width * cfg.height * cfg.spp
+        if not bool(torch.isfinite(img).all()):
+            _fail(f"{preset}: the frame has non-finite values")
+        hit = stats.hit.tolist()
+        want_hit = CPU_PRESET_HITS if preset == "cpu" else (n_rays,) * 5
+        slack = HIT_RTOL * n_rays if preset == "cpu" else 0
+        if any(abs(h - w) > slack for h, w in zip(hit, want_hit)) \
+                or hit[:2] != [n_rays] * 2:
+            _fail(f"{preset}: hits per depth {hit}, expected {want_hit}")
+        if launches != expected:
+            _fail(f"{preset}: launches {launches}, expected {expected}")
+        times = []
+        for i in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_frame(tables, cfg, cam, PRNGKey(i, device))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        same = (" (the JAX package on CPU: the same)"
+                if preset == "cpu" and tuple(hit) == CPU_PRESET_HITS else "")
+        print(f"preset {preset}: built in {build_s:.2f} s, {cfg.width}x"
+              f"{cfg.height} spp{cfg.spp} d{cfg.max_depth} frame mean "
+              f"{float(img.mean()):.3f}, hits per depth {hit} of {n_rays}"
+              f"{same}, "
+              f"{n} launches each of B1, B2, shadowed "
+              f"{stats.shadowed.tolist()}; "
+              f"{rays_per_frame(cfg) / min(times) / 1e6:.3f} Mray/s (frame "
+              f"times {[round(t, 4) for t in times]} s) on {card}")
+        if preset == "showcase":
+            mirror, refract, tir = (int(x.sum()) for x in (
+                stats.mirror, stats.refract, stats.tir))
+            print(f"preset showcase: lanes per depth through the mirror "
+                  f"branch {stats.mirror.tolist()}, refraction "
+                  f"{stats.refract.tolist()}, total internal reflection "
+                  f"{stats.tir.tolist()}")
+            if mirror <= 0 or refract <= 0:
+                _fail(f"showcase: mirror {mirror}, refraction {refract} "
+                      "lanes")
+        elif int(stats.shadowed.sum()) <= 0:
+            _fail(f"{preset}: no shadow ray was occluded")
+
+
 def main() -> int:
     import torch
 
@@ -1149,14 +1434,25 @@ def main() -> int:
     soup_launches["pairs_b4"] = (soup_launches["pairs_closest"]
                                  + soup_launches["pairs_shadow"])
 
+    # ---- 11. the probes --------------------------------------------------
+    probe_launches, timing_probes, gather_library_ms = _probes(device, card,
+                                                               err)
+    lap("11 probes")
+
+    # ---- 12. the sweep and the last presets ------------------------------
+    _sweep_and_presets(device, card, mrays)
+    lap("12 sweep and presets")
+
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
-    # or nearest t, so library_ms is null for every kernel
+    # or nearest t, so library_ms is null for every kernel but the row
+    # gather (torch.index_select)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": _ORIGIN[k][0],
          "replaces": _ORIGIN[k][1], "launches": counts[k],
          "max_abs_err": err[k], "ms": timing[k][0], "plain_ms": timing[k][1],
          "bound_ms": timing[k][2], "bound_by": timing[k][3],
-         "library_ms": None}
+         "library_ms": (gather_library_ms if k == "probe_row_gather"
+                        else None)}
         for k, counts, timing in (
             ("pairs_closest", launches, timing_main),
             ("pairs_shadow", launches, timing_main),
@@ -1164,7 +1460,8 @@ def main() -> int:
             ("pairs_closest_idx", query_launches, timing_rt),
             ("pallas_closest", pallas_launches, timing_pallas),
             ("pallas_shadow", pallas_launches, timing_pallas),
-            ("pairs_b4", soup_launches, timing_b4))]}))
+            ("pairs_b4", soup_launches, timing_b4),
+            *((k, probe_launches, timing_probes) for k in _PROBE_ROW))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,17 +1,23 @@
-"""Command-line frontend (port of ``raytracinggpu_tpu/cli/main.py``, the
-``render`` subcommand).
+"""Command-line frontend (port of ``raytracinggpu_tpu/cli/main.py``): the
+``render``, ``realtime`` and ``bench`` subcommands.
 
     python -m raytracinggpu_tpu_torch.cli render --preset array_bvh 32 5 \
         --out img.png
     python -m raytracinggpu_tpu_torch.cli render 4 2 --obj mesh.obj \
         --bvh-builder lbvh --selfcheck
     python -m raytracinggpu_tpu_torch.cli render 2 2 --device cpu
+    python -m raytracinggpu_tpu_torch.cli realtime --frames 60 \
+        --out-dir frames/
+    python -m raytracinggpu_tpu_torch.cli bench 32 5 --preset array_bvh
 
-The frame renders on ``--device``, the CUDA device by default; without
-one the command exits with an error unless ``--device cpu`` is given.  A
-flag of the JAX CLI whose mode the port does not have exits with a
-message naming its ROADMAP item; none is ignored.  The ``realtime`` and
-``bench`` subcommands are not ported yet (ROADMAP A12).
+``render`` writes one frame as a PNG, ``realtime`` runs the progressive
+loop with the circulating light (PNG sequence, raw RGB24 pipe, or
+``--interactive`` with the reference's key bindings), ``bench`` sweeps
+spp x bounces (``bench/sweep.py``; positional spp and bounces restrict it
+to one cell).  Everything renders on ``--device``, the CUDA device by
+default; without one the command exits with an error unless ``--device
+cpu`` is given.  A flag of the JAX CLI whose mode the port does not have
+exits with a message naming its ROADMAP item; none is ignored.
 """
 from __future__ import annotations
 
@@ -20,13 +26,23 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from raytracinggpu_tpu_torch.api import Renderer, render_device
+from raytracinggpu_tpu_torch.bench.sweep import run_sweep
 from raytracinggpu_tpu_torch.core.rng import PRNGKey
 from raytracinggpu_tpu_torch.render.image_io import tonemap, write_png
 from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
-from raytracinggpu_tpu_torch.scene.presets import PORTED_PRESETS, PRESET_NAMES
+from raytracinggpu_tpu_torch.render.realtime import (
+    init_state,
+    on_key,
+    run_loop,
+    step,
+    steps,
+)
+from raytracinggpu_tpu_torch.scene.presets import PRESET_NAMES
+from raytracinggpu_tpu_torch.utils.checkpoint import save_state
 from raytracinggpu_tpu_torch.utils.profiling import device_trace, ray_report
 
 # flags of the JAX CLI for modes the port does not have: (attribute, the
@@ -103,9 +119,9 @@ def _refuse_unported(args) -> None:
     if args.traversal == "bvh":
         raise SystemExit("error: --traversal bvh is not ported yet "
                          "(ROADMAP A10b)")
-    if args.preset not in PORTED_PRESETS:
-        raise SystemExit(f"error: preset {args.preset!r} is not ported yet "
-                         f"(ROADMAP A9; ported: {', '.join(PORTED_PRESETS)})")
+    if args.obj and args.preset == "showcase":
+        raise SystemExit("error: --obj is not supported with --preset "
+                         "showcase (the showcase scene has no mesh slot)")
 
 
 def _build(args, device):
@@ -128,11 +144,15 @@ def _build(args, device):
     return r.cfg, r.scene
 
 
-def cmd_render(args) -> int:
+def _device(args) -> torch.device:
     try:
-        dev = render_device(args.device)
+        return render_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}")
+
+
+def cmd_render(args) -> int:
+    dev = _device(args)
     cfg, tables = _build(args, dev)
     cam = Camera.default(cfg, dev)
     key = PRNGKey(args.seed, dev)
@@ -170,6 +190,118 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_realtime(args) -> int:
+    if args.animate != "light" or args.mesh_speed != 1.0:
+        raise SystemExit("error: --animate mesh/both and --mesh-speed: mesh "
+                         "posing (pose_mesh) is not ported yet (ROADMAP A11)")
+    cfg, tables = _build(args, _device(args))
+    if args.interactive:
+        for flag in ("checkpoint", "raw"):
+            if getattr(args, flag):
+                print(f"warning: --{flag} is ignored with --interactive",
+                      file=sys.stderr)
+        return _interactive_loop(tables, cfg, args, args.light_speed)
+    state, summary = run_loop(
+        tables, cfg, n_frames=args.frames, seed=args.seed,
+        out_dir=args.out_dir,
+        raw_pipe=sys.stdout.buffer if args.raw else None,
+        angular_speed=args.light_speed,
+        frames_per_dispatch=args.frames_per_dispatch)
+    info = sys.stderr if args.raw else sys.stdout
+    if args.checkpoint:
+        save_state(args.checkpoint, state)
+        print(f"checkpoint -> {args.checkpoint}", file=info)
+    print(json.dumps(summary), file=info)
+    return 0
+
+
+def _interactive_loop(tables, cfg, args, light_speed=1.0) -> int:
+    """Terminal-interactive progressive rendering, the GL-free equivalent
+    of the reference's GLUT loop.  Its key bindings (a/d/r/f/w/s translate,
+    h/l/k/j = arrow yaw/pitch, q or ESC quits) apply between dispatches;
+    the latest display is written to <--out-dir>/live.png (default
+    ./live.png) for an image viewer to follow.  One dispatch stays in
+    flight: frame n + 1 is enqueued before frame n is read back."""
+    import os
+    import select
+    import termios
+    import tty
+
+    keymap = {"h": "left", "l": "right", "k": "up", "j": "down"}
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        out = os.path.join(args.out_dir, "live.png")
+    else:
+        out = "live.png"
+    g = max(1, args.frames_per_dispatch)
+    speed = np.float32(light_speed)
+    state = init_state(cfg, tables, seed=args.seed)
+    fd = sys.stdin.fileno()
+    old = termios.tcgetattr(fd)
+    print(f"interactive: writing {out}; keys a/d r/f w/s move, h/l/k/j "
+          "look, q quits")
+    try:
+        tty.setcbreak(fd)
+        i = 0
+        pending = None  # the previous dispatch's newest display, not read
+        t0 = time.perf_counter()
+        while args.frames <= 0 or i < args.frames:
+            if g == 1:
+                state, display = step(tables, cfg, state, angular_speed=speed)
+            else:
+                # g frames a dispatch: keys apply every g frames
+                state, batch = steps(tables, cfg, g, state, speed)
+                display = batch[-1]
+            if pending is not None:
+                shown = pending.cpu().numpy()  # waits for that dispatch
+                t1 = time.perf_counter()
+                dt = (t1 - t0) / g
+                t0 = t1
+                write_png(out, shown)
+                if ((i - g) // g) % max(1, 5 // g) == 0:
+                    print(f"frame {i - g}: {dt * 1e3:.0f} ms "
+                          f"({1 / dt:.2f} FPS)", flush=True)
+            pending = display
+            # keys are read from the descriptor, one byte at a time: a
+            # buffered read would hold back a second key typed in the
+            # same frame until the next key press
+            while select.select([fd], [], [], 0)[0]:
+                ch = os.read(fd, 1).decode("latin-1")
+                if ch in ("q", "\x1b", ""):
+                    return 0
+                state = on_key(state, keymap.get(ch, ch))
+            i += g
+        if pending is not None:
+            write_png(out, pending.cpu().numpy())
+    finally:
+        termios.tcsetattr(fd, termios.TCSADRAIN, old)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    _refuse_unported(args)
+    if args.obj or args.bvh_builder != "reference":
+        raise SystemExit("error: bench sweeps a preset's own scene; --obj "
+                         "and --bvh-builder belong to render (custom "
+                         "meshes: bench/big_mesh.py)")
+    # Positional spp/bounces (reference CLI shape: `bench 4 2`) restrict
+    # the sweep to that single cell instead of being silently ignored.
+    spp = args.spp_flag if args.spp_flag is not None else args.spp
+    bounces = (args.bounces_flag if args.bounces_flag is not None
+               else args.bounces)
+    run_sweep(
+        preset=args.preset, width=args.width, height=args.height,
+        spps=[int(spp)] if spp is not None
+        else [int(s) for s in args.spps.split(",")],
+        bounces=[int(bounces)] if bounces is not None
+        else [int(b) for b in args.bounce_list.split(",")],
+        repeats=args.repeats,
+        # the production kernels by default, as `render` runs
+        traversal=args.traversal or "pairs",
+        out=args.out, device=_device(args))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raytracinggpu_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -181,15 +313,42 @@ def main(argv=None) -> int:
                     help="write a torch.profiler trace of the render to DIR")
     pr.add_argument("--selfcheck", action="store_true",
                     help="validate the frame (finite, deterministic)")
-    for name in ("realtime", "bench"):
-        sub.add_parser(name, help="not ported yet (ROADMAP A12)")
+
+    pt = sub.add_parser("realtime",
+                        help="progressive loop with circulating light")
+    _add_common(pt)
+    pt.set_defaults(preset="realtime")
+    pt.add_argument("--frames", type=int, default=30)
+    pt.add_argument("--out-dir", default=None)
+    pt.add_argument("--raw", action="store_true",
+                    help="stream raw RGB24 frames to stdout (ffmpeg pipe)")
+    pt.add_argument("--light-speed", type=float, default=1.0)
+    pt.add_argument("--animate", choices=["light", "mesh", "both"],
+                    default="light",
+                    help="per-frame animation (only the circulating light "
+                         "is ported)")
+    pt.add_argument("--mesh-speed", type=float, default=1.0)
+    pt.add_argument("--checkpoint", default=None)
+    pt.add_argument("--interactive", action="store_true",
+                    help="terminal-interactive camera (GLUT-equivalent keys)")
+    pt.add_argument("--frames-per-dispatch", type=int, default=1,
+                    metavar="G",
+                    help="enqueue G frames before reading any back; the "
+                         "frames are bitwise those of G = 1, key events "
+                         "apply every G frames")
+
+    pb = sub.add_parser("bench", help="benchmark sweep (benchmark.py parity)")
+    _add_common(pb)
+    pb.add_argument("--spps", default="1,2,4,8,16,32,64,128,256")
+    pb.add_argument("--bounce-list", default="1,2,3,4,5,6,7,8,9,10")
+    pb.add_argument("--repeats", type=int, default=5)
+    pb.add_argument("--out", default=None)
 
     args = ap.parse_args(argv)
-    if args.cmd != "render":
-        raise SystemExit(f"error: the {args.cmd} subcommand is not ported "
-                         "yet (ROADMAP A12)")
+    cmd = {"render": cmd_render, "realtime": cmd_realtime,
+           "bench": cmd_bench}[args.cmd]
     try:
-        return cmd_render(args)
+        return cmd(args)
     except FileNotFoundError as e:
         print(f"error: file not found: {e}", file=sys.stderr)
         return 1

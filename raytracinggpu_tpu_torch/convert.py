@@ -3,7 +3,8 @@
 ``scene_tables_from_numpy`` takes the JAX ``SceneTables`` with every leaf
 converted to numpy (``jax.tree.map(np.asarray, tables)``) and returns the
 port's ``SceneTables`` on ``device``, so both packages compute on
-identical tables.  ``render_config_from_dict`` does the same for a
+identical tables (a mesh-less table, the ``showcase`` preset's, converts
+to one without mesh tables).  ``render_config_from_dict`` does the same for a
 ``dataclasses.asdict`` of the JAX ``RenderConfig``, and
 ``render_state_from_numpy`` for the realtime loop's ``RenderState``.  All
 read fields by name and import neither jax nor the JAX package.

@@ -1,5 +1,6 @@
 // The factorized Moller-Trumbore test every mesh kernel runs per (ray,
-// triangle): pairs_trace.cu (B0-B3) and pallas_trace.cu (B5, B6).
+// triangle): pairs_trace.cu (B0-B3), pallas_trace.cu (B5, B6) and the
+// probes of micro_kernel.cu (B7a, B7c, B7e).
 //
 // A ray is the feature rows [u, w = O x u, O] (rows 0-8 of rfT, (16, R)
 // f32); a triangle is 16 field rows [Ng, e2 x A, e2, e1 x A, e1, A.Ng]

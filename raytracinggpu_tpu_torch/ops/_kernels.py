@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-``csrc/pairs_trace.cu`` (B0-B3) and ``csrc/pallas_trace.cu`` (B5, B6),
-which share the Moller-Trumbore test of ``csrc/mt.cuh``, are compiled by
-``nvcc`` for ``sm_90a``, one process per source, all started together,
+``csrc/pairs_trace.cu`` (B0-B3), ``csrc/pallas_trace.cu`` (B5, B6) and
+``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
+Moller-Trumbore test of ``csrc/mt.cuh``, are compiled by ``nvcc`` for
+``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
 of every file in ``csrc/`` and the flags, and loaded with ctypes.
@@ -10,8 +11,8 @@ Nothing is compiled or loaded when this module is imported.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into an FMA, so the
 kernels round every product and sum as PyTorch's eager ops do and match
-the plain versions in ``ops/pairs_trace.py`` and ``ops/pallas_trace.py``
-bit for bit.
+the plain versions in ``ops/pairs_trace.py``, ``ops/pallas_trace.py`` and
+``bench/micro_kernel.py`` bit for bit.
 
 Each launch wrapper checks its tensors, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
@@ -31,7 +32,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
-                for f in ("pairs_trace.cu", "pallas_trace.cu"))
+                for f in ("pairs_trace.cu", "pallas_trace.cu",
+                          "micro_kernel.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
@@ -58,8 +60,14 @@ _SPECS = {
     "pallas_shadow": ("rt_pallas_shadow", 16, (torch.float32,), "lists"),
 }
 
+# The probes of csrc/micro_kernel.cu (B7a-e), each with a C signature of
+# its own (see the probe_* wrappers below).
+PROBES = ("probe_tile_slope", "probe_block_mask", "probe_uniform_branch",
+          "probe_row_gather", "probe_pair_slope")
+PROBE_BLK = 1024  # rays per block of B7b and B7e
+
 # Kernel launches since the last reset_launches(), by wrapper.
-LAUNCHES = {name: 0 for name in _SPECS}
+LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES)}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -144,6 +152,16 @@ def load():
         for cfun, _, dts, _ in _SPECS.values():
             fn = getattr(lib, cfun)
             fn.argtypes = [p, p, p, i, i, i, i, i, fl] + [p] * len(dts) + [p]
+            fn.restype = i
+        for cfun, args in (
+                ("rt_probe_tile_slope", [p, p, p, i, i, i, i, p, p]),
+                ("rt_probe_uniform_branch", [p, p, p, i, i, i, i, i, p, p]),
+                ("rt_probe_block_mask", [p, i, p, p]),
+                ("rt_probe_block_mask_control", [p, i, p, p]),
+                ("rt_probe_row_gather", [p, p, i, i, p, p]),
+                ("rt_probe_pair_slope", [p, p, p, i, i, i, i, p, p])):
+            fn = getattr(lib, cfun)
+            fn.argtypes = args
             fn.restype = i
         lib.rt_cuda_error_string.argtypes = [i]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
@@ -247,3 +265,141 @@ def pallas_shadow(rfT, fields, lists, eps_leaf, subg):
     """B6 kernel: the nearest hit t per ray; see ops/pallas_trace."""
     return _launch("pallas_shadow", rfT, fields, lists, eps_leaf, subg,
                    TILE_T)[0]
+
+
+# ------------------------------------------------ the probes (B7a-e)
+
+def _need(name, x, dtype, cols=None):
+    """One probe input: a contiguous 2-D tensor of ``dtype`` (with ``cols``
+    columns when given)."""
+    if not (x.dtype == dtype and x.dim() == 2 and x.is_contiguous()
+            and (cols is None or x.shape[1] == cols)):
+        raise ValueError(
+            f"{name}: need a contiguous 2-D {dtype} tensor"
+            + (f" with {cols} columns" if cols else "")
+            + f", got {x.dtype} {tuple(x.shape)}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"{name}: kernel indices are 32-bit: too large")
+
+
+def _on_card(*tensors):
+    """The probe kernels take tensors of one CUDA device (a CPU tensor's
+    place is the plain version in bench/micro_kernel.py)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError("the probe kernels need their tensors on one CUDA "
+                         f"device, got {[str(x.device) for x in tensors]}")
+
+
+def _check_cast(rows, rf, tri, group):
+    """Inputs of B7a, B7c, B7e: rf (R, 16) and tri (16, n * 128) f32 and
+    one int32 row of ``rows`` per ``group`` rays; returns (R, Tp)."""
+    _need("rf", rf, torch.float32, 16)
+    _need("tri", tri, torch.float32)
+    _need("rows", rows, torch.int32)
+    R, Tp = rf.shape[0], tri.shape[1]
+    if tri.shape[0] != 16 or Tp % TILE_T:
+        raise ValueError(f"tri {tuple(tri.shape)} is not 16 rows of whole "
+                         f"{TILE_T}-triangle tiles")
+    if group <= 0 or R == 0 or R % TILE_T or R % group \
+            or rows.shape[0] != R // group or rows.shape[1] < 1:
+        raise ValueError(f"rows {tuple(rows.shape)} do not give one row per "
+                         f"{group} of {R} rays, or R is not a multiple of "
+                         f"{TILE_T}")
+    return R, Tp
+
+
+def _run(name, dev, call):
+    """Launch one probe kernel on PyTorch's current stream of ``dev``:
+    ``call(lib, stream)`` returns the launch's CUDA error."""
+    lib = load()
+    with torch.cuda.device(dev):
+        err = call(lib, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
+
+
+def probe_tile_slope(lists, rf, tri, subg):
+    """B7a kernel: t (R / 128, 128), per ray the min of the MT pass over
+    the tiles listed for its subgroup; see bench/micro_kernel."""
+    R, Tp = _check_cast(lists, rf, tri, subg)
+    _on_card(lists, rf, tri)
+    t = torch.empty((R // TILE_T, TILE_T), dtype=torch.float32,
+                    device=rf.device)
+    _run("probe_tile_slope", rf.device,
+         lambda lib, st: lib.rt_probe_tile_slope(
+             lists.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
+             lists.shape[1], subg, t.data_ptr(), st))
+    return t
+
+
+def probe_uniform_branch(mask, rf, tri, subg, n_fixed):
+    """B7c kernel: as B7a over the first ``n_fixed`` tiles, tile j visited
+    iff mask[subgroup, j] > 0; see bench/micro_kernel."""
+    R, Tp = _check_cast(mask, rf, tri, subg)
+    if not 0 <= n_fixed <= min(mask.shape[1], Tp // TILE_T):
+        raise ValueError(f"{n_fixed} fixed tiles pass the mask's "
+                         f"{mask.shape[1]} columns or the {Tp // TILE_T} "
+                         "tiles")
+    _on_card(mask, rf, tri)
+    t = torch.empty((R // TILE_T, TILE_T), dtype=torch.float32,
+                    device=rf.device)
+    _run("probe_uniform_branch", rf.device,
+         lambda lib, st: lib.rt_probe_uniform_branch(
+             mask.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
+             mask.shape[1], subg, n_fixed, t.data_ptr(), st))
+    return t
+
+
+def probe_block_mask(x, mask=True):
+    """B7b kernel: 2 x, each 1024-row block first computing a (32, 16)
+    mask into shared memory and bounding a loop with two of its words;
+    ``mask=False`` launches the control kernel, 2 x alone."""
+    _need("x", x, torch.float32, 16)
+    R = x.shape[0]
+    if R == 0 or R % PROBE_BLK:
+        raise ValueError(f"x has {R} rows, not whole blocks of {PROBE_BLK}")
+    _on_card(x)
+    out = torch.empty_like(x)
+    cfun = "rt_probe_block_mask" if mask else "rt_probe_block_mask_control"
+    _run("probe_block_mask", x.device, lambda lib, st: getattr(lib, cfun)(
+        x.data_ptr(), R, out.data_ptr(), st))
+    return out
+
+
+def probe_row_gather(idx, table):
+    """B7d kernel: out[i, :] = table[idx[i, 0], :] for a (n, 128) f32
+    table; the indices must lie in [0, n) (the kernel clamps one that does
+    not, the plain version raises)."""
+    _need("idx", idx, torch.int32, 1)
+    _need("table", table, torch.float32, TILE_T)
+    R = idx.shape[0]
+    if table.shape[0] == 0 or R * TILE_T >= 2**31:
+        raise ValueError("the table is empty, or idx has too many rows for "
+                         "the kernel's 32-bit indices")
+    _on_card(idx, table)
+    out = torch.empty((R, TILE_T), dtype=torch.float32, device=table.device)
+    if R:
+        _run("probe_row_gather", table.device,
+             lambda lib, st: lib.rt_probe_row_gather(
+                 idx.data_ptr(), table.data_ptr(), R, table.shape[0],
+                 out.data_ptr(), st))
+    return out
+
+
+def probe_pair_slope(pairs, rf, tri, subg):
+    """B7e kernel: t (R / 128, 128), per ray the min of the MT pass over
+    the (subgroup, tile) pairs of its 1024-ray block's flat list that name
+    its subgroup; see bench/micro_kernel."""
+    R, Tp = _check_cast(pairs, rf, tri, PROBE_BLK)
+    if subg <= 0 or PROBE_BLK % subg or Tp // TILE_T > 256:
+        raise ValueError(f"subgroup {subg} does not divide {PROBE_BLK}, or "
+                         f"{Tp // TILE_T} tiles pass the 256 a pair can name")
+    _on_card(pairs, rf, tri)
+    t = torch.empty((R // TILE_T, TILE_T), dtype=torch.float32,
+                    device=rf.device)
+    _run("probe_pair_slope", rf.device,
+         lambda lib, st: lib.rt_probe_pair_slope(
+             pairs.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
+             pairs.shape[1], subg, t.data_ptr(), st))
+    return t

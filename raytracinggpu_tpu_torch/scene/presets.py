@@ -1,19 +1,27 @@
 """Scene presets (port of ``raytracinggpu_tpu/scene/presets.py``).
 
-``make_config`` knows every preset of the JAX package; ``build_preset``
-builds the ported ones:
+Each reference launcher hardcodes its own copy of the scene with small
+deltas; here every variant is a named preset, six wall spheres plus:
 
-- ``array_bvh`` (different-versions/array_bvh.cu of the reference): the
-  six wall spheres plus the cat, rescaled by 0.6 and moved by (0, -10, 0);
+- ``cpu`` (cpu_launcher.cpp): the cat as the OBJ reader embeds it,
+  v * 0.8 + (0, -10, 0); sigma 0, eps_bounce 1e-3;
+- ``global`` (global_launcher.cu): the embedded cat rescaled by 0.6 and
+  moved by (0, -4, 0), v * 0.48 + (0, -10, 0) in all;
+- ``optimized`` (optimized.cu): as ``global`` with leaf eps 0;
+- ``array_bvh`` (different-versions/array_bvh.cu): the cat rescaled by
+  0.6 and moved by (0, -10, 0), no embed;
 - ``realtime`` (realtime_render.cu): the same cat, a floor of radius 940,
   the light at (0, 15, 40), fov pi/2, smooth normals, the camera point
-  quirk, 20 spp and depth 3.
+  quirk, 20 spp and depth 3;
+- ``showcase``: no mesh; the reference's commented-out object library, a
+  white, a mirror and a nested refractive sphere (a glass shell around an
+  air bubble), which runs every material branch of the integrator.
 
-Both render with any ported traversal (``build_preset(...,
+The mesh presets render with any ported traversal (``build_preset(...,
 traversal="pallas")``); every mesh table is built either way, as in the
 JAX package.  ``mesh=`` puts a custom mesh in the cat's place
-(``api.Renderer(obj_path=...)``).  The other presets need code paths not
-ported yet (mesh-less scenes, the embedded OBJ transform) and raise.
+(``api.Renderer(obj_path=...)``); ``showcase`` composes its own scene and
+takes none.
 """
 from __future__ import annotations
 
@@ -31,7 +39,6 @@ from raytracinggpu_tpu_torch.scene.scene import (
 )
 
 PRESET_NAMES = ("cpu", "global", "optimized", "array_bvh", "realtime", "showcase")
-PORTED_PRESETS = ("array_bvh", "realtime")
 
 _WALL_ALBEDOS = {
     "fore": (0.0, 1.0, 0.0),     # green fore wall
@@ -43,8 +50,11 @@ _WALL_ALBEDOS = {
 }
 
 # preset -> (embed 0.8/(0,-10,0) in read_obj, rescale scale, rescale
-# offset) of the cat, for the ported presets
+# offset) of the cat
 _MESH_TRANSFORM = {
+    "cpu": (True, None, None),
+    "global": (True, 0.6, (0.0, -4.0, 0.0)),
+    "optimized": (True, 0.6, (0.0, -4.0, 0.0)),
     "array_bvh": (False, 0.6, (0.0, -10.0, 0.0)),
     "realtime": (False, 0.6, (0.0, -10.0, 0.0)),
 }
@@ -81,7 +91,7 @@ def make_config(preset: str, **overrides) -> RenderConfig:
                     camera_point_quirk=True, spp=20, max_depth=3)
     elif preset == "showcase":
         base.update(sigma=0.2, eps_bounce=1e-4, eps_leaf=1e-4,
-                    mesh_object_id=-1)
+                    n_objects=10, mesh_object_id=-1)
     else:
         raise ValueError(f"unknown preset {preset!r}; choose from {PRESET_NAMES}")
     cfg = RenderConfig(**base)
@@ -94,9 +104,25 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
     cat is loaded with the preset's transform, unless ``mesh`` gives an
     already-built MeshData (a custom mesh)."""
     cfg = make_config(preset, **config_overrides)
-    if preset not in PORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet (ported: {PORTED_PRESETS})")
+    if preset == "showcase":
+        if mesh is not None:
+            raise ValueError("the 'showcase' preset has no mesh slot")
+        spheres, mats = wall_spheres(floor_radius=990.0)
+        spheres += [
+            ((0.0, 0.0, 18.0), 5.0),    # white sphere
+            ((-13.0, 0.0, 18.0), 5.0),  # mirror sphere
+            ((13.0, 0.0, 18.0), 5.0),   # outer refractive sphere (glass)
+            ((13.0, 0.0, 18.0), 4.5),   # inner nested sphere (air bubble)
+        ]
+        mats += [
+            ((1.0, 1.0, 1.0), False, 1.0, 1.0),
+            ((0.0, 0.0, 0.0), True, 1.0, 1.0),
+            ((0.0, 0.0, 0.0), False, 1.5, 1.0),  # in 1.5, out 1: glass shell
+            ((0.0, 0.0, 0.0), False, 1.0, 1.5),  # in 1, out 1.5: bubble
+        ]
+        return cfg, build_scene_tables(spheres, mats, L=(-10.0, 20.0, 40.0),
+                                       intensity=3e10, mesh=None,
+                                       device=device)
     realtime = preset == "realtime"
     spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
     L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
@@ -118,12 +144,14 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
 
 def _autotune_pairs(cfg, tables, overrides):
     """Tile-count-adaptive subgroup: 16 rays past 128 tiles, else the
-    configured 64 (the cat packs into 40 tiles), unless the caller set
-    ``pairs_subgroup``.  The per-cast culling bits depend on the subgroup,
-    so the port keeps the JAX package's rule; the thresholds were tuned on
-    the TPU and are for the port to re-measure.  (The JAX rule's second
-    knob, ``pairs_key_coarse`` from 1024 tiles, coarsens the compaction
-    key, and the port has no compaction.)"""
+    configured 64 (every preset's cat packs into 40 tiles), unless the
+    caller set ``pairs_subgroup``.  The per-cast culling bits depend on
+    the subgroup, so the port keeps the JAX package's rule.  Its threshold
+    was tuned on the TPU; on the H100 the 2,053-tile soup's frame is 7%
+    faster at 16 than at 64 (PERF.md, "What B4 taught"), and the
+    ``pairslope`` probe (``bench/micro_kernel.py``) prices subgroups 8 to
+    64.  (The JAX rule's second knob, ``pairs_key_coarse`` from 1024
+    tiles, coarsens the compaction key, and the port has no compaction.)"""
     if tables.pairs_mesh is None:
         return cfg
     nc = int(tables.pairs_mesh.tile_aabb.shape[0])

@@ -81,6 +81,7 @@ class RenderConfig:
     smooth_normals: bool = False   # realtime: Phong-interpolated mesh normals
     camera_point_quirk: bool = False  # realtime: cam.C added into the ray
                                       # direction (see pipeline.raygen)
+    n_objects: int = 7          # spheres, plus the mesh when there is one
     mesh_object_id: int = 6     # -1 when the scene has no mesh
     traversal: str = "pairs"    # pairs (production) | pallas (tiled
                                 # kernel) | dense (matrix-product oracle)

@@ -8,9 +8,10 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The cases marked ``cuda`` need a CUDA device and nvcc; they build the
-kernels and hold each one (B0-B3, B5, B6) bit for bit against its plain
-PyTorch version (the kernels are compiled with --fmad=false, so every
-product and sum rounds as PyTorch's eager ops round it).  Without a device
+kernels and hold each one (B0-B3, B5, B6, and the probes B7a-e of
+bench/micro_kernel.py) bit for bit against its plain PyTorch version (the
+kernels are compiled with --fmad=false, so every product and sum rounds
+as PyTorch's eager ops round it).  Without a device
 they skip.  The other cases check the plain versions against brute force
 and against each other, and the wrappers' dispatch and input checks, on
 the CPU.
@@ -182,7 +183,7 @@ def test_kernel_wrappers_check_their_inputs(bad):
     assert set(_kernels.LAUNCHES) == {"pairs_closest", "pairs_shadow",
                                       "pairs_closest_smooth",
                                       "pairs_closest_idx", "pallas_closest",
-                                      "pallas_shadow"}
+                                      "pallas_shadow", *_kernels.PROBES}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -441,11 +442,50 @@ def test_plain_versions_ignore_bits_past_the_table(subg):
         assert (got[0] < pt.INF32).sum() > 20
 
 
+# ------------------------------------------- the probes (B7a-e), CPU
+
+@pytest.mark.parametrize("bad,why", [
+    ("dtype", "int32"), ("device", "CUDA"), ("rows", "one row per"),
+    ("tiles", "whole 128-triangle tiles"), ("columns", "128 columns"),
+    ("subgroup", "does not divide"), ("blocks", "whole blocks")])
+def test_probe_wrappers_check_their_inputs(bad, why):
+    """The probe wrappers take CUDA tensors only (a CPU tensor goes to the
+    plain version in bench/micro_kernel.py) and refuse what their kernels
+    do not take, each for its own reason, before anything is built or
+    launched (shapes first, so tensors without storage can show it)."""
+    R = 2048
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    rf, tri = meta(R, 16), meta(16, 5 * 128)
+    lists = meta(R // 64, 128, dt=torch.int32)
+    pairs = meta(R // 1024, 9, dt=torch.int32)
+    idx = meta(R, 1, dt=torch.int32)
+    before = dict(_kernels.LAUNCHES)
+    calls = {
+        "dtype": lambda: _kernels.probe_tile_slope(lists.long(), rf, tri, 64),
+        "device": lambda: _kernels.probe_block_mask(torch.zeros(1024, 16)),
+        "rows": lambda: _kernels.probe_tile_slope(lists[:-1], rf, tri, 64),
+        "tiles": lambda: _kernels.probe_uniform_branch(
+            lists, rf, meta(16, 5 * 128 + 64), 64, 4),
+        "columns": lambda: _kernels.probe_row_gather(idx, meta(64, 64)),
+        "subgroup": lambda: _kernels.probe_pair_slope(pairs, rf, tri, 48),
+        "blocks": lambda: _kernels.probe_block_mask(meta(1000, 16)),
+    }
+    with pytest.raises(ValueError, match=why):
+        calls[bad]()
+    assert _kernels.LAUNCHES == before
+
+
 # ------------------------------------------------------------ CUDA cases
 
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+def _launched():
+    """The wrappers that launched since the last reset, with their counts."""
+    return {k: n for k, n in _kernels.LAUNCHES.items() if n}
 
 
 @pytest.mark.cuda
@@ -522,10 +562,7 @@ def test_small_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    assert _kernels.LAUNCHES == {"pairs_closest": 2, "pairs_shadow": 2,
-                                 "pairs_closest_smooth": 0,
-                                 "pairs_closest_idx": 0, "pallas_closest": 0,
-                                 "pallas_shadow": 0}
+    assert _launched() == {"pairs_closest": 2, "pairs_shadow": 2}
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -613,10 +650,7 @@ def test_small_pallas_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    assert _kernels.LAUNCHES == {"pairs_closest": 0, "pairs_shadow": 0,
-                                 "pairs_closest_smooth": 0,
-                                 "pairs_closest_idx": 0, "pallas_closest": 2,
-                                 "pallas_shadow": 2}
+    assert _launched() == {"pallas_closest": 2, "pallas_shadow": 2}
     (img_c, _), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -642,3 +676,90 @@ def test_kernels_bitwise_past_st_slots(name, subg):
         got, want = (got,), (want,)
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
     assert (want[0] < pt.INF32).sum() > 100
+
+
+def _probe_cast(R=8192, n_tiles=9, seed=0):
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    return (mk, *mk.cast_inputs(R, n_tiles, seed, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [0, 1, 2, 4, 8])
+def test_probe_tile_slope_bitwise_equals_plain(L):
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    lists = mk.tile_lists(rf.shape[0], L, "cuda")
+    lists[3, 1] = 77   # no such tile: skipped
+    lists[5, 0] = 500  # cut at the row's width
+    n0 = _kernels.LAUNCHES["probe_tile_slope"]
+    got = mk.tile_slope(lists, rf, tri)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_tile_slope"] == n0 + 1
+    want = mk.tile_slope_plain(lists, rf, tri)
+    assert got.is_cuda and torch.equal(got, want)
+    assert bool((got[0] == mk.MISS).all()) == (L == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, 0.25, 0.0])
+def test_probe_uniform_branch_bitwise_equals_plain(frac):
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    g = torch.Generator().manual_seed(1)
+    mask = (torch.rand(rf.shape[0] // 64, 128, generator=g)
+            < frac).to(torch.int32).cuda()
+    got = mk.uniform_branch(mask, rf, tri)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.uniform_branch_plain(mask, rf, tri))
+    if frac == 1.0:
+        assert torch.equal(got, mk.tile_slope(
+            mk.tile_lists(rf.shape[0], 8, "cuda"), rf, tri))
+    if frac == 0.0:
+        assert (got == mk.MISS).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [0, 1, 4])
+@pytest.mark.parametrize("subg", [8, 16, 32, 64])
+def test_probe_pair_slope_bitwise_equals_plain(subg, L):
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    pairs = mk.pair_lists(rf.shape[0], 9, subg, L, "cuda")
+    if L:
+        pairs[:, 2] = -3                         # skipped
+        pairs[1, 3] = (1024 // subg) * 256       # no such subgroup: skipped
+        pairs[2, 1] = 200                        # no such tile: skipped
+    got = mk.pair_slope(pairs, rf, tri, subg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.pair_slope_plain(pairs, rf, tri, subg))
+    assert bool((got == mk.MISS).all()) == (L == 0)
+
+
+@pytest.mark.cuda
+def test_probe_block_mask_and_row_gather_are_exact():
+    _need_cuda()
+    mk, rf, _ = _probe_cast()
+    n0 = _kernels.LAUNCHES["probe_block_mask"]
+    for mask in (True, False):
+        assert torch.equal(mk.block_mask(rf, mask), rf * 2.0)
+    assert _kernels.LAUNCHES["probe_block_mask"] == n0 + 2
+    g = torch.Generator().manual_seed(2)
+    table = torch.rand(mk.GATHER_ROWS, 128, generator=g).cuda()
+    idx = torch.randint(0, mk.GATHER_ROWS, (8192, 1), generator=g,
+                        dtype=torch.int32).cuda()
+    got = mk.row_gather(idx, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, table[idx[:, 0].long()])
+
+
+@pytest.mark.cuda
+def test_probe_main_runs_and_checks_every_probe(capsys):
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    _kernels.reset_launches()
+    res = mk.main(["--rays", "8192", "--iters", "3"])
+    assert list(res) == list(mk.PROBES)
+    assert set(_launched()) == set(_kernels.PROBES)
+    assert all(c["plain_s"] > 0 for c in res["slope"])

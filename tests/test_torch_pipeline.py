@@ -119,8 +119,9 @@ def test_camera_needs_an_explicit_device(port):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the entry points api, cli.main and
-    bench.big_mesh among them; not the CLI's __main__, which runs it)
+    """Every module of the port (the entry points api, cli.main,
+    bench.big_mesh, bench.micro_kernel and bench.sweep among them; not
+    the CLI's __main__, which runs it)
     imports in a fresh process without jax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -128,7 +129,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.') if not m.name.endswith('.__main__')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "need = {'api', 'cli.main', 'bench.big_mesh', 'accel.lbvh'}\n"
+        "need = {'api', 'cli.main', 'bench.big_mesh', 'accel.lbvh', "
+        "'bench.micro_kernel', 'bench.sweep', 'bench._timing'}\n"
         "assert need <= {m[len(p.__name__) + 1:] for m in mods}, mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'raytracinggpu_tpu' or "

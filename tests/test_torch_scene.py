@@ -119,9 +119,18 @@ def test_config_and_autotuned_subgroup(both):
 
 
 def test_unported_presets_raise():
-    for name in ("cpu", "global", "optimized", "showcase"):
-        with pytest.raises(NotImplementedError):
-            build_preset(name, "cpu")
+    """No preset of the JAX package is left unported (the four that used
+    to raise build: tests/test_torch_presets.py holds their tables); a name
+    that is no preset raises."""
+    from raytracinggpu_tpu.scene.presets import PRESET_NAMES as J_NAMES
+
+    assert PRESET_NAMES == J_NAMES
+    cfg, tab = build_preset("showcase", "cpu")
+    assert tab.mesh is None and cfg.mesh_object_id == -1
+    for name in ("cpu", "global", "optimized"):
+        assert make_config(name).name == name
+    with pytest.raises(ValueError, match="unknown preset"):
+        build_preset("cornell", "cpu")
 
 
 def test_realtime_tables_bitwise():
