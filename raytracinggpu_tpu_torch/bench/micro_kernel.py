@@ -54,7 +54,8 @@ from raytracinggpu_tpu_torch.ops.pallas_trace import dispatch
 # per tile (128)
 SUBG = 64       # rays per subgroup of B7a and B7c
 NF = 16         # ray features, triangle field rows
-N_FIXED = 8     # tiles of B7c
+N_FIXED = 8     # tiles of B7c, and the most B7a lists
+N_TILES = 31    # tiles of the entry point's table (the JAX probe's)
 MISS = 1e9      # t where nothing was hit (exact in f32)
 EPS = float(np.float32(1e-4))
 GATHER_ROWS = 2048
@@ -257,22 +258,23 @@ def _measure(kernel, plain, args, iters, dev, what):
     return dict(s=dt, eager_s=eager, plain_s=plain_s, out=out)
 
 
-def _rays(R):
+def _rays(R, n_tiles=N_FIXED):
     if R <= 0 or R % BLK:
         raise ValueError(f"--rays must be a positive multiple of {BLK}, "
                          f"got {R}")
+    if n_tiles < N_FIXED:
+        raise ValueError(f"the probes visit up to {N_FIXED} tiles, got "
+                         f"{n_tiles}")
 
 
 def bench_tile_slope(R, n_tiles, iters, device=None, seed=0):
     """B7a: cost against visits a subgroup.  Returns one case per L:
     {"L", "visits", "tests", "nbytes"} and what ``_measure`` returns."""
-    _rays(R)
+    _rays(R, n_tiles)
     dev = render_device(device)
     rf, tri = cast_inputs(R, n_tiles, seed, dev)
     cases = []
     for L in (0, 1, 2, 4, 8):
-        if L > n_tiles:
-            continue
         lists = tile_lists(R, L, dev)
         m = _measure(tile_slope, tile_slope_plain, (lists, rf, tri), iters,
                      dev, f"tile_slope L={L}")
@@ -318,9 +320,7 @@ def bench_scalar_branch(R, n_tiles, iters, device=None, seed=0):
     """B7c: 8 fixed tiles under a per-(subgroup, tile) predicate.  Returns
     one case per mask: {"name", "visits", "tests", "nbytes"} and what
     ``_measure`` returns."""
-    _rays(R)
-    if n_tiles < N_FIXED:
-        raise ValueError(f"the branch probe needs {N_FIXED} tiles")
+    _rays(R, n_tiles)
     dev = render_device(device)
     rf, tri = cast_inputs(R, n_tiles, seed, dev)
     rng = np.random.default_rng(seed + 1)
@@ -365,7 +365,7 @@ def bench_pair_slope(R, n_tiles, iters, device=None, seed=0):
     """B7e: one flat (subgroup, tile) pair list a block.  Returns one case
     per (subgroup, L): {"subg", "L", "pairs", "tests", "nbytes"} and what
     ``_measure`` returns."""
-    _rays(R)
+    _rays(R, n_tiles)
     dev = render_device(device)
     rf, tri = cast_inputs(R, n_tiles, seed, dev)
     cases = []
@@ -397,7 +397,7 @@ def bench_pair_slope(R, n_tiles, iters, device=None, seed=0):
     return cases
 
 
-PROBES = ("pairslope", "slope", "dma", "branch", "gather")
+BENCHES = ("pairslope", "slope", "dma", "branch", "gather")
 
 
 def main(argv=None) -> dict:
@@ -407,27 +407,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--rays", type=int, default=131072)
     ap.add_argument("--only", type=str, default=None,
-                    help=f"comma-separated subset of {','.join(PROBES)}")
+                    help=f"comma-separated subset of {','.join(BENCHES)}")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     a = ap.parse_args(argv)
-    only = a.only.split(",") if a.only else PROBES
-    unknown = sorted(set(only) - set(PROBES))
+    only = a.only.split(",") if a.only else BENCHES
+    unknown = sorted(set(only) - set(BENCHES))
     if unknown:
-        ap.error(f"unknown probes {unknown}; choose from {PROBES}")
+        ap.error(f"unknown probes {unknown}; choose from {BENCHES}")
     dev = render_device(a.device)
-    n_tiles = 31
     if dev.type == "cuda":
-        print(f"card: {card_line()}; {a.rays} rays, {n_tiles} tiles, "
+        print(f"card: {card_line()}; {a.rays} rays, {N_TILES} tiles, "
               f"{a.iters} iterations", flush=True)
     todo = {
-        "pairslope": lambda: bench_pair_slope(a.rays, n_tiles, a.iters, dev),
-        "slope": lambda: bench_tile_slope(a.rays, n_tiles, a.iters, dev),
+        "pairslope": lambda: bench_pair_slope(a.rays, N_TILES, a.iters, dev),
+        "slope": lambda: bench_tile_slope(a.rays, N_TILES, a.iters, dev),
         "dma": lambda: bench_dma_smem(a.rays, a.iters, dev),
-        "branch": lambda: bench_scalar_branch(a.rays, n_tiles, a.iters, dev),
+        "branch": lambda: bench_scalar_branch(a.rays, N_TILES, a.iters, dev),
         "gather": lambda: bench_inkernel_gather(a.rays, a.iters, dev),
     }
-    return {name: todo[name]() for name in PROBES if name in only}
+    return {name: todo[name]() for name in BENCHES if name in only}
 
 
 if __name__ == "__main__":

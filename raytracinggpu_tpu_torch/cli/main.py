@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -124,14 +125,20 @@ def _refuse_unported(args) -> None:
                          "showcase (the showcase scene has no mesh slot)")
 
 
+def _spp_bounces(args):
+    """(spp, bounces) as given, None where not: ``--spp``/``--bounces``
+    win over the positionals."""
+    return (args.spp_flag if args.spp_flag is not None else args.spp,
+            args.bounces_flag if args.bounces_flag is not None
+            else args.bounces)
+
+
 def _build(args, device):
     """(config, scene tables on ``device``) from the common flags, through
     ``api.Renderer``."""
     _refuse_unported(args)
     over = dict(width=args.width, height=args.height)
-    spp = args.spp_flag if args.spp_flag is not None else args.spp
-    bounces = (args.bounces_flag if args.bounces_flag is not None
-               else args.bounces)
+    spp, bounces = _spp_bounces(args)
     if spp is not None:
         over["spp"] = spp
     if bounces is not None:
@@ -200,7 +207,7 @@ def cmd_realtime(args) -> int:
             if getattr(args, flag):
                 print(f"warning: --{flag} is ignored with --interactive",
                       file=sys.stderr)
-        return _interactive_loop(tables, cfg, args, args.light_speed)
+        return _interactive_loop(tables, cfg, args)
     state, summary = run_loop(
         tables, cfg, n_frames=args.frames, seed=args.seed,
         out_dir=args.out_dir,
@@ -215,14 +222,13 @@ def cmd_realtime(args) -> int:
     return 0
 
 
-def _interactive_loop(tables, cfg, args, light_speed=1.0) -> int:
+def _interactive_loop(tables, cfg, args) -> int:
     """Terminal-interactive progressive rendering, the GL-free equivalent
     of the reference's GLUT loop.  Its key bindings (a/d/r/f/w/s translate,
     h/l/k/j = arrow yaw/pitch, q or ESC quits) apply between dispatches;
     the latest display is written to <--out-dir>/live.png (default
     ./live.png) for an image viewer to follow.  One dispatch stays in
     flight: frame n + 1 is enqueued before frame n is read back."""
-    import os
     import select
     import termios
     import tty
@@ -234,7 +240,7 @@ def _interactive_loop(tables, cfg, args, light_speed=1.0) -> int:
     else:
         out = "live.png"
     g = max(1, args.frames_per_dispatch)
-    speed = np.float32(light_speed)
+    speed = np.float32(args.light_speed)
     state = init_state(cfg, tables, seed=args.seed)
     fd = sys.stdin.fileno()
     old = termios.tcgetattr(fd)
@@ -286,9 +292,7 @@ def cmd_bench(args) -> int:
                          "meshes: bench/big_mesh.py)")
     # Positional spp/bounces (reference CLI shape: `bench 4 2`) restrict
     # the sweep to that single cell instead of being silently ignored.
-    spp = args.spp_flag if args.spp_flag is not None else args.spp
-    bounces = (args.bounces_flag if args.bounces_flag is not None
-               else args.bounces)
+    spp, bounces = _spp_bounces(args)
     run_sweep(
         preset=args.preset, width=args.width, height=args.height,
         spps=[int(spp)] if spp is not None

@@ -760,6 +760,6 @@ def test_probe_main_runs_and_checks_every_probe(capsys):
 
     _kernels.reset_launches()
     res = mk.main(["--rays", "8192", "--iters", "3"])
-    assert list(res) == list(mk.PROBES)
+    assert list(res) == list(mk.BENCHES)
     assert set(_launched()) == set(_kernels.PROBES)
     assert all(c["plain_s"] > 0 for c in res["slope"])

@@ -4,9 +4,13 @@ raytracinggpu_tpu/bench/micro_kernel.py).
 
 The JAX probes exist only inside timed ``pl.pallas_call``s and discard
 their outputs, so the reference here is the JAX ``_mt_pass`` itself, run
-inside a ``pl.pallas_call(..., interpret=True)`` that this file writes
-around it; each probe's contract (the per-ray min over the visited tiles,
-1e9 on a miss) is then taken over those passes with numpy.
+inside a ``pl.pallas_call(..., interpret=True)`` written around it; each
+probe's contract (the per-ray min over the visited tiles, 1e9 on a miss)
+is then taken over those passes with numpy.  The JAX module points JAX's
+persistent compilation cache at a directory of its own when it is
+imported, which would leak into whatever else this process tests, so the
+JAX side runs once in a process of its own (``JAX_SIDE`` below, the cache
+switched off) on the seeded inputs this file hands it.
 
 Tolerance: XLA:CPU contracts the pass's multiply-adds into FMAs while the
 port rounds every product (to match its CUDA kernels bit for bit), so
@@ -18,14 +22,14 @@ here: relative 4.0e-5 on a t of 2e-3, absolute 7.8e-8).  The same form as
 the per-cast standard of tests/test_torch_pairs.py.  B7b and B7d have no
 rounding: exact.
 """
-import jax
-import jax.numpy as jnp
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
-from raytracinggpu_tpu.bench.micro_kernel import _mt_pass as j_mt_pass
 from raytracinggpu_tpu_torch.bench import micro_kernel as mk
 from raytracinggpu_tpu_torch.ops import _kernels
 
@@ -33,26 +37,64 @@ torch.set_num_threads(2)
 
 R, N_TILES = 2048, 9
 TOL = 1e-6
+SINGLE = ((0, 0), (3, 5), (31, 8))  # (subgroup, tile) of the single passes
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# argv: the .npz of rf (R, 16) and tri (16, n * 128), the output .npz.
+# Writes "all": the JAX _mt_pass of every ray over every tile (n, R, 128),
+# one grid step a tile; "single": one (64, 128) pass per SINGLE entry.
+JAX_SIDE = """
+import sys
+import jax, numpy as np
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from raytracinggpu_tpu.bench.micro_kernel import _mt_pass
+
+d = np.load(sys.argv[1])
+rf, tri = jnp.asarray(d["rf"]), jnp.asarray(d["tri"])
+R, n = rf.shape[0], tri.shape[1] // 128
+
+def every_tile(rf_ref, tri_ref, o_ref):
+    off = pl.multiple_of(pl.program_id(0) * 128, 128)
+    o_ref[0] = _mt_pass(rf_ref, tri_ref, pl.ds(0, R), off)
+
+passes = pl.pallas_call(
+    every_tile, grid=(n,),
+    in_specs=[pl.BlockSpec((R, 16), lambda i: (0, 0)),
+              pl.BlockSpec((16, n * 128), lambda i: (0, 0))],
+    out_specs=pl.BlockSpec((1, R, 128), lambda i: (i, 0, 0)),
+    out_shape=jax.ShapeDtypeStruct((n, R, 128), jnp.float32),
+    interpret=True)(rf, tri)
+
+def single(sg, tile):
+    def kernel(rf_ref, tri_ref, o_ref):
+        o_ref[:] = _mt_pass(rf_ref, tri_ref, pl.ds(sg * 64, 64), tile * 128)
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((64, 128), jnp.float32),
+        interpret=True)(rf, tri)
+
+np.savez(sys.argv[2], all=np.asarray(passes), single=np.stack(
+    [np.asarray(single(sg, tile)) for sg, tile in %r]))
+""" % (SINGLE,)
 
 
 @pytest.fixture(scope="module")
-def cast():
-    """Seeded (rf, tri) as torch tensors, and the JAX pass of every ray
-    over every tile, (N_TILES, R, 128)."""
+def cast(tmp_path_factory):
+    """Seeded (rf, tri) as torch tensors, the JAX pass of every ray over
+    every tile, (N_TILES, R, 128), and the JAX single passes."""
     rf, tri = mk.cast_inputs(R, N_TILES, 0, "cpu")
-
-    def kernel(rf_ref, tri_ref, o_ref):
-        off = pl.multiple_of(pl.program_id(0) * 128, 128)
-        o_ref[0] = j_mt_pass(rf_ref, tri_ref, pl.ds(0, R), off)
-
-    passes = pl.pallas_call(
-        kernel, grid=(N_TILES,),
-        in_specs=[pl.BlockSpec((R, 16), lambda i: (0, 0)),
-                  pl.BlockSpec((16, N_TILES * 128), lambda i: (0, 0))],
-        out_specs=pl.BlockSpec((1, R, 128), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((N_TILES, R, 128), jnp.float32),
-        interpret=True)(jnp.asarray(rf.numpy()), jnp.asarray(tri.numpy()))
-    return rf, tri, np.asarray(passes)
+    d = tmp_path_factory.mktemp("jax_side")
+    np.savez(d / "in.npz", rf=rf.numpy(), tri=tri.numpy())
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_COMPILATION_CACHE_DIR="",
+               PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", JAX_SIDE, str(d / "in.npz"),
+         str(d / "out.npz")], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = np.load(d / "out.npz")
+    return rf, tri, got["all"], got["single"]
 
 
 def _close(got, want):
@@ -71,17 +113,13 @@ def _min_rows(passes, rows, tiles):
     return t
 
 
-@pytest.mark.parametrize("sg,tile", [(0, 0), (3, 5), (31, 8)])
-def test_mt_pass_matches_the_jax_pass(cast, sg, tile):
+@pytest.mark.parametrize("k", range(len(SINGLE)))
+def test_mt_pass_matches_the_jax_pass(cast, k):
     """One (64, 128) pass, as the probes' kernels run it a visit."""
-    rf, tri, _ = cast
-
-    def kernel(rf_ref, tri_ref, o_ref):
-        o_ref[:] = j_mt_pass(rf_ref, tri_ref, pl.ds(sg * 64, 64), tile * 128)
-
-    want = np.asarray(pl.pallas_call(
-        kernel, out_shape=jax.ShapeDtypeStruct((64, 128), jnp.float32),
-        interpret=True)(jnp.asarray(rf.numpy()), jnp.asarray(tri.numpy())))
+    rf, tri, every, single = cast
+    (sg, tile), want = SINGLE[k], single[k]
+    np.testing.assert_array_equal(want,
+                                  every[tile][sg * 64:sg * 64 + 64])
     got = mk._mt_pass(rf, tri, slice(sg * 64, sg * 64 + 64), tile * 128)
     assert got.shape == (64, 128) and got.dtype == torch.float32
     _close(got, want)
@@ -92,7 +130,7 @@ def test_mt_pass_matches_the_jax_pass(cast, sg, tile):
 
 @pytest.mark.parametrize("L", [0, 1, 2, 4, 8])
 def test_tile_slope_plain(cast, L):
-    rf, tri, passes = cast
+    rf, tri, passes, _ = cast
     got = mk.tile_slope_plain(mk.tile_lists(R, L, "cpu"), rf, tri)
     assert got.shape == (R // 128, 128)
     _close(got, _min_rows(passes, np.arange(R), range(L)))
@@ -104,7 +142,7 @@ def test_tile_slope_plain(cast, L):
 
 def test_tile_slope_plain_reads_count_ids_only(cast):
     """Ids past the count, and ids outside the table, are not visited."""
-    rf, tri, passes = cast
+    rf, tri, passes, _ = cast
     lists = mk.tile_lists(R, 0, "cpu")
     lists[:, 0] = 3
     lists[:, 1:5] = torch.tensor([7, -1, 2, 5], dtype=torch.int32)
@@ -118,7 +156,7 @@ def test_tile_slope_plain_reads_count_ids_only(cast):
 
 @pytest.mark.parametrize("frac", [1.0, 0.25])
 def test_uniform_branch_plain(cast, frac):
-    rf, tri, passes = cast
+    rf, tri, passes, _ = cast
     m = (np.random.default_rng(3).random((R // 64, 128)) < frac)
     got = mk.uniform_branch_plain(torch.from_numpy(m.astype(np.int32)), rf,
                                   tri).reshape(-1)
@@ -135,7 +173,7 @@ def test_uniform_branch_plain(cast, frac):
 @pytest.mark.parametrize("L", [0, 1, 2, 4])
 @pytest.mark.parametrize("subg", [8, 16, 32, 64])
 def test_pair_slope_plain(cast, subg, L):
-    rf, tri, passes = cast
+    rf, tri, passes, _ = cast
     pairs = mk.pair_lists(R, N_TILES, subg, L, "cpu")
     n_sg = 1024 // subg
     assert pairs.shape[0] == R // 1024 and int(pairs[0, 0]) == n_sg * L
@@ -151,7 +189,7 @@ def test_pair_slope_plain(cast, subg, L):
 
 
 def test_pair_slope_plain_skips_bad_pairs(cast):
-    rf, tri, _ = cast
+    rf, tri, _, _ = cast
     good = mk.pair_lists(R, N_TILES, 64, 2, "cpu")
     n = int(good[0, 0])
     bad = torch.zeros((R // 1024, n + 4), dtype=torch.int32)
@@ -178,7 +216,7 @@ def test_block_mask_and_row_gather_are_exact():
 
 
 def test_cpu_tensors_run_the_plain_versions(cast):
-    rf, tri, _ = cast
+    rf, tri, _, _ = cast
     before = dict(_kernels.LAUNCHES)
     lists = mk.tile_lists(R, 2, "cpu")
     assert torch.equal(mk.tile_slope(lists, rf, tri),

@@ -2,7 +2,7 @@
 port against the JAX package (raytracinggpu_tpu_torch/scene/presets.py).
 
 - Every table array of each preset is bitwise the JAX package's (the
-  builders are the same numpy code), and ``scene_tables_from_numpy``
+  build functions are the same numpy code), and ``scene_tables_from_numpy``
   carries a mesh-less table (``showcase``) across.
 - The 48x48, spp 2, depth 2, seed 0 frames are held against the stored
   goldens (``tests/golden/<preset>_48.npy``, rendered by the JAX package
