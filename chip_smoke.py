@@ -112,8 +112,8 @@ Phases, in order; any failed check exits nonzero:
    b. the entry point, ``bench.micro_kernel.main([])``, with the counters
       zeroed just before: every probe launched, no trace kernel; its
       timing tables (each case checked again inside), then the same
-      tables at PROBE_CAST; B7d's one-call PyTorch version
-      (``torch.index_select``) timed beside it;
+      tables at PROBE_CAST; the one PyTorch call that computes B7b
+      (``torch.mul``) and B7d (``torch.index_select``) timed beside them;
 12. the sweep and the last presets:
    a. ``bench.sweep.run_sweep`` on array_bvh 512x512, spps (8, 32) x
       bounces (3, 5), ``traversal="pairs"``, the counters zeroed just
@@ -122,7 +122,7 @@ Phases, in order; any failed check exits nonzero:
    b. one 512x512 spp 8 depth 5 frame of each of ``cpu``, ``global``,
       ``optimized`` and ``showcase``: finite, every ray hits at every
       depth (``cpu`` loses the few rays the JAX package loses there, see
-      CPU_PRESET_HITS), B1 and B2 launched once per cast (no kernel for the
+      CPU_PRESET_HITS_FILE), B1 and B2 launched once per cast (no kernel for the
       mesh-less ``showcase``), Mray/s over two more frames; ``showcase``
       must send lanes through the mirror and refraction branches, and
       prints its total-internal-reflection lanes.
@@ -186,11 +186,13 @@ PROBE_DEFAULT = (131072, 31)
 PROBE_CAST = (524288, 40)
 
 # Phase 12: the `cpu` preset's scene is not quite closed to its own rays:
-# in the JAX package's CPU render of the frame phase 12b renders (512x512,
-# spp 8, depth 5, seed 0, the dense traversal; PERF.md, "The cpu preset's
-# lost rays", gives the command) a few rays of 2,097,152 miss everything
-# from depth 2 on.  The port must lose as many, to HIT_RTOL of the rays.
-CPU_PRESET_HITS = (2097152, 2097152, 2097145, 2097133, 2097126)
+# in the frame phase 12b renders (512x512, spp 8, depth 5, seed 0) a few
+# rays of 2,097,152 miss everything from depth 2 on.  The file records the
+# lanes that lose them and the frame's hits at each depth; on the CPU
+# tests/test_torch_presets.py renders every such lane through the JAX
+# package and the port and requires the same losses.  The port must lose
+# as many on the card, to HIT_RTOL of the rays.
+CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
 # ptxas names the kernel templates' modes pairs_kernel<0..3>,
@@ -1057,43 +1059,10 @@ def _probe_bound(tests: int, nbytes: int) -> tuple[float, str]:
                                        else "bytes")
 
 
-def _probe_cases(mk, R, n_tiles, device):
-    """Every configuration the probe entry point runs, at R rays and
-    n_tiles tiles: (wrapper name, label, kernel, plain version, args)."""
-    import numpy as np
-    import torch
-
-    rf, tri = mk.cast_inputs(R, n_tiles, 0, device)
-    rng = np.random.default_rng(1)
-    for L in (0, 1, 2, 4, 8):
-        yield ("probe_tile_slope", f"L={L}", mk.tile_slope,
-               mk.tile_slope_plain, (mk.tile_lists(R, L, device), rf, tri))
-    for mask in (True, False):
-        yield ("probe_block_mask", "mask" if mask else "control",
-               mk.block_mask, mk.block_mask_plain, (rf, mask))
-    for frac in (1.0, 0.25):
-        m = (rng.random((R // mk.SUBG, mk.TILE)) < frac).astype(np.int32)
-        yield ("probe_uniform_branch", f"{frac:g} true", mk.uniform_branch,
-               mk.uniform_branch_plain,
-               (torch.from_numpy(m).to(device), rf, tri))
-    table = torch.from_numpy(rng.random((mk.GATHER_ROWS, mk.TILE),
-                                        dtype=np.float32)).to(device)
-    idx = torch.from_numpy(rng.integers(0, mk.GATHER_ROWS, (R, 1))
-                           .astype(np.int32)).to(device)
-    yield ("probe_row_gather", f"{mk.GATHER_ROWS}-row table", mk.row_gather,
-           mk.row_gather_plain, (idx, table))
-    for subg in (8, 16, 32, 64):
-        for L in (0, 1, 2, 4):
-            yield ("probe_pair_slope", f"subgroup {subg} L={L}",
-                   mk.pair_slope, mk.pair_slope_plain,
-                   (mk.pair_lists(R, n_tiles, subg, L, device), rf, tri,
-                    subg))
-
-
 def _probes(device, card, err):
     """Phase 11 (module docstring).  Returns (the entry point's launch
-    counts, {probe: (ms, plain_ms, bound_ms, bound_by)}, B7d's
-    library_ms)."""
+    counts, {probe: (ms, plain_ms, bound_ms, bound_by)}, {probe: the ms of
+    the one PyTorch call that computes it})."""
     import torch
     from raytracinggpu_tpu_torch.bench import micro_kernel as mk
     from raytracinggpu_tpu_torch.bench._timing import timed
@@ -1103,18 +1072,18 @@ def _probes(device, card, err):
     for R, n_tiles in (PROBE_DEFAULT, PROBE_CAST):
         t0 = time.perf_counter()
         n = 0
-        for name, label, kernel, plain, args in _probe_cases(mk, R, n_tiles,
-                                                             device):
-            got = kernel(*args)
+        for c in mk.cases(R, n_tiles, device):
+            name, label = c["kernel"], c["label"]
+            got = c["run"](*c["args"])
             torch.cuda.synchronize()
-            want = plain(*args)
+            want = c["plain"](*c["args"])
             e = _max_abs_err(got, want)
             err[name] = max(err[name], e)
             if not (got.is_cuda and torch.equal(got, want)):
                 _fail(f"{name} ({label}) differs from its plain version at "
                       f"{R} rays, {n_tiles} tiles (max abs {e})")
-            if name in ("probe_tile_slope", "probe_pair_slope") \
-                    and bool((got < mk.MISS).any()) != ("L=0" not in label):
+            if c["probe"] in ("slope", "pairslope") \
+                    and bool((got < mk.MISS).any()) != (c["L"] > 0):
                 _fail(f"{name} ({label}): hits with no visit, or none with "
                       "some")
             n += 1
@@ -1141,36 +1110,35 @@ def _probes(device, card, err):
     mk.bench_scalar_branch(*PROBE_CAST, iters, device)
     mk.bench_inkernel_gather(PROBE_CAST[0], iters, device)
 
-    timing = {}
+    timing, rows = {}, {}
     for name, (key, want) in _PROBE_ROW.items():
-        case = res[key] if want is None else next(
+        case = rows[name] = res[key] if want is None else next(
             c for c in res[key] if all(c[k] == v for k, v in want.items()))
-        bound_ms, bound_by = _probe_bound(case.get("tests", 0),
-                                          case["nbytes"])
+        bound_ms, bound_by = _probe_bound(case["tests"], case["nbytes"])
         timing[name] = (case["s"] * 1e3, case["plain_s"] * 1e3, bound_ms,
                         bound_by)
         print(f"timing {name} ({want or ''}; {R} rays, {n_tiles} tiles, "
-              f"{case.get('tests', 0)} MT tests, {case['nbytes']} bytes): "
+              f"{case['tests']} MT tests, {case['nbytes']} bytes): "
               f"kernel {timing[name][0]:.4f} ms, plain {timing[name][1]:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}; roofline share "
               f"{bound_ms / timing[name][0]:.1%}) on {card}")
-    # B7d's one PyTorch call, on the inputs the entry point used (seed 0)
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    table = torch.from_numpy(rng.random((mk.GATHER_ROWS, mk.TILE),
-                                        dtype=np.float32)).to(device)
-    idx = torch.from_numpy(rng.integers(0, mk.GATHER_ROWS, (R, 1))
-                           .astype(np.int32)).to(device)[:, 0]
-    if not torch.equal(torch.index_select(table, 0, idx),
-                       res["gather"]["out"]):
-        _fail("torch.index_select differs from the row-gather kernel")
-    library_ms = timed(lambda: torch.index_select(table, 0, idx), 300,
-                       graph=True) * 1e3
-    print(f"timing torch.index_select on probe_row_gather's inputs: "
-          f"{library_ms:.4f} ms beside the kernel's "
-          f"{timing['probe_row_gather'][0]:.4f} ms, on {card}")
-    return launches, timing, library_ms
+    # the one PyTorch call that computes B7b (2 x) and B7d (a row gather),
+    # on the inputs the entry point used, replayed from a graph as the
+    # kernels are
+    x = rows["probe_block_mask"]["args"][0]
+    idx, table = rows["probe_row_gather"]["args"]
+    idx = idx[:, 0]
+    library = {}
+    for name, what, call in (
+            ("probe_block_mask", "torch.mul", lambda: torch.mul(x, 2.0)),
+            ("probe_row_gather", "torch.index_select",
+             lambda: torch.index_select(table, 0, idx))):
+        if not torch.equal(call(), rows[name]["out"]):
+            _fail(f"{what} differs from the {name} kernel")
+        library[name] = timed(call, 300, graph=True) * 1e3
+        print(f"timing {what} on {name}'s inputs: {library[name]:.4f} ms "
+              f"beside the kernel's {timing[name][0]:.4f} ms, on {card}")
+    return launches, timing, library
 
 
 def _sweep_and_presets(device, card, headline_mrays):
@@ -1218,6 +1186,9 @@ def _sweep_and_presets(device, card, headline_mrays):
           f"{card}")
 
     # b. one frame of each of the other presets
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CPU_PRESET_HITS_FILE)) as f:
+        cpu_hits = tuple(json.load(f)["hits_per_depth"])
     for preset in ("cpu", "global", "optimized", "showcase"):
         t0 = time.perf_counter()
         cfg, tables = build_preset(preset, device, width=512, height=512,
@@ -1236,7 +1207,7 @@ def _sweep_and_presets(device, card, headline_mrays):
         if not bool(torch.isfinite(img).all()):
             _fail(f"{preset}: the frame has non-finite values")
         hit = stats.hit.tolist()
-        want_hit = CPU_PRESET_HITS if preset == "cpu" else (n_rays,) * 5
+        want_hit = cpu_hits if preset == "cpu" else (n_rays,) * 5
         slack = HIT_RTOL * n_rays if preset == "cpu" else 0
         if any(abs(h - w) > slack for h, w in zip(hit, want_hit)) \
                 or hit[:2] != [n_rays] * 2:
@@ -1251,7 +1222,7 @@ def _sweep_and_presets(device, card, headline_mrays):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         same = (" (the JAX package on CPU: the same)"
-                if preset == "cpu" and tuple(hit) == CPU_PRESET_HITS else "")
+                if preset == "cpu" and tuple(hit) == cpu_hits else "")
         print(f"preset {preset}: built in {build_s:.2f} s, {cfg.width}x"
               f"{cfg.height} spp{cfg.spp} d{cfg.max_depth} frame mean "
               f"{float(img.mean()):.3f}, hits per depth {hit} of {n_rays}"
@@ -1435,8 +1406,7 @@ def main() -> int:
                                  + soup_launches["pairs_shadow"])
 
     # ---- 11. the probes --------------------------------------------------
-    probe_launches, timing_probes, gather_library_ms = _probes(device, card,
-                                                               err)
+    probe_launches, timing_probes, library = _probes(device, card, err)
     lap("11 probes")
 
     # ---- 12. the sweep and the last presets ------------------------------
@@ -1444,15 +1414,14 @@ def main() -> int:
     lap("12 sweep and presets")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
-    # or nearest t, so library_ms is null for every kernel but the row
-    # gather (torch.index_select)
+    # or nearest t, so library_ms is null for every kernel but B7b (2 x:
+    # torch.mul) and the row gather (torch.index_select)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": _ORIGIN[k][0],
          "replaces": _ORIGIN[k][1], "launches": counts[k],
          "max_abs_err": err[k], "ms": timing[k][0], "plain_ms": timing[k][1],
          "bound_ms": timing[k][2], "bound_by": timing[k][3],
-         "library_ms": (gather_library_ms if k == "probe_row_gather"
-                        else None)}
+         "library_ms": library.get(k)}
         for k, counts, timing in (
             ("pairs_closest", launches, timing_main),
             ("pairs_shadow", launches, timing_main),

@@ -34,7 +34,7 @@ version (``--device cpu``, for the tests; its times say nothing of the
 card).  Times are CUDA-event means over ``--iters`` launches replayed
 from one CUDA graph, raised until the replay spans milliseconds: launched
 one by one from Python a kernel cannot be told from the host's cost of a
-launch, which the intercept lines print beside the kernel's own.
+launch, which B7a's intercept line prints beside the kernel's own.
 """
 from __future__ import annotations
 
@@ -47,14 +47,15 @@ import torch
 from raytracinggpu_tpu_torch.api import render_device
 from raytracinggpu_tpu_torch.bench._timing import card_line, timed
 from raytracinggpu_tpu_torch.ops._kernels import PROBE_BLK as BLK
+from raytracinggpu_tpu_torch.ops._kernels import PROBE_FIXED as N_FIXED
+from raytracinggpu_tpu_torch.ops._kernels import PROBE_SUBG as SUBG
 from raytracinggpu_tpu_torch.ops._kernels import TILE_T as TILE
 from raytracinggpu_tpu_torch.ops.pallas_trace import dispatch
 
 # BLK: rays per block of the pair lists and of B7b (1024); TILE: triangles
-# per tile (128)
-SUBG = 64       # rays per subgroup of B7a and B7c
+# per tile (128); SUBG: rays per subgroup of B7a and B7c (64); N_FIXED:
+# tiles of B7c, and the most B7a lists (8)
 NF = 16         # ray features, triangle field rows
-N_FIXED = 8     # tiles of B7c, and the most B7a lists
 N_TILES = 31    # tiles of the entry point's table (the JAX probe's)
 MISS = 1e9      # t where nothing was hit (exact in f32)
 EPS = float(np.float32(1e-4))
@@ -120,19 +121,19 @@ def _min_over_visits(rf, tri, subg, tile_ids, on):
     return t.reshape(R // TILE, TILE)
 
 
-def tile_slope_plain(lists, rf, tri, subg=SUBG):
-    """Plain B7a.  lists (R / subg, Lw) i32 rows [count, tile ids...]."""
+def tile_slope_plain(lists, rf, tri):
+    """Plain B7a.  lists (R / 64, Lw) i32 rows [count, tile ids...]."""
     pos = torch.arange(lists.shape[1] - 1, device=lists.device)
     on = pos[None, :] < lists[:, :1]
-    return _min_over_visits(rf, tri, subg, lists[:, 1:], on)
+    return _min_over_visits(rf, tri, SUBG, lists[:, 1:], on)
 
 
-def uniform_branch_plain(mask, rf, tri, subg=SUBG, n_fixed=N_FIXED):
-    """Plain B7c.  mask (R / subg, Mw) i32: tile j < n_fixed is visited
-    iff mask[sg, j] > 0."""
-    ids = torch.arange(n_fixed, device=mask.device).expand(mask.shape[0],
-                                                           n_fixed)
-    return _min_over_visits(rf, tri, subg, ids, mask[:, :n_fixed] > 0)
+def uniform_branch_plain(mask, rf, tri):
+    """Plain B7c.  mask (R / 64, Mw) i32: tile j < 8 is visited iff
+    mask[sg, j] > 0."""
+    ids = torch.arange(N_FIXED, device=mask.device).expand(mask.shape[0],
+                                                           N_FIXED)
+    return _min_over_visits(rf, tri, SUBG, ids, mask[:, :N_FIXED] > 0)
 
 
 def block_mask_plain(x, mask=True):
@@ -171,17 +172,16 @@ def pair_slope_plain(pairs, rf, tri, subg):
 
 # ------------------------------------------------- kernels on the card
 
-def tile_slope(lists, rf, tri, subg=SUBG):
+def tile_slope(lists, rf, tri):
     """B7a on the tensors' device: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
-    return dispatch("probe_tile_slope", tile_slope_plain, lists, rf, tri,
-                    subg)
+    return dispatch("probe_tile_slope", tile_slope_plain, lists, rf, tri)
 
 
-def uniform_branch(mask, rf, tri, subg=SUBG, n_fixed=N_FIXED):
+def uniform_branch(mask, rf, tri):
     """B7c on the tensors' device (see tile_slope)."""
     return dispatch("probe_uniform_branch", uniform_branch_plain, mask, rf,
-                    tri, subg, n_fixed)
+                    tri)
 
 
 def block_mask(x, mask=True):
@@ -210,9 +210,9 @@ def cast_inputs(R, n_tiles, seed, device):
     return torch.from_numpy(rf).to(device), torch.from_numpy(tri).to(device)
 
 
-def tile_lists(R, L, device, subg=SUBG):
+def tile_lists(R, L, device):
     """Every subgroup lists tiles 0 .. L-1: rows [L, 0, 1, ..., pad]."""
-    lists = np.zeros((R // subg, TILE), np.int32)
+    lists = np.zeros((R // SUBG, TILE), np.int32)
     lists[:, 0] = L
     lists[:, 1:1 + L] = np.arange(L)
     return torch.from_numpy(lists).to(device)
@@ -231,31 +231,7 @@ def pair_lists(R, n_tiles, subg, L, device):
 
 # ------------------------------------------------------------ the benches
 
-def _measure(kernel, plain, args, iters, dev, what):
-    """Time one probe: {"s", "eager_s", "plain_s", "out"}.  ``eager_s`` is
-    a launch from Python (on the card the host's cost of a launch bounds
-    it from below), ``s`` on the card a launch replayed from a CUDA graph
-    of ``iters`` launches, raised until the replay spans milliseconds: the
-    kernel's own time.  On the card the output must equal the plain
-    version's bit for bit; ``plain_s`` is that one plain run.  On the CPU
-    ``s`` is ``eager_s`` and nothing is compared (the kernel is the plain
-    version)."""
-    out = kernel(*args)
-    run = lambda: kernel(*args)
-    eager = timed(run, iters, device=dev)
-    if dev.type != "cuda":
-        return dict(s=eager, eager_s=eager, plain_s=None, out=out)
-    dt = timed(run, iters, device=dev, graph=True)
-    if dt * iters < _MIN_SPAN_S:
-        n = min(100 * iters, math.ceil(_MIN_SPAN_S / max(dt, 1e-9)))
-        dt = timed(run, n, device=dev, graph=True)
-    want = []
-    plain_s = timed(lambda: want.append(plain(*args)), 1, warm=0, device=dev)
-    if not torch.equal(out, want[0]):
-        bad = int((out != want[0]).sum())
-        raise RuntimeError(f"{what}: the kernel differs from its plain "
-                           f"version on {bad} of {out.numel()} values")
-    return dict(s=dt, eager_s=eager, plain_s=plain_s, out=out)
+BENCHES = ("pairslope", "slope", "dma", "branch", "gather")
 
 
 def _rays(R, n_tiles=N_FIXED):
@@ -267,137 +243,181 @@ def _rays(R, n_tiles=N_FIXED):
                          f"{n_tiles}")
 
 
-def bench_tile_slope(R, n_tiles, iters, device=None, seed=0):
-    """B7a: cost against visits a subgroup.  Returns one case per L:
-    {"L", "visits", "tests", "nbytes"} and what ``_measure`` returns."""
+def cases(R, n_tiles, device, seed=0, only=BENCHES):
+    """Every configuration of the probes named by ``only`` at R rays and
+    n_tiles tiles, inputs from ``seed``: dicts of "probe" (its name in
+    BENCHES), "kernel" (its wrapper in ops/_kernels), "label", "run" and
+    "plain" (the two versions, called on "args"), the work it does,
+    "tests" (MT tests) and "nbytes" (each input read and each output
+    written once), and the probe's own parameters."""
     _rays(R, n_tiles)
+    rf, tri = cast_inputs(R, n_tiles, seed, device)
+    cast_bytes = lambda rows, tiles: 4 * (rows.numel() + R * 9
+                                          + NF * tiles * TILE + R)
+    if "pairslope" in only:
+        for subg in (8, 16, 32, 64):
+            for L in (0, 1, 2, 4):
+                pairs = pair_lists(R, n_tiles, subg, L, device)
+                n_pairs = (R // subg) * L
+                touched = min(n_tiles, BLK // subg + L - 1) if L else 0
+                yield dict(probe="pairslope", kernel="probe_pair_slope",
+                           label=f"pair_slope subg={subg} L={L}",
+                           run=pair_slope, plain=pair_slope_plain,
+                           args=(pairs, rf, tri, subg), subg=subg, L=L,
+                           pairs=n_pairs, tests=n_pairs * subg * TILE,
+                           nbytes=cast_bytes(pairs, touched))
+    if "slope" in only:
+        for L in (0, 1, 2, 4, 8):
+            lists = tile_lists(R, L, device)
+            visits = (R // SUBG) * L
+            yield dict(probe="slope", kernel="probe_tile_slope",
+                       label=f"tile_slope L={L}", run=tile_slope,
+                       plain=tile_slope_plain, args=(lists, rf, tri), L=L,
+                       visits=visits, tests=visits * SUBG * TILE,
+                       nbytes=cast_bytes(lists, L))
+    if "dma" in only:
+        for mask in (True, False):
+            yield dict(probe="dma", kernel="probe_block_mask",
+                       label="dma_smem" + ("" if mask else " control"),
+                       run=block_mask, plain=block_mask_plain,
+                       args=(rf, mask), mask=mask, tests=0,
+                       nbytes=2 * rf.numel() * 4)
+    if "branch" in only:
+        rng = np.random.default_rng(seed + 1)
+        for frac, name in ((1.0, "all_true"), (0.25, "quarter_true")):
+            m = (rng.random((R // SUBG, TILE)) < frac).astype(np.int32)
+            mask = torch.from_numpy(m).to(device)
+            visits = int(m[:, :N_FIXED].sum())
+            yield dict(probe="branch", kernel="probe_uniform_branch",
+                       label=f"scalar_branch[{name}]", run=uniform_branch,
+                       plain=uniform_branch_plain, args=(mask, rf, tri),
+                       name=name, visits=visits,
+                       tests=visits * SUBG * TILE,
+                       nbytes=cast_bytes(mask, N_FIXED))
+    if "gather" in only:
+        rng = np.random.default_rng(seed)
+        table = torch.from_numpy(rng.random((GATHER_ROWS, TILE),
+                                            dtype=np.float32)).to(device)
+        idx = torch.from_numpy(rng.integers(0, GATHER_ROWS, (R, 1))
+                               .astype(np.int32)).to(device)
+        yield dict(probe="gather", kernel="probe_row_gather",
+                   label="inkernel_gather_rows", run=row_gather,
+                   plain=row_gather_plain, args=(idx, table), tests=0,
+                   nbytes=4 * (idx.numel() + table.numel() + R * TILE))
+
+
+def _measure(case, iters, dev, eager=False):
+    """Time one case: the case with "s", "plain_s" and "out" (with
+    ``eager``, "eager_s" too).  On the card "s" is a launch replayed from
+    a CUDA graph of ``iters`` launches, raised until the replay spans
+    milliseconds: the kernel's own time; "eager_s" is a launch from Python,
+    which the host's cost of a launch bounds from below; the output must
+    equal the plain version's bit for bit, and "plain_s" is one run of it
+    after one warm-up run.  On the CPU "s" is the host's time of the plain
+    version (the kernel is the plain version) and nothing is compared."""
+    run = lambda: case["run"](*case["args"])
+    out = run()
+    if dev.type != "cuda":
+        dt = timed(run, iters, device=dev)
+        return dict(case, s=dt, plain_s=None, out=out,
+                    **(dict(eager_s=dt) if eager else {}))
+    dt = timed(run, iters, device=dev, graph=True)
+    if dt * iters < _MIN_SPAN_S:
+        n = min(100 * iters, math.ceil(_MIN_SPAN_S / max(dt, 1e-9)))
+        dt = timed(run, n, device=dev, graph=True)
+    want = []
+    plain_s = timed(lambda: want.append(case["plain"](*case["args"])), 1,
+                    warm=1, device=dev)
+    if not torch.equal(out, want[-1]):
+        bad = int((out != want[-1]).sum())
+        raise RuntimeError(f"{case['label']}: the kernel differs from its "
+                           f"plain version on {bad} of {out.numel()} values")
+    res = dict(case, s=dt, plain_s=plain_s, out=out)
+    if eager:
+        res["eager_s"] = timed(run, iters, device=dev)
+    return res
+
+
+def bench_tile_slope(R, n_tiles, iters, device=None, seed=0):
+    """B7a: cost against visits a subgroup.  Returns one measured case per
+    L (``cases``, ``_measure``)."""
     dev = render_device(device)
-    rf, tri = cast_inputs(R, n_tiles, seed, dev)
-    cases = []
-    for L in (0, 1, 2, 4, 8):
-        lists = tile_lists(R, L, dev)
-        m = _measure(tile_slope, tile_slope_plain, (lists, rf, tri), iters,
-                     dev, f"tile_slope L={L}")
-        visits = (R // SUBG) * L
-        cases.append(dict(
-            m, L=L, visits=visits, tests=visits * SUBG * TILE,
-            nbytes=4 * (lists.numel() + R * 9 + NF * L * TILE + R)))
-        dt = m["s"]
-        line = f"tile_slope L={L}: {dt * 1e3:8.4f} ms"
-        if L:
-            per = (dt - cases[0]["s"]) / visits
+    res = []
+    for c in cases(R, n_tiles, dev, seed, ("slope",)):
+        m = _measure(c, iters, dev, eager=c["L"] == 0)
+        res.append(m)
+        line = f"{m['label']}: {m['s'] * 1e3:8.4f} ms"
+        if m["L"]:
+            per = (m["s"] - res[0]["s"]) / m["visits"]
             line += (f"  marginal {per * 1e9:7.2f} ns a visit, "
                      f"{per * 1e12 / (SUBG * TILE):6.3f} ps an MT test")
         else:
             line += ("  (intercept: a cast with no visit, the launch floor; "
                      f"launched from Python {m['eager_s'] * 1e6:.2f} us)")
         print(line, flush=True)
-    return cases
+    return res
 
 
 def bench_dma_smem(R, iters, device=None, seed=0):
-    """B7b: the in-kernel mask against its control.  Returns what
-    ``_measure`` returns for the mask kernel, with "control_s" and
-    "nbytes"."""
-    _rays(R)
+    """B7b: the in-kernel mask against its control.  Returns the mask
+    kernel's measured case, with "control_s"."""
     dev = render_device(device)
-    x = torch.from_numpy(np.random.default_rng(seed).random(
-        (R, NF), dtype=np.float32)).to(dev)
-    m = _measure(block_mask, block_mask_plain, (x, True), iters, dev,
-                 "dma_smem")
-    ctl = _measure(block_mask, block_mask_plain, (x, False), iters, dev,
-                   "dma_smem control")
+    m, ctl = (_measure(c, iters, dev)
+              for c in cases(R, N_FIXED, dev, seed, ("dma",)))
     per_blk = (m["s"] - ctl["s"]) / (R // BLK)
     print(f"dma_smem: with={m['s'] * 1e3:.4f} ms  control="
           f"{ctl['s'] * 1e3:.4f} ms  marginal {per_blk * 1e6:.4f} us a block "
-          f"({R // BLK} blocks; launched from Python: with "
-          f"{m['eager_s'] * 1e3:.4f} ms, control {ctl['eager_s'] * 1e3:.4f} "
-          "ms)", flush=True)
-    return dict(m, control_s=ctl["s"], nbytes=2 * x.numel() * 4)
+          f"({R // BLK} blocks)", flush=True)
+    return dict(m, control_s=ctl["s"])
 
 
 def bench_scalar_branch(R, n_tiles, iters, device=None, seed=0):
     """B7c: 8 fixed tiles under a per-(subgroup, tile) predicate.  Returns
-    one case per mask: {"name", "visits", "tests", "nbytes"} and what
-    ``_measure`` returns."""
-    _rays(R, n_tiles)
+    one measured case per mask."""
     dev = render_device(device)
-    rf, tri = cast_inputs(R, n_tiles, seed, dev)
-    rng = np.random.default_rng(seed + 1)
-    cases = []
-    for frac, name in ((1.0, "all_true"), (0.25, "quarter_true")):
-        m = (rng.random((R // SUBG, TILE)) < frac).astype(np.int32)
-        mask = torch.from_numpy(m).to(dev)
-        res = _measure(uniform_branch, uniform_branch_plain,
-                       (mask, rf, tri), iters, dev, f"scalar_branch[{name}]")
-        visits = int(m[:, :N_FIXED].sum())
-        cases.append(dict(
-            res, name=name, visits=visits, tests=visits * SUBG * TILE,
-            nbytes=4 * (mask.numel() + R * 9 + NF * N_FIXED * TILE + R)))
-        print(f"scalar_branch[{name}]: {res['s'] * 1e3:8.4f} ms  ({visits} "
+    res = []
+    for c in cases(R, n_tiles, dev, seed, ("branch",)):
+        m = _measure(c, iters, dev)
+        res.append(m)
+        print(f"{m['label']}: {m['s'] * 1e3:8.4f} ms  ({m['visits']} "
               f"active of {(R // SUBG) * N_FIXED}, "
-              f"{res['s'] * 1e12 / max(visits * SUBG * TILE, 1):.3f} ps an "
-              "MT test)", flush=True)
-    return cases
+              f"{m['s'] * 1e12 / max(m['tests'], 1):.3f} ps an MT test)",
+              flush=True)
+    return res
 
 
 def bench_inkernel_gather(R, iters, device=None, seed=0):
-    """B7d: the row gather.  Returns what ``_measure`` returns, with
-    "nbytes"; the plain version is the library call."""
-    _rays(R)
+    """B7d: the row gather.  Returns its measured case; the plain version
+    is the library call."""
     dev = render_device(device)
-    rng = np.random.default_rng(seed)
-    table = torch.from_numpy(rng.random((GATHER_ROWS, TILE),
-                                        dtype=np.float32)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, GATHER_ROWS, (R, 1))
-                           .astype(np.int32)).to(dev)
-    m = _measure(row_gather, row_gather_plain, (idx, table), iters, dev,
-                 "inkernel_gather_rows")
-    nbytes = 4 * (idx.numel() + table.numel() + m["out"].numel())
+    (c,) = cases(R, N_FIXED, dev, seed, ("gather",))
+    m = _measure(c, iters, dev)
     dt = m["s"]
-    print(f"inkernel_gather_rows: {dt * 1e3:.4f} ms  ({dt / R * 1e9:.3f} ns a "
-          f"row, {nbytes / dt / 1e9:.1f} GB/s; launched from Python "
-          f"{m['eager_s'] * 1e3:.4f} ms)", flush=True)
-    return dict(m, nbytes=nbytes)
+    print(f"{m['label']}: {dt * 1e3:.4f} ms  ({dt / R * 1e9:.3f} ns a "
+          f"row, {m['nbytes'] / dt / 1e9:.1f} GB/s)", flush=True)
+    return m
 
 
 def bench_pair_slope(R, n_tiles, iters, device=None, seed=0):
-    """B7e: one flat (subgroup, tile) pair list a block.  Returns one case
-    per (subgroup, L): {"subg", "L", "pairs", "tests", "nbytes"} and what
-    ``_measure`` returns."""
-    _rays(R, n_tiles)
+    """B7e: one flat (subgroup, tile) pair list a block.  Returns one
+    measured case per (subgroup, L)."""
     dev = render_device(device)
-    rf, tri = cast_inputs(R, n_tiles, seed, dev)
-    cases = []
-    for subg in (8, 16, 32, 64):
-        for L in (0, 1, 2, 4):
-            pairs = pair_lists(R, n_tiles, subg, L, dev)
-            m = _measure(pair_slope, pair_slope_plain,
-                         (pairs, rf, tri, subg), iters, dev,
-                         f"pair_slope subg={subg} L={L}")
-            dt = m["s"]
-            n_pairs = (R // subg) * L
-            touched = min(n_tiles, BLK // subg + L - 1) if L else 0
-            cases.append(dict(
-                m, subg=subg, L=L, pairs=n_pairs,
-                tests=n_pairs * subg * TILE,
-                nbytes=4 * (pairs.numel() + R * 9 + NF * touched * TILE
-                            + R)))
-            if L == 0:
-                base = dt
-                print(f"pair_slope subg={subg} L=0: {dt * 1e3:8.4f} ms "
-                      "(intercept)", flush=True)
-            else:
-                per = (dt - base) / n_pairs
-                print(f"pair_slope subg={subg} L={L}: {dt * 1e3:8.4f} ms  "
-                      f"marginal {per * 1e9:7.2f} ns a pair, "
-                      f"{per * n_pairs / R * 1e9:6.2f} ns a ray, "
-                      f"{per * 1e12 / (subg * TILE):6.3f} ps an MT test",
-                      flush=True)
-    return cases
-
-
-BENCHES = ("pairslope", "slope", "dma", "branch", "gather")
+    res = []
+    for c in cases(R, n_tiles, dev, seed, ("pairslope",)):
+        m = _measure(c, iters, dev)
+        res.append(m)
+        dt, subg, L = m["s"], m["subg"], m["L"]
+        if L == 0:
+            base = dt
+            print(f"{m['label']}: {dt * 1e3:8.4f} ms (intercept)", flush=True)
+        else:
+            per = (dt - base) / m["pairs"]
+            print(f"{m['label']}: {dt * 1e3:8.4f} ms  "
+                  f"marginal {per * 1e9:7.2f} ns a pair, "
+                  f"{per * m['pairs'] / R * 1e9:6.2f} ns a ray, "
+                  f"{per * 1e12 / (subg * TILE):6.3f} ps an MT test",
+                  flush=True)
+    return res
 
 
 def main(argv=None) -> dict:

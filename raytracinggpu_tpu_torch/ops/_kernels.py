@@ -65,6 +65,8 @@ _SPECS = {
 PROBES = ("probe_tile_slope", "probe_block_mask", "probe_uniform_branch",
           "probe_row_gather", "probe_pair_slope")
 PROBE_BLK = 1024  # rays per block of B7b and B7e
+PROBE_SUBG = 64   # rays per subgroup of B7a and B7c
+PROBE_FIXED = 8   # tiles of B7c
 
 # Kernel launches since the last reset_launches(), by wrapper.
 LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES)}
@@ -319,26 +321,26 @@ def _run(name, dev, call):
     LAUNCHES[name] += 1
 
 
-def probe_tile_slope(lists, rf, tri, subg):
+def probe_tile_slope(lists, rf, tri):
     """B7a kernel: t (R / 128, 128), per ray the min of the MT pass over
-    the tiles listed for its subgroup; see bench/micro_kernel."""
-    R, Tp = _check_cast(lists, rf, tri, subg)
+    the tiles listed for its 64-ray subgroup; see bench/micro_kernel."""
+    R, Tp = _check_cast(lists, rf, tri, PROBE_SUBG)
     _on_card(lists, rf, tri)
     t = torch.empty((R // TILE_T, TILE_T), dtype=torch.float32,
                     device=rf.device)
     _run("probe_tile_slope", rf.device,
          lambda lib, st: lib.rt_probe_tile_slope(
              lists.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
-             lists.shape[1], subg, t.data_ptr(), st))
+             lists.shape[1], PROBE_SUBG, t.data_ptr(), st))
     return t
 
 
-def probe_uniform_branch(mask, rf, tri, subg, n_fixed):
-    """B7c kernel: as B7a over the first ``n_fixed`` tiles, tile j visited
-    iff mask[subgroup, j] > 0; see bench/micro_kernel."""
-    R, Tp = _check_cast(mask, rf, tri, subg)
-    if not 0 <= n_fixed <= min(mask.shape[1], Tp // TILE_T):
-        raise ValueError(f"{n_fixed} fixed tiles pass the mask's "
+def probe_uniform_branch(mask, rf, tri):
+    """B7c kernel: as B7a over the first 8 tiles, tile j visited iff
+    mask[subgroup, j] > 0; see bench/micro_kernel."""
+    R, Tp = _check_cast(mask, rf, tri, PROBE_SUBG)
+    if PROBE_FIXED > min(mask.shape[1], Tp // TILE_T):
+        raise ValueError(f"{PROBE_FIXED} fixed tiles pass the mask's "
                          f"{mask.shape[1]} columns or the {Tp // TILE_T} "
                          "tiles")
     _on_card(mask, rf, tri)
@@ -347,7 +349,7 @@ def probe_uniform_branch(mask, rf, tri, subg, n_fixed):
     _run("probe_uniform_branch", rf.device,
          lambda lib, st: lib.rt_probe_uniform_branch(
              mask.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
-             mask.shape[1], subg, n_fixed, t.data_ptr(), st))
+             mask.shape[1], PROBE_SUBG, PROBE_FIXED, t.data_ptr(), st))
     return t
 
 

@@ -89,6 +89,48 @@ def test_realtime_subcommand_is_not_ported():
             main(["realtime", "--device", "cpu", *flags])
 
 
+def test_ray_report_matches_the_jax_package():
+    # the CLI's JSON line: the port's ray_report on tensor stats against
+    # the JAX package's on the same counts as numpy arrays
+    from raytracinggpu_tpu.utils.profiling import ray_report as jax_report
+    from raytracinggpu_tpu_torch.integrator.wavefront import TraceStats
+    from raytracinggpu_tpu_torch.utils.profiling import ray_report
+
+    rng = np.random.default_rng(0)
+    counts = rng.integers(0, 1000, (len(TraceStats._fields), 3))
+    stats = TraceStats(*(torch.from_numpy(c) for c in counts))
+    stats_np = TraceStats(*counts)
+    assert ray_report(stats, 4, 16, 8, 0.25) == jax_report(stats_np, 4, 16, 8,
+                                                           0.25)
+    assert ray_report(stats, 4, 16, 8, 0.0)["mrays_per_sec"] == 0.0
+
+
+def test_phase_timer_accumulates_named_phases():
+    from raytracinggpu_tpu_torch.utils.profiling import PhaseTimer
+
+    pt = PhaseTimer()
+    for name in ("build", "render", "build"):
+        with pt.phase(name):
+            time.sleep(0.01)
+    assert list(pt.phases) == ["build", "render"]
+    assert pt.phases["build"] >= 0.02 and pt.phases["render"] >= 0.01
+    rep = pt.report()
+    assert rep.startswith("build: ") and " | render: " in rep and "%)" in rep
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        main(["render", "1", "1", "--width", "8", "--height", "8"])
+
+
+@pytest.mark.parametrize("cmd", ["bench", "realtime"])
+def test_default_device_needs_cuda_in_every_subcommand(monkeypatch, cmd):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        main([cmd, "1", "1", "--width", "8", "--height", "8"])
+
+
 @pytest.mark.parametrize("preset", ["global", "showcase"])
 def test_render_the_other_presets(tmp_path, capsys, preset):
     out = str(tmp_path / "p.png")

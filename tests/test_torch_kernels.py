@@ -462,11 +462,11 @@ def test_probe_wrappers_check_their_inputs(bad, why):
     idx = meta(R, 1, dt=torch.int32)
     before = dict(_kernels.LAUNCHES)
     calls = {
-        "dtype": lambda: _kernels.probe_tile_slope(lists.long(), rf, tri, 64),
+        "dtype": lambda: _kernels.probe_tile_slope(lists.long(), rf, tri),
         "device": lambda: _kernels.probe_block_mask(torch.zeros(1024, 16)),
-        "rows": lambda: _kernels.probe_tile_slope(lists[:-1], rf, tri, 64),
+        "rows": lambda: _kernels.probe_tile_slope(lists[:-1], rf, tri),
         "tiles": lambda: _kernels.probe_uniform_branch(
-            lists, rf, meta(16, 5 * 128 + 64), 64, 4),
+            lists, rf, meta(16, 5 * 128 + 64)),
         "columns": lambda: _kernels.probe_row_gather(idx, meta(64, 64)),
         "subgroup": lambda: _kernels.probe_pair_slope(pairs, rf, tri, 48),
         "blocks": lambda: _kernels.probe_block_mask(meta(1000, 16)),
@@ -763,3 +763,57 @@ def test_probe_main_runs_and_checks_every_probe(capsys):
     assert list(res) == list(mk.BENCHES)
     assert set(_launched()) == set(_kernels.PROBES)
     assert all(c["plain_s"] > 0 for c in res["slope"])
+
+
+# ----------------------------- the cpu preset's lost rays, on the card
+
+CPU_FRAME = dict(width=512, height=512, spp=8, max_depth=5)
+
+
+def find_cpu_preset_lost_rays(device):
+    """The lanes of the ``cpu`` preset's 512x512 spp 8 depth 5 seed 0 frame
+    in which a ray misses everything: [[row, sample, rays lost per depth],
+    ...], found by halving the rows of each sample (``render_rows`` keys a
+    ray by its sample and its row, so a row rendered alone casts the rays
+    it casts in the frame)."""
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.render.pipeline import Camera, render_rows
+
+    cfg, tab = build_preset("cpu", device, **CPU_FRAME)
+    cam, key = Camera.default(cfg, device), PRNGKey(0, device)
+    found = []
+
+    def search(rows, s):
+        hit = render_rows(tab, cfg, cam, key, rows, [s])[1].hit
+        lost = (len(rows) * cfg.width - hit).tolist()
+        if not any(lost):
+            return
+        if len(rows) == 1:
+            found.append([int(rows[0]), s, lost])
+            return
+        h = len(rows) // 2
+        search(rows[:h], s)
+        search(rows[h:], s)
+
+    for s in range(cfg.spp):
+        search(np.arange(cfg.height, dtype=np.int32), s)
+    return found
+
+
+@pytest.mark.cuda
+def test_cpu_preset_loses_the_recorded_rays_on_the_card():
+    """tests/golden/cpu_512_lost_rays.json records the lanes found here;
+    tests/test_torch_presets.py renders them through both packages on the
+    CPU, and chip_smoke.py holds the frame to their per-depth sums."""
+    import json
+    import os
+
+    _need_cuda()
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "cpu_512_lost_rays.json")) as f:
+        rec = json.load(f)
+    found = find_cpu_preset_lost_rays("cuda")
+    assert found == rec["lanes"], found
+    n = CPU_FRAME["width"] * CPU_FRAME["height"] * CPU_FRAME["spp"]
+    assert [n - sum(lane[2][d] for lane in found)
+            for d in range(CPU_FRAME["max_depth"])] == rec["hits_per_depth"]

@@ -14,8 +14,12 @@ port against the JAX package (raytracinggpu_tpu_torch/scene/presets.py).
   within 0.5% of the lane count, radiance within rtol 1e-3 on >= 99% of
   lanes), with lanes counted in the mirror, refraction and total internal
   reflection branches.
+- The ``cpu`` preset's room is not quite closed: every lane of its 512x512
+  spp 8 depth 5 frame that loses a ray on the card loses the same rays in
+  both packages on the CPU.
 """
 import dataclasses
+import json
 import os
 
 import jax
@@ -200,3 +204,58 @@ def test_showcase_trace_matches_jax(showcase, seed):
     assert np.isfinite(b).all()
     bad = (np.abs(a - b) > 1e-3 * np.abs(a)).any(axis=0)
     assert bad.mean() <= 0.01, bad.mean()
+
+
+# ------------------------------------- cpu: the rays that leave the room
+
+@pytest.fixture(scope="module")
+def lost_rays():
+    """The recorded lanes of the ``cpu`` preset's 512x512 spp 8 depth 5
+    seed 0 frame that lose a ray (tests/golden/cpu_512_lost_rays.json,
+    found on the card), each rendered alone through both packages:
+    (record, [(JAX hits per depth, port hits per depth), ...] with one
+    row that loses nothing at the end).  Both render the mesh through the
+    dense traversal, and the port the second lane also through the pairs
+    plain versions, which stand for the kernels the card runs."""
+    from raytracinggpu_tpu.render import pipeline as jpipe
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.render import pipeline as ppipe
+
+    with open(os.path.join(GOLDEN_DIR, "cpu_512_lost_rays.json")) as f:
+        rec = json.load(f)
+    size = {k: rec["frame"][k] for k in ("width", "height", "spp",
+                                         "max_depth")}
+    jcfg, jtab = j_build_preset("cpu", traversal="dense", **size)
+    pcfg, ptab = build_preset("cpu", "cpu", traversal="dense", **size)
+    jrows = jax.jit(jpipe.render_rows, static_argnums=(1,))
+    jcam, pcam = jpipe.Camera.default(jcfg), ppipe.Camera.default(pcfg, "cpu")
+    seed = rec["frame"]["seed"]
+    hits = []
+    for row, s, _ in rec["lanes"] + [[256, 0, None]]:
+        rows = np.array([row], np.int32)
+        js = jrows(jtab, jcfg, jcam, jax.random.PRNGKey(seed), rows,
+                   np.array([s]))[1]
+        ps = ppipe.render_rows(ptab, pcfg, pcam, PRNGKey(seed, "cpu"), rows,
+                               [s])[1]
+        hits.append((np.asarray(js.hit).tolist(), ps.hit.tolist()))
+    row, s, _ = rec["lanes"][1]
+    pairs = ppipe.render_rows(
+        ptab, dataclasses.replace(pcfg, traversal="pairs"), pcam,
+        PRNGKey(seed, "cpu"), np.array([row], np.int32), [s])[1].hit.tolist()
+    return rec, hits, pairs
+
+
+def test_cpu_preset_loses_the_rays_the_jax_package_loses(lost_rays):
+    """Where rays escape the ``cpu`` preset's room, both packages lose the
+    same number at every depth of every lane."""
+    rec, hits, pairs = lost_rays
+    assert pairs == hits[1][1] and sum(pairs) < 5 * rec["frame"]["width"]
+    W = rec["frame"]["width"]
+    for (row, s, lost), (jh, ph) in zip(rec["lanes"], hits):
+        assert jh == ph == [W - n for n in lost], (row, s, jh, ph)
+        assert sum(lost) > 0
+    assert hits[-1] == ([W] * 5, [W] * 5)  # a row in the middle: closed
+    n = W * rec["frame"]["height"] * rec["frame"]["spp"]
+    assert rec["hits_per_depth"] == [
+        n - sum(lane[2][d] for lane in rec["lanes"]) for d in range(5)]
+    assert rec["hits_per_depth"][-1] == n - 26
