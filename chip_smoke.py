@@ -195,12 +195,13 @@ PROBE_CAST = (524288, 40)
 CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
-# ptxas names the kernel templates' modes pairs_kernel<0..3>,
+# ptxas names the kernel templates' modes pairs_kernel<0..3, piece>
+# (the piece: 128 slots for tiles of a multiple of 128, else 32),
 # pallas_kernel<false/true> and block_mask_kernel<false/true>
-_MODES = {"pairs_kernelILi0E": "pairs_shadow",
-          "pairs_kernelILi1E": "pairs_closest_idx",
-          "pairs_kernelILi2E": "pairs_closest",
-          "pairs_kernelILi3E": "pairs_closest_smooth",
+_MODES = {**{f"pairs_kernelILi{m}ELi{p}E": f"{k} ({p}-slot pieces)"
+             for m, k in enumerate(("pairs_shadow", "pairs_closest_idx",
+                                    "pairs_closest", "pairs_closest_smooth"))
+             for p in (128, 32)},
           "pallas_kernelILb0E": "pallas_shadow",
           "pallas_kernelILb1E": "pallas_closest",
           "tile_slope_kernel": "probe_tile_slope",
@@ -249,6 +250,11 @@ _PROBE_ROW = {
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 FLOP_PER_TEST = 39
+# The peak counts an FMA as two operations; the kernels are built without
+# FMA (bitwise their plain versions), so each of a test's 39 operations
+# issues alone: the floor of the pairs kernels is the tests' operations
+# at half the peak
+NO_FMA_OPS_S = PEAK_F32_FLOPS / 2
 
 
 def _fail(msg: str) -> None:
@@ -456,13 +462,15 @@ def _time_casts(casts, timing, card, depths=(0, 1)):
                                         out if isinstance(out, tuple)
                                         else (out,))
             visits, tests = _mt_tests(k, args)
+            floor_ms = tests * FLOP_PER_TEST / NO_FMA_OPS_S * 1e3
             if depth == 1:
                 timing[k] = (ms, plain_ms, bound_ms, bound_by)
             print(f"timing {k} on the {name} cast ({args[0].shape[1]} "
                   f"rays, {visits} (subgroup, tile) visits, {tests} MT "
-                  f"tests): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}; roofline share "
-                  f"{bound_ms / ms:.1%}) on {card}")
+                  f"tests): kernel {ms:.4f} ms, {ms * 1e9 / tests:.3f} ps a "
+                  f"test, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; roofline share {bound_ms / ms:.1%}), no-FMA "
+                  f"floor {floor_ms:.4f} ms ({floor_ms / ms:.1%}) on {card}")
 
 
 def _realtime(device, card, err, timing):

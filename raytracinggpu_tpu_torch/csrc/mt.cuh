@@ -4,7 +4,7 @@
 //
 // A ray is the feature rows [u, w = O x u, O] (rows 0-8 of rfT, (16, R)
 // f32); a triangle is 16 field rows [Ng, e2 x A, e2, e1 x A, e1, A.Ng]
-// `stride` floats apart:
+// (in device memory `stride` floats apart, or staged in shared memory):
 //   denom = u.Ng;  beta = (u.(e2 x A) - w.e2) / denom;
 //   gamma = (w.e1 - u.(e1 x A)) / denom;  t = (A.Ng - O.Ng) / denom,
 // each division a multiply by rden = 1/denom, every sum left to right, in
@@ -39,17 +39,18 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rfT, int R,
           rfT[6 * R + r], rfT[7 * R + r], rfT[8 * R + r]};
 }
 
-__device__ __forceinline__ MTHit mt_test(const Ray& q, const float* f,
-                                         int stride, float eps) {
-  const float n0 = f[0], n1 = f[stride], n2 = f[2 * stride];
+// The test on one slot whose field row i is f(i): pairs_trace.cu reads a
+// slot staged in shared memory, the others read the rows in device memory
+// through mt_test.  Either way the arithmetic below is the whole test.
+template <class Field>
+__device__ __forceinline__ MTHit mt_eval(const Ray& q, Field f, float eps) {
+  const float n0 = f(0), n1 = f(1), n2 = f(2);
   const float denom = q.ux * n0 + q.uy * n1 + q.uz * n2;
-  const float bnum =
-      (q.ux * f[3 * stride] + q.uy * f[4 * stride] + q.uz * f[5 * stride]) -
-      (q.wx * f[6 * stride] + q.wy * f[7 * stride] + q.wz * f[8 * stride]);
-  const float gnum =
-      (q.wx * f[12 * stride] + q.wy * f[13 * stride] + q.wz * f[14 * stride]) -
-      (q.ux * f[9 * stride] + q.uy * f[10 * stride] + q.uz * f[11 * stride]);
-  const float tnum = f[15 * stride] - (q.ox * n0 + q.oy * n1 + q.oz * n2);
+  const float bnum = (q.ux * f(3) + q.uy * f(4) + q.uz * f(5)) -
+                     (q.wx * f(6) + q.wy * f(7) + q.wz * f(8));
+  const float gnum = (q.wx * f(12) + q.wy * f(13) + q.wz * f(14)) -
+                     (q.ux * f(9) + q.uy * f(10) + q.uz * f(11));
+  const float tnum = f(15) - (q.ox * n0 + q.oy * n1 + q.oz * n2);
   const float rden = 1.0f / denom;
   const float beta = bnum * rden;
   const float gamma = gnum * rden;
@@ -58,6 +59,11 @@ __device__ __forceinline__ MTHit mt_test(const Ray& q, const float* f,
   const bool valid = denom != 0.0f && beta >= 0.0f && gamma >= 0.0f &&
                      alpha >= 0.0f && tval > eps;
   return {tval, beta, gamma, alpha, n0, n1, n2, valid};
+}
+
+__device__ __forceinline__ MTHit mt_test(const Ray& q, const float* f,
+                                         int stride, float eps) {
+  return mt_eval(q, [&](int i) { return f[i * stride]; }, eps);
 }
 
 }  // namespace

@@ -20,28 +20,43 @@
 //          bits naming tiles past Tc / tile_t are ignored.
 //   A ray runs the Moller-Trumbore test of mt.cuh on every slot of every
 //   tile active for its subgroup.  The closest modes keep the
-//   lexicographic min of (t, id); B1 also keeps the winner's Ng, B3 the
-//   winner's na*alpha + nb*beta + nc*gamma (per component, summed left to
-//   right), computed when the slot wins the update, where its beta and
-//   gamma are at hand.  A ray whose min is not below INF (1e9 in f32)
-//   gets t = INF, idx 0, N = 0.  B2 keeps min(INF, t).
+//   lexicographic min of (t, id), the first slot in (tile, slot) order
+//   among equals; B1 returns the winner's Ng, B3 the winner's
+//   na*alpha + nb*beta + nc*gamma (per component, summed left to right)
+//   from the winner's own beta and gamma.  A ray whose min is not below
+//   INF (1e9 in f32) gets t = INF, idx 0, N = 0.  B2 keeps min(INF, t).
 //
 // Numerics (mt.cuh): with --fmad=false and IEEE division the kernels are
-// bitwise equal to the plain versions in ops/pairs_trace.py.
+// bitwise equal to the plain versions in ops/pairs_trace.py.  The result
+// is a min under a total order, (t, id, slot) or t, and each test's
+// arithmetic is mt.cuh's whatever thread runs it, so the mapping below
+// changes no bit.
 //
-// What bounds it on this card: each active (ray, slot) pair costs 17
-// field loads and ~45 f32 operations with no reuse across rays in
-// registers (B3 adds 9 loads and 15 operations per winner update, a few
-// per ray).  The loads are warp-uniform (all 32 lanes of a warp share one
-// subgroup, so they walk the same tiles and read the same address), which
-// the L1 serves as one broadcast transaction; the whole cat table (655 KB)
-// stays in L2.  So the kernel is issue-bound on the per-slot arithmetic
-// plus load instructions, and the work is the number of (subgroup, tile)
-// pairs times 128 slots times the subgroup width.  What the design does
-// about it: one thread per ray, the ray's 9 features in registers, the
-// bitmask walked with __ffs so culled tiles cost nothing, and no shared
-// memory or atomics at all.  Staging tiles in shared memory, cp.async/TMA
-// prefetch and per-pair work lists are later work.
+// What bounds it on this card: operations.  Each active (ray, slot) pair
+// is one test of 39 f32 operations (21 multiplies, 17 adds, a reciprocal,
+// each issued alone: no FMA) plus the compares and the running-min
+// update; the cat's table (655 KB) and the 200,000-triangle soup's (33.6
+// MB) stay in the L2.  The first design (one thread a ray, each test
+// reading its 16-17 field rows from device memory as separate strided
+// loads, a runtime tile width) spent about as many issue slots on loads
+// as on arithmetic.  What this design does about it:
+//   - kRays rays a thread (rays lane + 32 k of the warp's 32 * kRays):
+//     each slot's fields are read once and feed kRays independent tests,
+//     which also hides the reciprocal's latency;
+//   - the block stages every tile active for any of its rays into shared
+//     memory, slot-major (a slot's 16 test rows and its id are 16-byte
+//     aligned: five broadcast reads), copied with cp.async into one
+//     buffer while the block tests the other;
+//   - the slot loop has a compile-time width: kPiece = 128 slots, the
+//     tile width of every preset, or 32 for the other multiples of 32
+//     (each tile then stages as tile_t / 32 pieces);
+//   - the block walks the OR of its subgroups' bitmask words and a warp
+//     skips a tile that none of its rays' subgroups keeps (a warp-uniform
+//     branch); a ray whose own subgroup culled a tile the warp runs takes
+//     eps = +inf for it, so its tests never pass and it never takes a
+//     culled tile's hit (B2 would otherwise see occluders past the cap);
+//   - B1 and B3 keep the winner's slot (and B3 its beta and gamma) and
+//     read its normal rows once at the end.
 
 #include <cuda_runtime.h>
 
@@ -50,75 +65,205 @@
 namespace {
 
 constexpr float kIdxBig = 1073741824.0f;   // 2^30: id of padding slots
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+// Rays a thread and slots a step of the slot loop (chosen on the card:
+// bench/pairs_design.py builds and times other values).
+#ifndef RT_PAIRS_RAYS
+#define RT_PAIRS_RAYS 2
+#endif
+#ifndef RT_PAIRS_UNROLL
+#define RT_PAIRS_UNROLL 2
+#endif
+constexpr int kRays = RT_PAIRS_RAYS;
+constexpr int kUnroll = RT_PAIRS_UNROLL;
+constexpr int kBlockRays = kThreads * kRays;
+constexpr int kStride = 20;  // floats a staged slot: 16 test rows, id, pad
 
-// Template modes; ptxas names the kernels pairs_kernel<0..3> (ILi0E..ILi3E).
+// Template modes; ptxas names the kernels pairs_kernel<0..3, piece>
+// (ILi0E..ILi3E).
 constexpr int kShadow = 0;  // B2
 constexpr int kIdx = 1;     // B0
 constexpr int kGeom = 2;    // B1
 constexpr int kSmooth = 3;  // B3
 
-template <int kMode>
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The block's walk: every (tile, piece) of every tile that some subgroup
+// of the block keeps, in ascending order.  Each thread runs the same walk.
+struct Walk {
+  const int* bits;
+  int S, sg_lo, sg_hi, n_tiles, n_words, n_pieces;
+  int w = -1, tile = -1, piece = 0;
+  unsigned word = 0u;
+
+  __device__ unsigned block_word(int v) const {
+    unsigned x = 0u;
+    for (int sg = sg_lo; sg <= sg_hi; ++sg)
+      x |= static_cast<unsigned>(bits[v * S + sg]);
+    const int left = n_tiles - 32 * v;  // tiles word v can name
+    return left < 32 ? x & ((1u << left) - 1u) : x;
+  }
+
+  // Moves to the next (tile, piece); false past the last.
+  __device__ bool next() {
+    if (tile >= 0 && ++piece < n_pieces) return true;
+    while (word == 0u) {
+      if (++w >= n_words) return false;
+      word = block_word(w);
+    }
+    tile = 32 * w + __ffs(static_cast<int>(word)) - 1;
+    word &= word - 1u;
+    piece = 0;
+    return true;
+  }
+};
+
+template <int kMode, int kPiece>
 __global__ void __launch_bounds__(kThreads)
 pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
              const int* __restrict__ bits, int R, int Tc, int W, int subg,
              int tile_t, float eps, float* __restrict__ t_out,
              int* __restrict__ idx_out, float* __restrict__ nx_out,
              float* __restrict__ ny_out, float* __restrict__ nz_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Ray q = load_ray(rfT, R, r);
+  constexpr int kRows = kMode == kShadow ? 16 : 17;  // staged field rows
+  __shared__ __align__(16) float stage[2][kPiece * kStride];
+
+  const float never = __int_as_float(0x7f800000);  // +inf: no t passes it
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kBlockRays;
+  const int wr0 = r0 + (threadIdx.x >> 5) * 32 * kRays;
   const int S = R / subg;
-  const int sg = r / subg;
   const int n_tiles = Tc / tile_t;
 
-  float best_t = kInf;
-  float best_id = kIdxBig;
-  float bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
-  for (int w = 0; w < W; ++w) {
-    const int left = n_tiles - 32 * w;  // tiles word w can name
-    if (left <= 0) break;
-    unsigned word = static_cast<unsigned>(bits[w * S + sg]);
-    if (left < 32) word &= (1u << left) - 1u;  // bits past the table
-    while (word != 0u) {
-      const int j = __ffs(static_cast<int>(word)) - 1;
-      word &= word - 1u;
-      const float* f = fields + (32 * w + j) * tile_t;
-      for (int k = 0; k < tile_t; ++k, ++f) {
-        const MTHit h = mt_test(q, f, Tc, eps);
-        if (!h.valid) continue;
-        if constexpr (kMode == kShadow) {
-          if (h.t < best_t) best_t = h.t;
-        } else {
-          const float id = f[16 * Tc];
-          if (h.t < best_t || (h.t == best_t && id < best_id)) {
-            best_t = h.t;
-            best_id = id;
-            if constexpr (kMode == kGeom) {
-              bnx = h.n0;
-              bny = h.n1;
-              bnz = h.n2;
-            } else if constexpr (kMode == kSmooth) {
-              bnx = f[17 * Tc] * h.alpha + f[20 * Tc] * h.beta +
-                    f[23 * Tc] * h.gamma;
-              bny = f[18 * Tc] * h.alpha + f[21 * Tc] * h.beta +
-                    f[24 * Tc] * h.gamma;
-              bnz = f[19 * Tc] * h.alpha + f[22 * Tc] * h.beta +
-                    f[25 * Tc] * h.gamma;
+  Ray q[kRays];
+  int sg[kRays];
+  float bt[kRays], bid[kRays], bb[kRays], bg[kRays];
+  int bs[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int r = wr0 + 32 * k + lane;
+    sg[k] = r < R ? r / subg : -1;
+    q[k] = r < R ? load_ray(rfT, R, r) : Ray{};
+    bt[k] = kInf;
+    bid[k] = kIdxBig;
+    bs[k] = -1;
+    bb[k] = bg[k] = 0.0f;
+  }
+
+  Walk walk{bits, S, r0 / subg, (min(r0 + kBlockRays, R) - 1) / subg,
+            n_tiles, min(W, (n_tiles + 31) / 32), tile_t / kPiece};
+  const auto stage_piece = [&](float* dst) {
+    const int s0 = walk.tile * tile_t + walk.piece * kPiece;
+    for (int i = threadIdx.x; i < kRows * kPiece; i += kThreads) {
+      const int row = i / kPiece, s = i % kPiece;
+      cp_async4(dst + s * kStride + row, fields + row * Tc + s0 + s);
+    }
+    cp_async_commit();
+  };
+
+  int buf = 0;
+  bool have = walk.next();
+  if (have) stage_piece(stage[0]);
+  int cw = -1;               // the bitmask word rw and ww hold
+  unsigned rw[kRays], ww = 0u;
+  while (have) {
+    const int tile = walk.tile, piece = walk.piece;
+    const bool more = walk.next();
+    if (more) {
+      stage_piece(stage[buf ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int w = tile >> 5, j = tile & 31;
+    if (w != cw) {  // block-uniform
+      cw = w;
+      unsigned any = 0u;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
+        rw[k] = sg[k] >= 0 ? static_cast<unsigned>(bits[w * S + sg[k]]) : 0u;
+        any |= rw[k];
+      }
+      ww = __reduce_or_sync(0xffffffffu, any);
+    }
+    if ((ww >> j) & 1u) {  // warp-uniform
+      float e[kRays];
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) e[k] = (rw[k] >> j) & 1u ? eps : never;
+      const float* sp = stage[buf];
+      const int s0 = tile * tile_t + piece * kPiece;
+#pragma unroll kUnroll
+      for (int s = 0; s < kPiece; ++s, sp += kStride) {
+        const float4* v = reinterpret_cast<const float4*>(sp);
+        const float4 a = v[0], b = v[1], c = v[2], d = v[3];
+        const float f[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                             c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+        const auto field = [&](int i) { return f[i]; };
+        const float id = kMode == kShadow ? 0.0f : sp[16];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          const MTHit h = mt_eval(q[k], field, e[k]);
+          if constexpr (kMode == kShadow) {
+            if (h.valid && h.t < bt[k]) bt[k] = h.t;
+          } else if (h.valid &&
+                     (h.t < bt[k] || (h.t == bt[k] && id < bid[k]))) {
+            bt[k] = h.t;
+            bid[k] = id;
+            bs[k] = s0 + s;
+            if constexpr (kMode == kSmooth) {
+              bb[k] = h.beta;
+              bg[k] = h.gamma;
             }
           }
         }
       }
     }
+    __syncthreads();  // the buffer is free for the next piece's copy
+    buf ^= 1;
+    have = more;
   }
-  t_out[r] = best_t;
-  if constexpr (kMode != kShadow) {
-    const bool hit = best_t < kInf;
-    idx_out[r] = hit ? static_cast<int>(best_id) : 0;
-    if constexpr (kMode != kIdx) {
-      nx_out[r] = hit ? bnx : 0.0f;
-      ny_out[r] = hit ? bny : 0.0f;
-      nz_out[r] = hit ? bnz : 0.0f;
+
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int r = wr0 + 32 * k + lane;
+    if (r >= R) continue;
+    t_out[r] = bt[k];
+    if constexpr (kMode != kShadow) {
+      const bool hit = bt[k] < kInf;
+      idx_out[r] = hit ? static_cast<int>(bid[k]) : 0;
+      if constexpr (kMode != kIdx) {
+        float n[3] = {0.0f, 0.0f, 0.0f};
+        if (hit) {
+          const float* f = fields + bs[k];
+          if constexpr (kMode == kGeom) {
+            for (int c = 0; c < 3; ++c) n[c] = f[c * Tc];
+          } else {
+            const float alpha = 1.0f - bb[k] - bg[k];  // as mt.cuh's
+            for (int c = 0; c < 3; ++c)
+              n[c] = f[(17 + c) * Tc] * alpha + f[(20 + c) * Tc] * bb[k] +
+                     f[(23 + c) * Tc] * bg[k];
+          }
+        }
+        nx_out[r] = n[0];
+        ny_out[r] = n[1];
+        nz_out[r] = n[2];
+      }
     }
   }
 }
@@ -128,10 +273,19 @@ int launch(const float* rfT, const float* fields, const int* bits, int R,
            int Tc, int W, int subg, int tile_t, float eps, float* t_out,
            int* idx_out, float* nx_out, float* ny_out, float* nz_out,
            void* stream) {
-  const int grid = (R + kThreads - 1) / kThreads;
-  pairs_kernel<kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out, nx_out,
-      ny_out, nz_out);
+  if (tile_t <= 0 || tile_t % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (R + kBlockRays - 1) / kBlockRays;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (tile_t % 128 == 0) {
+    pairs_kernel<kMode, 128><<<grid, kThreads, 0, st>>>(
+        rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out,
+        nx_out, ny_out, nz_out);
+  } else {
+    pairs_kernel<kMode, 32><<<grid, kThreads, 0, st>>>(
+        rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out,
+        nx_out, ny_out, nz_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

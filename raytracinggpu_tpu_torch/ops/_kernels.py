@@ -190,6 +190,9 @@ def _check(rfT, fields, cull, subg, tile_t, field_rows, kind):
     if tile_t <= 0 or Tc % tile_t:
         raise ValueError(f"fields width {Tc} does not hold whole tiles of "
                          f"{tile_t}")
+    if kind == "bits" and tile_t % 32:
+        raise ValueError(f"the pairs kernels stage tiles in pieces of 32 "
+                         f"slots: tile width {tile_t} is not a multiple of 32")
     n_tiles = Tc // tile_t
     if kind == "bits":
         n = cull.shape[0]

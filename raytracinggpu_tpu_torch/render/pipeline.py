@@ -126,21 +126,31 @@ def raygen(cfg: RenderConfig, cam: Camera, jitter, rows) -> tuple[Vec3, Vec3]:
     return O, d.normalized()
 
 
-def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs") -> int:
+def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs",
+               n_tiles: int = 0) -> int:
     """Rays per cast for an R-ray wavefront.  pairs and pallas: near-equal
     casts of at most cfg.pairs_chunk rays, each a whole number of
     cfg.pairs_block (pairs) or BLK_R (pallas) rays, so that the culling
     subgroups, and with them every ray's result, do not depend on the
     cast size.  (The JAX package caps a pallas cast at 2^17 rays for the
-    TPU's scalar memory; the port has no such limit and takes the pairs
-    cap, so both traversals launch as many casts.)  dense: casts of
-    cfg.ray_chunk rays."""
+    TPU's scalar memory; the port takes the pairs cap, so both traversals
+    launch as many casts.)  A pallas cast over a table of ``n_tiles``
+    tiles is also cut to whole BLK_R blocks whose tile lists,
+    (rays / cfg.pallas_subgroup, 1 + n_tiles) int32, stay under the 2^31
+    elements that the tiled kernels' 32-bit indices reach
+    (``ops/_kernels._check``): a mesh past the pairs tables' ceiling has
+    some 400,000 tiles, and its 524,288-ray cast's lists would pass it.
+    dense: casts of cfg.ray_chunk rays."""
     if traversal == "dense":
         return min(cfg.ray_chunk, R)
-    blk = BLK_R if traversal == "pallas" else cfg.pairs_block
-    n_chunks = -(-R // cfg.pairs_chunk)
+    cap, blk = cfg.pairs_chunk, cfg.pairs_block
+    if traversal == "pallas":
+        blk = BLK_R
+        rows = (2**31 - 1) // (1 + n_tiles)   # list rows a cast may hold
+        cap = min(cap, max(blk, rows * cfg.pallas_subgroup // blk * blk))
+    n_chunks = -(-R // cap)
     per = -(-R // n_chunks)
-    return min(cfg.pairs_chunk, -(-per // blk) * blk)
+    return min(cap, -(-per // blk) * blk)
 
 
 def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
@@ -149,7 +159,10 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     have zero origin and direction (they miss everything) and are dropped.
     Returns (color Vec3 (R,), TraceStats summed over casts)."""
     R = u.x.shape[0]
-    chunk = chunk_size(cfg, R, _effective_traversal(cfg, scene))
+    traversal = _effective_traversal(cfg, scene)
+    tiled = scene.pallas_mesh if traversal == "pallas" else None
+    chunk = chunk_size(cfg, R, traversal,
+                       n_tiles=0 if tiled is None else tiled.n_tiles)
     pad = (-R) % chunk
     padv = lambda c: F.pad(c, (0, pad))
     O = Vec3(*map(padv, O))

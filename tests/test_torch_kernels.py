@@ -379,6 +379,40 @@ def test_tiled_plain_breaks_ties_by_lowest_index():
                        torch.full((128,), 5.0))
 
 
+@pytest.mark.parametrize("subg", [16, 32, 64])
+def test_tiled_casts_keep_their_lists_under_the_32_bit_limit(subg):
+    """A mesh past the pairs tables' ceiling renders through the tiled
+    kernels with some 400,000 tiles: chunk_size cuts its pallas casts to
+    whole BLK_R blocks whose lists, (rays / subgroup, 1 + n_tiles) int32,
+    the launch check takes, where a full 524,288-ray cast's lists pass
+    2^31 elements and are refused.  Shapes only (meta tensors: nothing is
+    allocated); a table of the cat's size keeps full casts."""
+    import dataclasses
+
+    from raytracinggpu_tpu_torch.render.pipeline import chunk_size
+    from raytracinggpu_tpu_torch.scene.scene import RenderConfig
+
+    cfg = dataclasses.replace(RenderConfig(), pallas_subgroup=subg)
+    n_tiles, R = 400_000, 4 * 512 * 512
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+
+    def check(rays):
+        return _kernels._check(
+            meta(16, rays), meta(16, n_tiles * 128),
+            meta(rays // subg, 1 + n_tiles, dt=torch.int32), subg, 128, 16,
+            "lists")
+
+    chunk = chunk_size(cfg, R, "pallas", n_tiles=n_tiles)
+    assert chunk % pat.BLK_R == 0 and 0 < chunk < cfg.pairs_chunk
+    assert (chunk // subg) * (1 + n_tiles) < 2**31
+    assert check(chunk) == (chunk, n_tiles * 128, 1 + n_tiles)
+    with pytest.raises(ValueError, match="32-bit"):
+        check(cfg.pairs_chunk)
+    assert chunk_size(cfg, R, "pallas", n_tiles=32) == cfg.pairs_chunk
+    assert chunk_size(cfg, R, "pairs") == cfg.pairs_chunk
+
+
 @pytest.mark.parametrize("subg", [0, 48, 256])
 def test_tiled_subgroup_must_divide_the_tile(scene, subg):
     tab = scene[1].pallas_mesh
@@ -440,6 +474,134 @@ def test_plain_versions_ignore_bits_past_the_table(subg):
                                                                      want)
         assert all(torch.equal(a, b) for a, b in zip(got, want)), name
         assert (got[0] < pt.INF32).sum() > 20
+
+
+# ------------------- any mapping of slots to threads: the property B0-B3 use
+
+PAIRS_KERNELS = ("pairs_closest", "pairs_closest_smooth", "pairs_closest_idx",
+                 "pairs_shadow")
+
+
+def _unpack(bits, n_tiles):
+    """(n_tiles, S) bool: tile j active for subgroup sg."""
+    w = bits.to(torch.int64) & 0xFFFFFFFF
+    sh = torch.arange(32, dtype=torch.int64)
+    on = ((w[:, None, :] >> sh[None, :, None]) & 1).bool()
+    return on.reshape(-1, w.shape[1])[:n_tiles]
+
+
+def _pack(on):
+    """The (W, S) int32 bitmask of an (n_tiles, S) bool (as _pair_bits)."""
+    n_tiles, S = on.shape
+    W = -(-n_tiles // 32)
+    act = torch.zeros(W * 32, S, dtype=torch.int64)
+    act[:n_tiles] = on.to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64)
+    words = (act.reshape(W, 32, S) << sh[None, :, None]).sum(dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _plane_slots(n_tiles, tile_t):
+    """The slots of _synthetic_cast's plane: its two triangles in tile 1,
+    then again in tile n_tiles - 2."""
+    return (tile_t + 3, tile_t + 9, (n_tiles - 2) * tile_t + 5,
+            (n_tiles - 2) * tile_t + 1)
+
+
+def _synthetic_cast(n_tiles=37, tile_t=128, R=512, subg=16, seed=0):
+    """A pairs cast on a synthetic table: ``n_tiles`` tiles of ``tile_t``
+    slots holding random triangles of a few units in a 40-unit box under
+    scrambled original ids, with unit vertex normals (for B3), the last
+    tile part padding; two large triangles covering the plane z = 0
+    stored twice, in tiles 1 and n_tiles - 2 under other ids, so that a
+    ray crossing the plane finds exact-t ties between slots of different
+    tiles; R rays from random points in the box; a random bitmask whose
+    last word also sets bits naming tiles past the table.  Returns (rfT,
+    fields, bits) on the CPU."""
+    rng = np.random.default_rng(seed)
+    Tc = n_tiles * tile_t
+    T = Tc - tile_t // 2
+    A = rng.uniform(-20, 20, (T, 3)).astype(np.float32)
+    B = A + rng.standard_normal((T, 3)).astype(np.float32)
+    C = A + rng.standard_normal((T, 3)).astype(np.float32)
+    n = rng.standard_normal((3, T, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=2, keepdims=True)
+    slot_src = np.full(Tc, -1, np.int32)
+    slot_src[:T] = rng.permutation(T).astype(np.int32)
+    quad = np.float32([[[-30, -30, 0], [30, -30, 0], [-30, 30, 0]],
+                       [[30, 30, 0], [-30, 30, 0], [30, -30, 0]]])
+    for i, slot in enumerate(_plane_slots(n_tiles, tile_t)):
+        tid = slot_src[slot]
+        A[tid], B[tid], C[tid] = quad[i % 2]
+    fields = torch.from_numpy(pt.fields_from_corners(A, B, C, slot_src, *n))
+    o = rng.uniform(-20, 20, (3, R)).astype(np.float32)
+    d = rng.standard_normal((3, R)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    rfT = pt._ray_feature_rows(Vec3(*map(torch.from_numpy, o)),
+                               Vec3(*map(torch.from_numpy, d)))
+    W = -(-n_tiles // 32)
+    words = rng.integers(0, 2**32, (W, R // subg), dtype=np.uint64)
+    for j in (1, n_tiles - 2):  # both copies of the plane kept everywhere
+        words[j // 32] |= np.uint64(1 << (j % 32))
+    if n_tiles % 32:  # bits past the table
+        words[-1] |= np.uint64(2**32 - 2**(n_tiles % 32))
+    bits = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    return rfT, fields, bits
+
+
+def _outputs(name, args):
+    out = getattr(pt, f"{name}_plain")(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("what", ["slots", "tiles"])
+@pytest.mark.parametrize("name", PAIRS_KERNELS)
+def test_plain_versions_do_not_depend_on_slot_or_tile_order(name, what):
+    """B0-B3 are a min under a total order, (t, id) or t, and the payload
+    is the winner's own: permuting the slots inside every tile, or whole
+    tiles with the bitmask remapped to match, changes no output bit.  The
+    kernels' thread mapping rests on this.  The cast holds exact-t ties
+    between slots of different tiles, won by the lower id."""
+    tile_t, subg = 128, 16
+    rfT, fields, bits = _synthetic_cast(tile_t=tile_t, subg=subg)
+    n_tiles = fields.shape[1] // tile_t
+    args = (rfT, fields, bits, EPS, subg, tile_t)
+    want = _outputs(name, args)
+    rng = np.random.default_rng(1)
+    if what == "slots":
+        perm = np.concatenate([j * tile_t + rng.permutation(tile_t)
+                               for j in range(n_tiles)])
+        moved = (rfT, fields[:, torch.from_numpy(perm)].contiguous(), bits)
+    else:
+        perm = torch.from_numpy(rng.permutation(n_tiles))
+        f = fields.reshape(32, n_tiles, tile_t)[:, perm].reshape(32, -1)
+        moved = (rfT, f.contiguous(), _pack(_unpack(bits, n_tiles)[perm]))
+        assert not torch.equal(moved[2], bits)
+    got = _outputs(name, moved + args[3:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    t = want[0]
+    assert (t < pt.INF32).sum() > 100
+    if name != "pairs_shadow":
+        # the plane's ties: both copies at the same t, the lower id wins
+        plane = fields[16, list(_plane_slots(n_tiles, tile_t))].to(
+            torch.int32)
+        won = torch.isin(want[1], plane) & (t < pt.INF32)
+        assert won.sum() > 20
+        low = torch.minimum(plane[[0, 1]], plane[[2, 3]])
+        assert torch.isin(want[1][won], low).all()
+
+
+@pytest.mark.parametrize("tile_t", [48, 80])
+@pytest.mark.parametrize("name", PAIRS_KERNELS)
+def test_pairs_wrappers_need_tiles_of_a_multiple_of_32(name, tile_t):
+    """The pairs kernels stage a tile in pieces of 32 (or 128) slots, so
+    their wrappers refuse any other tile width (build_pairs_tables builds
+    only multiples of 32); the plain versions take any."""
+    rfT, fields, bits = _synthetic_cast(n_tiles=4, tile_t=tile_t, R=64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        getattr(_kernels, name)(rfT, fields, bits, EPS, 16, tile_t)
+    assert _outputs(name, (rfT, fields, bits, EPS, 16, tile_t))[0].shape \
+        == (64,)
 
 
 # ------------------------------------------- the probes (B7a-e), CPU
@@ -676,6 +838,29 @@ def test_kernels_bitwise_past_st_slots(name, subg):
         got, want = (got,), (want,)
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
     assert (want[0] < pt.INF32).sum() > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_t", [32, 64, 128, 256])
+@pytest.mark.parametrize("subg", [16, 32, 64, 128])
+def test_kernels_bitwise_at_every_subgroup_and_tile_width(subg, tile_t):
+    """B0-B3 bitwise their plain versions on a synthetic cast of 8,576
+    rays (not a whole number of a block's 256 or 512 rays) at each
+    subgroup and tile width: 128-slot pieces (tile widths 128, 256) and
+    32-slot ones (32, 64); exact-t ties between tiles, bits past the
+    table."""
+    _need_cuda()
+    rfT, fields, bits = (x.cuda() for x in _synthetic_cast(
+        tile_t=tile_t, R=8576, subg=subg))
+    args = (rfT, fields, bits, EPS, subg, tile_t)
+    for name in PAIRS_KERNELS:
+        got = getattr(_kernels, name)(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        want = _outputs(name, args)
+        assert all(a.is_cuda and torch.equal(a, b)
+                   for a, b in zip(got, want)), name
+        assert (want[0] < pt.INF32).sum() > 1000
 
 
 def _probe_cast(R=8192, n_tiles=9, seed=0):
