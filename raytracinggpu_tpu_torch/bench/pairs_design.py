@@ -2,8 +2,9 @@
 
     python -m raytracinggpu_tpu_torch.bench.pairs_design [--variants 1x2,2x2]
 
-Builds ``pairs_trace.cu`` once per variant, ``RAYSxUNROLL`` (rays a
-thread, slots a step of the slot loop), with the flags of
+Builds ``pairs_trace.cu`` once per variant, ``[DIR:]RAYSxUNROLL`` (rays a
+thread, slots a step of the slot loop; DIR: the ``csrc/`` directory of
+another tree, by default this package's), with the flags of
 ``ops/_kernels.py``, one nvcc process per variant, all started together,
 into ``_build/``.  Then captures the depth-1 casts of B1 and B2 that the
 main-path frame (``array_bvh``, 512x512, spp 32, depth 5, pairs) launches
@@ -34,26 +35,41 @@ FLOP_PER_TEST = 39
 KERNELS = ("pairs_closest", "pairs_shadow")
 
 
+def parse_variant(text: str):
+    """``[DIR:]RAYSxUNROLL`` -> (csrc directory, rays, unroll)."""
+    src, _, v = text.rpartition(":")
+    rays, unroll = (int(x) for x in v.split("x"))
+    return (src or _kernels.CSRC, rays, unroll)
+
+
+def label(variant) -> str:
+    src, rays, unroll = variant
+    here = os.path.samefile(src, _kernels.CSRC)
+    return f"{'' if here else src + ':'}{rays}x{unroll}"
+
+
 def build_variants(variants):
-    """{(rays, unroll): (library path, ptxas report)}: pairs_trace.cu built
-    with -DRT_PAIRS_RAYS and -DRT_PAIRS_UNROLL, skipped where built."""
+    """{(csrc, rays, unroll): (library path, ptxas report)}: csrc's
+    pairs_trace.cu built with -DRT_PAIRS_RAYS and -DRT_PAIRS_UNROLL,
+    skipped where built."""
     nvcc = _kernels.find_nvcc()
-    src = os.path.join(_kernels.CSRC, "pairs_trace.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    with open(os.path.join(_kernels.CSRC, "mt.cuh"), "rb") as f:
-        text += f.read()
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     out, procs = {}, {}
-    for rays, unroll in variants:
+    for v in variants:
+        csrc, rays, unroll = v
+        src = os.path.join(csrc, "pairs_trace.cu")
+        text = b""
+        for name in ("pairs_trace.cu", "mt.cuh"):
+            with open(os.path.join(csrc, name), "rb") as f:
+                text += f.read()
         defs = (f"-DRT_PAIRS_RAYS={rays}", f"-DRT_PAIRS_UNROLL={unroll}")
         key = hashlib.sha256(text + " ".join(_kernels.NVCC_FLAGS + defs)
                              .encode()).hexdigest()[:12]
         path = os.path.join(_kernels.BUILD_DIR,
                             f"pairs_design_{rays}x{unroll}_{key}.so")
-        out[(rays, unroll)] = path
+        out[v] = path
         if not os.path.isfile(path):
-            procs[(rays, unroll)] = subprocess.Popen(
+            procs[v] = subprocess.Popen(
                 [nvcc, *_kernels.NVCC_FLAGS, *defs, "-shared", "-o",
                  f"{path}.{os.getpid()}.tmp", src], stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
@@ -61,19 +77,20 @@ def build_variants(variants):
     for v, p in procs.items():
         _, err = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {v}:\n{err}")
+            raise RuntimeError(f"nvcc failed on variant {label(v)}:\n{err}")
         os.replace(f"{out[v]}.{os.getpid()}.tmp", out[v])
         reports[v] = err
     return {v: (path, reports.get(v, "")) for v, path in out.items()}
 
 
 def registers(report: str) -> dict:
-    """{(mode, piece): 'N registers'} from a ptxas -v report."""
+    """{mangled template arguments: registers} of the pairs kernels in a
+    ptxas -v report (mode first: ILi2E... is B1)."""
     regs, entry = {}, None
     for line in report.splitlines():
-        m = re.search(r"pairs_kernelILi(\d)ELi(\d+)E", line)
+        m = re.search(r"pairs_kernel(I\w*?E)E", line)
         if "Compiling entry function" in line:
-            entry = (int(m.group(1)), int(m.group(2))) if m else None
+            entry = m.group(1) if m else None
         elif entry and "registers" in line:
             regs[entry] = int(re.search(r"Used (\d+) registers", line)
                               .group(1))
@@ -147,18 +164,17 @@ def mt_tests(bits, subg: int, tile_t: int) -> int:
 
 
 def run(variants, iters: int = 20, device="cuda", card: str = ""):
-    """Times every variant on the casts; returns {(rays, unroll): {(kernel,
-    subg): ms}}."""
+    """Times every variant on the casts; returns {variant: {(kernel, subg):
+    ms}}."""
     from raytracinggpu_tpu_torch.bench._timing import timed
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
     built = build_variants(variants)
     libs = {v: _lib(path) for v, (path, _) in built.items()}
     for v, (_, report) in built.items():
-        regs = registers(report)
-        print(f"variant {v[0]} rays a thread x unroll {v[1]}: registers "
-              + ", ".join(f"mode {m} piece {p}: {n}"
-                          for (m, p), n in sorted(regs.items())))
+        print(f"variant {label(v)} (rays a thread x unroll): registers "
+              + ", ".join(f"{m}: {n}"
+                          for m, n in sorted(registers(report).items())))
     cfg, tab, casts = depth1_casts(device)
     cases = [(cfg.pairs_subgroup, casts)]
     if cfg.pairs_subgroup != 16:
@@ -176,13 +192,13 @@ def run(variants, iters: int = 20, device="cuda", card: str = ""):
             for v, lib in libs.items():
                 got = launch(lib, k, *args)
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise SystemExit(f"pairs_design: variant {v} {k} at "
+                    raise SystemExit(f"pairs_design: variant {label(v)} {k} at "
                                      f"subgroup {subg} differs from the "
                                      "plain version")
                 ms = timed(lambda: launch(lib, k, *args), iters) * 1e3
                 results[v][(k, subg)] = ms
                 print(f"{k} depth-1 cast ({rfT.shape[1]} rays, subgroup "
-                      f"{subg}, {tests} MT tests), variant {v[0]}x{v[1]}: "
+                      f"{subg}, {tests} MT tests), variant {label(v)}: "
                       f"{ms:.4f} ms, {ms * 1e9 / tests:.3f} ps a test, "
                       f"no-FMA floor {floor_ms:.4f} ms "
                       f"({floor_ms / ms:.1%}), bitwise the plain version, "
@@ -194,14 +210,13 @@ def main(argv=None) -> int:
     from raytracinggpu_tpu_torch.bench._timing import card_line
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default="1x2,2x1,2x2,2x4,4x1,4x2",
-                    help="comma-separated RAYSxUNROLL")
+    ap.add_argument("--variants", default="1x1,1x2,1x4,2x1,2x2,4x1",
+                    help="comma-separated [DIR:]RAYSxUNROLL")
     ap.add_argument("--iters", type=int, default=20)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pairs_design: needs a CUDA device")
-    variants = [tuple(int(x) for x in v.split("x"))
-                for v in a.variants.split(",")]
+    variants = [parse_variant(v) for v in a.variants.split(",")]
     run(variants, a.iters, card=card_line())
     return 0
 

@@ -79,8 +79,9 @@ constexpr int kRays = RT_PAIRS_RAYS;
 constexpr int kUnroll = RT_PAIRS_UNROLL;
 constexpr int kBlockRays = kThreads * kRays;
 constexpr int kStride = 20;  // floats a staged slot: 16 test rows, id, pad
+constexpr int kPiece = 32;   // slots a warp stages at a time: one a lane
 
-// Template modes; ptxas names the kernels pairs_kernel<0..3, piece>
+// Template modes; ptxas names the kernels pairs_kernel<0..3>
 // (ILi0E..ILi3E).
 constexpr int kShadow = 0;  // B2
 constexpr int kIdx = 1;     // B0
@@ -102,37 +103,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// The block's walk: every (tile, piece) of every tile that some subgroup
-// of the block keeps, in ascending order.  Each thread runs the same walk.
-struct Walk {
-  const int* bits;
-  int S, sg_lo, sg_hi, n_tiles, n_words, n_pieces;
-  int w = -1, tile = -1, piece = 0;
-  unsigned word = 0u;
-
-  __device__ unsigned block_word(int v) const {
-    unsigned x = 0u;
-    for (int sg = sg_lo; sg <= sg_hi; ++sg)
-      x |= static_cast<unsigned>(bits[v * S + sg]);
-    const int left = n_tiles - 32 * v;  // tiles word v can name
-    return left < 32 ? x & ((1u << left) - 1u) : x;
-  }
-
-  // Moves to the next (tile, piece); false past the last.
-  __device__ bool next() {
-    if (tile >= 0 && ++piece < n_pieces) return true;
-    while (word == 0u) {
-      if (++w >= n_words) return false;
-      word = block_word(w);
-    }
-    tile = 32 * w + __ffs(static_cast<int>(word)) - 1;
-    word &= word - 1u;
-    piece = 0;
-    return true;
-  }
-};
-
-template <int kMode, int kPiece>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
              const int* __restrict__ bits, int R, int Tc, int W, int subg,
@@ -140,14 +111,16 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
              int* __restrict__ idx_out, float* __restrict__ nx_out,
              float* __restrict__ ny_out, float* __restrict__ nz_out) {
   constexpr int kRows = kMode == kShadow ? 16 : 17;  // staged field rows
-  __shared__ __align__(16) float stage[2][kPiece * kStride];
+  __shared__ __align__(16) float stage[kWarps][2][kPiece * kStride];
 
   const float never = __int_as_float(0x7f800000);  // +inf: no t passes it
   const int lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * kBlockRays;
-  const int wr0 = r0 + (threadIdx.x >> 5) * 32 * kRays;
+  float(*const buf)[kPiece * kStride] = stage[threadIdx.x >> 5];
+  const int wr0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32 * kRays;
   const int S = R / subg;
   const int n_tiles = Tc / tile_t;
+  const int n_pieces = tile_t / kPiece;
+  const int n_words = min(W, (n_tiles + 31) / 32);
 
   Ray q[kRays];
   int sg[kRays];
@@ -164,78 +137,91 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
     bb[k] = bg[k] = 0.0f;
   }
 
-  Walk walk{bits, S, r0 / subg, (min(r0 + kBlockRays, R) - 1) / subg,
-            n_tiles, min(W, (n_tiles + 31) / 32), tile_t / kPiece};
-  const auto stage_piece = [&](float* dst) {
-    const int s0 = walk.tile * tile_t + walk.piece * kPiece;
-    for (int i = threadIdx.x; i < kRows * kPiece; i += kThreads) {
-      const int row = i / kPiece, s = i % kPiece;
-      cp_async4(dst + s * kStride + row, fields + row * Tc + s0 + s);
+  // The warp's walk: every piece of every tile that some subgroup of its
+  // rays keeps, in ascending order (warp-uniform).
+  int w = -1, tile = -1, piece = 0;
+  unsigned word = 0u;
+  const auto next = [&]() {
+    if (tile >= 0 && ++piece < n_pieces) return true;
+    while (word == 0u) {
+      if (++w >= n_words) return false;
+      unsigned x = 0u;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        if (sg[k] >= 0) x |= static_cast<unsigned>(bits[w * S + sg[k]]);
+      x = __reduce_or_sync(0xffffffffu, x);
+      const int left = n_tiles - 32 * w;  // tiles word w can name
+      word = left < 32 ? x & ((1u << left) - 1u) : x;
     }
+    tile = 32 * w + __ffs(static_cast<int>(word)) - 1;
+    word &= word - 1u;
+    piece = 0;
+    return true;
+  };
+  // lane l copies slot l of the piece: one coalesced row at a time
+  const auto stage_piece = [&](float* dst) {
+    const float* src = fields + tile * tile_t + piece * kPiece + lane;
+#pragma unroll
+    for (int row = 0; row < kRows; ++row)
+      cp_async4(dst + lane * kStride + row, src + row * Tc);
     cp_async_commit();
   };
 
-  int buf = 0;
-  bool have = walk.next();
-  if (have) stage_piece(stage[0]);
-  int cw = -1;               // the bitmask word rw and ww hold
-  unsigned rw[kRays], ww = 0u;
+  int b = 0;
+  bool have = next();
+  if (have) stage_piece(buf[0]);
+  int cw = -1;  // the bitmask word rw holds
+  unsigned rw[kRays];
   while (have) {
-    const int tile = walk.tile, piece = walk.piece;
-    const bool more = walk.next();
+    const int cur = tile, s0 = tile * tile_t + piece * kPiece;
+    const bool more = next();
     if (more) {
-      stage_piece(stage[buf ^ 1]);
+      stage_piece(buf[b ^ 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncwarp();
 
-    const int w = tile >> 5, j = tile & 31;
-    if (w != cw) {  // block-uniform
-      cw = w;
-      unsigned any = 0u;
+    if ((cur >> 5) != cw) {
+      cw = cur >> 5;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        rw[k] = sg[k] >= 0 ? static_cast<unsigned>(bits[cw * S + sg[k]])
+                           : 0u;
+    }
+    float e[kRays];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k)
+      e[k] = (rw[k] >> (cur & 31)) & 1u ? eps : never;
+    const float* sp = buf[b];
+#pragma unroll kUnroll
+    for (int s = 0; s < kPiece; ++s, sp += kStride) {
+      const float4* v = reinterpret_cast<const float4*>(sp);
+      const float4 f0 = v[0], f1 = v[1], f2 = v[2], f3 = v[3];
+      const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                           f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
+      const auto field = [&](int i) { return f[i]; };
+      const float id = kMode == kShadow ? 0.0f : sp[16];
 #pragma unroll
       for (int k = 0; k < kRays; ++k) {
-        rw[k] = sg[k] >= 0 ? static_cast<unsigned>(bits[w * S + sg[k]]) : 0u;
-        any |= rw[k];
-      }
-      ww = __reduce_or_sync(0xffffffffu, any);
-    }
-    if ((ww >> j) & 1u) {  // warp-uniform
-      float e[kRays];
-#pragma unroll
-      for (int k = 0; k < kRays; ++k) e[k] = (rw[k] >> j) & 1u ? eps : never;
-      const float* sp = stage[buf];
-      const int s0 = tile * tile_t + piece * kPiece;
-#pragma unroll kUnroll
-      for (int s = 0; s < kPiece; ++s, sp += kStride) {
-        const float4* v = reinterpret_cast<const float4*>(sp);
-        const float4 a = v[0], b = v[1], c = v[2], d = v[3];
-        const float f[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
-                             c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
-        const auto field = [&](int i) { return f[i]; };
-        const float id = kMode == kShadow ? 0.0f : sp[16];
-#pragma unroll
-        for (int k = 0; k < kRays; ++k) {
-          const MTHit h = mt_eval(q[k], field, e[k]);
-          if constexpr (kMode == kShadow) {
-            if (h.valid && h.t < bt[k]) bt[k] = h.t;
-          } else if (h.valid &&
-                     (h.t < bt[k] || (h.t == bt[k] && id < bid[k]))) {
-            bt[k] = h.t;
-            bid[k] = id;
-            bs[k] = s0 + s;
-            if constexpr (kMode == kSmooth) {
-              bb[k] = h.beta;
-              bg[k] = h.gamma;
-            }
+        const MTHit h = mt_eval(q[k], field, e[k]);
+        if constexpr (kMode == kShadow) {
+          if (h.valid && h.t < bt[k]) bt[k] = h.t;
+        } else if (h.valid &&
+                   (h.t < bt[k] || (h.t == bt[k] && id < bid[k]))) {
+          bt[k] = h.t;
+          bid[k] = id;
+          bs[k] = s0 + s;
+          if constexpr (kMode == kSmooth) {
+            bb[k] = h.beta;
+            bg[k] = h.gamma;
           }
         }
       }
     }
-    __syncthreads();  // the buffer is free for the next piece's copy
-    buf ^= 1;
+    __syncwarp();  // the buffer is free for the next piece's copy
+    b ^= 1;
     have = more;
   }
 
@@ -273,19 +259,12 @@ int launch(const float* rfT, const float* fields, const int* bits, int R,
            int Tc, int W, int subg, int tile_t, float eps, float* t_out,
            int* idx_out, float* nx_out, float* ny_out, float* nz_out,
            void* stream) {
-  if (tile_t <= 0 || tile_t % 32)
+  if (tile_t <= 0 || tile_t % kPiece)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (R + kBlockRays - 1) / kBlockRays;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (tile_t % 128 == 0) {
-    pairs_kernel<kMode, 128><<<grid, kThreads, 0, st>>>(
-        rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out,
-        nx_out, ny_out, nz_out);
-  } else {
-    pairs_kernel<kMode, 32><<<grid, kThreads, 0, st>>>(
-        rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out,
-        nx_out, ny_out, nz_out);
-  }
+  pairs_kernel<kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out, nx_out,
+      ny_out, nz_out);
   return static_cast<int>(cudaGetLastError());
 }
 
