@@ -195,13 +195,12 @@ PROBE_CAST = (524288, 40)
 CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
-# ptxas names the kernel templates' modes pairs_kernel<0..3, piece>
-# (the piece: 128 slots for tiles of a multiple of 128, else 32),
+# ptxas names the kernel templates' modes pairs_kernel<0..3>,
 # pallas_kernel<false/true> and block_mask_kernel<false/true>
-_MODES = {**{f"pairs_kernelILi{m}ELi{p}E": f"{k} ({p}-slot pieces)"
-             for m, k in enumerate(("pairs_shadow", "pairs_closest_idx",
-                                    "pairs_closest", "pairs_closest_smooth"))
-             for p in (128, 32)},
+_MODES = {"pairs_kernelILi0E": "pairs_shadow",
+          "pairs_kernelILi1E": "pairs_closest_idx",
+          "pairs_kernelILi2E": "pairs_closest",
+          "pairs_kernelILi3E": "pairs_closest_smooth",
           "pallas_kernelILb0E": "pallas_shadow",
           "pallas_kernelILb1E": "pallas_closest",
           "tile_slope_kernel": "probe_tile_slope",

@@ -38,23 +38,25 @@
 // update; the cat's table (655 KB) and the 200,000-triangle soup's (33.6
 // MB) stay in the L2.  The first design (one thread a ray, each test
 // reading its 16-17 field rows from device memory as separate strided
-// loads, a runtime tile width) spent about as many issue slots on loads
-// as on arithmetic.  What this design does about it:
-//   - kRays rays a thread (rays lane + 32 k of the warp's 32 * kRays):
-//     each slot's fields are read once and feed kRays independent tests,
-//     which also hides the reciprocal's latency;
-//   - the block stages every tile active for any of its rays into shared
-//     memory, slot-major (a slot's 16 test rows and its id are 16-byte
-//     aligned: five broadcast reads), copied with cp.async into one
-//     buffer while the block tests the other;
-//   - the slot loop has a compile-time width: kPiece = 128 slots, the
-//     tile width of every preset, or 32 for the other multiples of 32
-//     (each tile then stages as tile_t / 32 pieces);
-//   - the block walks the OR of its subgroups' bitmask words and a warp
-//     skips a tile that none of its rays' subgroups keeps (a warp-uniform
-//     branch); a ray whose own subgroup culled a tile the warp runs takes
-//     eps = +inf for it, so its tests never pass and it never takes a
-//     culled tile's hit (B2 would otherwise see occluders past the cap);
+// loads, a runtime tile width, the IEEE reciprocal's slow path taken on
+// every padding slot) spent about as many issue slots on loads as on
+// arithmetic.  What this design does about it (bench/pairs_design.py
+// measured the choices; PERF.md, PR 6):
+//   - each warp walks the OR of its own rays' subgroup words and stages
+//     every tile it keeps, 32 slots at a time (one a lane), into a double
+//     buffer of its own in shared memory with cp.async, slot-major: a
+//     slot's 16 test rows and its id are five broadcast reads.  No block
+//     barrier: a walk shared by the block's warps made each warp wait
+//     through the tiles of the others' subgroups;
+//   - the slot loop has a compile-time width (32) and unroll;
+//   - a slot whose Ng is zero (padding: 23% of the cat's slots) is
+//     skipped; its denom is +-0 or NaN, so no test on it passes;
+//   - kRays rays a thread (rays lane + 32 k of the warp's 32 * kRays) let
+//     one read of a slot feed several tests; one ray a thread measured
+//     fastest (more rays cost registers and occupancy and gained none);
+//   - a ray whose own subgroup culled a tile its warp runs takes eps =
+//     +inf for it, so its tests never pass and it never takes a culled
+//     tile's hit (B2 would otherwise see occluders past the cap);
 //   - B1 and B3 keep the winner's slot (and B3 its beta and gamma) and
 //     read its normal rows once at the end.
 
@@ -70,7 +72,7 @@ constexpr int kThreads = 32 * kWarps;
 // Rays a thread and slots a step of the slot loop (chosen on the card:
 // bench/pairs_design.py builds and times other values).
 #ifndef RT_PAIRS_RAYS
-#define RT_PAIRS_RAYS 2
+#define RT_PAIRS_RAYS 1
 #endif
 #ifndef RT_PAIRS_UNROLL
 #define RT_PAIRS_UNROLL 2
@@ -198,7 +200,10 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
 #pragma unroll kUnroll
     for (int s = 0; s < kPiece; ++s, sp += kStride) {
       const float4* v = reinterpret_cast<const float4*>(sp);
-      const float4 f0 = v[0], f1 = v[1], f2 = v[2], f3 = v[3];
+      const float4 f0 = v[0];
+      // Ng = 0 (a padding slot): denom is +-0 or NaN and no test passes
+      if (f0.x == 0.0f && f0.y == 0.0f && f0.z == 0.0f) continue;
+      const float4 f1 = v[1], f2 = v[2], f3 = v[3];
       const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
                            f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
       const auto field = [&](int i) { return f[i]; };

@@ -81,9 +81,9 @@ MAX_SLOTS = (2**31 - 1) // NUM_FIELDS
 class PairsMeshTooLarge(ValueError):
     """The mesh's pairs table would pass MAX_SLOTS; the scene build then
     leaves the pairs tables out and ``traversal="pairs"`` runs as
-    ``pallas``.  That fallback keeps parity with the JAX package only: at
-    this size the pallas cast's active-tile lists also pass the kernels'
-    32-bit indices, so on the card ``ops/_kernels._check`` refuses it."""
+    ``pallas``, as in the JAX package; ``render/pipeline.chunk_size``
+    cuts those casts so that their active-tile lists stay within the
+    tiled kernels' 32-bit indices."""
 
 
 class PairsMeshTables(NamedTuple):

@@ -130,8 +130,8 @@ def build_scene_tables(
     is appended as the last object id.  A mesh past the pairs tables'
     ceiling (``PairsMeshTooLarge``) gets no pairs tables, with a warning,
     and ``traversal="pairs"`` then runs as ``pallas``, as in the JAX
-    package.  That fallback is for parity only: on the card a mesh that
-    large also passes the pallas lists' 32-bit indices (ROADMAP A10b).
+    package (``render/pipeline.chunk_size`` sizes its casts to the pallas
+    lists' 32-bit indices).
     """
     mats = list(materials)
     if mesh is not None:
