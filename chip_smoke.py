@@ -22,7 +22,8 @@ Phases, in order; any failed check exits nonzero:
    and B2 must have launched once per cast and B3 and B0 never; then time
    three frames and print Mray/s;
 5. timings: each kernel against its plain version on the casts kept in
-   phase 3;
+   phase 3, with ps a Moller-Trumbore test and the no-FMA floor (see
+   NO_FMA_OPS_S) beside the bound;
 6. production anchor: the 512x512 spp 8 depth 3 seed 0 frame's mean must
    lie within 1% of the JAX package's CPU render of the same frame; the
    JAX package's TPU record is printed beside it (see ANCHOR_* below);

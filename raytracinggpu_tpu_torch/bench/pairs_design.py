@@ -1,18 +1,18 @@
-"""Design choices of the pairs kernel (``csrc/pairs_trace.cu``) on the card.
+"""The pairs kernels of several trees on the same casts, on the card.
 
-    python -m raytracinggpu_tpu_torch.bench.pairs_design [--variants 1x2,2x2]
+    python -m raytracinggpu_tpu_torch.bench.pairs_design [DIR ...]
 
-Builds ``pairs_trace.cu`` once per variant, ``[DIR:]RAYSxUNROLL`` (rays a
-thread, slots a step of the slot loop; DIR: the ``csrc/`` directory of
-another tree, by default this package's), with the flags of
-``ops/_kernels.py``, one nvcc process per variant, all started together,
-into ``_build/``.  Then captures the depth-1 casts of B1 and B2 that the
-main-path frame (``array_bvh``, 512x512, spp 32, depth 5, pairs) launches
-first, at the preset's subgroup and at subgroup 16 (the same frame), and
-times every variant on them with CUDA events: ms, ps a Moller-Trumbore
-test, the share of the f32 bound and of the no-FMA floor, with the
-registers ptxas reports.  Every variant must equal the plain version bit
-for bit on every cast.  Needs a CUDA device and nvcc.
+Builds the ``pairs_trace.cu`` of each ``csrc/`` directory given (this
+package's when none is; another tree's from ``git archive``, say), with
+the flags of ``ops/_kernels.py``, one nvcc process per source, all started
+together, into ``_build/``; each source must keep the C interface of
+``ops/_kernels._SPECS``.  Then captures the depth-1 casts of B1 and B2
+that the main-path frame (``array_bvh``, 512x512, spp 32, depth 5, pairs)
+launches first, at the preset's subgroup and at subgroup 16 (the same
+frame), and times each source's kernels on them with CUDA events: ms, ps
+a Moller-Trumbore test and the share of the no-FMA floor, beside the
+registers ptxas reports.  Each must equal the plain version bit for bit
+on every cast.  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -35,49 +35,37 @@ FLOP_PER_TEST = 39
 KERNELS = ("pairs_closest", "pairs_shadow")
 
 
-def parse_variant(text: str):
-    """``[DIR:]RAYSxUNROLL`` -> (csrc directory, rays, unroll)."""
-    src, _, v = text.rpartition(":")
-    rays, unroll = (int(x) for x in v.split("x"))
-    return (src or _kernels.CSRC, rays, unroll)
+def label(csrc) -> str:
+    return ("this tree" if os.path.samefile(csrc, _kernels.CSRC)
+            else csrc)
 
 
-def label(variant) -> str:
-    src, rays, unroll = variant
-    here = os.path.samefile(src, _kernels.CSRC)
-    return f"{'' if here else src + ':'}{rays}x{unroll}"
-
-
-def build_variants(variants):
-    """{(csrc, rays, unroll): (library path, ptxas report)}: csrc's
-    pairs_trace.cu built with -DRT_PAIRS_RAYS and -DRT_PAIRS_UNROLL,
+def build(sources):
+    """{csrc: (library path, ptxas report)}: each csrc's pairs_trace.cu,
     skipped where built."""
     nvcc = _kernels.find_nvcc()
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     out, procs = {}, {}
-    for v in variants:
-        csrc, rays, unroll = v
+    for csrc in sources:
         src = os.path.join(csrc, "pairs_trace.cu")
         text = b""
         for name in ("pairs_trace.cu", "mt.cuh"):
             with open(os.path.join(csrc, name), "rb") as f:
                 text += f.read()
-        defs = (f"-DRT_PAIRS_RAYS={rays}", f"-DRT_PAIRS_UNROLL={unroll}")
-        key = hashlib.sha256(text + " ".join(_kernels.NVCC_FLAGS + defs)
-                             .encode()).hexdigest()[:12]
-        path = os.path.join(_kernels.BUILD_DIR,
-                            f"pairs_design_{rays}x{unroll}_{key}.so")
-        out[v] = path
+        key = hashlib.sha256(text + " ".join(_kernels.NVCC_FLAGS).encode()
+                             ).hexdigest()[:12]
+        path = out[csrc] = os.path.join(_kernels.BUILD_DIR,
+                                        f"pairs_design_{key}.so")
         if not os.path.isfile(path):
-            procs[v] = subprocess.Popen(
-                [nvcc, *_kernels.NVCC_FLAGS, *defs, "-shared", "-o",
+            procs[csrc] = subprocess.Popen(
+                [nvcc, *_kernels.NVCC_FLAGS, "-shared", "-o",
                  f"{path}.{os.getpid()}.tmp", src], stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
     reports = {}
     for v, p in procs.items():
         _, err = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {label(v)}:\n{err}")
+            raise RuntimeError(f"nvcc failed on {v}:\n{err}")
         os.replace(f"{out[v]}.{os.getpid()}.tmp", out[v])
         reports[v] = err
     return {v: (path, reports.get(v, "")) for v, path in out.items()}
@@ -111,7 +99,7 @@ def _lib(path):
 
 
 def launch(lib, name, rfT, fields, bits, eps, subg, tile_t):
-    """One launch of kernel ``name`` from a variant's library (not counted
+    """One launch of kernel ``name`` from one source's library (not counted
     in ``_kernels.LAUNCHES``); returns the output tuple."""
     cfun, rows, dts, kind = _kernels._SPECS[name]
     R, Tc, n = _kernels._check(rfT, fields, bits, subg, tile_t, rows, kind)
@@ -163,23 +151,23 @@ def mt_tests(bits, subg: int, tile_t: int) -> int:
         * tile_t * subg
 
 
-def run(variants, iters: int = 20, device="cuda", card: str = ""):
-    """Times every variant on the casts; returns {variant: {(kernel, subg):
+def run(sources, iters: int = 20, device="cuda", card: str = ""):
+    """Times every source on the casts; returns {csrc: {(kernel, subg):
     ms}}."""
     from raytracinggpu_tpu_torch.bench._timing import timed
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
-    built = build_variants(variants)
+    built = build(sources)
     libs = {v: _lib(path) for v, (path, _) in built.items()}
     for v, (_, report) in built.items():
-        print(f"variant {label(v)} (rays a thread x unroll): registers "
+        print(f"{label(v)}: registers "
               + ", ".join(f"{m}: {n}"
                           for m, n in sorted(registers(report).items())))
     cfg, tab, casts = depth1_casts(device)
     cases = [(cfg.pairs_subgroup, casts)]
     if cfg.pairs_subgroup != 16:
         cases.append((16, depth1_casts(device, 16)[2]))
-    results = {v: {} for v in variants}
+    results = {v: {} for v in sources}
     for subg, kept in cases:
         for k in KERNELS:
             rfT, bits = kept[k]
@@ -192,13 +180,13 @@ def run(variants, iters: int = 20, device="cuda", card: str = ""):
             for v, lib in libs.items():
                 got = launch(lib, k, *args)
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise SystemExit(f"pairs_design: variant {label(v)} {k} at "
+                    raise SystemExit(f"pairs_design: {label(v)}'s {k} at "
                                      f"subgroup {subg} differs from the "
                                      "plain version")
                 ms = timed(lambda: launch(lib, k, *args), iters) * 1e3
                 results[v][(k, subg)] = ms
                 print(f"{k} depth-1 cast ({rfT.shape[1]} rays, subgroup "
-                      f"{subg}, {tests} MT tests), variant {label(v)}: "
+                      f"{subg}, {tests} MT tests), {label(v)}: "
                       f"{ms:.4f} ms, {ms * 1e9 / tests:.3f} ps a test, "
                       f"no-FMA floor {floor_ms:.4f} ms "
                       f"({floor_ms / ms:.1%}), bitwise the plain version, "
@@ -210,14 +198,13 @@ def main(argv=None) -> int:
     from raytracinggpu_tpu_torch.bench._timing import card_line
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default="1x1,1x2,1x4,2x1,2x2,4x1",
-                    help="comma-separated [DIR:]RAYSxUNROLL")
+    ap.add_argument("csrc", nargs="*", default=[_kernels.CSRC],
+                    help="csrc/ directories whose pairs_trace.cu to time")
     ap.add_argument("--iters", type=int, default=20)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pairs_design: needs a CUDA device")
-    variants = [parse_variant(v) for v in a.variants.split(",")]
-    run(variants, a.iters, card=card_line())
+    run(a.csrc, a.iters, card=card_line())
     return 0
 
 

@@ -48,12 +48,11 @@
 //     slot's 16 test rows and its id are five broadcast reads.  No block
 //     barrier: a walk shared by the block's warps made each warp wait
 //     through the tiles of the others' subgroups;
-//   - the slot loop has a compile-time width (32) and unroll;
+//   - the slot loop has a compile-time width (32), unrolled 4 times;
 //   - a slot whose Ng is zero (padding: 23% of the cat's slots) is
 //     skipped; its denom is +-0 or NaN, so no test on it passes;
-//   - kRays rays a thread (rays lane + 32 k of the warp's 32 * kRays) let
-//     one read of a slot feed several tests; one ray a thread measured
-//     fastest (more rays cost registers and occupancy and gained none);
+//   - one ray a thread: several rays a thread (each slot read once for
+//     all of them) measured slower, for registers and occupancy;
 //   - a ray whose own subgroup culled a tile its warp runs takes eps =
 //     +inf for it, so its tests never pass and it never takes a culled
 //     tile's hit (B2 would otherwise see occluders past the cap);
@@ -69,19 +68,8 @@ namespace {
 constexpr float kIdxBig = 1073741824.0f;   // 2^30: id of padding slots
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-// Rays a thread and slots a step of the slot loop (chosen on the card:
-// bench/pairs_design.py builds and times other values).
-#ifndef RT_PAIRS_RAYS
-#define RT_PAIRS_RAYS 1
-#endif
-#ifndef RT_PAIRS_UNROLL
-#define RT_PAIRS_UNROLL 2
-#endif
-constexpr int kRays = RT_PAIRS_RAYS;
-constexpr int kUnroll = RT_PAIRS_UNROLL;
-constexpr int kBlockRays = kThreads * kRays;
-constexpr int kStride = 20;  // floats a staged slot: 16 test rows, id, pad
 constexpr int kPiece = 32;   // slots a warp stages at a time: one a lane
+constexpr int kStride = 20;  // floats a staged slot: 16 test rows, id, pad
 
 // Template modes; ptxas names the kernels pairs_kernel<0..3>
 // (ILi0E..ILi3E).
@@ -115,43 +103,30 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   constexpr int kRows = kMode == kShadow ? 16 : 17;  // staged field rows
   __shared__ __align__(16) float stage[kWarps][2][kPiece * kStride];
 
-  const float never = __int_as_float(0x7f800000);  // +inf: no t passes it
   const int lane = threadIdx.x & 31;
   float(*const buf)[kPiece * kStride] = stage[threadIdx.x >> 5];
-  const int wr0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32 * kRays;
+  const int r = blockIdx.x * kThreads + threadIdx.x;
   const int S = R / subg;
   const int n_tiles = Tc / tile_t;
   const int n_pieces = tile_t / kPiece;
   const int n_words = min(W, (n_tiles + 31) / 32);
+  const int sg = r < R ? r / subg : -1;  // -1: a lane past the rays
+  const Ray q = r < R ? load_ray(rfT, R, r) : Ray{};
+  float best_t = kInf, best_id = kIdxBig, best_beta = 0.0f,
+        best_gamma = 0.0f;
+  int best_slot = -1;
 
-  Ray q[kRays];
-  int sg[kRays];
-  float bt[kRays], bid[kRays], bb[kRays], bg[kRays];
-  int bs[kRays];
-#pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    const int r = wr0 + 32 * k + lane;
-    sg[k] = r < R ? r / subg : -1;
-    q[k] = r < R ? load_ray(rfT, R, r) : Ray{};
-    bt[k] = kInf;
-    bid[k] = kIdxBig;
-    bs[k] = -1;
-    bb[k] = bg[k] = 0.0f;
-  }
-
-  // The warp's walk: every piece of every tile that some subgroup of its
-  // rays keeps, in ascending order (warp-uniform).
+  // The warp's walk: every piece of every tile that the subgroup of one
+  // of its rays keeps, in ascending order (warp-uniform).
   int w = -1, tile = -1, piece = 0;
   unsigned word = 0u;
   const auto next = [&]() {
     if (tile >= 0 && ++piece < n_pieces) return true;
     while (word == 0u) {
       if (++w >= n_words) return false;
-      unsigned x = 0u;
-#pragma unroll
-      for (int k = 0; k < kRays; ++k)
-        if (sg[k] >= 0) x |= static_cast<unsigned>(bits[w * S + sg[k]]);
-      x = __reduce_or_sync(0xffffffffu, x);
+      const unsigned mine =
+          sg >= 0 ? static_cast<unsigned>(bits[w * S + sg]) : 0u;
+      const unsigned x = __reduce_or_sync(0xffffffffu, mine);
       const int left = n_tiles - 32 * w;  // tiles word w can name
       word = left < 32 ? x & ((1u << left) - 1u) : x;
     }
@@ -172,8 +147,8 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   int b = 0;
   bool have = next();
   if (have) stage_piece(buf[0]);
-  int cw = -1;  // the bitmask word rw holds
-  unsigned rw[kRays];
+  int cw = -1;        // the bitmask word rw is of
+  unsigned rw = 0u;   // this ray's subgroup's word cw
   while (have) {
     const int cur = tile, s0 = tile * tile_t + piece * kPiece;
     const bool more = next();
@@ -187,17 +162,13 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
 
     if ((cur >> 5) != cw) {
       cw = cur >> 5;
-#pragma unroll
-      for (int k = 0; k < kRays; ++k)
-        rw[k] = sg[k] >= 0 ? static_cast<unsigned>(bits[cw * S + sg[k]])
-                           : 0u;
+      rw = sg >= 0 ? static_cast<unsigned>(bits[cw * S + sg]) : 0u;
     }
-    float e[kRays];
-#pragma unroll
-    for (int k = 0; k < kRays; ++k)
-      e[k] = (rw[k] >> (cur & 31)) & 1u ? eps : never;
+    // a tile this ray's subgroup culled: eps = +inf, which no t passes
+    const float e =
+        (rw >> (cur & 31)) & 1u ? eps : __int_as_float(0x7f800000);
     const float* sp = buf[b];
-#pragma unroll kUnroll
+#pragma unroll 4
     for (int s = 0; s < kPiece; ++s, sp += kStride) {
       const float4* v = reinterpret_cast<const float4*>(sp);
       const float4 f0 = v[0];
@@ -206,22 +177,17 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
       const float4 f1 = v[1], f2 = v[2], f3 = v[3];
       const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
                            f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
-      const auto field = [&](int i) { return f[i]; };
-      const float id = kMode == kShadow ? 0.0f : sp[16];
-#pragma unroll
-      for (int k = 0; k < kRays; ++k) {
-        const MTHit h = mt_eval(q[k], field, e[k]);
-        if constexpr (kMode == kShadow) {
-          if (h.valid && h.t < bt[k]) bt[k] = h.t;
-        } else if (h.valid &&
-                   (h.t < bt[k] || (h.t == bt[k] && id < bid[k]))) {
-          bt[k] = h.t;
-          bid[k] = id;
-          bs[k] = s0 + s;
-          if constexpr (kMode == kSmooth) {
-            bb[k] = h.beta;
-            bg[k] = h.gamma;
-          }
+      const MTHit h = mt_eval(q, [&](int i) { return f[i]; }, e);
+      if constexpr (kMode == kShadow) {
+        if (h.valid && h.t < best_t) best_t = h.t;
+      } else {
+        const float id = sp[16];
+        if (h.valid && (h.t < best_t || (h.t == best_t && id < best_id))) {
+          best_t = h.t;
+          best_id = id;
+          best_slot = s0 + s;
+          best_beta = h.beta;
+          best_gamma = h.gamma;
         }
       }
     }
@@ -230,31 +196,27 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
     have = more;
   }
 
-#pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    const int r = wr0 + 32 * k + lane;
-    if (r >= R) continue;
-    t_out[r] = bt[k];
-    if constexpr (kMode != kShadow) {
-      const bool hit = bt[k] < kInf;
-      idx_out[r] = hit ? static_cast<int>(bid[k]) : 0;
-      if constexpr (kMode != kIdx) {
-        float n[3] = {0.0f, 0.0f, 0.0f};
-        if (hit) {
-          const float* f = fields + bs[k];
-          if constexpr (kMode == kGeom) {
-            for (int c = 0; c < 3; ++c) n[c] = f[c * Tc];
-          } else {
-            const float alpha = 1.0f - bb[k] - bg[k];  // as mt.cuh's
-            for (int c = 0; c < 3; ++c)
-              n[c] = f[(17 + c) * Tc] * alpha + f[(20 + c) * Tc] * bb[k] +
-                     f[(23 + c) * Tc] * bg[k];
-          }
+  if (r >= R) return;
+  t_out[r] = best_t;
+  if constexpr (kMode != kShadow) {
+    const bool hit = best_t < kInf;
+    idx_out[r] = hit ? static_cast<int>(best_id) : 0;
+    if constexpr (kMode != kIdx) {
+      float n[3] = {0.0f, 0.0f, 0.0f};
+      if (hit) {
+        const float* f = fields + best_slot;
+        if constexpr (kMode == kGeom) {
+          for (int c = 0; c < 3; ++c) n[c] = f[c * Tc];
+        } else {
+          const float alpha = 1.0f - best_beta - best_gamma;  // as mt.cuh's
+          for (int c = 0; c < 3; ++c)
+            n[c] = f[(17 + c) * Tc] * alpha + f[(20 + c) * Tc] * best_beta +
+                   f[(23 + c) * Tc] * best_gamma;
         }
-        nx_out[r] = n[0];
-        ny_out[r] = n[1];
-        nz_out[r] = n[2];
       }
+      nx_out[r] = n[0];
+      ny_out[r] = n[1];
+      nz_out[r] = n[2];
     }
   }
 }
@@ -266,7 +228,7 @@ int launch(const float* rfT, const float* fields, const int* bits, int R,
            void* stream) {
   if (tile_t <= 0 || tile_t % kPiece)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (R + kBlockRays - 1) / kBlockRays;
+  const int grid = (R + kThreads - 1) / kThreads;
   pairs_kernel<kMode><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       rfT, fields, bits, R, Tc, W, subg, tile_t, eps, t_out, idx_out, nx_out,
       ny_out, nz_out);
