@@ -594,7 +594,7 @@ def test_plain_versions_do_not_depend_on_slot_or_tile_order(name, what):
 @pytest.mark.parametrize("tile_t", [48, 80])
 @pytest.mark.parametrize("name", PAIRS_KERNELS)
 def test_pairs_wrappers_need_tiles_of_a_multiple_of_32(name, tile_t):
-    """The pairs kernels stage a tile in pieces of 32 (or 128) slots, so
+    """The pairs kernels stage a tile in pieces of 32 slots, so
     their wrappers refuse any other tile width (build_pairs_tables builds
     only multiples of 32); the plain versions take any."""
     rfT, fields, bits = _synthetic_cast(n_tiles=4, tile_t=tile_t, R=64)
@@ -602,6 +602,40 @@ def test_pairs_wrappers_need_tiles_of_a_multiple_of_32(name, tile_t):
         getattr(_kernels, name)(rfT, fields, bits, EPS, 16, tile_t)
     assert _outputs(name, (rfT, fields, bits, EPS, 16, tile_t))[0].shape \
         == (64,)
+
+
+@pytest.mark.parametrize("subg", [16, 64])
+def test_pairs_design_counts_the_tests_of_a_cast(subg):
+    """bench/pairs_design.mt_tests: a ray tests every slot of every tile its
+    subgroup keeps, so a cast's tests are its set bits x tile_t x subg;
+    the top bit of a word (a negative int32) counts too."""
+    from raytracinggpu_tpu_torch.bench import pairs_design
+
+    _, _, bits = _synthetic_cast(n_tiles=40, R=512, subg=subg)
+    n_set = int(_unpack(bits, 64).sum())
+    assert (bits < 0).any() and n_set > 0
+    assert pairs_design.mt_tests(bits, subg, 128) == n_set * 128 * subg
+
+
+def test_pairs_design_reads_the_pairs_kernels_registers():
+    """bench/pairs_design.registers reads each pairs mode's registers from a
+    ptxas -v report and skips the other kernels' entries."""
+    from raytracinggpu_tpu_torch.bench import pairs_design
+
+    def entry(mangled, regs):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for "
+                "'sm_90a'\n"
+                f"ptxas info    : Function properties for {mangled}\n"
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                "spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 0 barriers, "
+                "10240 bytes smem\n")
+
+    report = (entry("_ZN12_GLOBAL__N_112pairs_kernelILi2EEEvPKfS2_PKiiiiiif",
+                    48)
+              + entry("_ZN12_GLOBAL__N_113pallas_kernelILb1EEEvPKf", 64)
+              + entry("_ZN12_GLOBAL__N_112pairs_kernelILi0EEEvPKfS2_PKi", 40))
+    assert pairs_design.registers(report) == {"ILi2E": 48, "ILi0E": 40}
 
 
 # ------------------------------------------- the probes (B7a-e), CPU
@@ -844,14 +878,15 @@ def test_kernels_bitwise_past_st_slots(name, subg):
 @pytest.mark.parametrize("tile_t", [32, 64, 128, 256])
 @pytest.mark.parametrize("subg", [16, 32, 64, 128])
 def test_kernels_bitwise_at_every_subgroup_and_tile_width(subg, tile_t):
-    """B0-B3 bitwise their plain versions on a synthetic cast of 8,576
-    rays (not a whole number of a block's 256 or 512 rays) at each
-    subgroup and tile width: 128-slot pieces (tile widths 128, 256) and
-    32-slot ones (32, 64); exact-t ties between tiles, bits past the
-    table."""
+    """B0-B3 bitwise their plain versions on a synthetic cast at each
+    subgroup and at tile widths of 1 to 8 pieces of 32 slots; exact-t ties
+    between tiles, bits past the table.  Below subgroup 128 the cast's
+    8,640 rays end in half a block of 128 threads, whose idle lanes still
+    join their warp's walk; at 128 it is 8,576 rays, whole subgroups."""
     _need_cuda()
+    R = 8576 + (64 if subg <= 64 else 0)
     rfT, fields, bits = (x.cuda() for x in _synthetic_cast(
-        tile_t=tile_t, R=8576, subg=subg))
+        tile_t=tile_t, R=R, subg=subg))
     args = (rfT, fields, bits, EPS, subg, tile_t)
     for name in PAIRS_KERNELS:
         got = getattr(_kernels, name)(*args)
