@@ -41,7 +41,7 @@
 // loads, a runtime tile width, the IEEE reciprocal's slow path taken on
 // every padding slot) spent about as many issue slots on loads as on
 // arithmetic.  What this design does about it (bench/pairs_design.py
-// measured the choices; PERF.md, PR 6):
+// measured the choices; PERF.md, Findings):
 //   - each warp walks the OR of its own rays' subgroup words and stages
 //     every tile it keeps, 32 slots at a time (one a lane), into a double
 //     buffer of its own in shared memory with cp.async, slot-major: a
