@@ -68,7 +68,8 @@ Phases, in order; any failed check exits nonzero:
       package's CPU render;
    e. B5 and B6 timed against their plain versions on the depth-1 casts,
       with the (subgroup, tile) visits and Moller-Trumbore tests of each
-      cast;
+      cast, ps a test and the shares of the bound and of the no-FMA floor
+      (B6 redesigned, B5 as it was: the control);
 10. the big-mesh path: bench/big_mesh.py's 200,000-triangle soup through
     ``Renderer("array_bvh", obj_path=..., bvh_builder="lbvh")`` at
     512x512, spp 4, depth 2, whose pairs table (2,053 tiles, 262,784
@@ -114,7 +115,9 @@ Phases, in order; any failed check exits nonzero:
       zeroed just before: every probe launched, no trace kernel; its
       timing tables (each case checked again inside), then the same
       tables at PROBE_CAST; the one PyTorch call that computes B7b
-      (``torch.mul``) and B7d (``torch.index_select``) timed beside them;
+      (``torch.mul``) and B7d (``torch.index_select``) timed beside them
+      at both sizes, on the same inputs, replayed from CUDA graphs as the
+      kernels are;
 12. the sweep and the last presets:
    a. ``bench.sweep.run_sweep`` on array_bvh 512x512, spps (8, 32) x
       bounces (3, 5), ``traversal="pairs"``, the counters zeroed just
@@ -196,14 +199,14 @@ PROBE_CAST = (524288, 40)
 CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
-# ptxas names the kernel templates' modes pairs_kernel<0..3>,
-# pallas_kernel<false/true> and block_mask_kernel<false/true>
+# ptxas names the kernel templates' modes pairs_kernel<0..3> and
+# block_mask_kernel<false/true>
 _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pairs_kernelILi1E": "pairs_closest_idx",
           "pairs_kernelILi2E": "pairs_closest",
           "pairs_kernelILi3E": "pairs_closest_smooth",
-          "pallas_kernelILb0E": "pallas_shadow",
-          "pallas_kernelILb1E": "pallas_closest",
+          "shadow_kernel": "pallas_shadow",
+          "closest_kernel": "pallas_closest",
           "tile_slope_kernel": "probe_tile_slope",
           "block_mask_kernelILb1E": "probe_block_mask",
           "block_mask_kernelILb0E": "probe_block_mask (control)",
@@ -1114,9 +1117,11 @@ def _probes(device, card, err):
           f"on {card}:")
     mk.bench_pair_slope(*PROBE_CAST, iters, device)
     mk.bench_tile_slope(*PROBE_CAST, iters, device)
-    mk.bench_dma_smem(PROBE_CAST[0], iters, device)
+    cast_rows = {"probe_block_mask": mk.bench_dma_smem(PROBE_CAST[0], iters,
+                                                       device)}
     mk.bench_scalar_branch(*PROBE_CAST, iters, device)
-    mk.bench_inkernel_gather(PROBE_CAST[0], iters, device)
+    cast_rows["probe_row_gather"] = mk.bench_inkernel_gather(PROBE_CAST[0],
+                                                             iters, device)
 
     timing, rows = {}, {}
     for name, (key, want) in _PROBE_ROW.items():
@@ -1131,21 +1136,30 @@ def _probes(device, card, err):
               f"ms, bound {bound_ms:.4f} ms ({bound_by}; roofline share "
               f"{bound_ms / timing[name][0]:.1%}) on {card}")
     # the one PyTorch call that computes B7b (2 x) and B7d (a row gather),
-    # on the inputs the entry point used, replayed from a graph as the
-    # kernels are
-    x = rows["probe_block_mask"]["args"][0]
-    idx, table = rows["probe_row_gather"]["args"]
-    idx = idx[:, 0]
+    # on the inputs the kernels were timed on at both sizes, replayed from
+    # a graph as the kernels are (the JSON line keeps PROBE_DEFAULT's)
     library = {}
-    for name, what, call in (
-            ("probe_block_mask", "torch.mul", lambda: torch.mul(x, 2.0)),
-            ("probe_row_gather", "torch.index_select",
-             lambda: torch.index_select(table, 0, idx))):
-        if not torch.equal(call(), rows[name]["out"]):
-            _fail(f"{what} differs from the {name} kernel")
-        library[name] = timed(call, 300, graph=True) * 1e3
-        print(f"timing {what} on {name}'s inputs: {library[name]:.4f} ms "
-              f"beside the kernel's {timing[name][0]:.4f} ms, on {card}")
+    for size, cases in ((PROBE_DEFAULT[0], rows), (PROBE_CAST[0], cast_rows)):
+        x = cases["probe_block_mask"]["args"][0]
+        idx, table = cases["probe_row_gather"]["args"]
+        idx = idx[:, 0]
+        for name, what, call in (
+                ("probe_block_mask", "torch.mul", lambda: torch.mul(x, 2.0)),
+                ("probe_row_gather", "torch.index_select",
+                 lambda: torch.index_select(table, 0, idx))):
+            case = cases[name]
+            if not torch.equal(call(), case["out"]):
+                _fail(f"{what} differs from the {name} kernel at {size} rows")
+            n = min(300, max(30, math.ceil(2e-3 / case["s"])))
+            ms = timed(call, n, graph=True) * 1e3
+            if size == PROBE_DEFAULT[0]:
+                library[name] = ms
+            kernel = f"the kernel's {case['s'] * 1e3:.4f} ms"
+            if "control_s" in case:
+                kernel += f" and its control's {case['control_s'] * 1e3:.4f}"
+            print(f"timing {what} on {name}'s inputs at {size} rows: "
+                  f"{ms:.4f} ms beside {kernel} ({case['s'] * 1e3 / ms:.3f} "
+                  f"of the library's time), on {card}")
     return launches, timing, library
 
 

@@ -40,49 +40,75 @@ def label(csrc) -> str:
             else csrc)
 
 
-def build(sources):
-    """{csrc: (library path, ptxas report)}: each csrc's pairs_trace.cu,
-    skipped where built."""
+def build_libraries(jobs):
+    """{(csrc, file): (library path, ptxas report)}: the source ``file`` of
+    each ``csrc`` directory in ``jobs`` built into a shared library of its
+    own, one nvcc process each, all started together; a library already
+    built from the same source, headers and flags is kept (its report is
+    then empty)."""
     nvcc = _kernels.find_nvcc()
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     out, procs = {}, {}
-    for csrc in sources:
-        src = os.path.join(csrc, "pairs_trace.cu")
+    for csrc, file in jobs:
         text = b""
-        for name in ("pairs_trace.cu", "mt.cuh"):
+        for name in [file] + sorted(n for n in os.listdir(csrc)
+                                    if n.endswith(".cuh")):
             with open(os.path.join(csrc, name), "rb") as f:
-                text += f.read()
+                text += name.encode() + b"\0" + f.read()
         key = hashlib.sha256(text + " ".join(_kernels.NVCC_FLAGS).encode()
                              ).hexdigest()[:12]
-        path = out[csrc] = os.path.join(_kernels.BUILD_DIR,
-                                        f"pairs_design_{key}.so")
+        stem = os.path.splitext(file)[0]
+        path = out[csrc, file] = os.path.join(_kernels.BUILD_DIR,
+                                              f"design_{stem}_{key}.so")
         if not os.path.isfile(path):
-            procs[csrc] = subprocess.Popen(
+            procs[csrc, file] = subprocess.Popen(
                 [nvcc, *_kernels.NVCC_FLAGS, "-shared", "-o",
-                 f"{path}.{os.getpid()}.tmp", src], stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
+                 f"{path}.{os.getpid()}.tmp", os.path.join(csrc, file)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     reports = {}
-    for v, p in procs.items():
+    for job, p in procs.items():
         _, err = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {v}:\n{err}")
-        os.replace(f"{out[v]}.{os.getpid()}.tmp", out[v])
-        reports[v] = err
-    return {v: (path, reports.get(v, "")) for v, path in out.items()}
+            raise RuntimeError(f"nvcc failed on {job[1]} of {job[0]}:\n{err}")
+        os.replace(f"{out[job]}.{os.getpid()}.tmp", out[job])
+        reports[job] = err
+    return {job: (path, reports.get(job, "")) for job, path in out.items()}
+
+
+def build(sources):
+    """{csrc: (library path, ptxas report)}: each csrc's pairs_trace.cu
+    (see build_libraries)."""
+    built = build_libraries([(v, "pairs_trace.cu") for v in sources])
+    return {v: built[v, "pairs_trace.cu"] for v in sources}
+
+
+def kernel_resources(report: str) -> dict:
+    """{kernel: (registers, shared-memory bytes)} from a ptxas -v report,
+    each kernel named by its identifier and its template arguments as
+    mangled (pairs_kernelILi2E is pairs_kernel<2>)."""
+    res, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"_GLOBAL__N_1(\d+)(\w+)", line)
+            entry = None
+            if m:
+                n, rest = int(m.group(1)), m.group(2)
+                entry = rest[:n]
+                if rest[n:].startswith("I"):
+                    entry += rest[n:rest.index("E", n) + 1]
+        elif entry and "registers" in line:
+            smem = re.search(r"(\d+) bytes smem", line)
+            res[entry] = (int(re.search(r"Used (\d+) registers", line)
+                              .group(1)), int(smem.group(1)) if smem else 0)
+    return res
 
 
 def registers(report: str) -> dict:
     """{mangled template arguments: registers} of the pairs kernels in a
     ptxas -v report (mode first: ILi2E... is B1)."""
-    regs, entry = {}, None
-    for line in report.splitlines():
-        m = re.search(r"pairs_kernel(I\w*?E)E", line)
-        if "Compiling entry function" in line:
-            entry = m.group(1) if m else None
-        elif entry and "registers" in line:
-            regs[entry] = int(re.search(r"Used (\d+) registers", line)
-                              .group(1))
-    return regs
+    return {k[len("pairs_kernel"):]: regs
+            for k, (regs, _) in kernel_resources(report).items()
+            if k.startswith("pairs_kernelI")}
 
 
 def _lib(path):
@@ -112,28 +138,25 @@ def launch(lib, name, rfT, fields, bits, eps, subg, tile_t):
     return outs
 
 
-def depth1_casts(device, subg=None):
-    """(config, table, {kernel: (rfT, bits)}): the depth-1 casts of B1 and
-    B2 that the main-path frame launches first (its first wavefront's
-    first cast), at the preset's subgroup or ``subg``."""
+def first_casts(tables, cfg, kernels, device, n=2):
+    """{kernel: [(rfT, culling input), ...]}: the inputs of the first ``n``
+    launches of each wrapper in ``kernels`` during one frame of ``cfg``
+    (the depth-0, depth-1, ... casts of its first wavefront); the wrappers
+    launch as always and are put back afterwards."""
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
-    from raytracinggpu_tpu_torch.scene.presets import build_preset
 
-    over = {} if subg is None else {"pairs_subgroup": subg}
-    cfg, tables = build_preset("array_bvh", device, width=512, height=512,
-                               spp=32, max_depth=5, **over)
-    kept = {k: [] for k in KERNELS}
-    orig = {k: getattr(_kernels, k) for k in KERNELS}
+    kept = {k: [] for k in kernels}
+    orig = {k: getattr(_kernels, k) for k in kernels}
 
     def keeping(k):
-        def wrapped(rfT, fields, bits, *rest):
-            if len(kept[k]) < 2:
-                kept[k].append((rfT.clone(), bits.clone()))
-            return orig[k](rfT, fields, bits, *rest)
+        def wrapped(rfT, fields, cull, *rest):
+            if len(kept[k]) < n:
+                kept[k].append((rfT.clone(), cull.clone()))
+            return orig[k](rfT, fields, cull, *rest)
         return wrapped
 
-    for k in KERNELS:
+    for k in kernels:
         setattr(_kernels, k, keeping(k))
     try:
         render_frame(tables, cfg, Camera.default(cfg, device),
@@ -141,6 +164,19 @@ def depth1_casts(device, subg=None):
     finally:
         for k, f in orig.items():
             setattr(_kernels, k, f)
+    return kept
+
+
+def depth1_casts(device, subg=None):
+    """(config, table, {kernel: (rfT, bits)}): the depth-1 casts of B1 and
+    B2 that the main-path frame launches first (its first wavefront's
+    first cast), at the preset's subgroup or ``subg``."""
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+    over = {} if subg is None else {"pairs_subgroup": subg}
+    cfg, tables = build_preset("array_bvh", device, width=512, height=512,
+                               spp=32, max_depth=5, **over)
+    kept = first_casts(tables, cfg, KERNELS, device)
     return cfg, tables.pairs_mesh, {k: v[1] for k, v in kept.items()}
 
 

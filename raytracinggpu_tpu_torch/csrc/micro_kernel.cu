@@ -40,8 +40,10 @@
 // (39 f32 operations and 16 field loads a test, the cat-sized table in
 // L1/L2); B7b and B7d are bytes-bound (each byte read once and written
 // once).  The designs are the simple ones: B7a and B7c one thread per ray
-// with the running min in a register (as B5); B7b one 256-thread block per
-// 1024 rays moving 16 bytes a thread; B7d one warp per row, 16 bytes a
+// with the running min in a register (as B5); B7b one 1024-thread block
+// per 1024 rows, four 16-byte loads in flight a thread (a 256-thread block
+// with a serial loop of 16 lost to torch.mul: at 131,072 rows it left 8
+// warps an SM); B7d one warp per row, 16 bytes a
 // lane; B7e one 1024-thread block per 1024 rays whose threads share out
 // the flat list's (pair, ray) items and combine through an atomicMin on
 // the bit pattern in shared memory (exact: every value is positive).
@@ -115,33 +117,46 @@ uniform_branch_kernel(const int* __restrict__ mask,
   t_out[r] = best;
 }
 
-// B7b.  One block per 1024 rows of x (R, 16).  With kMask the block's
-// threads compute the (32, 16) mask x[0:32, 0:16] > 0.5 of its first rows
-// into shared memory; after the barrier every thread reads two of its
-// words as scalars (a broadcast) and runs a loop they bound; the loop's
-// body is an empty volatile statement, so neither the loop nor the mask
-// can be dropped, and out = 2 x either way.
+// B7b.  One block of kBlk threads per 1024 rows of x (R, 16): thread t
+// moves float4s t, t + 1024, t + 2048 and t + 3072 of the block, all four
+// loads issued before any store.  With kMask the block's threads compute
+// the (32, 16) mask x[0:32, 0:16] > 0.5 of its first rows into shared
+// memory (threads 0-127, whose first float4 are those 512 values); after
+// the barrier every thread reads two of its words as scalars (a
+// broadcast) and runs a loop they bound; the loop's body is an empty
+// volatile statement, so neither the loop nor the mask can be dropped,
+// and out = 2 x either way.
 template <bool kMask>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBlk)
 block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kNF;
+  constexpr int kVec = kNF / 4;  // float4 a thread
+  const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kVec;
+  const float4* src = reinterpret_cast<const float4*>(x) + base;
+  float4* dst = reinterpret_cast<float4*>(out) + base;
+  float4 v[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = src[threadIdx.x + k * kBlk];
   if constexpr (kMask) {
     __shared__ int m[32 * kNF];
-    for (int i = threadIdx.x; i < 32 * kNF; i += blockDim.x)
-      m[i] = x[base + i] > 0.5f ? 1 : 0;
+    if (threadIdx.x < 32 * kNF / 4) {
+      int* w = m + 4 * threadIdx.x;
+      w[0] = v[0].x > 0.5f ? 1 : 0;
+      w[1] = v[0].y > 0.5f ? 1 : 0;
+      w[2] = v[0].z > 0.5f ? 1 : 0;
+      w[3] = v[0].w > 0.5f ? 1 : 0;
+    }
     __syncthreads();
     const int n = m[0] + m[kNF + 1];  // mask[0, 0] + mask[1, 1]
     for (int i = 0; i < n; ++i) asm volatile("" ::"r"(i));
   }
-  const float4* src = reinterpret_cast<const float4*>(x + base);
-  float4* dst = reinterpret_cast<float4*>(out + base);
-  for (int i = threadIdx.x; i < kBlk * kNF / 4; i += blockDim.x) {
-    float4 v = src[i];
-    v.x *= 2.0f;
-    v.y *= 2.0f;
-    v.z *= 2.0f;
-    v.w *= 2.0f;
-    dst[i] = v;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    float4 a = v[k];
+    a.x *= 2.0f;
+    a.y *= 2.0f;
+    a.z *= 2.0f;
+    a.w *= 2.0f;
+    dst[threadIdx.x + k * kBlk] = a;
   }
 }
 
@@ -225,14 +240,14 @@ int rt_probe_uniform_branch(const int* mask, const float* rf,
 // R must be a multiple of 1024 (the wrapper checks).
 int rt_probe_block_mask(const float* x, int R, float* out, void* stream) {
   block_mask_kernel<true>
-      <<<R / kBlk, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+      <<<R / kBlk, kBlk, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
 int rt_probe_block_mask_control(const float* x, int R, float* out,
                                 void* stream) {
   block_mask_kernel<false>
-      <<<R / kBlk, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+      <<<R / kBlk, kBlk, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 

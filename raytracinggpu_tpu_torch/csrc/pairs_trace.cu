@@ -62,14 +62,13 @@
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
+#include "stage.cuh"
 
 namespace {
 
 constexpr float kIdxBig = 1073741824.0f;   // 2^30: id of padding slots
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kPiece = 32;   // slots a warp stages at a time: one a lane
-constexpr int kStride = 20;  // floats a staged slot: 16 test rows, id, pad
 
 // Template modes; ptxas names the kernels pairs_kernel<0..3>
 // (ILi0E..ILi3E).
@@ -77,21 +76,6 @@ constexpr int kShadow = 0;  // B2
 constexpr int kIdx = 1;     // B0
 constexpr int kGeom = 2;    // B1
 constexpr int kSmooth = 3;  // B3
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)

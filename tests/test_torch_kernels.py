@@ -16,6 +16,8 @@ they skip.  The other cases check the plain versions against brute force
 and against each other, and the wrappers' dispatch and input checks, on
 the CPU.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -238,7 +240,7 @@ def test_plain_closest_breaks_ties_by_lowest_id():
 
 # ------------------------------------------- tiled traversal (B5, B6), CPU
 
-def _tiled_cast(scene, kind, R, device, seed=0, capped=True):
+def _tiled_cast(scene, kind, R, device, seed=0, capped=True, subg=SUBG):
     """A tiled cast of ``R`` rays: (tables, O, u, cap, rfT, lists)."""
     cfg, tables = scene
     O, u = _rays(kind, cfg, tables, R, seed)
@@ -249,7 +251,7 @@ def _tiled_cast(scene, kind, R, device, seed=0, capped=True):
         for f in ("fields", "fieldsT", "tile_aabb")})
     spheres = type(tables.spheres)(*(c.to(device) for c in tables.spheres))
     cap = intersect_spheres(O, u, spheres)[0] if capped else None
-    rfT, lists, _, _ = pat.cast_inputs(O, u, tab, SUBG, cap=cap)
+    rfT, lists, _, _ = pat.cast_inputs(O, u, tab, subg, cap=cap)
     return tab, O, u, cap, rfT, lists
 
 
@@ -420,6 +422,171 @@ def test_tiled_subgroup_must_divide_the_tile(scene, subg):
     u = Vec3(torch.zeros(256), torch.zeros(256), torch.ones(256))
     with pytest.raises(ValueError, match="pallas_subgroup"):
         pat.intersect_tris_pallas(O, u, tab, EPS, subg=subg)
+
+
+# ------------- B6's mapping: the properties its warp walk relies on, held
+# on the plain version at every legal subgroup, on the cat (a fan from the
+# camera, capped by the spheres or not) and on a random mesh (rays from
+# points in its box, random caps)
+
+TILED_SUBGS = (8, 16, 32, 64, 128)
+TILED_MESHES = ("cat", "random")
+
+
+@pytest.fixture(scope="module")
+def tiled_rays(scene):
+    """{(mesh, capped): (table, O, u, cap)} of 1024 rays on the CPU."""
+    cfg, tables = scene
+    rng = np.random.default_rng(11)
+    A = rng.uniform(-20, 20, (1100, 3)).astype(np.float32)
+    A = A[np.argsort(A[:, 0])]  # tiles are slabs across x
+    B = A + rng.standard_normal((1100, 3)).astype(np.float32) * 2
+    C = A + rng.standard_normal((1100, 3)).astype(np.float32) * 2
+    rand = pat.build_pallas_tables(A, B, C, "cpu")  # 9 tiles, 52 padding
+    o = rng.uniform(-20, 20, (3, 1024)).astype(np.float32)
+    o = o[:, np.argsort(o[0])]  # a subgroup's rays start close together
+    d = rng.standard_normal((3, 1024)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    rand_rays = (Vec3(*map(torch.from_numpy, o)),
+                 Vec3(*map(torch.from_numpy, d)),
+                 torch.from_numpy(rng.uniform(1, 6, 1024).astype(np.float32)))
+    O, u = _rays("camera", cfg, tables, 1024, seed=5)
+    cat_cap = intersect_spheres(O, u, tables.spheres)[0]
+    out = {}
+    for capped in (False, True):
+        out["cat", capped] = (tables.pallas_mesh, O, u,
+                              cat_cap if capped else None)
+        out["random", capped] = (rand, *rand_rays[:2],
+                                 rand_rays[2] if capped else None)
+    return out
+
+
+def _subg_cast(tiled_rays, mesh, capped, subg):
+    """(table, rfT, lists) of one tiled cast at ``subg``."""
+    tab, O, u, cap = tiled_rays[mesh, capped]
+    rfT, lists, _, _ = pat.cast_inputs(O, u, tab, subg, cap=cap)
+    return tab, rfT, lists
+
+
+def _scrambled(lists, n_tiles, seed=0):
+    """Each row's listed ids in another order, and in rows with inactive
+    ids to spare, two ids outside [0, n_tiles) slipped among them (count
+    raised to match): the same list of tiles."""
+    rng = np.random.default_rng(seed)
+    out = lists.numpy().copy()
+    for row in out:
+        c = min(int(row[0]), len(row) - 1)
+        ids = list(row[1:1 + c])
+        rest = list(row[1 + c:])
+        if len(rest) >= 2:
+            ids += [-1 - int(rng.integers(5)), n_tiles + int(rng.integers(5))]
+            rest = rest[:-2]
+        row[0] = len(ids)
+        row[1:] = list(rng.permutation(ids)) + list(rng.permutation(rest))
+    return torch.from_numpy(out)
+
+
+def _warp_walk_shadow(rfT, fields, lists, eps, subg, foreign_eps=math.inf):
+    """A plain model of B6's mapping (csrc/pallas_trace.cu): each warp of
+    32 rays walks the merge of its lanes' lists (every step takes the least
+    head id among them, ids outside the table skipped, and advances the
+    lists whose head it was); every lane tests the step's tile, a lane
+    whose own list's head it was not with ``foreign_eps`` (+inf in B6), and
+    the tile's slots whose Ng is zero are skipped.  Returns (t, the tests
+    run with ``foreign_eps``)."""
+    R, n_tiles, L = rfT.shape[1], fields.shape[1] // 128, lists.shape[1]
+    t = torch.full((R,), pt.INF32)
+    foreign = 0
+    for w0 in range(0, R, 32):
+        lanes = torch.arange(w0, min(w0 + 32, R))
+        ids = {}
+        for sg in sorted({int(r) // subg for r in lanes}):
+            c = max(0, min(int(lists[sg, 0]), L - 1))
+            ids[sg] = [i for i in lists[sg, 1:1 + c].tolist()
+                       if 0 <= i < n_tiles]
+        pos = dict.fromkeys(ids, 0)
+        while True:
+            heads = {sg: ids[sg][p] for sg, p in pos.items()
+                     if p < len(ids[sg])}
+            if not heads:
+                break
+            tile = min(heads.values())
+            cols = fields[:, tile * 128:(tile + 1) * 128]
+            cols = cols[:, (cols[:3] != 0).any(dim=0)]
+            own = torch.tensor([heads.get(int(r) // subg) == tile
+                                for r in lanes])
+            for e, on in ((eps, own), (foreign_eps, ~own)):
+                tv, _, _, ok = pat.mt_slots(rfT, cols, e, w0,
+                                            w0 + len(lanes))
+                tmin = torch.where(ok, tv, pt.INF32).amin(dim=1)
+                t[lanes[on]] = torch.minimum(t[lanes[on]], tmin[on])
+            foreign += int((~own).sum()) * cols.shape[1]
+            for sg, h in heads.items():
+                pos[sg] += h == tile
+    return t, foreign
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("subg", TILED_SUBGS)
+@pytest.mark.parametrize("mesh", TILED_MESHES)
+def test_tiled_shadow_plain_ignores_the_order_of_each_list(tiled_rays, mesh,
+                                                           subg, capped):
+    """B6's result is a min of f32 values over the listed tiles: the ids of
+    a list in another order, with ids outside the table among them, give
+    the same t bit for bit."""
+    tab, rfT, lists = _subg_cast(tiled_rays, mesh, capped, subg)
+    other = _scrambled(lists, tab.n_tiles, seed=subg)
+    assert not torch.equal(other, lists)
+    want = pat.pallas_shadow_plain(rfT, tab.fields, lists, EPS, subg)
+    assert torch.equal(
+        pat.pallas_shadow_plain(rfT, tab.fields, other, EPS, subg), want)
+    assert (want < pt.INF32).sum() > 100
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("subg", TILED_SUBGS)
+@pytest.mark.parametrize("mesh", TILED_MESHES)
+def test_tiled_shadow_plain_equals_a_warp_walk_over_the_union(tiled_rays,
+                                                              mesh, subg,
+                                                              capped):
+    """B6's warp walk (_warp_walk_shadow), on the scrambled lists, gives
+    the plain version's t bit for bit: a ray tests the union of its warp's
+    lists, the tiles its own list lacked with eps = +inf (below 32 rays a
+    subgroup a warp spans several lists, and without the +inf a ray would
+    see tiles its subgroup culled), and padding slots are skipped."""
+    tab, rfT, lists = _subg_cast(tiled_rays, mesh, capped, subg)
+    want = pat.pallas_shadow_plain(rfT, tab.fields, lists, EPS, subg)
+    got, foreign = _warp_walk_shadow(
+        rfT, tab.fields, _scrambled(lists, tab.n_tiles, seed=subg), EPS,
+        subg)
+    assert torch.equal(got, want)
+    assert (foreign > 0) == (subg < 32)
+    if mesh == "random" and capped and subg < 32:
+        # the trap the +inf avoids: with the ray's eps on tiles only a
+        # neighbouring subgroup kept, rays find hits beyond their caps
+        wrong, _ = _warp_walk_shadow(rfT, tab.fields, lists, EPS, subg,
+                                     foreign_eps=EPS)
+        assert int((wrong < want).sum()) >= 5
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("subg", TILED_SUBGS)
+@pytest.mark.parametrize("mesh", TILED_MESHES)
+def test_tiled_shadow_plain_ignores_padding_slots(tiled_rays, mesh, subg,
+                                                  capped):
+    """A slot whose Ng is zero (padding) never changes B6's t, whatever
+    its other rows hold, on the culled lists and on lists of every tile
+    (the padding-only tile too), so B6 may skip it."""
+    tab, rfT, lists = _subg_cast(tiled_rays, mesh, capped, subg)
+    pad = (tab.fields[:3] == 0).all(dim=0)
+    assert int(pad.sum()) == {"cat": 142, "random": 52}[mesh]
+    g = torch.Generator().manual_seed(subg)
+    junk = tab.fields.clone()
+    junk[3:, pad] = torch.randn(13, int(pad.sum()), generator=g) * 50.0
+    for ls in (lists, _all_tiles(lists)):
+        assert torch.equal(
+            pat.pallas_shadow_plain(rfT, junk, ls, EPS, subg),
+            pat.pallas_shadow_plain(rfT, tab.fields, ls, EPS, subg))
 
 
 # ------------------------------------- tables past 32,768 slots (B4 sizes)
@@ -767,15 +934,18 @@ def test_small_frame_on_cuda_matches_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("subg", TILED_SUBGS)
 @pytest.mark.parametrize("capped", [True, False])
 @pytest.mark.parametrize("kind", KINDS)
-def test_tiled_kernels_bitwise_equal_plain(scene, kind, capped):
-    """B5 and B6 against their plain versions on the same lists; the public
-    queries launch them for CUDA tensors, sorted or not."""
+def test_tiled_kernels_bitwise_equal_plain(scene, kind, capped, subg):
+    """B5 and B6 against their plain versions on the same lists, at every
+    legal subgroup (below 32 a warp of B6 walks the union of several
+    lists); the public queries launch them for CUDA tensors, sorted or
+    not."""
     _need_cuda()
     tab, O, u, cap, rfT, lists = _tiled_cast(scene, kind, 8192, "cuda",
-                                             capped=capped)
-    args = (rfT, tab.fields, lists, EPS, SUBG)
+                                             capped=capped, subg=subg)
+    args = (rfT, tab.fields, lists, EPS, subg)
     n5, n6 = (_kernels.LAUNCHES[k] for k in ("pallas_closest",
                                              "pallas_shadow"))
     got = _kernels.pallas_closest(*args)
@@ -787,9 +957,9 @@ def test_tiled_kernels_bitwise_equal_plain(scene, kind, capped):
     assert (want[0] < pt.INF32).any()
     for sort in (False, True):
         hit = pat.intersect_tris_pallas(O, u, tab, EPS, sort_rays=sort,
-                                        cap=cap, subg=SUBG)
+                                        cap=cap, subg=subg)
         t = pat.intersect_tris_shadow(O, u, tab, EPS, cap=cap,
-                                      sort_rays=sort, subg=SUBG)
+                                      sort_rays=sort, subg=subg)
         if not sort:
             assert torch.equal(hit.t, want[0]) and torch.equal(t, t6)
     assert _kernels.LAUNCHES["pallas_closest"] == n5 + 3
@@ -810,8 +980,21 @@ def test_b5_equals_b0_uncapped_on_cuda(scene, kind):
     assert torch.equal(b5[0], b0.t) and torch.equal(b5[1], b0.idx)
 
 
+# rows [count, id, id] of the tie table's lists (2 tiles, L = 3), cycled
+# over the subgroups: tile 1 only, an empty row, a count past L - 1 with
+# an id outside the table, ids outside the table only, both tiles
+# descending, a negative count
+_ODD_ROWS = ((1, 1, 0), (0, 0, 1), (9, 1, -1), (2, 7, 2), (2, 1, 0),
+             (-3, 0, 1))
+
+
 @pytest.mark.cuda
 def test_tiled_kernels_break_ties_and_skip_bad_ids():
+    """B5 breaks the tie table's exact-t tie by the lowest index in either
+    list order; B5 and B6 skip ids outside the table and read the first
+    min(count, L - 1) ids only, also at subgroups 8 and 16, where a warp
+    of B6 spans lists that differ (one names a tile its neighbours do
+    not, one is empty)."""
     _need_cuda()
     tab, O, u = _tiled_tie_table()
     rfT = pat._ray_features16(O, u).cuda()
@@ -829,6 +1012,55 @@ def test_tiled_kernels_break_ties_and_skip_bad_ids():
     assert (got[1][:SUBG] == 200).all() and (got[1][SUBG:] == 5).all()
     assert torch.equal(_kernels.pallas_shadow(*args),
                        pat.pallas_shadow_plain(*args))
+    for subg in (8, 16):
+        rows = [_ODD_ROWS[i % len(_ODD_ROWS)] for i in range(128 // subg)]
+        args = (rfT, fields, torch.tensor(rows, dtype=torch.int32).cuda(),
+                EPS, subg)
+        got = _kernels.pallas_closest(*args)
+        t6 = _kernels.pallas_shadow(*args)
+        want = pat.pallas_closest_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(t6, pat.pallas_shadow_plain(*args))
+        hit = (t6 == 5.0).reshape(-1, subg)
+        assert torch.equal(hit.all(dim=1).cpu(), torch.tensor(
+            [r[0] > 0 and any(0 <= i < 2 for i in r[1:1 + min(r[0], 2)])
+             for r in rows]))
+        assert (t6[~(t6 == 5.0)] == pt.INF32).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subg", [16, 64])
+def test_tiled_kernels_bitwise_on_a_soup_sized_table(subg):
+    """B5 and B6 on a table of 1,564 tiles (the 200,000-triangle soup's
+    tiled table; the last tile part padding) of small random triangles,
+    sorted along x so that the culling keeps few of them, at the soup's
+    subgroup and the default: bitwise their plain versions."""
+    _need_cuda()
+    rng = np.random.default_rng(4)
+    T = 1564 * 128 - 100
+    A = rng.uniform(-20, 20, (T, 3)).astype(np.float32)
+    A = A[np.argsort(A[:, 0])]
+    B = A + rng.standard_normal((T, 3)).astype(np.float32) * 0.3
+    C = A + rng.standard_normal((T, 3)).astype(np.float32) * 0.3
+    tab = pat.build_pallas_tables(A, B, C, "cuda")
+    assert tab.n_tiles == 1564
+    o = rng.uniform(-20, 20, (3, 4096)).astype(np.float32)
+    d = rng.standard_normal((3, 4096)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    O = Vec3(*(torch.from_numpy(c).cuda() for c in o))
+    u = Vec3(*(torch.from_numpy(c).cuda() for c in d))
+    cap = torch.from_numpy(rng.uniform(1, 10, 4096).astype(np.float32)).cuda()
+    rfT, lists, _, _ = pat.cast_inputs(O, u, tab, subg, cap=cap,
+                                       sort_rays=True)
+    args = (rfT, tab.fields, lists, EPS, subg)
+    got = _kernels.pallas_closest(*args)
+    t6 = _kernels.pallas_shadow(*args)
+    torch.cuda.synchronize()
+    want = pat.pallas_closest_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(t6, pat.pallas_shadow_plain(*args))
+    assert (t6 < pt.INF32).sum() > 500
+    assert 0 < int(lists[:, 0].max()) < tab.n_tiles
 
 
 @pytest.mark.cuda
@@ -957,9 +1189,13 @@ def test_probe_pair_slope_bitwise_equals_plain(subg, L):
 
 
 @pytest.mark.cuda
-def test_probe_block_mask_and_row_gather_are_exact():
+@pytest.mark.parametrize("R", [1024, 131072, 524288])
+def test_probe_block_mask_and_row_gather_are_exact(R):
+    """B7b and its control (one 1024-thread block a 1024-row block) give
+    2 x exactly at one block, at the entry point's default and at the
+    main path's cast size; B7d gathers exactly."""
     _need_cuda()
-    mk, rf, _ = _probe_cast()
+    mk, rf, _ = _probe_cast(R=R)
     n0 = _kernels.LAUNCHES["probe_block_mask"]
     for mask in (True, False):
         assert torch.equal(mk.block_mask(rf, mask), rf * 2.0)
