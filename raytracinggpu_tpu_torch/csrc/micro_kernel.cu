@@ -126,16 +126,17 @@ uniform_branch_kernel(const int* __restrict__ mask,
 // broadcast) and runs a loop they bound; the loop's body is an empty
 // volatile statement, so neither the loop nor the mask can be dropped,
 // and out = 2 x either way.
+constexpr int kMaskThreads = 512;
 template <bool kMask>
-__global__ void __launch_bounds__(kBlk)
+__global__ void __launch_bounds__(kMaskThreads)
 block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
-  constexpr int kVec = kNF / 4;  // float4 a thread
-  const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kVec;
+  constexpr int kVec = kBlk * kNF / 4 / kMaskThreads;  // float4 a thread
+  const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kNF / 4;
   const float4* src = reinterpret_cast<const float4*>(x) + base;
   float4* dst = reinterpret_cast<float4*>(out) + base;
   float4 v[kVec];
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) v[k] = src[threadIdx.x + k * kBlk];
+  for (int k = 0; k < kVec; ++k) v[k] = src[threadIdx.x + k * kMaskThreads];
   if constexpr (kMask) {
     __shared__ int m[32 * kNF];
     if (threadIdx.x < 32 * kNF / 4) {
@@ -156,7 +157,7 @@ block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
     a.y *= 2.0f;
     a.z *= 2.0f;
     a.w *= 2.0f;
-    dst[threadIdx.x + k * kBlk] = a;
+    dst[threadIdx.x + k * kMaskThreads] = a;
   }
 }
 
@@ -240,14 +241,14 @@ int rt_probe_uniform_branch(const int* mask, const float* rf,
 // R must be a multiple of 1024 (the wrapper checks).
 int rt_probe_block_mask(const float* x, int R, float* out, void* stream) {
   block_mask_kernel<true>
-      <<<R / kBlk, kBlk, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
 int rt_probe_block_mask_control(const float* x, int R, float* out,
                                 void* stream) {
   block_mask_kernel<false>
-      <<<R / kBlk, kBlk, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
