@@ -1154,11 +1154,11 @@ def _probes(device, card, err):
             ms = timed(call, n, graph=True) * 1e3
             if size == PROBE_DEFAULT[0]:
                 library[name] = ms
-            kernel = f"the kernel's {case['s'] * 1e3:.4f} ms"
+            kernel = f"the kernel's {case['s'] * 1e6:.3f} us"
             if "control_s" in case:
-                kernel += f" and its control's {case['control_s'] * 1e3:.4f}"
+                kernel += f" and its control's {case['control_s'] * 1e6:.3f}"
             print(f"timing {what} on {name}'s inputs at {size} rows: "
-                  f"{ms:.4f} ms beside {kernel} ({case['s'] * 1e3 / ms:.3f} "
+                  f"{ms * 1e3:.3f} us beside {kernel} ({case['s'] * 1e3 / ms:.3f} "
                   f"of the library's time), on {card}")
     return launches, timing, library
 

@@ -82,20 +82,31 @@ def build(sources):
     return {v: built[v, "pairs_trace.cu"] for v in sources}
 
 
+def _kernel_name(mangled: str) -> str | None:
+    """A kernel's identifier and mangled template arguments from its
+    mangled name, whatever namespace nvcc gave it: the last name of
+    ``_ZN<len><name>...`` (or the name of ``_Z<len><name>``) followed by
+    its ``I...E`` arguments (pairs_kernelILi2E is pairs_kernel<2>)."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = None
+    while s[:1].isdigit():
+        d = re.match(r"\d+", s).group()
+        name, s = s[len(d):len(d) + int(d)], s[len(d) + int(d):]
+        if not mangled.startswith("_ZN"):
+            break
+    if name and s.startswith("I"):
+        name += s[:s.index("E") + 1]
+    return name
+
+
 def kernel_resources(report: str) -> dict:
     """{kernel: (registers, shared-memory bytes)} from a ptxas -v report,
-    each kernel named by its identifier and its template arguments as
-    mangled (pairs_kernelILi2E is pairs_kernel<2>)."""
+    each kernel named by ``_kernel_name``."""
     res, entry = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"_GLOBAL__N_1(\d+)(\w+)", line)
-            entry = None
-            if m:
-                n, rest = int(m.group(1)), m.group(2)
-                entry = rest[:n]
-                if rest[n:].startswith("I"):
-                    entry += rest[n:rest.index("E", n) + 1]
+            m = re.search(r"function '(_Z\w+)'", line)
+            entry = _kernel_name(m.group(1)) if m else None
         elif entry and "registers" in line:
             smem = re.search(r"(\d+) bytes smem", line)
             res[entry] = (int(re.search(r"Used (\d+) registers", line)

@@ -182,9 +182,9 @@ def run(trees, rounds=2, iters=20, device="cuda", card=""):
                 ms = timed(fn, n, graph=True) * 1e3
                 times.setdefault((what, R), {}).setdefault(v, []).append(ms)
                 print(f"{what} at {R} rows, the turn of {pd.label(v)}: "
-                      f"{ms:.4f} ms replayed ({n} launches a graph), bytes "
-                      f"bound {bound_ms:.4f} ms ({bound_ms / ms:.1%}), "
-                      f"exact, on {card}", flush=True)
+                      f"{ms * 1e3:.3f} us replayed ({n} launches a graph), "
+                      f"bytes bound {bound_ms * 1e3:.3f} us "
+                      f"({bound_ms / ms:.1%}), exact, on {card}", flush=True)
     return times
 
 

@@ -106,10 +106,7 @@ closest_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   idx_out[r] = best_t < kInf ? best_i : 0;
 }
 
-// B6.  kPair (subg >= 64): the two warps of a 64-ray half-block lie in
-// one subgroup, walk the same list and share one double buffer, each
-// copying 8 of a piece's 16 rows, behind a named barrier of 64 threads.
-template <bool kPair>
+// B6.
 __global__ void __launch_bounds__(kThreads)
 shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
               const int* __restrict__ lists, int R, int Tp, int L, int subg,
@@ -117,10 +114,7 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   __shared__ __align__(16) float stage[kWarps][2][kPiece * kStride];
 
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float(*const buf)[kPiece * kStride] = stage[kPair ? warp >> 1 : warp];
-  const int row0 = kPair ? 8 * (warp & 1) : 0;  // the rows this warp copies
-  constexpr int kRows = kPair ? 8 : 16;
+  float(*const buf)[kPiece * kStride] = stage[threadIdx.x >> 5];
   const int r = blockIdx.x * kThreads + threadIdx.x;
   const unsigned n_tiles = static_cast<unsigned>(Tp / kTile);
   // a lane past the rays has an empty list but joins its warp's walk
@@ -155,16 +149,9 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   const auto stage_piece = [&](float* dst) {
     const float* src = fields + tile * kTile + piece * kPiece + lane;
 #pragma unroll
-    for (int k = row0; k < row0 + kRows; ++k)
+    for (int k = 0; k < 16; ++k)
       cp_async4(dst + lane * kStride + k, src + k * Tp);
     cp_async_commit();
-  };
-  const auto sync = [&]() {
-    if constexpr (kPair) {
-      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (warp >> 1)));
-    } else {
-      __syncwarp();
-    }
   };
 
   int b = 0;
@@ -173,10 +160,14 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   while (have) {
     // a tile this ray's list did not name: eps = +inf, which no t passes
     const float e = mine ? eps : __int_as_float(0x7f800000);
-    cp_async_wait<0>();
-    sync();  // the piece has landed; the other buffer is read no more
     const bool more = next();
-    if (more) stage_piece(buf[b ^ 1]);
+    if (more) {
+      stage_piece(buf[b ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
 
     const float* sp = buf[b];
 #pragma unroll 4
@@ -191,6 +182,7 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
       const MTHit h = mt_eval(q, [&](int i) { return f[i]; }, e);
       if (h.valid && h.t < best_t) best_t = h.t;
     }
+    __syncwarp();  // the buffer is free for the next piece's copy
     b ^= 1;
     have = more;
   }
@@ -205,14 +197,9 @@ int rt_pallas_shadow(const float* rfT, const float* fields, const int* lists,
                      int R, int Tp, int L, int subg, int tile_t, float eps,
                      float* t_out, void* stream) {
   if (tile_t != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (R + kThreads - 1) / kThreads;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (subg >= 64)
-    shadow_kernel<true><<<grid, kThreads, 0, st>>>(rfT, fields, lists, R, Tp,
-                                                   L, subg, eps, t_out);
-  else
-    shadow_kernel<false><<<grid, kThreads, 0, st>>>(rfT, fields, lists, R,
-                                                    Tp, L, subg, eps, t_out);
+  shadow_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      rfT, fields, lists, R, Tp, L, subg, eps, t_out);
   return static_cast<int>(cudaGetLastError());
 }
 

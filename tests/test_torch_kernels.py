@@ -805,6 +805,50 @@ def test_pairs_design_reads_the_pairs_kernels_registers():
     assert pairs_design.registers(report) == {"ILi2E": 48, "ILi0E": 40}
 
 
+@pytest.mark.parametrize("subg", [16, 64])
+def test_tiled_design_counts_the_tests_of_a_cast(tiled_rays, subg):
+    """bench/tiled_design.mt_tests: a ray tests the 128 slots of each tile
+    its subgroup's list names, so a cast's tests are its listed tiles x
+    128 x subg."""
+    from raytracinggpu_tpu_torch.bench import tiled_design
+
+    tab, _, lists = _subg_cast(tiled_rays, "cat", True, subg)
+    n_listed = int(pat._listed_tiles(lists, tab.n_tiles).sum())
+    assert 0 < n_listed < lists.shape[0] * tab.n_tiles
+    assert tiled_design.mt_tests(lists, subg) == n_listed * 128 * subg
+
+
+def _ptxas_entry(mangled, regs, smem):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            "'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+            "spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers, "
+            f"{smem} bytes smem, 400 bytes cmem[0]\n")
+
+
+def test_design_benches_read_each_kernels_resources():
+    """bench/pairs_design.kernel_resources names each kernel of a ptxas -v
+    report by its identifier and mangled template arguments, with its
+    registers and shared memory (what bench/tiled_design prints)."""
+    from raytracinggpu_tpu_torch.bench import pairs_design
+
+    report = (_ptxas_entry("_ZN12_GLOBAL__N_112pairs_kernelILi2EEEvPKfS2_PKi"
+                           "iiiiifPfPiS3_S3_S3_", 48, 20480)
+              + _ptxas_entry("_ZN12_GLOBAL__N_113shadow_kernelEPKfS1_PKiiiiii"
+                             "fPf", 40, 20480)
+              + _ptxas_entry("_ZN12_GLOBAL__N_117block_mask_kernelILb1EEEvPKf"
+                             "Pf", 16, 2048)
+              + _ptxas_entry("_ZN46_INTERNAL_5c3a6b2e_15_pallas_trace_cu_d1f"
+                             "0a9b314closest_kernelEPKfS1_PKiiiiiiifPfPi", 64,
+                             0))
+    assert pairs_design.kernel_resources(report) == {
+        "pairs_kernelILi2E": (48, 20480), "shadow_kernel": (40, 20480),
+        "block_mask_kernelILb1E": (16, 2048), "closest_kernel": (64, 0)}
+    assert pairs_design.registers(report) == {"ILi2E": 48}
+
+
 # ------------------------------------------- the probes (B7a-e), CPU
 
 @pytest.mark.parametrize("bad,why", [
@@ -1032,9 +1076,9 @@ def test_tiled_kernels_break_ties_and_skip_bad_ids():
 @pytest.mark.parametrize("subg", [16, 64])
 def test_tiled_kernels_bitwise_on_a_soup_sized_table(subg):
     """B5 and B6 on a table of 1,564 tiles (the 200,000-triangle soup's
-    tiled table; the last tile part padding) of small random triangles,
-    sorted along x so that the culling keeps few of them, at the soup's
-    subgroup and the default: bitwise their plain versions."""
+    tiled table; the last tile part padding) of small random triangles
+    sorted along x, capped rays, at the soup's subgroup and the default:
+    bitwise their plain versions."""
     _need_cuda()
     rng = np.random.default_rng(4)
     T = 1564 * 128 - 100
@@ -1060,7 +1104,7 @@ def test_tiled_kernels_bitwise_on_a_soup_sized_table(subg):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(t6, pat.pallas_shadow_plain(*args))
     assert (t6 < pt.INF32).sum() > 500
-    assert 0 < int(lists[:, 0].max()) < tab.n_tiles
+    assert 0 < int(lists[:, 0].sum()) < lists.shape[0] * tab.n_tiles
 
 
 @pytest.mark.cuda
