@@ -43,9 +43,9 @@ def label(csrc) -> str:
 def build_libraries(jobs):
     """{(csrc, file): (library path, ptxas report)}: the source ``file`` of
     each ``csrc`` directory in ``jobs`` built into a shared library of its
-    own, one nvcc process each, all started together; a library already
-    built from the same source, headers and flags is kept (its report is
-    then empty)."""
+    own, one nvcc process a distinct source, all started together; a
+    library already built from the same source, headers and flags is kept
+    (its report is then empty)."""
     nvcc = _kernels.find_nvcc()
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     out, procs = {}, {}
@@ -60,7 +60,8 @@ def build_libraries(jobs):
         stem = os.path.splitext(file)[0]
         path = out[csrc, file] = os.path.join(_kernels.BUILD_DIR,
                                               f"design_{stem}_{key}.so")
-        if not os.path.isfile(path):
+        if not os.path.isfile(path) and path not in (
+                out[j] for j in procs):  # one build a source
             procs[csrc, file] = subprocess.Popen(
                 [nvcc, *_kernels.NVCC_FLAGS, "-shared", "-o",
                  f"{path}.{os.getpid()}.tmp", os.path.join(csrc, file)],
@@ -71,8 +72,8 @@ def build_libraries(jobs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {job[1]} of {job[0]}:\n{err}")
         os.replace(f"{out[job]}.{os.getpid()}.tmp", out[job])
-        reports[job] = err
-    return {job: (path, reports.get(job, "")) for job, path in out.items()}
+        reports[out[job]] = err
+    return {job: (path, reports.get(path, "")) for job, path in out.items()}
 
 
 def build(sources):

@@ -117,38 +117,35 @@ uniform_branch_kernel(const int* __restrict__ mask,
   t_out[r] = best;
 }
 
-// B7b.  One block of kBlk threads per 1024 rows of x (R, 16): thread t
-// moves float4s t, t + 1024, t + 2048 and t + 3072 of the block, all four
+// B7b.  One block of kMaskThreads threads per 1024 rows of x (R, 16):
+// thread t moves float4s t, t + kMaskThreads, ... of the block, all its
 // loads issued before any store.  With kMask the block's threads compute
 // the (32, 16) mask x[0:32, 0:16] > 0.5 of its first rows into shared
-// memory (threads 0-127, whose first float4 are those 512 values); after
-// the barrier every thread reads two of its words as scalars (a
-// broadcast) and runs a loop they bound; the loop's body is an empty
-// volatile statement, so neither the loop nor the mask can be dropped,
-// and out = 2 x either way.
+// memory (threads 0-127, whose first float4 are those 512 values), store
+// their outputs, and after the barrier every thread reads two of the
+// mask's words as scalars (a broadcast) and runs a loop they bound; the
+// loop's body is an empty volatile statement, so neither the loop nor
+// the mask can be dropped, and out = 2 x either way.  The stores go
+// before the barrier: behind it they waited for the last of the mask's
+// loads (0.7 us a launch of 131,072 rows in 1024-thread blocks).
 constexpr int kMaskThreads = 512;
 template <bool kMask>
 __global__ void __launch_bounds__(kMaskThreads)
 block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
   constexpr int kVec = kBlk * kNF / 4 / kMaskThreads;  // float4 a thread
+  __shared__ int m[kMask ? 32 * kNF : 1];
   const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kNF / 4;
   const float4* src = reinterpret_cast<const float4*>(x) + base;
   float4* dst = reinterpret_cast<float4*>(out) + base;
   float4 v[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) v[k] = src[threadIdx.x + k * kMaskThreads];
-  if constexpr (kMask) {
-    __shared__ int m[32 * kNF];
-    if (threadIdx.x < 32 * kNF / 4) {
-      int* w = m + 4 * threadIdx.x;
-      w[0] = v[0].x > 0.5f ? 1 : 0;
-      w[1] = v[0].y > 0.5f ? 1 : 0;
-      w[2] = v[0].z > 0.5f ? 1 : 0;
-      w[3] = v[0].w > 0.5f ? 1 : 0;
-    }
-    __syncthreads();
-    const int n = m[0] + m[kNF + 1];  // mask[0, 0] + mask[1, 1]
-    for (int i = 0; i < n; ++i) asm volatile("" ::"r"(i));
+  if (kMask && threadIdx.x < 32 * kNF / 4) {
+    int* w = m + 4 * threadIdx.x;
+    w[0] = v[0].x > 0.5f ? 1 : 0;
+    w[1] = v[0].y > 0.5f ? 1 : 0;
+    w[2] = v[0].z > 0.5f ? 1 : 0;
+    w[3] = v[0].w > 0.5f ? 1 : 0;
   }
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
@@ -158,6 +155,11 @@ block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
     a.z *= 2.0f;
     a.w *= 2.0f;
     dst[threadIdx.x + k * kMaskThreads] = a;
+  }
+  if constexpr (kMask) {
+    __syncthreads();
+    const int n = m[0] + m[kNF + 1];  // mask[0, 0] + mask[1, 1]
+    for (int i = 0; i < n; ++i) asm volatile("" ::"r"(i));
   }
 }
 
