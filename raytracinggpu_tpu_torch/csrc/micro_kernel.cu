@@ -40,22 +40,20 @@
 // (39 f32 operations and 16 field loads a test, the cat-sized table in
 // L1/L2); B7b and B7d are bytes-bound (each byte read once and written
 // once).  The designs are the simple ones: B7a and B7c one thread per ray
-// with the running min in a register (as B5); B7b one 1024-thread block
-// per 1024 rows, four 16-byte loads in flight a thread (a 256-thread block
-// with a serial loop of 16 lost to torch.mul: at 131,072 rows it left 8
-// warps an SM); B7d one warp per row, 16 bytes a
+// with the running min in a register (as B5); B7b one 512-thread block
+// per 1024 rows, eight 16-byte loads a thread ahead of its stores (a
+// 256-thread block with a serial loop of 16 lost to torch.mul: at 131,072
+// rows it left 8 warps an SM; PERF.md, Findings, PR 7, has the shapes
+// measured); B7d one warp per row, 16 bytes a
 // lane; B7e one 1024-thread block per 1024 rays whose threads share out
 // the flat list's (pair, ray) items and combine through an atomicMin on
 // the bit pattern in shared memory (exact: every value is positive).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kNF = 16;        // features per ray row, field rows per triangle
 constexpr int kTile = 128;     // triangles per tile
@@ -120,39 +118,30 @@ uniform_branch_kernel(const int* __restrict__ mask,
   t_out[r] = best;
 }
 
-// B7b.  One cluster of kMaskCtas blocks of kMaskThreads threads per
-// 1024 rows of x (R, 16): the cluster's blocks split the rows in order,
-// and thread t of a block moves float4s t, t + kMaskThreads, ... of its
-// block's share, all its loads issued before any store.  With kMask the
-// threads of the cluster's first block compute the (32, 16) mask x[0:32,
-// 0:16] > 0.5 of the rows' first 512 values (threads 0-127, whose first
-// float4 they are) into its shared memory; every thread stores its
-// outputs, and after the cluster's barrier reads two of the mask's words
-// as scalars (a broadcast, from the first block's shared memory) and runs
-// a loop they bound; the loop's body is an empty volatile statement, so
-// neither the loop nor the mask can be dropped, and out = 2 x either way.
-// The stores go before the barrier: behind it they waited for the last
-// of the mask's loads (0.7 us a launch of 131,072 rows in 1024-thread
-// blocks).
-constexpr int kMaskCtas = 8;
-constexpr int kMaskThreads = 128;
+// B7b.  One block of kMaskThreads threads per 1024 rows of x (R, 16):
+// thread t moves float4s t, t + kMaskThreads, ... of the block, its loads
+// written ahead of its stores.  With kMask the block's threads compute
+// the (32, 16) mask x[0:32, 0:16] > 0.5 of its first rows into shared
+// memory (threads 0-127, whose first float4 are those 512 values), store
+// their outputs, and after the barrier every thread reads two of the
+// mask's words as scalars (a broadcast) and runs a loop they bound; the
+// loop's body is an empty volatile statement, so neither the loop nor
+// the mask can be dropped, and out = 2 x either way.  The stores go
+// before the barrier: behind it they waited for the last of the mask's
+// loads (0.7 us a launch of 131,072 rows in 1024-thread blocks).
+constexpr int kMaskThreads = 512;
 template <bool kMask>
-__global__ void __cluster_dims__(kMaskCtas, 1, 1)
-    __launch_bounds__(kMaskThreads)
+__global__ void __launch_bounds__(kMaskThreads)
 block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
-  constexpr int kShare = kBlk * kNF / 4 / kMaskCtas;  // float4 a block
-  constexpr int kVec = kShare / kMaskThreads;          // float4 a thread
-  static_assert(kMaskThreads >= 32 * kNF / 4 && kVec * kMaskThreads == kShare,
-                "threads 0-127 of the first block hold the mask's values");
+  constexpr int kVec = kBlk * kNF / 4 / kMaskThreads;  // float4 a thread
   __shared__ int m[kMask ? 32 * kNF : 1];
-  const size_t base = static_cast<size_t>(blockIdx.x) * kShare;
+  const size_t base = static_cast<size_t>(blockIdx.x) * kBlk * kNF / 4;
   const float4* src = reinterpret_cast<const float4*>(x) + base;
   float4* dst = reinterpret_cast<float4*>(out) + base;
   float4 v[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) v[k] = src[threadIdx.x + k * kMaskThreads];
-  cg::cluster_group cluster = cg::this_cluster();
-  if (kMask && cluster.block_rank() == 0 && threadIdx.x < 32 * kNF / 4) {
+  if (kMask && threadIdx.x < 32 * kNF / 4) {
     int* w = m + 4 * threadIdx.x;
     w[0] = v[0].x > 0.5f ? 1 : 0;
     w[1] = v[0].y > 0.5f ? 1 : 0;
@@ -169,11 +158,9 @@ block_mask_kernel(const float* __restrict__ x, float* __restrict__ out) {
     dst[threadIdx.x + k * kMaskThreads] = a;
   }
   if constexpr (kMask) {
-    cluster.sync();
-    const int* m0 = cluster.map_shared_rank(m, 0);
-    const int n = m0[0] + m0[kNF + 1];  // mask[0, 0] + mask[1, 1]
+    __syncthreads();
+    const int n = m[0] + m[kNF + 1];  // mask[0, 0] + mask[1, 1]
     for (int i = 0; i < n; ++i) asm volatile("" ::"r"(i));
-    cluster.sync();  // the first block's shared memory outlives the reads
   }
 }
 
@@ -256,15 +243,15 @@ int rt_probe_uniform_branch(const int* mask, const float* rf,
 
 // R must be a multiple of 1024 (the wrapper checks).
 int rt_probe_block_mask(const float* x, int R, float* out, void* stream) {
-  block_mask_kernel<true><<<R / kBlk * kMaskCtas, kMaskThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, out);
+  block_mask_kernel<true>
+      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
 int rt_probe_block_mask_control(const float* x, int R, float* out,
                                 void* stream) {
-  block_mask_kernel<false><<<R / kBlk * kMaskCtas, kMaskThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(x, out);
+  block_mask_kernel<false>
+      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
