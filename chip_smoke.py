@@ -1158,8 +1158,9 @@ def _probes(device, card, err):
             if "control_s" in case:
                 kernel += f" and its control's {case['control_s'] * 1e6:.3f}"
             print(f"timing {what} on {name}'s inputs at {size} rows: "
-                  f"{ms * 1e3:.3f} us beside {kernel} ({case['s'] * 1e3 / ms:.3f} "
-                  f"of the library's time), on {card}")
+                  f"{ms * 1e3:.3f} us beside {kernel} "
+                  f"({case['s'] * 1e3 / ms:.3f} of the library's time), on "
+                  f"{card}")
     return launches, timing, library
 
 

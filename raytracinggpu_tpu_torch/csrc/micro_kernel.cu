@@ -43,7 +43,7 @@
 // with the running min in a register (as B5); B7b one 512-thread block
 // per 1024 rows, eight 16-byte loads a thread ahead of its stores (a
 // 256-thread block with a serial loop of 16 lost to torch.mul: at 131,072
-// rows it left 8 warps an SM; PERF.md, Findings, PR 7, has the shapes
+// rows it left 8 warps an SM; PERF.md, Findings, has the shapes
 // measured); B7d one warp per row, 16 bytes a
 // lane; B7e one 1024-thread block per 1024 rays whose threads share out
 // the flat list's (pair, ray) items and combine through an atomicMin on
@@ -243,15 +243,15 @@ int rt_probe_uniform_branch(const int* mask, const float* rf,
 
 // R must be a multiple of 1024 (the wrapper checks).
 int rt_probe_block_mask(const float* x, int R, float* out, void* stream) {
-  block_mask_kernel<true>
-      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+  block_mask_kernel<true><<<R / kBlk, kMaskThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
 int rt_probe_block_mask_control(const float* x, int R, float* out,
                                 void* stream) {
-  block_mask_kernel<false>
-      <<<R / kBlk, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
+  block_mask_kernel<false><<<R / kBlk, kMaskThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(x, out);
   return last_error();
 }
 
