@@ -119,20 +119,25 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
     piece = 0;
     return true;
   };
-  const auto fetch = [&](float* dst) {  // the walk's current piece
-    stage_piece<kRows>(dst, fields + tile * tile_t + piece * kPiece, Tc, lane);
+  // lane l copies slot l of the piece: one coalesced row at a time
+  const auto stage_piece = [&](float* dst) {
+    const float* src = fields + tile * tile_t + piece * kPiece + lane;
+#pragma unroll
+    for (int row = 0; row < kRows; ++row)
+      cp_async4(dst + lane * kStride + row, src + row * Tc);
+    cp_async_commit();
   };
 
   int b = 0;
   bool have = next();
-  if (have) fetch(buf[0]);
+  if (have) stage_piece(buf[0]);
   int cw = -1;        // the bitmask word rw is of
   unsigned rw = 0u;   // this ray's subgroup's word cw
   while (have) {
     const int cur = tile, s0 = tile * tile_t + piece * kPiece;
     const bool more = next();
     if (more) {
-      fetch(buf[b ^ 1]);
+      stage_piece(buf[b ^ 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -149,8 +154,14 @@ pairs_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
     const float* sp = buf[b];
 #pragma unroll 4
     for (int s = 0; s < kPiece; ++s, sp += kStride) {
-      MTHit h;
-      if (!staged_test(q, sp, e, h)) continue;  // a padding slot
+      const float4* v = reinterpret_cast<const float4*>(sp);
+      const float4 f0 = v[0];
+      // Ng = 0 (a padding slot): denom is +-0 or NaN and no test passes
+      if (f0.x == 0.0f && f0.y == 0.0f && f0.z == 0.0f) continue;
+      const float4 f1 = v[1], f2 = v[2], f3 = v[3];
+      const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                           f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
+      const MTHit h = mt_eval(q, [&](int i) { return f[i]; }, e);
       if constexpr (kMode == kShadow) {
         if (h.valid && h.t < best_t) best_t = h.t;
       } else {

@@ -1,5 +1,5 @@
-// Staging field slots into shared memory with cp.async, and the test on a
-// staged slot, for pairs_trace.cu (B0-B3) and pallas_trace.cu (B6).
+// Staging field slots into shared memory with cp.async, for the kernels
+// that test staged slots: pairs_trace.cu (B0-B3) and pallas_trace.cu (B6).
 //
 // A warp stages kPiece slots at a time, one a lane: lane l copies slot l
 // of the piece row by row (each row one coalesced 128-byte read) to
@@ -9,8 +9,6 @@
 // stride of 16 would put them in 2 (16-way).
 
 #pragma once
-
-#include "mt.cuh"
 
 namespace {
 
@@ -30,33 +28,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Stages rows [0, kRows) of the kPiece slots at src, `stride` floats a
-// row, into dst as one cp.async group: lane l copies slot l.
-template <int kRows>
-__device__ __forceinline__ void stage_piece(float* dst, const float* src,
-                                            int stride, int lane) {
-#pragma unroll
-  for (int k = 0; k < kRows; ++k)
-    cp_async4(dst + lane * kStride + k, src + lane + k * stride);
-  cp_async_commit();
-}
-
-// mt.cuh's test on the staged slot sp, its 16 test rows read as four
-// broadcast 16-byte loads; false, with h untouched, for a padding slot
-// (Ng = 0), skipped before the reciprocal's slow path: its denom is +-0
-// or NaN, so no test on it passes.
-__device__ __forceinline__ bool staged_test(const Ray& q, const float* sp,
-                                            float eps, MTHit& h) {
-  const float4* v = reinterpret_cast<const float4*>(sp);
-  const float4 f0 = v[0];
-  if (f0.x == 0.0f && f0.y == 0.0f && f0.z == 0.0f) return false;
-  const float4 f1 = v[1], f2 = v[2], f3 = v[3];
-  const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
-                       f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
-  h = mt_eval(q, [&](int i) { return f[i]; }, eps);
-  return true;
 }
 
 }  // namespace
