@@ -69,7 +69,7 @@ Phases, in order; any failed check exits nonzero:
    e. B5 and B6 timed against their plain versions on the depth-1 casts,
       with the (subgroup, tile) visits and Moller-Trumbore tests of each
       cast, ps a test and the shares of the bound and of the no-FMA floor
-      (B6 redesigned, B5 as it was: the control);
+      (B5 redesigned onto B6's merge walk, B6 as it was: the control);
 10. the big-mesh path: bench/big_mesh.py's 200,000-triangle soup through
     ``Renderer("array_bvh", obj_path=..., bvh_builder="lbvh")`` at
     512x512, spp 4, depth 2, whose pairs table (2,053 tiles, 262,784
@@ -199,20 +199,26 @@ PROBE_CAST = (524288, 40)
 CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
-# ptxas names the kernel templates' modes pairs_kernel<0..3> and
-# block_mask_kernel<false/true>
+# ptxas names the kernel templates' modes pairs_kernel<0..3>,
+# tiled_kernel<false/true>, block_mask_kernel<false/true> and
+# pair_slope_kernel<lanes a ray>
 _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pairs_kernelILi1E": "pairs_closest_idx",
           "pairs_kernelILi2E": "pairs_closest",
           "pairs_kernelILi3E": "pairs_closest_smooth",
-          "shadow_kernel": "pallas_shadow",
-          "closest_kernel": "pallas_closest",
+          "tiled_kernelILb0E": "pallas_shadow",
+          "tiled_kernelILb1E": "pallas_closest",
           "tile_slope_kernel": "probe_tile_slope",
           "block_mask_kernelILb1E": "probe_block_mask",
           "block_mask_kernelILb0E": "probe_block_mask (control)",
           "uniform_branch_kernel": "probe_uniform_branch",
           "row_gather_kernel": "probe_row_gather",
-          "pair_slope_kernel": "probe_pair_slope"}
+          "pair_slope_kernelILi1E": "probe_pair_slope (subgroup >= 32)",
+          "pair_slope_kernelILi2E": "probe_pair_slope (subgroup 16)",
+          "pair_slope_kernelILi4E": "probe_pair_slope (subgroup 8)",
+          "pair_slope_kernelILi8E": "probe_pair_slope (subgroup 4)",
+          "pair_slope_kernelILi16E": "probe_pair_slope (subgroup 2)",
+          "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
@@ -820,6 +826,8 @@ def _pallas(device, card, err, timing, pairs_mrays):
         _fail(f"pallas realtime anchor mean {mean} off by {rel:.4%}")
 
     # e. timings on the depth-1 casts
+    print("pallas kernel timings: B5 redesigned (merge walk, staged pieces), "
+          "B6 the control")
     _time_casts(casts, timing, card, depths=(1,))
     return launches
 

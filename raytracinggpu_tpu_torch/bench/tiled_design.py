@@ -1,8 +1,9 @@
-"""The tiled shadow kernel B6 (B5 beside it) and the probe B7b of several
-trees on the same inputs, on the card.
+"""The tiled closest-hit kernel B5 (the shadow kernel B6 beside it, the
+control) and the probe B7e of several trees on the same inputs, on the
+card.
 
     python -m raytracinggpu_tpu_torch.bench.tiled_design [DIR ...]
-        [--rounds N] [--iters N]
+        [--rounds N] [--iters N] [--only tiled,pairslope]
 
 Builds the ``pallas_trace.cu`` and ``micro_kernel.cu`` of each ``csrc/``
 directory given (this package's when none is; another tree's from ``git
@@ -10,15 +11,18 @@ archive``, say), with the flags of ``ops/_kernels.py``, one nvcc process
 per source, all started together, into ``_build/`` (``pairs_design``'s
 build); each source must keep the C interface of ``ops/_kernels``.  Then:
 
-- captures the depth-1 casts of B5 and B6 that the pallas headline frame
-  (``array_bvh``, 512x512, spp 32, depth 5, ``traversal="pallas"``)
-  launches first, at the preset's subgroup (64) and at 16 (the same
-  frame), and times each tree's B6 and B5 on them with CUDA events: ms,
-  ps a Moller-Trumbore test, the shares of the bound and of the no-FMA
-  floor, beside the registers and shared memory ptxas reports;
-- times each tree's B7b and its control beside ``torch.mul(x, 2.0)`` on
-  ``bench/micro_kernel.py``'s input at 131,072 and 524,288 rows, replayed
-  from CUDA graphs, against the bytes' bound.
+- ``tiled``: captures the depth-1 casts of B5 and B6 that the pallas
+  headline frame (``array_bvh``, 512x512, spp 32, depth 5,
+  ``traversal="pallas"``) launches first, at the preset's subgroup (64)
+  and at 16 (the same frame), and times each tree's B5 and B6 on them
+  with CUDA events: ms, ps a Moller-Trumbore test, the shares of the
+  bound and of the no-FMA floor, beside the registers and shared memory
+  ptxas reports;
+- ``pairslope``: times each tree's B7e on ``bench/micro_kernel.py``'s
+  inputs at 131,072 rays and 31 tiles and at 524,288 rays and 40 tiles,
+  at subgroups 8, 16, 32 and 64 and L = 0, 1, 2 and 4 pairs a subgroup,
+  replayed from CUDA graphs: ms, ps a test (and beyond the L = 0
+  intercept) and the share of the bound.
 
 The trees run in turns: in the order given, then reversed, ``--rounds``
 times in all (two: A, B, B, A).  Every output must equal the plain
@@ -35,9 +39,11 @@ import torch
 from raytracinggpu_tpu_torch.bench import pairs_design as pd
 from raytracinggpu_tpu_torch.ops import _kernels
 
-TILED = ("pallas_shadow", "pallas_closest")
-PROBE_ROWS = (131072, 524288)
-PEAK_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+TILED = ("pallas_closest", "pallas_shadow")
+PAIR_SIZES = ((131072, 31), (524288, 40))  # (rays, tiles) of B7e
+PAIR_SUBGS = (8, 16, 32, 64)
+PAIR_LS = (0, 1, 2, 4)
+PARTS = ("tiled", "pairslope")
 _SPAN_S = 2e-3          # a replayed graph spans at least this
 
 
@@ -51,10 +57,8 @@ def _libs(path_tiled, path_micro):
         fn.argtypes = [p, p, p, i, i, i, i, i, fl] + [p] * len(dts) + [p]
         fn.restype = i
     micro = ctypes.CDLL(path_micro)
-    for cfun in ("rt_probe_block_mask", "rt_probe_block_mask_control"):
-        fn = getattr(micro, cfun)
-        fn.argtypes = [p, i, p, p]
-        fn.restype = i
+    micro.rt_probe_pair_slope.argtypes = [p, p, p, i, i, i, i, p, p]
+    micro.rt_probe_pair_slope.restype = i
     return tiled, micro
 
 
@@ -77,14 +81,17 @@ def launch_tiled(lib, name, rfT, fields, lists, eps, subg):
     return outs
 
 
-def launch_mask(lib, x, mask):
-    """One launch of B7b (``mask=False``: its control) from one tree's
-    library; returns 2 x."""
-    out = torch.empty_like(x)
-    cfun = "rt_probe_block_mask" if mask else "rt_probe_block_mask_control"
-    _ok(getattr(lib, cfun)(x.data_ptr(), x.shape[0], out.data_ptr(),
-                           torch.cuda.current_stream().cuda_stream), cfun)
-    return out
+def launch_pair_slope(lib, pairs, rf, tri, subg):
+    """One launch of B7e from one tree's library; returns t (R / 128,
+    128)."""
+    R, Tp = rf.shape[0], tri.shape[1]
+    t = torch.empty((R // _kernels.TILE_T, _kernels.TILE_T),
+                    dtype=torch.float32, device=rf.device)
+    _ok(lib.rt_probe_pair_slope(
+        pairs.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
+        pairs.shape[1], subg, t.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "rt_probe_pair_slope")
+    return t
 
 
 def mt_tests(lists, subg: int) -> int:
@@ -113,10 +120,9 @@ def _turns(trees, rounds):
         yield from (trees if n % 2 == 0 else trees[::-1])
 
 
-def run(trees, rounds=2, iters=20, device="cuda", card=""):
-    """Times every tree; returns {(kernel, size): {tree: [ms, ...]}}: the
-    kernel a wrapper of ``TILED`` at a subgroup, or "B7b", "B7b control"
-    and "torch.mul" (timed in each tree's turn) at a row count."""
+def run(trees, rounds=2, iters=20, device="cuda", card="", parts=PARTS):
+    """Times every tree; returns {(kernel, case): {tree: [ms, ...]}}: a
+    wrapper of ``TILED`` at a subgroup, or "B7e" at (rays, subgroup, L)."""
     from raytracinggpu_tpu_torch.bench import micro_kernel as mk
     from raytracinggpu_tpu_torch.bench._timing import timed
     from raytracinggpu_tpu_torch.ops import pallas_trace as pat
@@ -129,12 +135,12 @@ def run(trees, rounds=2, iters=20, device="cuda", card=""):
     for v in trees:
         res = pd.kernel_resources(built[v, "pallas_trace.cu"][1])
         res.update((k, r) for k, r in pd.kernel_resources(
-            built[v, "micro_kernel.cu"][1]).items() if "block_mask" in k)
+            built[v, "micro_kernel.cu"][1]).items() if "pair_slope" in k)
         print(f"{pd.label(v)}: ptxas (registers, smem bytes) "
               + ", ".join(f"{k}: {r}" for k, r in sorted(res.items())),
               flush=True)
     times = {}
-    for subg in (64, 16):
+    for subg in ((64, 16) if "tiled" in parts else ()):
         cfg, tab, casts = tiled_casts(device, subg)
         for k in TILED:
             rfT, lists = casts[k]
@@ -162,29 +168,39 @@ def run(trees, rounds=2, iters=20, device="cuda", card=""):
                       f"floor {floor_ms:.4f} ms ({floor_ms / ms:.1%}), "
                       f"bitwise the plain version, on {card}", flush=True)
 
-    for R in PROBE_ROWS:
-        x = mk.cast_inputs(R, mk.N_FIXED, 0, device)[0]
-        want = mk.block_mask_plain(x)
-        bound_ms = 2 * x.numel() * 4 / PEAK_BYTES_S * 1e3
-        calls = {}
-        for v, (_, lib) in libs.items():
-            for mask in (True, False):
-                if not torch.equal(launch_mask(lib, x, mask), want):
-                    raise SystemExit(f"tiled_design: {pd.label(v)}'s B7b "
-                                     f"(mask {mask}) is not 2 x at {R} rows")
-            calls[v] = (("B7b", lambda lib=lib: launch_mask(lib, x, True)),
-                        ("B7b control",
-                         lambda lib=lib: launch_mask(lib, x, False)),
-                        ("torch.mul", lambda: torch.mul(x, 2.0)))
-        n = max(iters, math.ceil(_SPAN_S / (bound_ms * 1e-3)))
-        for v in _turns(list(trees), rounds):
-            for what, fn in calls[v]:
-                ms = timed(fn, n, graph=True) * 1e3
-                times.setdefault((what, R), {}).setdefault(v, []).append(ms)
-                print(f"{what} at {R} rows, the turn of {pd.label(v)}: "
-                      f"{ms * 1e3:.3f} us replayed ({n} launches a graph), "
-                      f"bytes bound {bound_ms * 1e3:.3f} us "
-                      f"({bound_ms / ms:.1%}), exact, on {card}", flush=True)
+    for R, n_tiles in (PAIR_SIZES if "pairslope" in parts else ()):
+        rf, tri = mk.cast_inputs(R, n_tiles, 0, device)
+        for subg in PAIR_SUBGS:
+            for L in PAIR_LS:
+                pairs = mk.pair_lists(R, n_tiles, subg, L, device)
+                want = mk.pair_slope_plain(pairs, rf, tri, subg)
+                calls = {v: (lambda lib=lib: launch_pair_slope(
+                    lib, pairs, rf, tri, subg)) for v, (_, lib) in libs.items()}
+                for v, fn in calls.items():
+                    if not torch.equal(fn(), want):
+                        raise SystemExit(f"tiled_design: {pd.label(v)}'s B7e "
+                                         f"differs from the plain version at "
+                                         f"{R} rays, subgroup {subg}, L {L}")
+                tests = R * L * _kernels.TILE_T
+                bound_ms = tests * pd.FLOP_PER_TEST / pd.PEAK_F32_FLOPS * 1e3
+                est = timed(calls[trees[0]], iters, graph=True)
+                n = max(iters, min(100 * iters, math.ceil(_SPAN_S / est)))
+                row = times.setdefault(("B7e", (R, subg, L)),
+                                       {v: [] for v in trees})
+                for v in _turns(list(trees), rounds):
+                    ms = timed(calls[v], n, graph=True) * 1e3
+                    row[v].append(ms)
+                    line = (f"B7e {R} rays, {n_tiles} tiles, subgroup {subg}, "
+                            f"L {L}, {pd.label(v)}: {ms:.4f} ms replayed "
+                            f"({n} launches a graph)")
+                    if L:
+                        base = times[("B7e", (R, subg, 0))][v][-1]
+                        line += (f", {ms * 1e9 / tests:.3f} ps a test "
+                                 f"({(ms - base) * 1e9 / tests:.3f} beyond "
+                                 f"the L 0 intercept), bound {bound_ms:.4f} "
+                                 f"ms ({bound_ms / ms:.1%})")
+                    print(f"{line}, bitwise the plain version, on {card}",
+                          flush=True)
     return times
 
 
@@ -196,10 +212,15 @@ def main(argv=None) -> int:
                     help="csrc/ directories whose kernels to time")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help=f"comma-separated subset of {','.join(PARTS)}")
     a = ap.parse_args(argv)
+    parts = a.only.split(",")
+    if set(parts) - set(PARTS):
+        ap.error(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     if not torch.cuda.is_available():
         raise SystemExit("tiled_design: needs a CUDA device")
-    run(a.csrc, a.rounds, a.iters, card=card_line())
+    run(a.csrc, a.rounds, a.iters, card=card_line(), parts=parts)
     return 0
 
 

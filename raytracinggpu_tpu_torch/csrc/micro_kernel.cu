@@ -37,21 +37,31 @@
 // bench/micro_kernel.py bit for bit whatever its thread mapping.
 //
 // What bounds them on this card: B7a, B7c and B7e are operations-bound
-// (39 f32 operations and 16 field loads a test, the cat-sized table in
-// L1/L2); B7b and B7d are bytes-bound (each byte read once and written
-// once).  The designs are the simple ones: B7a and B7c one thread per ray
-// with the running min in a register (as B5); B7b one 512-thread block
-// per 1024 rows, eight 16-byte loads a thread ahead of its stores (a
-// 256-thread block with a serial loop of 16 lost to torch.mul: at 131,072
-// rows it left 8 warps an SM; PERF.md, Findings, has the shapes
-// measured); B7d one warp per row, 16 bytes a
-// lane; B7e one 1024-thread block per 1024 rays whose threads share out
-// the flat list's (pair, ray) items and combine through an atomicMin on
-// the bit pattern in shared memory (exact: every value is positive).
+// (39 f32 operations a test, the cat-sized table in L1/L2); B7b and B7d
+// are bytes-bound (each byte read once and written once).  B7a and B7c
+// keep the first, simple design: one thread per ray with the running min
+// in a register, each test reading its 16 field rows from device memory
+// as 16 strided loads.  B7b: one 512-thread block per 1024 rows, eight
+// 16-byte loads a thread ahead of its stores (a 256-thread block with a
+// serial loop of 16 lost to torch.mul: at 131,072 rows it left 8 warps
+// an SM; PERF.md, Findings, has the shapes measured).  B7d: one warp per
+// row, 16 bytes a lane.  B7e prices a pair under the staged design of
+// the trace kernels (pairs_trace.cu, pallas_trace.cu): one 1024-thread
+// block per 1024-ray list whose warps take the list's pairs in turn, one
+// at a time, so that every warp's work is tile-uniform; each pair's tile
+// is staged 32 slots at a time through stage.cuh (slot-major, cp.async,
+// a double buffer a warp) and read as four broadcast 16-byte shared loads
+// a test, over a compile-time slot loop; padding slots (Ng = 0) are
+// skipped as there.  At subgroups of 32 rays and more a lane is a ray
+// (a 64-ray pair is two warp items); below 32 a lane is a (ray, share of
+// each piece's slots), and the 32 / subg lanes of one ray combine their
+// mins by __shfl_xor_sync.  The warps merge through an atomicMin on the
+// bit pattern in shared memory (exact: every value is positive).
 
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -183,38 +193,137 @@ row_gather_kernel(const int* __restrict__ idx, const float* __restrict__ table,
 
 // B7e.  pairs (R / 1024, Pw) i32 rows [count, sg * 256 + tile, ...]: one
 // flat list a 1024-ray block; pair (sg, tile) sends rays sg * subg ..
-// sg * subg + subg - 1 of the block over tile `tile`.  The block's 1024
-// threads share out the list's count * subg (pair, ray) items, so every
-// lane works whatever the subgroup size (below 32 a warp holds several
-// pairs and reads several tiles at once); a ray's running min lives in
-// shared memory as the bit pattern of a positive f32, where an integer
-// atomicMin is the float min.  Pairs naming a subgroup or tile outside the
-// block or the table are skipped; count is cut at Pw - 1.
-__global__ void __launch_bounds__(kBlk)
+// sg * subg + subg - 1 of the block over tile `tile`.  Pairs naming a
+// subgroup or tile outside the block or the table are skipped; count is
+// cut at Pw - 1.
+//
+// The list's work is dealt out in warp items: a pair of subg >= 32 rays
+// is subg / 32 items of 32 rays each (kM = 1, a lane a ray), a pair of
+// subg < 32 rays one item (kM = 32 / subg lanes a ray: lane l is ray
+// l % subg and tests the slots s = l / subg, + kM, ... of each piece).
+// Warp w takes items w, w + 32, ... in turn, each staged and tested piece
+// by piece; a ray's running min lives in shared memory as the bit pattern
+// of a positive f32, where an integer atomicMin is the float min.
+constexpr int kPairThreads = kBlk;  // one block a 1024-ray list
+constexpr int kPairWarps = kPairThreads / 32;
+constexpr int kPieces = kTile / kPiece;
+constexpr int kBufFloats = kPiece * kStride;  // one staged piece
+constexpr int kPairSmem =
+    static_cast<int>(sizeof(float)) * kPairWarps * 2 * kBufFloats +
+    static_cast<int>(sizeof(int)) * kBlk;
+
+template <int kM>
+__global__ void __launch_bounds__(kPairThreads)
 pair_slope_kernel(const int* __restrict__ pairs, const float* __restrict__ rf,
                   const float* __restrict__ tri, int Tp, int Pw, int subg,
                   float* __restrict__ t_out) {
-  __shared__ int t_run[kBlk];
-  const int r0 = blockIdx.x * kBlk;
-  t_run[threadIdx.x] = __float_as_int(kInf);
+  constexpr int kSub = 32 / kM;  // rays an item holds
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* const buf = smem + warp * 2 * kBufFloats;  // this warp's two pieces
+  int* const t_run = reinterpret_cast<int*>(smem + kPairWarps * 2 * kBufFloats);
+  for (int i = threadIdx.x; i < kBlk; i += kPairThreads)
+    t_run[i] = __float_as_int(kInf);
   __syncthreads();
+
+  const int r0 = blockIdx.x * kBlk;
   const int* row = pairs + static_cast<size_t>(blockIdx.x) * Pw;
   const int count = min(row[0], Pw - 1);
   const int n_tiles = Tp / kTile;
   const int n_sg = kBlk / subg;
-  const int items = count * subg;
-  for (int it = threadIdx.x; it < items; it += kBlk) {
-    const int p = row[1 + it / subg];
-    const int sg = p >> 8;
-    const int tile = p & 255;
-    if (p < 0 || sg >= n_sg || tile >= n_tiles) continue;
-    const int lr = sg * subg + it % subg;
-    const Ray q = load_ray_row(rf, r0 + lr);
-    const float t = tile_pass(q, tri, Tp, tile, kInf);
-    if (t < kInf) atomicMin(&t_run[lr], __float_as_int(t));
+  const int parts = kM == 1 ? subg / 32 : 1;  // items a pair
+  const int n_items = count * parts;
+  const int ray = lane % kSub;    // this lane's ray within the item
+  const int share = lane / kSub;  // its slots: share, share + kM, ...
+
+  // The warp's walk: each piece of each of its items (warp-uniform).
+  // first: the item's first ray in the block.
+  int it = warp - kPairWarps, piece = kPieces, tile = 0, first = 0;
+  const auto next = [&]() {
+    if (++piece < kPieces) return true;
+    for (it += kPairWarps; it < n_items; it += kPairWarps) {
+      const int p = row[1 + it / parts];
+      const int sg = p >> 8;
+      tile = p & 255;
+      if (p >= 0 && sg < n_sg && tile < n_tiles) {
+        first = sg * subg + (it % parts) * 32;
+        piece = 0;
+        return true;
+      }
+    }
+    return false;
+  };
+  // lane l copies slot l of the piece: one coalesced row at a time
+  const auto stage_piece = [&](float* dst) {
+    const float* src = tri + tile * kTile + piece * kPiece + lane;
+#pragma unroll
+    for (int k = 0; k < kNF; ++k)
+      cp_async4(dst + lane * kStride + k, src + k * Tp);
+    cp_async_commit();
+  };
+
+  int b = 0;
+  bool have = next();
+  if (have) stage_piece(buf);
+  Ray q{};
+  float best = kInf;
+  while (have) {
+    const int cur = first, cur_piece = piece;
+    if (cur_piece == 0) q = load_ray_row(rf, r0 + cur + ray);
+    const bool more = next();
+    if (more) {
+      stage_piece(buf + (b ^ 1) * kBufFloats);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    const float* sp = buf + b * kBufFloats + share * kStride;
+#pragma unroll 4
+    for (int i = 0; i < kPiece / kM; ++i, sp += kM * kStride) {
+      const float4* v = reinterpret_cast<const float4*>(sp);
+      const float4 f0 = v[0];
+      // Ng = 0 (a padding slot): denom is +-0 or NaN and no test passes
+      if (f0.x == 0.0f && f0.y == 0.0f && f0.z == 0.0f) continue;
+      const float4 f1 = v[1], f2 = v[2], f3 = v[3];
+      const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                           f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
+      const MTHit h = mt_eval(q, [&](int j) { return f[j]; }, kEps);
+      if (h.valid && h.t < best) best = h.t;
+    }
+    __syncwarp();  // the buffer is free for the next piece's copy
+    if (cur_piece == kPieces - 1) {  // the item's last piece: merge
+#pragma unroll
+      for (int o = kSub; o < 32; o <<= 1) {
+        const float x = __shfl_xor_sync(0xffffffffu, best, o);
+        best = x < best ? x : best;
+      }
+      if (share == 0 && best < kInf)
+        atomicMin(&t_run[cur + ray], __float_as_int(best));
+      best = kInf;
+    }
+    b ^= 1;
+    have = more;
   }
   __syncthreads();
-  t_out[r0 + threadIdx.x] = __int_as_float(t_run[threadIdx.x]);
+  for (int i = threadIdx.x; i < kBlk; i += kPairThreads)
+    t_out[r0 + i] = __int_as_float(t_run[i]);
+}
+
+template <int kM>
+int launch_pair_slope(const int* pairs, const float* rf, const float* tri,
+                      int R, int Tp, int Pw, int subg, float* t_out,
+                      void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      pair_slope_kernel<kM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPairSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pair_slope_kernel<kM><<<R / kBlk, kPairThreads, kPairSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pairs, rf, tri, Tp, Pw, subg, t_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
@@ -268,9 +377,18 @@ int rt_probe_row_gather(const int* idx, const float* table, int R, int n_rows,
 int rt_probe_pair_slope(const int* pairs, const float* rf, const float* tri,
                         int R, int Tp, int Pw, int subg, float* t_out,
                         void* stream) {
-  pair_slope_kernel<<<R / kBlk, kBlk, 0, static_cast<cudaStream_t>(stream)>>>(
-      pairs, rf, tri, Tp, Pw, subg, t_out);
-  return last_error();
+  decltype(&launch_pair_slope<1>) run = launch_pair_slope<1>;
+  switch (subg) {  // kM = 32 / subg lanes a ray below 32, else 1
+    case 1: run = launch_pair_slope<32>; break;
+    case 2: run = launch_pair_slope<16>; break;
+    case 4: run = launch_pair_slope<8>; break;
+    case 8: run = launch_pair_slope<4>; break;
+    case 16: run = launch_pair_slope<2>; break;
+    default:
+      if (subg < 32 || subg % 32 || kBlk % subg)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run(pairs, rf, tri, R, Tp, Pw, subg, t_out, stream);
 }
 
 }  // extern "C"

@@ -39,9 +39,9 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rfT, int R,
           rfT[6 * R + r], rfT[7 * R + r], rfT[8 * R + r]};
 }
 
-// The test on one slot whose field row i is f(i): B0-B3 and B6 read a
-// slot staged in shared memory (stage.cuh), the others read the rows in
-// device memory through mt_test.  Either way the arithmetic below is the
+// The test on one slot whose field row i is f(i): B0-B3, B5, B6 and B7e
+// read a slot staged in shared memory (stage.cuh), B7a and B7c read the
+// rows in device memory through mt_test.  Either way the arithmetic below is the
 // whole test.
 template <class Field>
 __device__ __forceinline__ MTHit mt_eval(const Ray& q, Field f, float eps) {

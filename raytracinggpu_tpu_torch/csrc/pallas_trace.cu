@@ -23,21 +23,18 @@
 //
 // Numerics (mt.cuh): with --fmad=false and IEEE division the kernels
 // equal the plain versions in ops/pallas_trace.py bit for bit.  B6's
-// result is a min of f32 values, exact in any order, and each test's
-// arithmetic is mt.cuh's whatever thread runs it, so its mapping below
+// result is a min of f32 values and B5's a min of (t, index) pairs under
+// their lexicographic order, both exact in any order, and each test's
+// arithmetic is mt.cuh's whatever thread runs it, so the mapping below
 // changes no bit.
 //
 // What bounds them on this card: operations.  Each (ray, listed slot) is
 // one test of 39 f32 operations (no FMA) plus the compares and the
 // running min; the cat's table (262 KB) stays in L1/L2.
 //
-// B5 (the first design, kept as it was): one thread per ray, 128-thread
-// blocks; each test reads its 16 field rows from device memory as 16
-// strided loads, over a runtime tile width, and padding slots run the
-// IEEE reciprocal's slow path.  With subg >= 32 the walk over the list is
-// warp-uniform and every field load a broadcast.
-//
-// B6, redesigned the way pairs_trace.cu's B1/B2 were (PERF.md, Findings):
+// The design (pairs_trace.cu's B1/B2 carried over to lists; PERF.md,
+// Findings), one template with the winner's index kept or not
+// (tiled_kernel<true> is B5, tiled_kernel<false> B6):
 //   - each warp walks the union of its rays' lists, a merge: every step
 //     takes the least head id among its lanes' lists (__reduce_min_sync)
 //     and advances the lists whose head it was.  With subg >= 32 the warp
@@ -52,7 +49,9 @@
 //     cp.async, a double buffer a warp; no block barrier), so a test
 //     reads its 16 rows as four broadcast 16-byte shared loads;
 //   - the slot loop has a compile-time width of 32 (the tile 128, fixed by
-//     the wrapper), unrolled 4 times;
+//     the wrapper; any other tile width is refused), unrolled 4 times;
+//   - B5's index is the slot's position, tile * 128 + piece * 32 + slot:
+//     no id row is staged;
 //   - a slot whose Ng is zero (padding: 142 of the cat's 4,096) is
 //     skipped: its denom is +-0 or NaN, so no test on it passes;
 //   - one ray a thread (several measured slower for B1/B2: registers).
@@ -69,48 +68,17 @@ namespace {
 constexpr int kIdxBig = 1 << 30;      // index no triangle has
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 128;            // triangles a tile of B6
+constexpr int kTile = 128;            // triangles a tile
 constexpr int kPieces = kTile / kPiece;
 
-// B5.
+// kClosest: B5, the lexicographic min of (t, index) and the winner's
+// index; else B6, the nearest t (idx_out unused).
+template <bool kClosest>
 __global__ void __launch_bounds__(kThreads)
-closest_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
-               const int* __restrict__ lists, int R, int Tp, int L, int subg,
-               int tile_t, float eps, float* __restrict__ t_out,
-               int* __restrict__ idx_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Ray q = load_ray(rfT, R, r);
-  const int n_tiles = Tp / tile_t;
-  const int* row = lists + (r / subg) * L;
-  const int count = min(row[0], L - 1);
-
-  float best_t = kInf;
-  int best_i = kIdxBig;
-  for (int i = 0; i < count; ++i) {
-    const int tile = row[1 + i];
-    if (tile < 0 || tile >= n_tiles) continue;
-    const int base = tile * tile_t;
-    const float* f = fields + base;
-    for (int k = 0; k < tile_t; ++k, ++f) {
-      const MTHit h = mt_test(q, f, Tp, eps);
-      if (!h.valid) continue;
-      const int id = base + k;
-      if (h.t < best_t || (h.t == best_t && id < best_i)) {
-        best_t = h.t;
-        best_i = id;
-      }
-    }
-  }
-  t_out[r] = best_t;
-  idx_out[r] = best_t < kInf ? best_i : 0;
-}
-
-// B6.
-__global__ void __launch_bounds__(kThreads)
-shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
-              const int* __restrict__ lists, int R, int Tp, int L, int subg,
-              float eps, float* __restrict__ t_out) {
+tiled_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
+             const int* __restrict__ lists, int R, int Tp, int L, int subg,
+             float eps, float* __restrict__ t_out,
+             int* __restrict__ idx_out) {
   __shared__ __align__(16) float stage[kWarps][2][kPiece * kStride];
 
   const int lane = threadIdx.x & 31;
@@ -122,6 +90,7 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   const int* row = lists + (r < R ? r / subg : 0) * L;
   const int count = r < R ? min(row[0], L - 1) : 0;
   float best_t = kInf;
+  int best_i = kIdxBig;
 
   // The warp's walk: each piece of each tile of the merge of its lanes'
   // lists (warp-uniform).  pos: this lane's next list position; mine:
@@ -160,6 +129,7 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
   while (have) {
     // a tile this ray's list did not name: eps = +inf, which no t passes
     const float e = mine ? eps : __int_as_float(0x7f800000);
+    const int s0 = tile * kTile + piece * kPiece;  // the piece's first index
     const bool more = next();
     if (more) {
       stage_piece(buf[b ^ 1]);
@@ -180,13 +150,34 @@ shadow_kernel(const float* __restrict__ rfT, const float* __restrict__ fields,
       const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
                            f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
       const MTHit h = mt_eval(q, [&](int i) { return f[i]; }, e);
-      if (h.valid && h.t < best_t) best_t = h.t;
+      if constexpr (kClosest) {
+        const int id = s0 + s;
+        if (h.valid && (h.t < best_t || (h.t == best_t && id < best_i))) {
+          best_t = h.t;
+          best_i = id;
+        }
+      } else {
+        if (h.valid && h.t < best_t) best_t = h.t;
+      }
     }
     __syncwarp();  // the buffer is free for the next piece's copy
     b ^= 1;
     have = more;
   }
-  if (r < R) t_out[r] = best_t;
+  if (r >= R) return;
+  t_out[r] = best_t;
+  if constexpr (kClosest) idx_out[r] = best_t < kInf ? best_i : 0;
+}
+
+template <bool kClosest>
+int launch(const float* rfT, const float* fields, const int* lists, int R,
+           int Tp, int L, int subg, int tile_t, float eps, float* t_out,
+           int* idx_out, void* stream) {
+  if (tile_t != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  tiled_kernel<kClosest><<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      rfT, fields, lists, R, Tp, L, subg, eps, t_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -196,20 +187,15 @@ extern "C" {
 int rt_pallas_shadow(const float* rfT, const float* fields, const int* lists,
                      int R, int Tp, int L, int subg, int tile_t, float eps,
                      float* t_out, void* stream) {
-  if (tile_t != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  shadow_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      rfT, fields, lists, R, Tp, L, subg, eps, t_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(rfT, fields, lists, R, Tp, L, subg, tile_t, eps, t_out,
+                       nullptr, stream);
 }
 
 int rt_pallas_closest(const float* rfT, const float* fields, const int* lists,
                       int R, int Tp, int L, int subg, int tile_t, float eps,
                       float* t_out, int* idx_out, void* stream) {
-  closest_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      rfT, fields, lists, R, Tp, L, subg, tile_t, eps, t_out, idx_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(rfT, fields, lists, R, Tp, L, subg, tile_t, eps, t_out,
+                      idx_out, stream);
 }
 
 }  // extern "C"

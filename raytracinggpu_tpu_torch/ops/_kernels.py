@@ -2,8 +2,8 @@
 
 ``csrc/pairs_trace.cu`` (B0-B3), ``csrc/pallas_trace.cu`` (B5, B6) and
 ``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
-Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3 and B6 the staging of
-``csrc/stage.cuh``), are compiled by ``nvcc`` for
+Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
+staging of ``csrc/stage.cuh``), are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash

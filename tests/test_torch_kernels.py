@@ -486,16 +486,20 @@ def _scrambled(lists, n_tiles, seed=0):
     return torch.from_numpy(out)
 
 
-def _warp_walk_shadow(rfT, fields, lists, eps, subg, foreign_eps=math.inf):
-    """A plain model of B6's mapping (csrc/pallas_trace.cu): each warp of
-    32 rays walks the merge of its lanes' lists (every step takes the least
-    head id among them, ids outside the table skipped, and advances the
-    lists whose head it was); every lane tests the step's tile, a lane
-    whose own list's head it was not with ``foreign_eps`` (+inf in B6), and
-    the tile's slots whose Ng is zero are skipped.  Returns (t, the tests
-    run with ``foreign_eps``)."""
+def _warp_walk(rfT, fields, lists, eps, subg, foreign_eps=math.inf):
+    """A plain model of the mapping of B5 and B6 (csrc/pallas_trace.cu):
+    each warp of 32 rays walks the merge of its lanes' lists (every step
+    takes the least head id among them, ids outside the table skipped, and
+    advances the lists whose head it was); every lane tests the step's
+    tile, a lane whose own list's head it was not with ``foreign_eps``
+    (+inf in the kernels), and the tile's slots whose Ng is zero are
+    skipped.  A lane keeps B5's running min of (t, index) under the
+    lexicographic order, the index a slot's position in the table (B6's
+    t is its first half).  Returns (t, idx, the tests run with
+    ``foreign_eps``)."""
     R, n_tiles, L = rfT.shape[1], fields.shape[1] // 128, lists.shape[1]
     t = torch.full((R,), pt.INF32)
+    idx = torch.full((R,), 2**30, dtype=torch.int32)
     foreign = 0
     for w0 in range(0, R, 32):
         lanes = torch.arange(w0, min(w0 + 32, R))
@@ -512,18 +516,29 @@ def _warp_walk_shadow(rfT, fields, lists, eps, subg, foreign_eps=math.inf):
                 break
             tile = min(heads.values())
             cols = fields[:, tile * 128:(tile + 1) * 128]
-            cols = cols[:, (cols[:3] != 0).any(dim=0)]
+            kept = (cols[:3] != 0).any(dim=0)
+            slot = (torch.arange(128, dtype=torch.int32) + tile * 128)[kept]
             own = torch.tensor([heads.get(int(r) // subg) == tile
                                 for r in lanes])
             for e, on in ((eps, own), (foreign_eps, ~own)):
-                tv, _, _, ok = pat.mt_slots(rfT, cols, e, w0,
+                tv, _, _, ok = pat.mt_slots(rfT, cols[:, kept], e, w0,
                                             w0 + len(lanes))
-                tmin = torch.where(ok, tv, pt.INF32).amin(dim=1)
-                t[lanes[on]] = torch.minimum(t[lanes[on]], tmin[on])
-            foreign += int((~own).sum()) * cols.shape[1]
+                tv = torch.where(ok, tv, pt.INF32)
+                # the tile's own lexicographic min: the first slot at its
+                # least t (slots ascend by index)
+                tmin, first = tv.min(dim=1) if tv.shape[1] else (
+                    torch.full((len(lanes),), pt.INF32),
+                    torch.zeros(len(lanes), dtype=torch.long))
+                imin = slot[first] if len(slot) else first.int()
+                old_t, old_i = t[lanes], idx[lanes]
+                take = on & ok.any(dim=1) & (
+                    (tmin < old_t) | ((tmin == old_t) & (imin < old_i)))
+                t[lanes] = torch.where(take, tmin, old_t)
+                idx[lanes] = torch.where(take, imin, old_i)
+            foreign += int((~own).sum()) * int(kept.sum())
             for sg, h in heads.items():
                 pos[sg] += h == tile
-    return t, foreign
+    return t, torch.where(t < pt.INF32, idx, 0), foreign
 
 
 @pytest.mark.parametrize("capped", [False, True])
@@ -549,14 +564,14 @@ def test_tiled_shadow_plain_ignores_the_order_of_each_list(tiled_rays, mesh,
 def test_tiled_shadow_plain_equals_a_warp_walk_over_the_union(tiled_rays,
                                                               mesh, subg,
                                                               capped):
-    """B6's warp walk (_warp_walk_shadow), on the scrambled lists, gives
+    """B6's warp walk (_warp_walk), on the scrambled lists, gives
     the plain version's t bit for bit: a ray tests the union of its warp's
     lists, the tiles its own list lacked with eps = +inf (below 32 rays a
     subgroup a warp spans several lists, and without the +inf a ray would
     see tiles its subgroup culled), and padding slots are skipped."""
     tab, rfT, lists = _subg_cast(tiled_rays, mesh, capped, subg)
     want = pat.pallas_shadow_plain(rfT, tab.fields, lists, EPS, subg)
-    got, foreign = _warp_walk_shadow(
+    got, _, foreign = _warp_walk(
         rfT, tab.fields, _scrambled(lists, tab.n_tiles, seed=subg), EPS,
         subg)
     assert torch.equal(got, want)
@@ -564,8 +579,8 @@ def test_tiled_shadow_plain_equals_a_warp_walk_over_the_union(tiled_rays,
     if mesh == "random" and capped and subg < 32:
         # the trap the +inf avoids: with the ray's eps on tiles only a
         # neighbouring subgroup kept, rays find hits beyond their caps
-        wrong, _ = _warp_walk_shadow(rfT, tab.fields, lists, EPS, subg,
-                                     foreign_eps=EPS)
+        wrong, _, _ = _warp_walk(rfT, tab.fields, lists, EPS, subg,
+                                 foreign_eps=EPS)
         assert int((wrong < want).sum()) >= 5
 
 
@@ -587,6 +602,99 @@ def test_tiled_shadow_plain_ignores_padding_slots(tiled_rays, mesh, subg,
         assert torch.equal(
             pat.pallas_shadow_plain(rfT, junk, ls, EPS, subg),
             pat.pallas_shadow_plain(rfT, tab.fields, ls, EPS, subg))
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("subg", TILED_SUBGS)
+@pytest.mark.parametrize("mesh", TILED_MESHES)
+def test_tiled_closest_plain_equals_a_warp_walk_over_the_union(tiled_rays,
+                                                               mesh, subg,
+                                                               capped):
+    """B5's warp walk (_warp_walk), on the scrambled lists, gives the plain
+    version's (t, idx) bit for bit: the lexicographic min of (t, index)
+    does not depend on the order of the tiles, the lanes whose own list
+    lacked a tile (below 32 rays a subgroup) test it with eps = +inf, and
+    padding slots are skipped."""
+    tab, rfT, lists = _subg_cast(tiled_rays, mesh, capped, subg)
+    want = pat.pallas_closest_plain(rfT, tab.fields, lists, EPS, subg)
+    t, idx, foreign = _warp_walk(
+        rfT, tab.fields, _scrambled(lists, tab.n_tiles, seed=subg), EPS,
+        subg)
+    assert torch.equal(t, want[0]) and torch.equal(idx, want[1])
+    assert (foreign > 0) == (subg < 32)
+    assert (want[0] < pt.INF32).sum() > 100
+
+
+# slots of one big triangle at z = 0 in the tie mesh: two in the first
+# 32-slot piece of tile 0, one in tile 3, one in tile 6
+TIE_SLOTS = (5, 20, 3 * 128 + 70, 6 * 128 + 100)
+
+
+def _tie_mesh(R, seed=0):
+    """(table, rfT): 1,100 small random triangles (9 tiles, the last part
+    padding) with the slots TIE_SLOTS holding one big triangle at z = 0;
+    R rays, the even ones straight down onto it from z = 25 (every copy
+    is hit at the same t, bit for bit), the odd ones random."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-20, 20, (1100, 3)).astype(np.float32)
+    B = A + rng.standard_normal((1100, 3)).astype(np.float32) * 2
+    C = A + rng.standard_normal((1100, 3)).astype(np.float32) * 2
+    for i in TIE_SLOTS:
+        A[i], B[i], C[i] = (-30, -30, 0), (30, -30, 0), (-30, 30, 0)
+    tab = pat.build_pallas_tables(A, B, C, "cpu")
+    o = rng.uniform(-20, 20, (3, R)).astype(np.float32)
+    d = rng.standard_normal((3, R)).astype(np.float32)
+    o[:2, 0::2] = rng.uniform(-25, 0, (2, (R + 1) // 2))
+    o[2, 0::2] = 25.0
+    d[:, 0::2] = np.float32([[0.0], [0.0], [-1.0]])
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    O = Vec3(*map(torch.from_numpy, o))
+    u = Vec3(*map(torch.from_numpy, d))
+    return tab, pat._ray_features16(O, u)
+
+
+def _odd_lists(n_tiles, S, seed=0):
+    """(S, 1 + n_tiles) int32 list rows of every shape the kernels must
+    take: a random subset of the tiles in random order, or descending, or
+    with ids outside the table among them, or with one id listed twice,
+    or a count past the row's width (every entry is then read, the
+    entries after the subset random ids inside and outside the table)."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(-3, n_tiles + 3, (S, 1 + n_tiles)).astype(np.int32)
+    for row in out:
+        ids = [int(i) for i in rng.permutation(n_tiles)[
+            :rng.integers(0, n_tiles + 1)]]
+        mode = int(rng.integers(5))
+        if mode == 0:
+            ids.sort(reverse=True)
+        elif mode == 1:
+            ids = (ids + [-2, n_tiles + 5])[:n_tiles]
+        elif mode == 2 and ids:
+            ids = (ids + ids[:1])[:n_tiles]
+        row[1:1 + len(ids)] = ids
+        row[0] = 999 if mode == 3 else len(ids)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("subg", [8, 16])
+def test_tiled_closest_plain_equals_a_warp_walk_on_ties_and_odd_lists(subg):
+    """The walk of B5 and B6 below one warp a subgroup, where a warp's lanes
+    walk lists that differ in every way _odd_lists makes them, equals the
+    plain versions bit for bit: exact-t ties between tiles and inside one
+    32-slot piece go to the lowest index listed, whatever the order."""
+    tab, rfT = _tie_mesh(1024, seed=subg)
+    lists = _odd_lists(tab.n_tiles, 1024 // subg, seed=subg)
+    t, idx = pat.pallas_closest_plain(rfT, tab.fields, lists, EPS, subg)
+    got_t, got_i, foreign = _warp_walk(rfT, tab.fields, lists, EPS, subg)
+    assert torch.equal(got_t, t) and torch.equal(got_i, idx)
+    assert torch.equal(got_t, pat.pallas_shadow_plain(rfT, tab.fields, lists,
+                                                      EPS, subg))
+    assert foreign > 0
+    # ties decided: rays whose lists name tile 0 win the first copy of
+    # the triangle, the rest the lowest copy they list
+    won = {i: int((idx == i).sum()) for i in TIE_SLOTS}
+    assert won[5] > 20 and won[3 * 128 + 70] + won[6 * 128 + 100] > 5
+    assert won[20] == 0
 
 
 # ------------------------------------- tables past 32,768 slots (B4 sizes)
@@ -836,16 +944,20 @@ def test_design_benches_read_each_kernels_resources():
 
     report = (_ptxas_entry("_ZN12_GLOBAL__N_112pairs_kernelILi2EEEvPKfS2_PKi"
                            "iiiiifPfPiS3_S3_S3_", 48, 20480)
-              + _ptxas_entry("_ZN12_GLOBAL__N_113shadow_kernelEPKfS1_PKiiiiii"
-                             "fPf", 40, 20480)
+              + _ptxas_entry("_ZN12_GLOBAL__N_112tiled_kernelILb0EEEvPKfS2_PKi"
+                             "iiiifPfPi", 40, 20480)
               + _ptxas_entry("_ZN12_GLOBAL__N_117block_mask_kernelILb1EEEvPKf"
                              "Pf", 16, 2048)
               + _ptxas_entry("_ZN46_INTERNAL_5c3a6b2e_15_pallas_trace_cu_d1f"
-                             "0a9b314closest_kernelEPKfS1_PKiiiiiiifPfPi", 64,
-                             0))
+                             "0a9b312tiled_kernelILb1EEEvPKfS2_PKiiiiifPfPi",
+                             48, 20480)
+              + _ptxas_entry("_ZN12_GLOBAL__N_117pair_slope_kernelILi4EEEvPKi"
+                             "PKfS4_iiiPf", 56, 167936))
     assert pairs_design.kernel_resources(report) == {
-        "pairs_kernelILi2E": (48, 20480), "shadow_kernel": (40, 20480),
-        "block_mask_kernelILb1E": (16, 2048), "closest_kernel": (64, 0)}
+        "pairs_kernelILi2E": (48, 20480), "tiled_kernelILb0E": (40, 20480),
+        "block_mask_kernelILb1E": (16, 2048),
+        "tiled_kernelILb1E": (48, 20480),
+        "pair_slope_kernelILi4E": (56, 167936)}
     assert pairs_design.registers(report) == {"ILi2E": 48}
 
 
@@ -881,6 +993,89 @@ def test_probe_wrappers_check_their_inputs(bad, why):
     with pytest.raises(ValueError, match=why):
         calls[bad]()
     assert _kernels.LAUNCHES == before
+
+
+def _shuffled_pairs(pairs, n_tiles, subg, seed=0):
+    """B7e's pair rows made harder: each block's pairs in random order (one
+    subgroup's pairs spread through the list), one pair listed twice, and
+    three that name no subgroup or tile of the block or the table; block 1
+    gives a count past its row's width (every entry is then read)."""
+    rng = np.random.default_rng(seed)
+    n_sg = 1024 // subg
+    rows = []
+    for row in pairs.numpy():
+        ids = list(rng.permutation(row[1:1 + row[0]]))
+        if ids:
+            ids.insert(int(rng.integers(len(ids) + 1)), ids[0])
+        for bad in (-5, n_sg * 256 + 1, (n_sg - 1) * 256 + n_tiles):
+            ids.insert(int(rng.integers(len(ids) + 1)), bad)
+        rows.append([len(ids)] + ids)
+    out = np.zeros((len(rows), max(map(len, rows))), np.int32)
+    for r, row in zip(out, rows):
+        r[:len(row)] = row
+    if len(out) > 1:
+        out[1, 0] = 10**6
+    return torch.from_numpy(out)
+
+
+def _pair_slope_model(pairs, rf, tri, subg):
+    """A plain model of B7e's mapping (csrc/micro_kernel.cu): the list's
+    pairs cut into warp items of min(subg, 32) rays; in an item lane l is
+    ray l % kSub (kSub = min(subg, 32)) and takes the slots l // kSub,
+    + kM, ... (kM = 32 / kSub) of each 32-slot piece, padding slots (Ng
+    = 0) skipped; the lanes of one ray combine their mins in the kernel's
+    __shfl_xor_sync tree, and each ray's min joins the block's running
+    min as an integer min of the f32 bit patterns (the atomicMin)."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    R, n_tiles = rf.shape[0], tri.shape[1] // 128
+    n_sg, parts = 1024 // subg, max(1, subg // 32)
+    k_sub = min(subg, 32)
+    k_m = 32 // k_sub
+    lane = torch.arange(32)
+    t_run = torch.full((R,), mk.MISS).view(torch.int32)
+    for b in range(R // 1024):
+        row = pairs[b].tolist()
+        count = min(row[0], len(row) - 1)
+        for it in range(max(count, 0) * parts):
+            p = row[1 + it // parts]
+            sg, tile = p >> 8, p & 255
+            if p < 0 or sg >= n_sg or tile >= n_tiles:
+                continue
+            first = b * 1024 + sg * subg + (it % parts) * 32
+            cols = tri[:, tile * 128:(tile + 1) * 128]
+            t = mk._mt(rf[first:first + k_sub], cols)
+            t[:, (cols[:3] == 0).all(dim=0)] = mk.MISS
+            # (ray, piece, i, share) -> lane share * k_sub + ray
+            v = t.view(k_sub, 4, 32 // k_m, k_m).amin(dim=(1, 2))
+            v = v.T.reshape(32)
+            o = k_sub
+            while o < 32:
+                v = torch.minimum(v, v[lane ^ o])
+                o <<= 1
+            best = v[:k_sub].view(torch.int32)
+            cur = t_run[first:first + k_sub]
+            t_run[first:first + k_sub] = torch.where(
+                v[:k_sub] < mk.MISS, torch.minimum(cur, best), cur)
+    return t_run.view(torch.float32).reshape(R // 128, 128)
+
+
+@pytest.mark.parametrize("L", [0, 1, 2, 4])
+@pytest.mark.parametrize("subg", [4, 8, 16, 32, 64])
+def test_pair_slope_plain_equals_the_split_slot_model(subg, L):
+    """B7e's mapping (_pair_slope_model) on shuffled pair lists gives the
+    plain version's t bit for bit: a min of f32 values does not depend on
+    how the slots of a pair are shared among lanes nor on the order of
+    the pairs, and every t is positive, so the integer min of the bit
+    patterns is the float min."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    rf, tri = mk.cast_inputs(2048, 9, subg, "cpu")
+    pairs = _shuffled_pairs(mk.pair_lists(2048, 9, subg, L, "cpu"), 9, subg,
+                            seed=L)
+    want = mk.pair_slope_plain(pairs, rf, tri, subg)
+    assert torch.equal(_pair_slope_model(pairs, rf, tri, subg), want)
+    assert bool((want < mk.MISS).any()) == (L > 0)
 
 
 # ------------------------------------------------------------ CUDA cases
@@ -1108,6 +1303,60 @@ def test_tiled_kernels_bitwise_on_a_soup_sized_table(subg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("subg", [8, 16, 32, 64])
+def test_tiled_kernels_bitwise_on_ties_and_odd_lists(subg):
+    """B5 and B6 against their plain versions where a warp's lanes walk
+    lists that differ (below 32 rays a subgroup), on descending lists, ids
+    outside the table, an id listed twice, counts past L - 1, exact-t ties
+    between tiles and inside one 32-slot piece, and 8,256 rays (not a
+    multiple of the 128-thread block: the idle lanes join their warp's
+    walk)."""
+    _need_cuda()
+    R = 8256
+    tab, rfT = _tie_mesh(R, seed=subg)
+    lists = _odd_lists(tab.n_tiles, R // subg, seed=subg)
+    want = pat.pallas_closest_plain(rfT, tab.fields, lists, EPS, subg)
+    want6 = pat.pallas_shadow_plain(rfT, tab.fields, lists, EPS, subg)
+    args = (rfT.cuda(), tab.fields.cuda(), lists.cuda(), EPS, subg)
+    got = _kernels.pallas_closest(*args)
+    t6 = _kernels.pallas_shadow(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(t6.cpu(), want6)
+    assert int((want[1] == TIE_SLOTS[0]).sum()) > 100
+    assert int((want[1] == TIE_SLOTS[2]).sum()
+               + (want[1] == TIE_SLOTS[3]).sum()) > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_t", [64, 256])
+def test_tiled_kernels_refuse_other_tile_widths(tile_t):
+    """rt_pallas_closest and rt_pallas_shadow run a compile-time slot loop
+    over 128-slot tiles and return cudaErrorInvalidValue (1) for any other
+    width, launching nothing."""
+    _need_cuda()
+    lib = _kernels.load()
+    R, Tp, subg = 256, 512, 64
+    rfT = torch.zeros(16, R, device="cuda")
+    fields = torch.zeros(16, Tp, device="cuda")
+    lists = torch.zeros(R // subg, 1 + Tp // tile_t, dtype=torch.int32,
+                        device="cuda")
+    t = torch.full((R,), -1.0, device="cuda")
+    idx = torch.full((R,), -1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for cfun, outs in (("rt_pallas_closest", (t, idx)),
+                       ("rt_pallas_shadow", (t,))):
+        err = getattr(lib, cfun)(
+            rfT.data_ptr(), fields.data_ptr(), lists.data_ptr(), R, Tp,
+            lists.shape[1], subg, tile_t, EPS,
+            *(o.data_ptr() for o in outs), stream)
+        assert err == 1, cfun
+    torch.cuda.synchronize()
+    assert (t == -1.0).all() and (idx == -1).all()
+
+
+@pytest.mark.cuda
 def test_small_pallas_frame_on_cuda_matches_cpu():
     """The 48x48 spp2 d2 frame through the tiled traversal: one 5120-ray
     cast per depth (4608 rays and 512 zero-direction padding rays), B5 and
@@ -1228,6 +1477,26 @@ def test_probe_pair_slope_bitwise_equals_plain(subg, L):
         pairs[2, 1] = 200                        # no such tile: skipped
     got = mk.pair_slope(pairs, rf, tri, subg)
     torch.cuda.synchronize()
+    assert torch.equal(got, mk.pair_slope_plain(pairs, rf, tri, subg))
+    assert bool((got == mk.MISS).all()) == (L == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [0, 1, 2, 4])
+@pytest.mark.parametrize("subg", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_probe_pair_slope_bitwise_on_shuffled_lists(subg, L):
+    """B7e against its plain version at every subgroup its template
+    covers (kM = 32, 16, 8, 4, 2 lanes a ray, and 1 from 32 rays on) and
+    each L, on lists whose pairs come in random order, with a pair listed
+    twice, bad pairs and a count past the row's width."""
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    pairs = _shuffled_pairs(mk.pair_lists(rf.shape[0], 9, subg, L, "cpu"),
+                            9, subg, seed=subg + L).cuda()
+    n0 = _kernels.LAUNCHES["probe_pair_slope"]
+    got = mk.pair_slope(pairs, rf, tri, subg)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_pair_slope"] == n0 + 1
     assert torch.equal(got, mk.pair_slope_plain(pairs, rf, tri, subg))
     assert bool((got == mk.MISS).all()) == (L == 0)
 
