@@ -113,11 +113,12 @@ Phases, in order; any failed check exits nonzero:
       8, 16, 32, 64 and each L) must equal its plain version bit for bit;
    b. the entry point, ``bench.micro_kernel.main([])``, with the counters
       zeroed just before: every probe launched, no trace kernel; its
-      timing tables (each case checked again inside), then the same
-      tables at PROBE_CAST; the one PyTorch call that computes B7b
-      (``torch.mul``) and B7d (``torch.index_select``) timed beside them
-      at both sizes, on the same inputs, replayed from CUDA graphs as the
-      kernels are;
+      timing tables (each case checked again inside; B7a's with the line
+      through its times over L, the fixed cost of a cast and the cost of
+      a visit), then the same tables at PROBE_CAST; the one PyTorch call
+      that computes B7b (``torch.mul``) and B7d (``torch.index_select``)
+      timed beside them at both sizes, on the same inputs, replayed from
+      CUDA graphs as the kernels are;
 12. the sweep and the last presets:
    a. ``bench.sweep.run_sweep`` on array_bvh 512x512, spps (8, 32) x
       bounces (3, 5), ``traversal="pairs"``, the counters zeroed just
@@ -200,18 +201,18 @@ CPU_PRESET_HITS_FILE = "tests/golden/cpu_512_lost_rays.json"
 HIT_RTOL = 1e-5
 
 # ptxas names the kernel templates' modes pairs_kernel<0..3>,
-# tiled_kernel<false/true>, block_mask_kernel<false/true> and
-# pair_slope_kernel<lanes a ray>
+# tiled_kernel<false/true>, visit_kernel<false/true> (B7a, B7c),
+# block_mask_kernel<false/true> and pair_slope_kernel<lanes a ray>
 _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pairs_kernelILi1E": "pairs_closest_idx",
           "pairs_kernelILi2E": "pairs_closest",
           "pairs_kernelILi3E": "pairs_closest_smooth",
           "tiled_kernelILb0E": "pallas_shadow",
           "tiled_kernelILb1E": "pallas_closest",
-          "tile_slope_kernel": "probe_tile_slope",
+          "visit_kernelILb0E": "probe_tile_slope",
           "block_mask_kernelILb1E": "probe_block_mask",
           "block_mask_kernelILb0E": "probe_block_mask (control)",
-          "uniform_branch_kernel": "probe_uniform_branch",
+          "visit_kernelILb1E": "probe_uniform_branch",
           "row_gather_kernel": "probe_row_gather",
           "pair_slope_kernelILi1E": "probe_pair_slope (subgroup >= 32)",
           "pair_slope_kernelILi2E": "probe_pair_slope (subgroup 16)",

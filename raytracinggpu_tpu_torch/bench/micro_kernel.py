@@ -71,7 +71,7 @@ def _mt(rf, tile):
     """Moller-Trumbore of rays rf (..., n, 16) against triangles tile
     (16, ..., 128): t where the triangle is hit, else 1e9, (..., n, 128).
     Every sum left to right, a reciprocal and multiplies, as the kernels'
-    ``mt_test`` (``csrc/mt.cuh``)."""
+    ``mt_eval`` (``csrc/mt.cuh``)."""
     col = lambda k: rf[..., k:k + 1]
     row = lambda k: tile[k][..., None, :]
     ux, uy, uz, wx, wy, wz, Ox, Oy, Oz = (col(k) for k in range(9))
@@ -338,9 +338,34 @@ def _measure(case, iters, dev, eager=False):
     return res
 
 
+def visit_fit(Ls, secs):
+    """(intercept, slope) of the least-squares line through (L, seconds):
+    the fixed cost of a cast and the cost of one (subgroup, tile) visit."""
+    n = len(Ls)
+    mx, my = sum(Ls) / n, sum(secs) / n
+    slope = (sum((x - mx) * (y - my) for x, y in zip(Ls, secs))
+             / sum((x - mx) ** 2 for x in Ls))
+    return my - slope * mx, slope
+
+
+def fit_line(label, Ls, secs, R):
+    """One line of text: ``visit_fit`` over L > 0 of a B7a table at R
+    rays, beside the measured L = 0 cast."""
+    on = [(L, s) for L, s in zip(Ls, secs) if L]
+    b0, per = visit_fit(*zip(*on))
+    s0 = dict(zip(Ls, secs)).get(0)
+    return (f"{label} fit over L = {', '.join(str(L) for L, _ in on)}: "
+            f"intercept {b0 * 1e6:.3f} us"
+            + (f" (L = 0 measured {s0 * 1e6:.3f} us)" if s0 is not None
+               else "")
+            + f", {per * 1e9 / (R // SUBG):.4f} ns a visit, "
+            f"{per * 1e12 / (R * TILE):.4f} ps an MT test")
+
+
 def bench_tile_slope(R, n_tiles, iters, device=None, seed=0):
     """B7a: cost against visits a subgroup.  Returns one measured case per
-    L (``cases``, ``_measure``)."""
+    L (``cases``, ``_measure``) and prints the line through them
+    (``visit_fit``)."""
     dev = render_device(device)
     res = []
     for c in cases(R, n_tiles, dev, seed, ("slope",)):
@@ -355,6 +380,8 @@ def bench_tile_slope(R, n_tiles, iters, device=None, seed=0):
             line += ("  (intercept: a cast with no visit, the launch floor; "
                      f"launched from Python {m['eager_s'] * 1e6:.2f} us)")
         print(line, flush=True)
+    print(fit_line("tile_slope", [m["L"] for m in res],
+                   [m["s"] for m in res], R), flush=True)
     return res
 
 

@@ -31,6 +31,7 @@ from raytracinggpu_tpu_torch.ops import _kernels
 # FMA as two operations; without FMA a lane retires one operation a cycle
 PEAK_F32_FLOPS = 67e12
 NO_FMA_OPS_S = PEAK_F32_FLOPS / 2
+PEAK_BYTES_S = 3.35e12  # HBM3
 FLOP_PER_TEST = 39
 KERNELS = ("pairs_closest", "pairs_shadow")
 

@@ -1,9 +1,9 @@
 """The tiled closest-hit kernel B5 (the shadow kernel B6 beside it, the
-control) and the probe B7e of several trees on the same inputs, on the
-card.
+control) and the probes B7e, B7a and B7c of several trees on the same
+inputs, on the card.
 
     python -m raytracinggpu_tpu_torch.bench.tiled_design [DIR ...]
-        [--rounds N] [--iters N] [--only tiled,pairslope]
+        [--rounds N] [--iters N] [--only tiled,pairslope,visits]
 
 Builds the ``pallas_trace.cu`` and ``micro_kernel.cu`` of each ``csrc/``
 directory given (this package's when none is; another tree's from ``git
@@ -22,7 +22,14 @@ build); each source must keep the C interface of ``ops/_kernels``.  Then:
   inputs at 131,072 rays and 31 tiles and at 524,288 rays and 40 tiles,
   at subgroups 8, 16, 32 and 64 and L = 0, 1, 2 and 4 pairs a subgroup,
   replayed from CUDA graphs: ms, ps a test (and beyond the L = 0
-  intercept) and the share of the bound.
+  intercept) and the share of the bound;
+- ``visits``: times each tree's B7a (L = 0, 1, 2, 4 and 8 tiles a
+  subgroup) and B7c (all true, a quarter true, and none true: eight
+  skips a warp and no visit) on the same inputs at the same two sizes,
+  replayed from CUDA graphs: ms, ps a test, the shares of the bound and
+  of the no-FMA floor, and each tree's line through its B7a times over
+  L = 1 to 8 (``micro_kernel.visit_fit``: the fixed cost of a cast and
+  the cost of a visit), from the faster of its turns.
 
 The trees run in turns: in the order given, then reversed, ``--rounds``
 times in all (two: A, B, B, A).  Every output must equal the plain
@@ -40,10 +47,13 @@ from raytracinggpu_tpu_torch.bench import pairs_design as pd
 from raytracinggpu_tpu_torch.ops import _kernels
 
 TILED = ("pallas_closest", "pallas_shadow")
-PAIR_SIZES = ((131072, 31), (524288, 40))  # (rays, tiles) of B7e
+PAIR_SIZES = ((131072, 31), (524288, 40))  # (rays, tiles) of the probes
 PAIR_SUBGS = (8, 16, 32, 64)
 PAIR_LS = (0, 1, 2, 4)
-PARTS = ("tiled", "pairslope")
+PARTS = ("tiled", "pairslope", "visits")
+# the probe kernels whose ptxas resources are printed
+_PROBE_KERNELS = ("pair_slope", "visit_kernel", "tile_slope",
+                  "uniform_branch")
 _SPAN_S = 2e-3          # a replayed graph spans at least this
 
 
@@ -57,8 +67,13 @@ def _libs(path_tiled, path_micro):
         fn.argtypes = [p, p, p, i, i, i, i, i, fl] + [p] * len(dts) + [p]
         fn.restype = i
     micro = ctypes.CDLL(path_micro)
-    micro.rt_probe_pair_slope.argtypes = [p, p, p, i, i, i, i, p, p]
-    micro.rt_probe_pair_slope.restype = i
+    for cfun, args in (
+            ("rt_probe_pair_slope", [p, p, p, i, i, i, i, p, p]),
+            ("rt_probe_tile_slope", [p, p, p, i, i, i, i, p, p]),
+            ("rt_probe_uniform_branch", [p, p, p, i, i, i, i, i, p, p])):
+        fn = getattr(micro, cfun)
+        fn.argtypes = args
+        fn.restype = i
     return tiled, micro
 
 
@@ -94,6 +109,24 @@ def launch_pair_slope(lib, pairs, rf, tri, subg):
     return t
 
 
+def launch_visits(lib, case):
+    """One launch of B7a or B7c (``case`` of ``micro_kernel.cases``) from
+    one tree's library; returns t (R / 128, 128)."""
+    rows, rf, tri = case["args"]
+    R, Tp = rf.shape[0], tri.shape[1]
+    t = torch.empty((R // _kernels.TILE_T, _kernels.TILE_T),
+                    dtype=torch.float32, device=rf.device)
+    head = (rows.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
+            rows.shape[1], _kernels.PROBE_SUBG)
+    tail = (t.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if case["probe"] == "slope":
+        _ok(lib.rt_probe_tile_slope(*head, *tail), "rt_probe_tile_slope")
+    else:
+        _ok(lib.rt_probe_uniform_branch(*head, _kernels.PROBE_FIXED, *tail),
+            "rt_probe_uniform_branch")
+    return t
+
+
 def mt_tests(lists, subg: int) -> int:
     """Moller-Trumbore tests of a tiled cast: each ray tests the 128 slots
     of each of the first count ids of its subgroup's list (at most L - 1;
@@ -122,7 +155,8 @@ def _turns(trees, rounds):
 
 def run(trees, rounds=2, iters=20, device="cuda", card="", parts=PARTS):
     """Times every tree; returns {(kernel, case): {tree: [ms, ...]}}: a
-    wrapper of ``TILED`` at a subgroup, or "B7e" at (rays, subgroup, L)."""
+    wrapper of ``TILED`` at a subgroup, "B7e" at (rays, subgroup, L), or
+    the label of a B7a or B7c case (``micro_kernel.cases``) at its rays."""
     from raytracinggpu_tpu_torch.bench import micro_kernel as mk
     from raytracinggpu_tpu_torch.bench._timing import timed
     from raytracinggpu_tpu_torch.ops import pallas_trace as pat
@@ -135,7 +169,8 @@ def run(trees, rounds=2, iters=20, device="cuda", card="", parts=PARTS):
     for v in trees:
         res = pd.kernel_resources(built[v, "pallas_trace.cu"][1])
         res.update((k, r) for k, r in pd.kernel_resources(
-            built[v, "micro_kernel.cu"][1]).items() if "pair_slope" in k)
+            built[v, "micro_kernel.cu"][1]).items()
+            if any(p in k for p in _PROBE_KERNELS))
         print(f"{pd.label(v)}: ptxas (registers, smem bytes) "
               + ", ".join(f"{k}: {r}" for k, r in sorted(res.items())),
               flush=True)
@@ -201,6 +236,52 @@ def run(trees, rounds=2, iters=20, device="cuda", card="", parts=PARTS):
                                  f"ms ({bound_ms / ms:.1%})")
                     print(f"{line}, bitwise the plain version, on {card}",
                           flush=True)
+
+    for R, n_tiles in (PAIR_SIZES if "visits" in parts else ()):
+        todo = list(mk.cases(R, n_tiles, device, only=("slope", "branch")))
+        mask, rf, tri = todo[-1]["args"]
+        todo.append(dict(todo[-1], label="scalar_branch[none_true]",
+                         name="none_true", visits=0, tests=0,
+                         args=(torch.zeros_like(mask), rf, tri),
+                         nbytes=4 * (mask.numel() + R)))
+        Ls = []
+        for c in todo:
+            if c["probe"] == "slope":
+                Ls.append(c["L"])
+            want = c["plain"](*c["args"])
+            calls = {v: (lambda lib=lib, c=c: launch_visits(lib, c))
+                     for v, (_, lib) in libs.items()}
+            for v, fn in calls.items():
+                if not torch.equal(fn(), want):
+                    raise SystemExit(f"tiled_design: {pd.label(v)}'s "
+                                     f"{c['label']} differs from the plain "
+                                     f"version at {R} rays")
+            tests = c["tests"]
+            bound_ms = max(tests * pd.FLOP_PER_TEST / pd.PEAK_F32_FLOPS,
+                           c["nbytes"] / pd.PEAK_BYTES_S) * 1e3
+            floor_ms = tests * pd.FLOP_PER_TEST / pd.NO_FMA_OPS_S * 1e3
+            est = timed(calls[trees[0]], iters, graph=True)
+            n = max(iters, min(100 * iters, math.ceil(_SPAN_S / est)))
+            row = times.setdefault((c["label"], R), {v: [] for v in trees})
+            for v in _turns(list(trees), rounds):
+                ms = timed(calls[v], n, graph=True) * 1e3
+                row[v].append(ms)
+                line = (f"{c['label']} {R} rays, {n_tiles} tiles, "
+                        f"{pd.label(v)}: {ms:.4f} ms replayed ({n} launches "
+                        f"a graph)")
+                if tests:
+                    line += (f", {ms * 1e9 / tests:.3f} ps a test, bound "
+                             f"{bound_ms:.4f} ms ({bound_ms / ms:.1%}), "
+                             f"no-FMA floor {floor_ms:.4f} ms "
+                             f"({floor_ms / ms:.1%})")
+                print(f"{line}, bitwise the plain version, on {card}",
+                      flush=True)
+        for v in trees:
+            secs = [min(times[(f"tile_slope L={L}", R)][v]) / 1e3
+                    for L in Ls]
+            print(mk.fit_line(f"B7a {R} rays, {n_tiles} tiles, "
+                              f"{pd.label(v)}", Ls, secs, R)
+                  + f", on {card}", flush=True)
     return times
 
 

@@ -38,25 +38,30 @@
 //
 // What bounds them on this card: B7a, B7c and B7e are operations-bound
 // (39 f32 operations a test, the cat-sized table in L1/L2); B7b and B7d
-// are bytes-bound (each byte read once and written once).  B7a and B7c
-// keep the first, simple design: one thread per ray with the running min
-// in a register, each test reading its 16 field rows from device memory
-// as 16 strided loads.  B7b: one 512-thread block per 1024 rows, eight
+// are bytes-bound (each byte read once and written once).  B7a, B7c and
+// B7e price a visit under the staged design of the trace kernels
+// (pairs_trace.cu, pallas_trace.cu): each warp walks a tile sequence that
+// is the same for its 32 lanes, stages each tile 32 slots at a time
+// through stage.cuh (slot-major, cp.async, a double buffer a warp, the
+// next piece issued before the current one is tested) and reads a slot as
+// four broadcast 16-byte shared loads over a compile-time slot loop;
+// padding slots (Ng = 0) are skipped as there.  B7a and B7c are one
+// template, visit_kernel<kMasked>: one thread a ray in 128-thread blocks,
+// subgroups of a whole number of warps, so that a warp's walk is its
+// subgroup's (B7a: the listed ids; B7c: the fixed tiles whose mask word
+// is set, the skip a scalar branch before any copy) and its running min
+// stays in a register.  B7b: one 512-thread block per 1024 rows, eight
 // 16-byte loads a thread ahead of its stores (a 256-thread block with a
 // serial loop of 16 lost to torch.mul: at 131,072 rows it left 8 warps
 // an SM; PERF.md, Findings, has the shapes measured).  B7d: one warp per
-// row, 16 bytes a lane.  B7e prices a pair under the staged design of
-// the trace kernels (pairs_trace.cu, pallas_trace.cu): one 1024-thread
-// block per 1024-ray list whose warps take the list's pairs in turn, one
-// at a time, so that every warp's work is tile-uniform; each pair's tile
-// is staged 32 slots at a time through stage.cuh (slot-major, cp.async,
-// a double buffer a warp) and read as four broadcast 16-byte shared loads
-// a test, over a compile-time slot loop; padding slots (Ng = 0) are
-// skipped as there.  At subgroups of 32 rays and more a lane is a ray
-// (a 64-ray pair is two warp items); below 32 a lane is a (ray, share of
-// each piece's slots), and the 32 / subg lanes of one ray combine their
-// mins by __shfl_xor_sync.  The warps merge through an atomicMin on the
-// bit pattern in shared memory (exact: every value is positive).
+// row, 16 bytes a lane.  B7e: one 1024-thread block per 1024-ray list
+// whose warps take the list's pairs in turn, one at a time, so that every
+// warp's work is tile-uniform.  At subgroups of 32 rays and more a lane
+// is a ray (a 64-ray pair is two warp items); below 32 a lane is a (ray,
+// share of each piece's slots), and the 32 / subg lanes of one ray
+// combine their mins by __shfl_xor_sync.  The warps merge through an
+// atomicMin on the bit pattern in shared memory (exact: every value is
+// positive).
 
 #include <cuda_runtime.h>
 
@@ -69,7 +74,8 @@ constexpr int kNF = 16;        // features per ray row, field rows per triangle
 constexpr int kTile = 128;     // triangles per tile
 constexpr int kBlk = 1024;     // rays per block of B7b and B7e
 constexpr float kEps = 1e-4f;  // _mt_pass keeps t > 1e-4
-constexpr int kThreads = 128;
+constexpr int kPieces = kTile / kPiece;        // staged pieces a tile
+constexpr int kBufFloats = kPiece * kStride;  // one staged piece
 
 __device__ __forceinline__ Ray load_ray_row(const float* __restrict__ rf,
                                             int r) {
@@ -77,55 +83,113 @@ __device__ __forceinline__ Ray load_ray_row(const float* __restrict__ rf,
   return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8]};
 }
 
-// min(best, the pass of ray q over tile `tile`'s 128 triangles)
-__device__ __forceinline__ float tile_pass(const Ray& q,
-                                           const float* __restrict__ tri,
-                                           int Tp, int tile, float best) {
-  const float* f = tri + tile * kTile;
-  for (int k = 0; k < kTile; ++k, ++f) {
-    const MTHit h = mt_test(q, f, Tp, kEps);
-    if (h.valid && h.t < best) best = h.t;
-  }
-  return best;
-}
+// B7a (kMasked false) and B7c (true).  rows (R / subg, W) i32, subg a
+// multiple of 32 (the C entries refuse any other) that divides R:
+// B7a's rows are [count, tile ids...], ids outside [0, n_tiles) skipped
+// and count cut at W - 1; in B7c tile j < n_fixed is visited iff
+// rows[sg, j] > 0.  A warp is 32 rays of one subgroup, so its walk (the
+// lambda next) is warp-uniform; it stages each visited tile a piece at a
+// time into its own double buffer and tests each piece while the next
+// one (of this tile or of the next visited) is in flight.  The slot loop
+// is unrolled 8 times: 1 to 2% faster than 4, 7% faster than 2; 256-thread
+// blocks and a buffer shared by a subgroup's two warps lost (PERF.md).
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 
-// B7a.  lists (R / subg, Lw) i32 rows [count, tile ids...]; ids outside
-// [0, n_tiles) are skipped and count is cut at Lw - 1.
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-tile_slope_kernel(const int* __restrict__ lists, const float* __restrict__ rf,
-                  const float* __restrict__ tri, int R, int Tp, int Lw,
-                  int subg, float* __restrict__ t_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Ray q = load_ray_row(rf, r);
+visit_kernel(const int* __restrict__ rows, const float* __restrict__ rf,
+             const float* __restrict__ tri, int R, int Tp, int W, int subg,
+             int n_fixed, float* __restrict__ t_out) {
+  __shared__ __align__(16) float smem[kWarps * 2 * kBufFloats];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kThreads + warp * 32;  // the warp's first ray
+  if (r0 >= R) return;
+  float* const buf = smem + warp * 2 * kBufFloats;
+  const int* const row = rows + static_cast<size_t>(r0 / subg) * W;
   const int n_tiles = Tp / kTile;
-  const int* row = lists + static_cast<size_t>(r / subg) * Lw;
-  const int count = min(row[0], Lw - 1);
+  const int end = kMasked ? n_fixed : min(row[0], W - 1);
+
+  int pos = -1, tile = 0, piece = kPieces;
+  const auto next = [&]() {
+    if (++piece < kPieces) return true;
+    while (++pos < end) {
+      if constexpr (kMasked) {
+        if (row[pos] > 0) {  // the skip: one word read, nothing staged
+          tile = pos;
+          piece = 0;
+          return true;
+        }
+      } else {
+        tile = row[1 + pos];
+        if (tile >= 0 && tile < n_tiles) {
+          piece = 0;
+          return true;
+        }
+      }
+    }
+    return false;
+  };
+
+  // lane l copies slot l of the piece: one coalesced row at a time
+  const auto stage_piece = [&](float* dst) {
+    const float* src = tri + tile * kTile + piece * kPiece + lane;
+#pragma unroll
+    for (int k = 0; k < kNF; ++k)
+      cp_async4(dst + lane * kStride + k, src + k * Tp);
+    cp_async_commit();
+  };
+
+  // the ray is read behind the first piece's copy, and not at all by a
+  // warp that visits nothing
+  Ray q{};
   float best = kInf;
-  for (int i = 0; i < count; ++i) {
-    const int tile = row[1 + i];
-    if (tile < 0 || tile >= n_tiles) continue;
-    best = tile_pass(q, tri, Tp, tile, best);
+  int b = 0;
+  bool have = next();
+  if (have) {
+    stage_piece(buf);
+    q = load_ray_row(rf, r0 + lane);
   }
-  t_out[r] = best;
+  while (have) {
+    const bool more = next();
+    if (more) {
+      stage_piece(buf + (b ^ 1) * kBufFloats);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    const float* sp = buf + b * kBufFloats;
+#pragma unroll 8
+    for (int i = 0; i < kPiece; ++i, sp += kStride) {
+      const float4* v = reinterpret_cast<const float4*>(sp);
+      const float4 f0 = v[0];
+      // Ng = 0 (a padding slot): denom is +-0 or NaN and no test passes
+      if (f0.x == 0.0f && f0.y == 0.0f && f0.z == 0.0f) continue;
+      const float4 f1 = v[1], f2 = v[2], f3 = v[3];
+      const float f[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                           f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
+      const MTHit h = mt_eval(q, [&](int j) { return f[j]; }, kEps);
+      if (h.valid && h.t < best) best = h.t;
+    }
+    __syncwarp();  // the buffer is free for the next piece's copy
+    b ^= 1;
+    have = more;
+  }
+  t_out[r0 + lane] = best;
 }
 
-// B7c.  mask (R / subg, Mw) i32; tile j < n_fixed is visited iff
-// mask[sg, j] > 0.  With subg >= 32 the predicate is warp-uniform.
-__global__ void __launch_bounds__(kThreads)
-uniform_branch_kernel(const int* __restrict__ mask,
-                      const float* __restrict__ rf,
-                      const float* __restrict__ tri, int R, int Tp, int Mw,
-                      int subg, int n_fixed, float* __restrict__ t_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Ray q = load_ray_row(rf, r);
-  const int* row = mask + static_cast<size_t>(r / subg) * Mw;
-  float best = kInf;
-  for (int j = 0; j < n_fixed; ++j) {
-    if (row[j] > 0) best = tile_pass(q, tri, Tp, j, best);
-  }
-  t_out[r] = best;
+template <bool kMasked>
+int launch_visits(const int* rows, const float* rf, const float* tri, int R,
+                  int Tp, int W, int subg, int n_fixed, float* t_out,
+                  void* stream) {
+  if (subg <= 0 || subg % 32) return static_cast<int>(cudaErrorInvalidValue);
+  visit_kernel<kMasked><<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      rows, rf, tri, R, Tp, W, subg, n_fixed, t_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B7b.  One block of kMaskThreads threads per 1024 rows of x (R, 16):
@@ -206,8 +270,6 @@ row_gather_kernel(const int* __restrict__ idx, const float* __restrict__ table,
 // of a positive f32, where an integer atomicMin is the float min.
 constexpr int kPairThreads = kBlk;  // one block a 1024-ray list
 constexpr int kPairWarps = kPairThreads / 32;
-constexpr int kPieces = kTile / kPiece;
-constexpr int kBufFloats = kPiece * kStride;  // one staged piece
 constexpr int kPairSmem =
     static_cast<int>(sizeof(float)) * kPairWarps * 2 * kBufFloats +
     static_cast<int>(sizeof(int)) * kBlk;
@@ -332,22 +394,20 @@ int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 extern "C" {
 
+// subg must be a positive multiple of 32 (else cudaErrorInvalidValue and
+// nothing launched) and divide R (the wrappers check).
 int rt_probe_tile_slope(const int* lists, const float* rf, const float* tri,
                         int R, int Tp, int Lw, int subg, float* t_out,
                         void* stream) {
-  tile_slope_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      lists, rf, tri, R, Tp, Lw, subg, t_out);
-  return last_error();
+  return launch_visits<false>(lists, rf, tri, R, Tp, Lw, subg, 0, t_out,
+                              stream);
 }
 
 int rt_probe_uniform_branch(const int* mask, const float* rf,
                             const float* tri, int R, int Tp, int Mw, int subg,
                             int n_fixed, float* t_out, void* stream) {
-  uniform_branch_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      mask, rf, tri, R, Tp, Mw, subg, n_fixed, t_out);
-  return last_error();
+  return launch_visits<true>(mask, rf, tri, R, Tp, Mw, subg, n_fixed, t_out,
+                             stream);
 }
 
 // R must be a multiple of 1024 (the wrapper checks).

@@ -3,8 +3,8 @@
 // probes of micro_kernel.cu (B7a, B7c, B7e).
 //
 // A ray is the feature rows [u, w = O x u, O] (rows 0-8 of rfT, (16, R)
-// f32); a triangle is 16 field rows [Ng, e2 x A, e2, e1 x A, e1, A.Ng]
-// (in device memory `stride` floats apart, or staged in shared memory):
+// f32); a triangle is 16 field rows [Ng, e2 x A, e2, e1 x A, e1, A.Ng],
+// staged in shared memory (stage.cuh):
 //   denom = u.Ng;  beta = (u.(e2 x A) - w.e2) / denom;
 //   gamma = (w.e1 - u.(e1 x A)) / denom;  t = (A.Ng - O.Ng) / denom,
 // each division a multiply by rden = 1/denom, every sum left to right, in
@@ -39,10 +39,9 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rfT, int R,
           rfT[6 * R + r], rfT[7 * R + r], rfT[8 * R + r]};
 }
 
-// The test on one slot whose field row i is f(i): B0-B3, B5, B6 and B7e
-// read a slot staged in shared memory (stage.cuh), B7a and B7c read the
-// rows in device memory through mt_test.  Either way the arithmetic below is the
-// whole test.
+// The test on one slot whose field row i is f(i): every kernel reads a
+// slot staged in shared memory (stage.cuh) as four 16-byte loads.  The
+// arithmetic below is the whole test.
 template <class Field>
 __device__ __forceinline__ MTHit mt_eval(const Ray& q, Field f, float eps) {
   const float n0 = f(0), n1 = f(1), n2 = f(2);
@@ -60,11 +59,6 @@ __device__ __forceinline__ MTHit mt_eval(const Ray& q, Field f, float eps) {
   const bool valid = denom != 0.0f && beta >= 0.0f && gamma >= 0.0f &&
                      alpha >= 0.0f && tval > eps;
   return {tval, beta, gamma, alpha, n0, n1, n2, valid};
-}
-
-__device__ __forceinline__ MTHit mt_test(const Ray& q, const float* f,
-                                         int stride, float eps) {
-  return mt_eval(q, [&](int i) { return f[i * stride]; }, eps);
 }
 
 }  // namespace

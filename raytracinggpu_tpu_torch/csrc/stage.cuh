@@ -1,6 +1,6 @@
-// Staging field slots into shared memory with cp.async, for the kernels
-// that test staged slots: pairs_trace.cu (B0-B3), pallas_trace.cu (B5,
-// B6) and the probe B7e of micro_kernel.cu.
+// Staging field slots into shared memory with cp.async, for every kernel
+// that tests triangles: pairs_trace.cu (B0-B3), pallas_trace.cu (B5, B6)
+// and the probes B7a, B7c and B7e of micro_kernel.cu.
 //
 // A warp stages kPiece slots at a time, one a lane: lane l copies slot l
 // of the piece row by row (each row one coalesced 128-byte read) to

@@ -17,6 +17,7 @@ and against each other, and the wrappers' dispatch and input checks, on
 the CPU.
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -1078,6 +1079,124 @@ def test_pair_slope_plain_equals_the_split_slot_model(subg, L):
     assert bool((want < mk.MISS).any()) == (L > 0)
 
 
+def _padded_table(tri):
+    """A copy of a probe table with padding slots (Ng = 0): every 7th
+    column, and the whole second piece of 32 slots of tile 2."""
+    tri = tri.clone()
+    tri[:3, ::7] = 0.0
+    tri[:3, 2 * 128 + 32:2 * 128 + 64] = 0.0
+    return tri
+
+
+def _odd_tile_lists(lists, n_tiles, seed=0):
+    """B7a's list rows made harder: each row's ids in random order, with
+    ids -1, n_tiles and 200 (no such tile: skipped) among them; row 1
+    gives a count past its row's width (cut at Lw - 1, so every entry is
+    read, the zeros of its tail as tile 0)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros_like(lists.numpy())
+    for r, row in zip(out, lists.numpy()):
+        ids = list(rng.permutation(row[1:1 + row[0]]))
+        for bad in (-1, n_tiles, 200):
+            ids.insert(int(rng.integers(len(ids) + 1)), bad)
+        r[:1 + len(ids)] = [len(ids)] + ids
+    out[1, 0] = 10**6
+    return torch.from_numpy(out)
+
+
+def _signed_mask(S, frac, seed=0):
+    """B7c's mask, (S, 128) i32: a word is visited iff > 0; a quarter
+    true is a fraction 0.25 of positive words, the others 0 or negative."""
+    rng = np.random.default_rng(seed)
+    on = rng.random((S, 128)) < frac
+    m = np.where(on, rng.integers(1, 5, (S, 128)),
+                 rng.integers(-5, 1, (S, 128)))
+    return torch.from_numpy(m.astype(np.int32))
+
+
+def _visit_model(rows, rf, tri, masked):
+    """A plain model of B7a's and B7c's mapping (csrc/micro_kernel.cu
+    visit_kernel<kMasked>): each warp of 32 rays walks its 64-ray
+    subgroup's tiles in order (B7a: the listed ids up to min(count, Lw -
+    1), ids outside the table skipped; B7c: the fixed tiles j < 8 whose
+    mask word is > 0), tests each tile 32 slots at a time, padding slots
+    (Ng = 0) skipped, and keeps its 32 rays' running mins apart."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    R, n_tiles, W = rf.shape[0], tri.shape[1] // 128, rows.shape[1]
+    t = torch.empty(R)
+    for r0 in range(0, R, 32):
+        row = rows[r0 // mk.SUBG].tolist()
+        if masked:
+            walk = [j for j in range(mk.N_FIXED) if row[j] > 0]
+        else:
+            walk = [i for i in row[1:1 + max(0, min(row[0], W - 1))]
+                    if 0 <= i < n_tiles]
+        best = torch.full((32,), mk.MISS)
+        for tile in walk:
+            for piece in range(4):
+                cols = tri[:, tile * 128 + piece * 32:][:, :32]
+                cols = cols[:, ~(cols[:3] == 0).all(dim=0)]
+                if cols.shape[1]:
+                    best = torch.minimum(
+                        best, mk._mt(rf[r0:r0 + 32], cols).amin(dim=1))
+        t[r0:r0 + 32] = best
+    return t.reshape(R // 128, 128)
+
+
+def test_visit_fit_recovers_the_cost_of_a_cast_and_of_a_visit():
+    """bench/micro_kernel.visit_fit: the least-squares line through B7a's
+    times over L, and fit_line's per-visit and per-test figures, on
+    times that lie on a line (3 us a cast, 40 us an L at 131,072 rays)."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    Ls = [0, 1, 2, 4, 8]
+    secs = [3e-6 + 40e-6 * L for L in Ls]
+    b0, per = mk.visit_fit(Ls[1:], secs[1:])
+    assert b0 == pytest.approx(3e-6) and per == pytest.approx(40e-6)
+    line = mk.fit_line("B7a", Ls, secs, 131072)
+    assert "intercept 3.000 us (L = 0 measured 3.000 us)" in line
+    visit_ns, test_ps = (float(x) for x in re.findall(
+        r"([\d.]+) (?:ns a visit|ps an MT test)", line))
+    assert visit_ns == pytest.approx(40e3 / 2048, abs=1e-4)
+    assert test_ps == pytest.approx(40e6 / (131072 * 128), abs=1e-4)
+
+
+@pytest.mark.parametrize("L", [0, 1, 2, 4, 8])
+def test_tile_slope_plain_equals_the_staged_walk_model(L):
+    """B7a's mapping (_visit_model) on a table with padding slots and on
+    shuffled lists with bad ids and a cut count gives the plain version's
+    t bit for bit: a min of f32 values does not depend on the order of the
+    tiles nor on their cut into pieces, and a padding slot never hits."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    rf, tri = mk.cast_inputs(2048, 9, L, "cpu")
+    tri = _padded_table(tri)
+    lists = _odd_tile_lists(mk.tile_lists(2048, L, "cpu"), 9, seed=L)
+    want = mk.tile_slope_plain(lists, rf, tri)
+    assert torch.equal(_visit_model(lists, rf, tri, False), want)
+    # subgroup 0 lists only bad ids beside tiles 0 .. L - 1
+    assert bool((want[0, :64] < mk.MISS).any()) == (L > 0)
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.25, 0.0])
+def test_uniform_branch_plain_equals_the_staged_walk_model(frac):
+    """B7c's mapping (_visit_model) under masks of positive, zero and
+    negative words on a table with padding slots gives the plain
+    version's t bit for bit; with every word set it is B7a's at L = 8."""
+    from raytracinggpu_tpu_torch.bench import micro_kernel as mk
+
+    rf, tri = mk.cast_inputs(2048, 9, 3, "cpu")
+    tri = _padded_table(tri)
+    mask = _signed_mask(2048 // 64, frac, seed=int(frac * 4))
+    want = mk.uniform_branch_plain(mask, rf, tri)
+    assert torch.equal(_visit_model(mask, rf, tri, True), want)
+    assert bool((want < mk.MISS).any()) == (frac > 0)
+    if frac == 1.0:
+        assert torch.equal(want, mk.tile_slope_plain(
+            mk.tile_lists(2048, 8, "cpu"), rf, tri))
+
+
 # ------------------------------------------------------------ CUDA cases
 
 def _need_cuda():
@@ -1462,6 +1581,62 @@ def test_probe_uniform_branch_bitwise_equals_plain(frac):
             mk.tile_lists(rf.shape[0], 8, "cuda"), rf, tri))
     if frac == 0.0:
         assert (got == mk.MISS).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [0, 1, 2, 4, 8])
+def test_probe_tile_slope_bitwise_on_shuffled_lists_and_padding(L):
+    """B7a on shuffled lists with bad ids and a count past the row's width
+    (_odd_tile_lists), over a table with padding slots: bitwise the plain
+    version, one launch."""
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    tri = _padded_table(tri)
+    lists = _odd_tile_lists(mk.tile_lists(rf.shape[0], L, "cpu"), 9,
+                            seed=L).cuda()
+    n0 = _kernels.LAUNCHES["probe_tile_slope"]
+    got = mk.tile_slope(lists, rf, tri)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["probe_tile_slope"] == n0 + 1
+    assert got.is_cuda and torch.equal(got, mk.tile_slope_plain(lists, rf,
+                                                                tri))
+    assert bool((got[0, :64] < mk.MISS).any()) == (L > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, 0.25, 0.0])
+def test_probe_uniform_branch_bitwise_on_padding_and_signed_words(frac):
+    """B7c under masks of positive, zero and negative words, over a table
+    with padding slots: bitwise the plain version."""
+    _need_cuda()
+    mk, rf, tri = _probe_cast()
+    tri = _padded_table(tri)
+    mask = _signed_mask(rf.shape[0] // 64, frac, seed=int(frac * 4)).cuda()
+    got = mk.uniform_branch(mask, rf, tri)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.uniform_branch_plain(mask, rf, tri))
+    assert bool((got < mk.MISS).any()) == (frac > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subg", [16, 48])
+def test_probe_visits_refuse_subgroups_off_the_warp(subg):
+    """rt_probe_tile_slope and rt_probe_uniform_branch walk one subgroup a
+    warp and return cudaErrorInvalidValue (1) for a subgroup that is not a
+    multiple of 32, launching nothing."""
+    _need_cuda()
+    lib = _kernels.load()
+    R, Tp = 384, 9 * 128
+    rf = torch.zeros(R, 16, device="cuda")
+    tri = torch.zeros(16, Tp, device="cuda")
+    rows = torch.ones(R // subg, 128, dtype=torch.int32, device="cuda")
+    t = torch.full((R,), -1.0, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (rows.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp, 128, subg)
+    assert lib.rt_probe_tile_slope(*head, t.data_ptr(), stream) == 1
+    assert lib.rt_probe_uniform_branch(*head, 8, t.data_ptr(), stream) == 1
+    torch.cuda.synchronize()
+    assert (t == -1.0).all()
 
 
 @pytest.mark.cuda
