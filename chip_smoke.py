@@ -130,7 +130,40 @@ Phases, in order; any failed check exits nonzero:
       CPU_PRESET_HITS_FILE), B1 and B2 launched once per cast (no kernel for the
       mesh-less ``showcase``), Mray/s over two more frames; ``showcase``
       must send lanes through the mirror and refraction branches, and
-      prints its total-internal-reflection lanes.
+      prints its total-internal-reflection lanes;
+13. the animated mesh, the ``bvh`` traversal and the pairs clusterings
+    (scene/transform.py, ops/bvh_traverse.py, accel/sah.py and the pave
+    packing):
+   a. ``run_loop`` of the ``realtime`` preset with ``animate_mesh`` over
+      LOOP_FRAMES frames, the counters zeroed just before: B3 and B2
+      launched 30 times a frame and B1 never, the mesh angle advanced by
+      mesh_speed * dt a frame, the image finite; frame 2 from two
+      ``step`` calls equals the loop's, and on its depth-0 and depth-1
+      casts, which read the posed fields, B3, B2 and B0 must equal their
+      plain versions bit for bit (and B0's (t, idx) B3's); ms a frame
+      beside phase 7c's unanimated loop, and ``pose_mesh``'s ms between
+      CUDA events, on the host clock and in device kernels (the busy
+      share from a ``torch.profiler`` trace);
+   b. animated anchor: frame 1 at mesh_speed ANIM_MESH_SPEED (0.9 rad)
+      through pairs and through pallas, each mean within 1% of the JAX
+      package's CPU render (ANCHOR_ANIM_CPU_MEAN);
+   c. ``pose_mesh(rotation_y(POSE_ANGLE))`` of ``array_bvh`` against a
+      scene built from host-rotated vertices, 512x512 spp 8 depth 3,
+      through pairs and pallas: POSE_PIXEL_SHARE of the pixels within one
+      u8 level; every posed vertex inside its pairs tile box, its member
+      box and its tiled tile box; an identity pose bitwise the host-built
+      tables;
+   d. the production anchor through ``traversal="bvh"`` in the ``soa`` and
+      ``aos10`` layouts: no kernel launched, every ray hits, each mean
+      within 1% of the JAX package's CPU render, the two frames bitwise
+      equal, each frame's seconds printed; on phase 3's depth-0 rays the
+      walk against B0, uncapped: hit/miss and idx on >= 99.9% of the rays
+      and hits, t within rtol 1e-5; the walk's host-clock time and its
+      kernels' device time on those rays;
+   e. the headline frame with the pairs tables of each ``--clustering``
+      (ref, then CLUSTERINGS): bitwise phase 4's frame, B1 and B2 launched
+      once per cast; tiles, members, host build seconds and B1/B2 ms on
+      the depth-1 cast of each.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -169,6 +202,21 @@ ANCHOR_RTOL = 0.01
 # (PERF.md, "Realtime anchor", gives the command), same 1% limit.
 ANCHOR_RT_CPU_MEAN = 74500.95069729118
 LOOP_FRAMES = 6
+# Phase 13b: frame 1 of the animated loop at mesh_speed 45 (the mesh at
+# 45 * 0.02 = 0.9 rad, the light as in the realtime anchor), the JAX
+# package's CPU render in 32-row bands (PERF.md, "Animated anchor", gives
+# the command), same 1% limit.
+ANCHOR_ANIM_CPU_MEAN = 74392.52495520844
+ANIM_MESH_SPEED = 45.0
+# Phase 13c: a pose on the device against a host rebuild of the rotated
+# mesh (different trees, the same geometry): this share of pixels within
+# one u8 level (tests/test_transform.py's standard)
+POSE_ANGLE = 0.9
+POSE_PIXEL_SHARE = 0.98
+# Phase 13e: the pairs clusterings of the CLI's --clustering, each against
+# the reference cut (pairs_cluster, pairs_pack, pairs_cut)
+CLUSTERINGS = {"sah": ("sah", "morton", 0), "sah-pave": ("sah", "pave", 32),
+               "ref-pave": ("ref", "pave", 32)}
 # Phase 10: bench/big_mesh.py's soup; the JAX package streams a field
 # table past ST_SLOTS slots in supertiles (B4); the plain versions are
 # held on windows of WINDOW_RAYS rays of each cast (at the soup's 262,784
@@ -484,8 +532,8 @@ def _time_casts(casts, timing, card, depths=(0, 1)):
 
 
 def _realtime(device, card, err, timing):
-    """Phase 7 (module docstring).  Returns the loop's launch counts and,
-    for phase 8, (config, scene tables, kept casts)."""
+    """Phase 7 (module docstring).  Returns the loop's launch counts, its
+    ms a frame and, for phase 8, (config, scene tables, kept casts)."""
     import io
     import tempfile
 
@@ -614,7 +662,7 @@ def _realtime(device, card, err, timing):
 
     # e. timings on the kept casts
     _time_casts(casts, timing, card)
-    return loop_launches, (cfg, tables, casts)
+    return loop_launches, frame_s * 1e3, (cfg, tables, casts)
 
 
 def _mesh_query(cfg, tables, casts, err):
@@ -1277,6 +1325,314 @@ def _sweep_and_presets(device, card, headline_mrays):
             _fail(f"{preset}: no shadow ray was occluded")
 
 
+def _pixels_within_one_level(a, b) -> float:
+    """Share of pixels whose tonemapped u8 colours differ by at most one
+    level in every channel."""
+    from raytracinggpu_tpu_torch.render.image_io import tonemap
+
+    d = abs(tonemap(a).astype(int) - tonemap(b).astype(int))
+    return float((d.max(axis=-1) <= 1).mean())
+
+
+def _animated_loop(device, card, err, unanimated_ms):
+    """Phase 13a (module docstring).  Returns (the loop's launch counts,
+    its ms a frame)."""
+    import io
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.scene.transform import pose_mesh, rotation_y
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels, wall_ms
+
+    cfg, tables = build_preset("realtime", device, animate_mesh=True)
+    W, H = cfg.width, cfg.height
+    if (W, H, cfg.spp, cfg.max_depth) != (512, 512, 20, 3) \
+            or not cfg.animate_mesh:
+        _fail("the animated realtime scene is not 512x512 spp 20 depth 3")
+    per_frame = 30
+    want = {k: 0 for k in _kernels.LAUNCHES}
+    want.update(pairs_closest_smooth=per_frame * LOOP_FRAMES,
+                pairs_shadow=per_frame * LOOP_FRAMES)
+    pipe = io.BytesIO()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, _ = rt.run_loop(tables, cfg, LOOP_FRAMES, seed=0, raw_pipe=pipe,
+                           print_every=0)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) / LOOP_FRAMES * 1e3
+    launches = dict(_kernels.LAUNCHES)
+    angle = np.float32(0.0)
+    for _ in range(LOOP_FRAMES):   # angle + mesh_speed * dt, one rounding
+        angle = np.float32(np.float64(angle) + np.float64(np.float32(1.0))
+                           * np.float64(np.float32(0.02)))
+    print(f"animated loop: {LOOP_FRAMES} frames, {frame_ms:.3f} ms per frame "
+          f"beside the unanimated loop's {unanimated_ms:.3f} (phase 7c, this "
+          f"call), launches {launches}, mesh angle "
+          f"{float(state.mesh_angle)!r}, on {card}")
+    if launches != want:
+        _fail(f"animated loop launches {launches}, expected {want}")
+    if (float(state.mesh_angle), int(state.frames)) != (float(angle),
+                                                        LOOP_FRAMES):
+        _fail(f"animated loop mesh angle {float(state.mesh_angle)!r}, "
+              f"expected {float(angle)!r}")
+    if not bool(torch.isfinite(state.accum).all()):
+        _fail("the animated loop's image has non-finite values")
+
+    # frame 2 from two steps, its casts kept: the loop's second display,
+    # and the kernels on the posed fields
+    s1, _ = rt.step(tables, cfg, rt.init_state(cfg, tables, seed=0))
+    kept, (s2, disp2) = _capture_casts(lambda: rt.step(tables, cfg, s1), 2)
+    shown = np.frombuffer(pipe.getvalue(), np.uint8).reshape(
+        LOOP_FRAMES, H, W, 3)
+    if not np.array_equal(shown[1], disp2.cpu().numpy()):
+        _fail("the animated loop's frame 2 differs from two steps'")
+    posed = pose_mesh(tables, rotation_y(s2.mesh_angle))
+    if torch.equal(posed.pairs_mesh.fields, tables.pairs_mesh.fields):
+        _fail("frame 2's pose left the pairs fields unchanged")
+    _check_casts(kept, {"pairs_closest_smooth": ("pairs_closest_idx",),
+                        "pairs_shadow": ()},
+                 posed.pairs_mesh, cfg, err, "animated frame 2")
+    pose = lambda: pose_mesh(tables, rotation_y(s2.mesh_angle))
+    pose_ms = _time_ms(pose, 20)
+    prof = device_kernels(pose)
+    wall = wall_ms(pose, device)
+    print(f"pose_mesh: {pose_ms:.4f} ms a frame between CUDA events "
+          f"({tables.mesh.n_tri} triangles, every table rebuilt); one pose "
+          f"{wall:.3f} ms on the host clock, {prof['kernels']} kernels "
+          f"{prof['kernel_ms']:.4f} ms of device time (busy "
+          f"{prof['kernel_ms'] / wall:.3f}), on {card}")
+    return launches, frame_ms
+
+
+def _animated_anchor(device):
+    """Phase 13b (module docstring)."""
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+    for traversal in ("pairs", "pallas"):
+        cfg, tables = build_preset("realtime", device, animate_mesh=True,
+                                   traversal=traversal)
+        state, _ = rt.step(tables, cfg, rt.init_state(cfg, tables, seed=0),
+                           mesh_speed=ANIM_MESH_SPEED)
+        mean = float(state.accum.double().mean())
+        rel = (mean - ANCHOR_ANIM_CPU_MEAN) / ANCHOR_ANIM_CPU_MEAN
+        print(f"animated anchor ({traversal}): frame 1 at mesh angle "
+              f"{float(state.mesh_angle)!r} mean {mean:.3f} vs the JAX "
+              f"package on CPU {ANCHOR_ANIM_CPU_MEAN:.3f} (rel {rel:+.6f}, "
+              f"limit {ANCHOR_RTOL})")
+        if float(state.mesh_angle) != float(np.float32(0.9)):
+            _fail(f"frame 1's mesh angle {float(state.mesh_angle)!r}")
+        if not bool(torch.isfinite(state.accum).all()):
+            _fail(f"animated anchor ({traversal}): non-finite values")
+        if not abs(rel) <= ANCHOR_RTOL:
+            _fail(f"animated anchor ({traversal}) mean {mean} off by "
+                  f"{rel:.4%}")
+
+
+def _posed_vs_host(device):
+    """Phase 13c (module docstring)."""
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
+    from raytracinggpu_tpu_torch.scene.mesh import (
+        build_mesh, rescale, rotate_y)
+    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH, read_obj
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.scene.transform import pose_mesh, rotation_y
+
+    size = dict(width=512, height=512, spp=8, max_depth=3)
+    obj = read_obj(CAT_OBJ_PATH)
+    obj.vertices = rotate_y(rescale(obj.vertices, 0.6, (0.0, -10.0, 0.0)),
+                            POSE_ANGLE)
+    host_mesh = build_mesh(obj)
+    for traversal in ("pairs", "pallas"):
+        cfg, tables = build_preset("array_bvh", device, traversal=traversal,
+                                   **size)
+        posed = pose_mesh(tables, rotation_y(POSE_ANGLE, device))
+        cam = Camera.default(cfg, device)
+        img, _ = render_frame(posed, cfg, cam, PRNGKey(0, device))
+        _, host = build_preset("array_bvh", device, mesh=host_mesh,
+                               traversal=traversal, **size)
+        ref, _ = render_frame(host, cfg, cam, PRNGKey(0, device))
+        share = _pixels_within_one_level(img.cpu().numpy(),
+                                         ref.cpu().numpy())
+        print(f"posed vs host rebuild ({traversal}, 512x512 spp8 d3, "
+              f"{POSE_ANGLE} rad): {share:.6f} of pixels within one u8 level "
+              f"(limit {POSE_PIXEL_SHARE})")
+        if share < POSE_PIXEL_SHARE:
+            _fail(f"posed {traversal} frame off the host rebuild on "
+                  f"{1 - share:.4%} of pixels")
+    # an identity pose reproduces the host-built tables bit for bit
+    ident = pose_mesh(tables, rotation_y(0.0, device))
+    pairs = [(getattr(ident.pairs_mesh, f), getattr(tables.pairs_mesh, f))
+             for f in ("fields", "tile_aabb", "member_aabb")]
+    tiled = [(getattr(ident.pallas_mesh, f), getattr(tables.pallas_mesh, f))
+             for f in ("fields", "fieldsT", "tile_aabb")]
+    tri = [(ident.mesh.mt, tables.mesh.mt),
+           (ident.mesh.cornersT, tables.mesh.cornersT)]
+    boxes = list(zip((*ident.bvh.mn, *ident.bvh.mx),
+                     (*tables.bvh.mn, *tables.bvh.mx)))
+    if not all(torch.equal(a, b) for a, b in pairs + tiled + tri + boxes):
+        _fail("an identity pose changed a host-built table on the card")
+    print("identity pose: the pairs, tiled and triangle tables and the BVH "
+          "boxes bitwise the host build's")
+    # every posed vertex inside its tile box and its member box
+    src = tables.mesh_src
+    pm, tm = posed.pairs_mesh, posed.pallas_mesh
+    live = pm.slot_src >= 0
+    slot = pm.slot_src[live].long()
+    tile_t = pm.slot_src.shape[0] // pm.tile_aabb.shape[0]
+    tile = live.nonzero()[:, 0] // tile_t
+    member = pm.member_slot[live].long()
+    valid = src.valid.nonzero()[:, 0]
+    M = rotation_y(POSE_ANGLE, device)
+    worst = 0.0
+    for corner in (src.A, src.B, src.C):
+        V = torch.stack(list(corner), dim=1) @ M.T
+        for boxes, rows, pts in ((pm.tile_aabb, tile, V[slot]),
+                                 (pm.member_aabb, member, V[slot]),
+                                 (tm.tile_aabb, valid // 128, V[valid])):
+            out = torch.maximum(boxes[rows, 0:3] - pts,
+                                pts - boxes[rows, 3:6]).max()
+            worst = max(worst, float(out))
+    print(f"posed tables: every vertex inside its pairs tile box, member box "
+          f"and tiled tile box (largest excess {worst:.3g}, limit 1e-3)")
+    if worst > 1e-3:
+        _fail(f"a posed vertex lies {worst} outside its box")
+
+
+def _bvh_walk(device, card, rfT):
+    """Phase 13d (module docstring); ``rfT`` the ray features of phase 3's
+    depth-0 closest cast."""
+    import dataclasses
+
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops.bvh_traverse import intersect_tris_bvh
+    from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels, wall_ms
+
+    cfg, tables = build_preset("array_bvh", device, width=512, height=512,
+                               spp=8, max_depth=3, traversal="bvh")
+    cam = Camera.default(cfg, device)
+    n_rays = cfg.width * cfg.height * cfg.spp
+    none = {k: 0 for k in _kernels.LAUNCHES}
+    imgs = {}
+    for layout in ("soa", "aos10"):
+        lcfg = dataclasses.replace(cfg, bvh_node_layout=layout)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        img, stats = render_frame(tables, lcfg, cam, PRNGKey(0, device))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mean = float(img.double().mean())
+        rel = (mean - ANCHOR_CPU_MEAN) / ANCHOR_CPU_MEAN
+        hit = stats.hit.tolist()
+        print(f"bvh ({layout}): production anchor 512x512 spp8 d3 seed 0 in "
+              f"{secs:.3f} s, mean {mean:.3f} vs the JAX package on CPU "
+              f"{ANCHOR_CPU_MEAN:.3f} (rel {rel:+.6f}, limit {ANCHOR_RTOL}), "
+              f"hit per depth {hit}, launches {dict(_kernels.LAUNCHES)}, on "
+              f"{card}")
+        if dict(_kernels.LAUNCHES) != none:
+            _fail(f"bvh ({layout}) launched a kernel")
+        if any(h != n_rays for h in hit):
+            _fail(f"bvh ({layout}): rays escaped the enclosed scene: {hit}")
+        if not abs(rel) <= ANCHOR_RTOL:
+            _fail(f"bvh ({layout}) anchor mean {mean} off by {rel:.4%}")
+        imgs[layout] = img
+    if not torch.equal(imgs["soa"], imgs["aos10"]):
+        _fail("the bvh frames of the soa and aos10 layouts differ")
+    print("bvh: the soa and aos10 frames are bitwise equal")
+
+    # the walk against B0 on the headline frame's depth-0 rays, uncapped
+    u = Vec3(*(rfT[i].clone() for i in (0, 1, 2)))   # rows: u, O x u, O
+    O = Vec3(*(rfT[i].clone() for i in (6, 7, 8)))
+    run = lambda: intersect_tris_bvh(O, u, tables.mesh, tables.bvh,
+                                     cfg.eps_leaf, cfg.bvh_max_leaf)
+    walk = run()
+    walk_ms = wall_ms(run, device)
+    prof = device_kernels(run)
+    b0 = pt.intersect_tris_pairs(O, u, tables.pairs_mesh, cfg.eps_leaf,
+                                 subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
+                                 payload=None)
+    hw, h0 = walk.t < pt.INF32, b0.t < pt.INF32
+    both = hw & h0
+    same_hit = float((hw == h0).float().mean())
+    same_idx = float((walk.idx == b0.idx)[both].float().mean())
+    rel = float(((walk.t - b0.t).abs() / b0.t.abs())[both].max())
+    print(f"bvh walk vs B0 on {O.x.shape[0]} uncapped depth-0 rays: hit/miss "
+          f"equal on {same_hit:.6f}, {int(h0.sum())} B0 hits, idx equal on "
+          f"{same_idx:.6f} of both hits, t max rel diff {rel:.3g}; the walk "
+          f"{walk_ms:.1f} ms on the host clock, {prof['kernels']} kernels "
+          f"{prof['kernel_ms']:.1f} ms of device time (busy "
+          f"{prof['kernel_ms'] / walk_ms:.3f}), on {card}")
+    if same_hit < 0.999 or same_idx < 0.999 or rel > 1e-5:
+        _fail("the bvh walk disagrees with B0")
+
+
+def _clustering(device, card, head_img):
+    """Phase 13e (module docstring); ``head_img`` phase 4's frame."""
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, chunk_size, group_size, render_frame)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+    for name, (tree, pack, cut) in (("ref", ("ref", "morton", 0)),
+                                    *CLUSTERINGS.items()):
+        t0 = time.perf_counter()
+        cfg, tables = build_preset(
+            "array_bvh", device, width=512, height=512, spp=32, max_depth=5,
+            pairs_cluster=tree, pairs_pack=pack, pairs_cut=cut)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tab = tables.pairs_mesh
+        g = group_size(cfg, cfg.spp)
+        R_group = g * cfg.width * cfg.height
+        n_casts = (cfg.spp // g) * cfg.max_depth * -(
+            -R_group // chunk_size(cfg, R_group))
+        want = {k: 0 for k in _kernels.LAUNCHES}
+        want.update(pairs_closest=n_casts, pairs_shadow=n_casts)
+        _kernels.reset_launches()
+        kept, (img, _) = _capture_casts(lambda: render_frame(
+            tables, cfg, Camera.default(cfg, device), PRNGKey(0, device)), 2)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        if launches != want:
+            _fail(f"clustering {name}: launches {launches}, expected {want}")
+        if not torch.equal(img, head_img):
+            _fail(f"clustering {name} changed the headline frame")
+        ms = {}
+        for k in ("pairs_closest", "pairs_shadow"):
+            rfT, bits = kept[k][1]   # the depth-1 cast
+            args = (rfT, tab.fields, bits, cfg.eps_leaf, cfg.pairs_subgroup,
+                    pt.tile_width(tab))
+            kern = getattr(_kernels, k)
+            ms[k] = _time_ms(lambda: kern(*args), 20)
+            ms[k + " tests"] = _mt_tests(k, args)[1]
+        print(f"clustering {name} (pairs_cluster {tree}, pack {pack}, cut "
+              f"{cut}): {tab.tile_aabb.shape[0]} tiles, "
+              f"{tab.member_aabb.shape[0]} members, host build "
+              f"{build_s:.3f} s; headline frame bitwise phase 4's, B1 and B2 "
+              f"{n_casts} launches each; depth-1 cast B1 "
+              f"{ms['pairs_closest']:.4f} ms ({ms['pairs_closest tests']} MT "
+              f"tests), B2 {ms['pairs_shadow']:.4f} ms "
+              f"({ms['pairs_shadow tests']} MT tests), on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1383,6 +1739,7 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     mrays = rays_per_frame(cfg) / min(times) / 1e6
+    head_img, rays0 = img, kept["pairs_closest"][0][0]
     print(f"headline: {mrays:.3f} Mray/s (array_bvh 512x512 spp32 d5 pairs, "
           f"{rays_per_frame(cfg)} rays/frame, frame times "
           f"{[round(t, 4) for t in times]} s) on {card}")
@@ -1412,8 +1769,8 @@ def main() -> int:
 
     # ---- 7. realtime loop ------------------------------------------------
     timing_rt = {}
-    loop_launches, (rcfg, rtab, rcasts) = _realtime(device, card, err,
-                                                    timing_rt)
+    loop_launches, loop_ms, (rcfg, rtab, rcasts) = _realtime(
+        device, card, err, timing_rt)
     lap("7 realtime loop")
 
     # ---- 8. mesh query ---------------------------------------------------
@@ -1444,6 +1801,18 @@ def main() -> int:
     # ---- 12. the sweep and the last presets ------------------------------
     _sweep_and_presets(device, card, mrays)
     lap("12 sweep and presets")
+
+    # ---- 13. the animated mesh, the bvh walk, the clusterings -------------
+    _animated_loop(device, card, err, loop_ms)
+    lap("13a animated loop")
+    _animated_anchor(device)
+    lap("13b animated anchor")
+    _posed_vs_host(device)
+    lap("13c posed vs host rebuild")
+    _bvh_walk(device, card, rays0)
+    lap("13d bvh")
+    _clustering(device, card, head_img)
+    lap("13e clustering")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:

@@ -12,8 +12,10 @@ The reference's recursive median-of-space build, with identical semantics:
   fewer than 5 triangles remain.
 
 Nodes are emitted in preorder with ``right == -1`` marking a leaf, plus
-preorder skip links.  ``cluster_cut`` partitions the same tree into
-contiguous bounded-size clusters for the pairs tables.
+preorder skip links.  ``to_reference_layout`` gives the reference's
+10-float node record, ``check_invariants`` the tree's structural checks,
+and ``cluster_cut`` partitions the same tree into contiguous bounded-size
+clusters for the pairs tables.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 
 LEAF_MIN_TRIS = 5  # reference: triangle_end - triangle_start < 5
+NODE_FLOATS = 10   # reference flat record width
 
 
 @dataclass
@@ -49,6 +52,18 @@ class FlatBVH:
     @property
     def n_nodes(self) -> int:
         return len(self.left)
+
+    def to_reference_layout(self) -> np.ndarray:
+        """The reference's 10-float node record, flattened:
+        [left, right, mn.xyz, mx.xyz, start, end] per node."""
+        out = np.zeros((self.n_nodes, NODE_FLOATS), np.float32)
+        out[:, 0] = self.left
+        out[:, 1] = self.right
+        out[:, 2:5] = self.mn
+        out[:, 5:8] = self.mx
+        out[:, 8] = self.tri_start
+        out[:, 9] = self.tri_end
+        return out.reshape(-1)
 
 
 def build_bvh(A: np.ndarray, B: np.ndarray, C: np.ndarray) -> FlatBVH:
@@ -150,6 +165,40 @@ def _compute_skip_links(bvh: FlatBVH) -> None:
         if r != -1:
             stack.append((r, escape))  # right child escapes like the parent
             stack.append((l, r))       # left child escapes to right sibling
+
+
+def check_invariants(bvh: FlatBVH, A, B, C) -> None:
+    """Structural invariants of a flat tree; raises AssertionError on a
+    violation: ``order`` a permutation, preorder children that partition
+    their parent's range inside its box, boxes that contain their
+    triangles, leaf ranges that partition [0, T), skip links past the
+    node."""
+    n = bvh.n_nodes
+    T = len(bvh.order)
+    assert sorted(bvh.order.tolist()) == list(range(T)), "order not a permutation"
+    is_leaf = bvh.right == -1
+    assert is_leaf[0] or (bvh.left[0] == 1), "preorder: left child follows parent"
+    for i in range(n):
+        s, e = bvh.tri_start[i], bvh.tri_end[i]
+        assert s < e
+        if not is_leaf[i]:
+            l, r = bvh.left[i], bvh.right[i]
+            assert bvh.tri_start[l] == s and bvh.tri_end[r] == e
+            assert bvh.tri_end[l] == bvh.tri_start[r]
+            assert (bvh.mn[l] >= bvh.mn[i] - 1e-5).all() and (bvh.mx[l] <= bvh.mx[i] + 1e-5).all()
+            assert (bvh.mn[r] >= bvh.mn[i] - 1e-5).all() and (bvh.mx[r] <= bvh.mx[i] + 1e-5).all()
+        ids = bvh.order[s:e]
+        pts = np.concatenate([A[ids], B[ids], C[ids]])
+        assert (pts.min(0) >= bvh.mn[i] - 1e-4).all() and (pts.max(0) <= bvh.mx[i] + 1e-4).all()
+    leaf_ranges = sorted(
+        (bvh.tri_start[i], bvh.tri_end[i]) for i in range(n) if is_leaf[i]
+    )
+    pos = 0
+    for s, e in leaf_ranges:
+        assert s == pos, f"leaf gap at {pos}"
+        pos = e
+    assert pos == T
+    assert ((bvh.skip > np.arange(n)) & (bvh.skip <= n)).all()
 
 
 class ClusterCut(NamedTuple):

@@ -10,6 +10,10 @@ One object wraps the preset, scene and pipeline plumbing:
     for frame in r.animate(60):              # circulating-light frames
         ...
     big = Renderer("array_bvh", obj_path="mesh.obj", bvh_builder="lbvh")
+    walk = Renderer("array_bvh", traversal="bvh")   # the flat-BVH walk
+    paved = Renderer("array_bvh", pairs_cluster="sah", pairs_pack="pave",
+                     pairs_cut=32)                 # the same frames
+    spin = Renderer("realtime", animate_mesh=True)  # animate() spins the cat
 
 The renderer runs on ``device``, the CUDA device unless the caller asks
 for another (``device="cpu"`` runs every kernel's plain PyTorch version);
@@ -58,7 +62,9 @@ class Renderer:
     """A configured scene + render pipeline.
 
     Args mirror RenderConfig / the CLI: preset name, resolution, spp,
-    max_depth, traversal mode, plus ``obj_path``/``obj_scale``/``obj_offset``
+    max_depth, traversal mode (``pairs``, ``pallas``, ``dense``, ``bvh``),
+    the clustering knobs and ``animate_mesh``, plus
+    ``obj_path``/``obj_scale``/``obj_offset``
     for custom meshes, ``bvh_builder`` ("reference" | "lbvh") and
     ``device`` (default: the CUDA device).
     """

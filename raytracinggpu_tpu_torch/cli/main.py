@@ -8,11 +8,15 @@
     python -m raytracinggpu_tpu_torch.cli render 2 2 --device cpu
     python -m raytracinggpu_tpu_torch.cli realtime --frames 60 \
         --out-dir frames/
+    python -m raytracinggpu_tpu_torch.cli realtime --animate mesh
+    python -m raytracinggpu_tpu_torch.cli render 8 3 --traversal bvh
+    python -m raytracinggpu_tpu_torch.cli render 32 5 --clustering sah-pave
     python -m raytracinggpu_tpu_torch.cli bench 32 5 --preset array_bvh
 
 ``render`` writes one frame as a PNG, ``realtime`` runs the progressive
-loop with the circulating light (PNG sequence, raw RGB24 pipe, or
-``--interactive`` with the reference's key bindings), ``bench`` sweeps
+loop with the circulating light and, with ``--animate mesh|both``, the
+spinning mesh (PNG sequence, raw RGB24 pipe, or ``--interactive`` with
+the reference's key bindings), ``bench`` sweeps
 spp x bounces (``bench/sweep.py``; positional spp and bounces restrict it
 to one cell).  Everything renders on ``--device``, the CUDA device by
 default; without one the command exits with an error unless ``--device
@@ -22,6 +26,7 @@ exits with a message naming its ROADMAP item; none is ignored.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -49,8 +54,6 @@ from raytracinggpu_tpu_torch.utils.profiling import device_trace, ray_report
 # flags of the JAX CLI for modes the port does not have: (attribute, the
 # value that asks for nothing, why it is refused)
 _UNPORTED_FLAGS = (
-    ("clustering", ("ref", None), "--clustering sah/pave: the SAH cluster "
-     "tree and pave packing are not ported yet (ROADMAP A10b)"),
     ("compact", (None,), "--compact: the compaction ladder is not ported "
      "(ROADMAP A5; exact by construction, tuned for the TPU)"),
     ("compact2", (None,), "--compact2: the compaction ladder is not ported "
@@ -96,7 +99,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    default=(0.0, 0.0, 0.0), metavar=("X", "Y", "Z"))
     p.add_argument("--clustering", default=None,
                    choices=["ref", "sah", "sah-pave", "ref-pave"],
-                   help="pairs clustering (only ref is ported)")
+                   help="pairs cluster tree and tile packing (-pave: "
+                        "full-occupancy tiles, cluster cut 32)")
     p.add_argument("--compact", type=float, default=None, metavar="FRAC")
     p.add_argument("--compact2", type=float, default=None, metavar="FRAC")
     p.add_argument("--compact3", type=float, default=None, metavar="FRAC")
@@ -117,9 +121,6 @@ def _refuse_unported(args) -> None:
     if args.devices > 1:
         raise SystemExit("error: --devices > 1: multi-GPU rendering is not "
                          "ported yet (ROADMAP A13)")
-    if args.traversal == "bvh":
-        raise SystemExit("error: --traversal bvh is not ported yet "
-                         "(ROADMAP A10b)")
     if args.obj and args.preset == "showcase":
         raise SystemExit("error: --obj is not supported with --preset "
                          "showcase (the showcase scene has no mesh slot)")
@@ -145,6 +146,11 @@ def _build(args, device):
         over["max_depth"] = bounces
     if args.traversal:
         over["traversal"] = args.traversal
+    if args.clustering:
+        tree, _, pack = args.clustering.partition("-")
+        over["pairs_cluster"] = tree
+        if pack == "pave":
+            over.update(pairs_pack="pave", pairs_cut=32)
     r = Renderer(args.preset, obj_path=args.obj, obj_scale=args.obj_scale,
                  obj_offset=args.obj_offset, bvh_builder=args.bvh_builder,
                  device=device, **over)
@@ -198,21 +204,22 @@ def cmd_render(args) -> int:
 
 
 def cmd_realtime(args) -> int:
-    if args.animate != "light" or args.mesh_speed != 1.0:
-        raise SystemExit("error: --animate mesh/both and --mesh-speed: mesh "
-                         "posing (pose_mesh) is not ported yet (ROADMAP A11)")
     cfg, tables = _build(args, _device(args))
+    if args.animate in ("mesh", "both"):
+        cfg = dataclasses.replace(cfg, animate_mesh=True)
+    # --animate mesh holds the light still
+    light_speed = args.light_speed if args.animate != "mesh" else 0.0
     if args.interactive:
         for flag in ("checkpoint", "raw"):
             if getattr(args, flag):
                 print(f"warning: --{flag} is ignored with --interactive",
                       file=sys.stderr)
-        return _interactive_loop(tables, cfg, args)
+        return _interactive_loop(tables, cfg, args, light_speed)
     state, summary = run_loop(
         tables, cfg, n_frames=args.frames, seed=args.seed,
         out_dir=args.out_dir,
         raw_pipe=sys.stdout.buffer if args.raw else None,
-        angular_speed=args.light_speed,
+        angular_speed=light_speed, mesh_speed=args.mesh_speed,
         frames_per_dispatch=args.frames_per_dispatch)
     info = sys.stderr if args.raw else sys.stdout
     if args.checkpoint:
@@ -222,7 +229,7 @@ def cmd_realtime(args) -> int:
     return 0
 
 
-def _interactive_loop(tables, cfg, args) -> int:
+def _interactive_loop(tables, cfg, args, light_speed: float) -> int:
     """Terminal-interactive progressive rendering, the GL-free equivalent
     of the reference's GLUT loop.  Its key bindings (a/d/r/f/w/s translate,
     h/l/k/j = arrow yaw/pitch, q or ESC quits) apply between dispatches;
@@ -240,7 +247,8 @@ def _interactive_loop(tables, cfg, args) -> int:
     else:
         out = "live.png"
     g = max(1, args.frames_per_dispatch)
-    speed = np.float32(args.light_speed)
+    speed = np.float32(light_speed)
+    mesh_speed = np.float32(args.mesh_speed)
     state = init_state(cfg, tables, seed=args.seed)
     fd = sys.stdin.fileno()
     old = termios.tcgetattr(fd)
@@ -253,10 +261,12 @@ def _interactive_loop(tables, cfg, args) -> int:
         t0 = time.perf_counter()
         while args.frames <= 0 or i < args.frames:
             if g == 1:
-                state, display = step(tables, cfg, state, angular_speed=speed)
+                state, display = step(tables, cfg, state, angular_speed=speed,
+                                      mesh_speed=mesh_speed)
             else:
                 # g frames a dispatch: keys apply every g frames
-                state, batch = steps(tables, cfg, g, state, speed)
+                state, batch = steps(tables, cfg, g, state, speed,
+                                     mesh_speed=mesh_speed)
                 display = batch[-1]
             if pending is not None:
                 shown = pending.cpu().numpy()  # waits for that dispatch
@@ -286,10 +296,10 @@ def _interactive_loop(tables, cfg, args) -> int:
 
 def cmd_bench(args) -> int:
     _refuse_unported(args)
-    if args.obj or args.bvh_builder != "reference":
-        raise SystemExit("error: bench sweeps a preset's own scene; --obj "
-                         "and --bvh-builder belong to render (custom "
-                         "meshes: bench/big_mesh.py)")
+    if args.obj or args.bvh_builder != "reference" or args.clustering:
+        raise SystemExit("error: bench sweeps a preset's own scene; --obj, "
+                         "--bvh-builder and --clustering belong to render "
+                         "(custom meshes: bench/big_mesh.py)")
     # Positional spp/bounces (reference CLI shape: `bench 4 2`) restrict
     # the sweep to that single cell instead of being silently ignored.
     spp, bounces = _spp_bounces(args)
@@ -329,8 +339,8 @@ def main(argv=None) -> int:
     pt.add_argument("--light-speed", type=float, default=1.0)
     pt.add_argument("--animate", choices=["light", "mesh", "both"],
                     default="light",
-                    help="per-frame animation (only the circulating light "
-                         "is ported)")
+                    help="per-frame animation: the circulating light, the "
+                         "spinning mesh (scene/transform.pose_mesh), or both")
     pt.add_argument("--mesh-speed", type=float, default=1.0)
     pt.add_argument("--checkpoint", default=None)
     pt.add_argument("--interactive", action="store_true",

@@ -4,7 +4,8 @@
 converted to numpy (``jax.tree.map(np.asarray, tables)``) and returns the
 port's ``SceneTables`` on ``device``, so both packages compute on
 identical tables (a mesh-less table, the ``showcase`` preset's, converts
-to one without mesh tables).  ``render_config_from_dict`` does the same for a
+to one without mesh tables; a mesh table brings its flat BVH and its base
+geometry for posing).  ``render_config_from_dict`` does the same for a
 ``dataclasses.asdict`` of the JAX ``RenderConfig``, and
 ``render_state_from_numpy`` for the realtime loop's ``RenderState``.  All
 read fields by name and import neither jax nor the JAX package.
@@ -24,16 +25,12 @@ from raytracinggpu_tpu_torch.ops.sphere import SphereTable
 from raytracinggpu_tpu_torch.ops.triangle import TriTables
 from raytracinggpu_tpu_torch.render.realtime import RenderState
 from raytracinggpu_tpu_torch.scene.scene import (
+    BVHTables,
     Materials,
     RenderConfig,
     SceneTables,
 )
-
-
-# The JAX RenderConfig's mode fields the port's RenderConfig lacks, and the
-# one value of each the port renders (RenderConfig itself refuses the
-# traversals it does not render).
-_PORTED_MODES = {"animate_mesh": False}
+from raytracinggpu_tpu_torch.scene.transform import MeshSource
 
 
 def _t(a, device):
@@ -66,7 +63,7 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
     s, m = tables_np.spheres, tables_np.materials
     t = lambda a: _t(a, device)
     v = lambda a: Vec3(t(a.x), t(a.y), t(a.z))
-    tri = pallas = pairs = None
+    tri = pallas = pairs = bvh = src = None
     if tables_np.mesh is not None:
         d = tables_np.mesh
         tri = TriTables(mt=t(d.mt), ng=v(d.ng), na=v(d.na), nb=v(d.nb),
@@ -80,6 +77,16 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
     if tables_np.pairs_mesh is not None:
         pairs = PairsMeshTables(*(t(a) for a in
                                   _pairs_arrays(tables_np.pairs_mesh)))
+    if tables_np.bvh is not None:
+        b = tables_np.bvh
+        bvh = BVHTables(left=t(b.left), right=t(b.right),
+                        tri_start=t(b.tri_start), tri_end=t(b.tri_end),
+                        skip=t(b.skip), mn=v(b.mn), mx=v(b.mx))
+    if tables_np.mesh_src is not None:
+        ms = tables_np.mesh_src
+        src = MeshSource(*(v(getattr(ms, k)) for k in
+                           ("A", "B", "C", "na", "nb", "nc")),
+                         valid=t(ms.valid))
     return SceneTables(
         spheres=SphereTable(t(s.cx), t(s.cy), t(s.cz), t(s.radius)),
         materials=Materials(albedo=v(m.albedo), mirror=t(m.mirror),
@@ -89,18 +96,14 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
         pairs_mesh=pairs,
         L=v(tables_np.L),
         intensity=t(tables_np.intensity),
+        bvh=bvh,
+        mesh_src=src,
     )
 
 
 def render_config_from_dict(d: dict) -> RenderConfig:
     """The port's RenderConfig from the fields of ``d`` it has; the JAX
-    package's other fields (its TPU tuning knobs) are dropped.  Raises
-    NotImplementedError for a mode the port does not render: the ``bvh``
-    traversal, or the animated mesh."""
-    unported = {k: d[k] for k, ok in _PORTED_MODES.items()
-                if k in d and d[k] != ok}
-    if unported:
-        raise NotImplementedError(f"not ported yet: {unported}")
+    package's other fields (its TPU tuning knobs) are dropped."""
     names = {f.name for f in dataclasses.fields(RenderConfig)}
     kw = {k: v for k, v in d.items() if k in names}
     if "camera_c" in kw:

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator (port of
-``raytracinggpu_tpu/integrator/wavefront.py``: the pairs, pallas and dense
-traversals, with geometric or smooth mesh normals).
+``raytracinggpu_tpu/integrator/wavefront.py``: the pairs, pallas, dense and
+bvh traversals, with geometric or smooth mesh normals).
 
 The whole ray batch advances in lockstep through a Python loop over depth;
 material branches are masks merged with ``torch.where``, and the per-depth
@@ -30,6 +30,7 @@ import torch
 from raytracinggpu_tpu_torch.core.rays import RayBatch
 from raytracinggpu_tpu_torch.core.rng import cosine_hemisphere
 from raytracinggpu_tpu_torch.core.vec import Vec3, fma, sqrt, vgather, vwhere
+from raytracinggpu_tpu_torch.ops.bvh_traverse import intersect_tris_bvh
 from raytracinggpu_tpu_torch.ops.pairs_trace import (
     intersect_tris_pairs,
     intersect_tris_pairs_shadow,
@@ -104,9 +105,15 @@ def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hi
                 sort_rays=cfg.ray_sort, cap=t_s, subg=cfg.pallas_subgroup)
             N_m = (_fused_smooth_recovery(scene, O, u, mh)
                    if cfg.smooth_normals else geometric_normal(scene.mesh, mh))
-        else:  # dense
-            mh = intersect_tris_dense(O, u, scene.mesh, cfg.eps_leaf,
-                                      cfg.tri_block)
+        else:
+            if traversal == "dense":
+                mh = intersect_tris_dense(O, u, scene.mesh, cfg.eps_leaf,
+                                          cfg.tri_block)
+            else:  # bvh
+                mh = intersect_tris_bvh(O, u, scene.mesh, scene.bvh,
+                                        cfg.eps_leaf, cfg.bvh_max_leaf,
+                                        cfg.bvh_node_layout)
+            # both give the winner's barycentrics
             N_m = (smooth_normal if cfg.smooth_normals
                    else geometric_normal)(scene.mesh, mh)
         nn = N_m.norm()
@@ -128,8 +135,8 @@ def occlusion_distance(scene: SceneTables, cfg: RenderConfig, O: Vec3,
                        u: Vec3, Lv: Vec3, active=None):
     """Nearest-hit distance for the shadow ray (occlusion only compares t
     against |L - P_adj|^2).  The pairs and pallas traversals run their
-    shadow kernels with the distance to the light as the cap; dense reuses
-    the full closest hit.
+    shadow kernels with the distance to the light as the cap; dense and
+    bvh reuse the full closest hit, as in the JAX package.
 
     active: (R,) bool — lanes whose occlusion result is provably unused
     (non-diffuse, missed, or N.wl <= 0).  The pairs traversal skips their
@@ -137,7 +144,7 @@ def occlusion_distance(scene: SceneTables, cfg: RenderConfig, O: Vec3,
     t_mesh) can only shrink, so the predicate is unchanged.  Inactive lanes
     may return the sphere-only distance."""
     traversal = _effective_traversal(cfg, scene)
-    if scene.mesh is not None and traversal == "dense":
+    if scene.mesh is not None and traversal in ("dense", "bvh"):
         sh = intersect_all(scene, cfg, O, u)
         return torch.where(sh.obj >= 0, sh.t, INF)
     t_sph, _, _ = intersect_spheres(O, u, scene.spheres)

@@ -3,9 +3,11 @@ bitmask, and the two mesh queries of the main path (port of
 ``raytracinggpu_tpu/ops/pairs_trace.py``).
 
 The host build is the JAX package's numpy code: the reference midpoint
-BVH is cut into clusters of <= 128 triangles, the clusters are packed
-greedily in Morton order into 128-slot tiles, and every slot carries 32
-field rows (0-15 the factorized Moller-Trumbore constants, 16 the original
+BVH (or an auxiliary SAH tree, ``accel/sah.py``, whose order maps back to
+the canonical ids) is cut into clusters of <= 128 triangles, the clusters
+are packed into 128-slot tiles (greedily in Morton order, or ``pave``:
+consecutive tree-order chunks at full occupancy), and every slot carries
+32 field rows (0-15 the factorized Moller-Trumbore constants, 16 the original
 triangle id as f32, 17-25 the vertex normals).  Culling tests each ray
 against the per-cluster MEMBER boxes and ORs the hits per tile and per
 subgroup of ``subg`` consecutive rays into a (W, R/subg) int32 bitmask.
@@ -115,18 +117,39 @@ def tile_width(tab: PairsMeshTables) -> int:
 
 # ---------------------------------------------------------------- host build
 
-def _cluster_slots(bvh, tile_t: int = TILE_T, cut_tris: int | None = None):
+def _cluster_slots(bvh, n_tri: int, tile_t: int = TILE_T,
+                   cut_tris: int | None = None, ids_map=None,
+                   pack: str = "morton"):
     """Host: cluster ranges -> (slot_src (nc*tile_t,), nc, members).
 
-    The cluster cut (shallowest subtrees <= tile_t tris) is packed greedily
-    in Morton order of the cluster box centers, first-fit within a window
-    of recent tiles and under a box-growth bound, so spatial neighbours
-    merge and the union boxes stay tight.  Packed tiles are not ascending
-    in original id, which is why the closest hit breaks exact-t ties
-    lexicographically on (t, original id)."""
+    The cluster cut (shallowest subtrees <= tile_t tris) is packed into
+    tiles by ``pack``:
+
+    - ``morton``: whole clusters, greedily in Morton order of the cluster
+      box centers, first-fit within a window of recent tiles and under a
+      box-growth bound, so spatial neighbours merge and the union boxes
+      stay tight;
+    - ``pave``: consecutive tree-order triangle ranges at 100% occupancy:
+      tiles are exact tile_t-wide chunks of the cut order, and a cluster
+      that straddles a tile boundary splits into one member per side
+      (member boxes are refit from their triangles, so a split only
+      tightens the culling).  Merging tiles only clears activation bits,
+      so at a fixed visit width full occupancy minimizes the pairs for a
+      given triangle order.
+
+    ids_map: optional (T,) permutation from the cut tree's triangle
+    positions to positions in the A/B/C arrays, so that the cut can run
+    over an auxiliary tree (``accel/sah.py``) while the slot ids stay in
+    the canonical mesh order.  Packed tiles are not ascending in original
+    id, which is why the closest hit breaks exact-t ties lexicographically
+    on (t, original id); any clustering that covers every triangle
+    therefore renders bit-identically."""
     from raytracinggpu_tpu_torch.accel.bvh import cluster_cut
     from raytracinggpu_tpu_torch.accel.lbvh import morton_codes
 
+    if pack not in ("morton", "pave"):
+        raise ValueError(f"unknown pairs packing {pack!r}; choose from "
+                         "('morton', 'pave')")
     cut = cluster_cut(bvh, max_tris=min(cut_tris or tile_t, tile_t, 128))
     # A degenerate midpoint partition can leave a LEAF larger than
     # max_tris; split any oversized cluster into <= tile_t chunks (same
@@ -146,44 +169,65 @@ def _cluster_slots(bvh, tile_t: int = TILE_T, cut_tris: int | None = None):
         mn=np.stack(c_mn).astype(np.float32),
         mx=np.stack(c_mx).astype(np.float32),
     )
-    centers = (cut.mn + cut.mx) * 0.5
-    order = np.argsort(morton_codes(centers), kind="stable")
-    WINDOW = 8
-    mesh_vol = float(np.prod(cut.mx.max(axis=0) - cut.mn.min(axis=0)))
-    MAX_TILE_VOL = 0.02 * mesh_vol * (tile_t / 128.0)
-    groups: list[list] = []  # [cluster ids, size, mn(3,), mx(3,)]
-    for ci in order:
-        size = int(cut.ends[ci] - cut.starts[ci])
-        placed = False
-        for g in groups[-WINDOW:]:
-            if g[1] + size > tile_t:
-                continue
-            mn = np.minimum(g[2], cut.mn[ci])
-            mx = np.maximum(g[3], cut.mx[ci])
-            if float(np.prod(mx - mn)) > MAX_TILE_VOL:
-                continue
-            g[0].append(ci)
-            g[1] += size
-            g[2], g[3] = mn, mx
-            placed = True
-            break
-        if not placed:
-            groups.append([[ci], size, cut.mn[ci].copy(), cut.mx[ci].copy()])
+    if pack == "pave":
+        groups: list[list[tuple[int, int, int]]] = []  # (ci, s, e) pieces
+        cur: list[tuple[int, int, int]] = []
+        cap = tile_t
+        for ci in range(len(cut.starts)):
+            s, e = int(cut.starts[ci]), int(cut.ends[ci])
+            while s < e:
+                take = min(e - s, cap)
+                cur.append((ci, s, s + take))
+                cap -= take
+                s += take
+                if cap == 0:
+                    groups.append(cur)
+                    cur, cap = [], tile_t
+        if cur:
+            groups.append(cur)
+    else:
+        centers = (cut.mn + cut.mx) * 0.5
+        order = np.argsort(morton_codes(centers), kind="stable")
+        WINDOW = 8
+        mesh_vol = float(np.prod(cut.mx.max(axis=0) - cut.mn.min(axis=0)))
+        MAX_TILE_VOL = 0.02 * mesh_vol * (tile_t / 128.0)
+        packed: list[list] = []  # [cluster ids, size, mn(3,), mx(3,)]
+        for ci in order:
+            size = int(cut.ends[ci] - cut.starts[ci])
+            placed = False
+            for g in packed[-WINDOW:]:
+                if g[1] + size > tile_t:
+                    continue
+                mn = np.minimum(g[2], cut.mn[ci])
+                mx = np.maximum(g[3], cut.mx[ci])
+                if float(np.prod(mx - mn)) > MAX_TILE_VOL:
+                    continue
+                g[0].append(ci)
+                g[1] += size
+                g[2], g[3] = mn, mx
+                placed = True
+                break
+            if not placed:
+                packed.append([[ci], size, cut.mn[ci].copy(),
+                               cut.mx[ci].copy()])
+        groups = [[(ci, int(cut.starts[ci]), int(cut.ends[ci]))
+                   for ci in g[0]] for g in packed]
     nc = len(groups)
+    if ids_map is None:
+        ids_map = np.arange(n_tri, dtype=np.int32)
     slot_src = np.full(nc * tile_t, -1, np.int32)
     member_slot = np.full(nc * tile_t, -1, np.int32)
     member_tile: list[int] = []
     member_aabb_rows: list[np.ndarray] = []
-    for j, g in enumerate(groups):
+    for j, pieces in enumerate(groups):
         k = j * tile_t
-        for ci in g[0]:
-            s, e = int(cut.starts[ci]), int(cut.ends[ci])
+        for ci, s, e in pieces:
             m = len(member_tile)
             member_tile.append(j)
             row = np.zeros(8, np.float32)
             row[0:3], row[3:6] = cut.mn[ci], cut.mx[ci]
             member_aabb_rows.append(row)
-            slot_src[k : k + (e - s)] = np.arange(s, e, dtype=np.int32)
+            slot_src[k : k + (e - s)] = ids_map[s:e]
             member_slot[k : k + (e - s)] = m
             k += e - s
     members = (
@@ -219,20 +263,55 @@ def fields_from_corners(A, B, C, slot_src, na=None, nb=None, nc=None):
     return np.concatenate([f, pad], axis=0)
 
 
+def _cross_rows(a, b):
+    """a x b of (3, n) row stacks, each component a*b' - c*d' with every
+    product rounded, as ``np.cross`` rounds it."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def mt_rows(a, b, c) -> torch.Tensor:
+    """(16, n) Moller-Trumbore rows [Ng, e2 x A, e2, e1 x A, e1, A.Ng] of
+    the (3, n) corner stacks a, b, c, every product and sum rounded as
+    the numpy table builds round them (A.Ng summed left to right, as
+    numpy's ``sum`` and ``einsum`` add three products)."""
+    e1, e2 = b - a, c - a
+    ng = _cross_rows(e1, e2)
+    p = a * ng
+    return torch.cat([ng, _cross_rows(e2, a), e2, _cross_rows(e1, a), e1,
+                      ((p[0] + p[1]) + p[2])[None]])
+
+
+def fields_from_corners_torch(A, B, C, slot_src, na, nb,
+                              nc) -> torch.Tensor:
+    """``fields_from_corners`` on the device: A, B, C and the vertex
+    normals are (3, T) row stacks, slot_src the (Tc,) int32 slot map.
+    The same corners give the same table bit for bit."""
+    live = slot_src >= 0
+    idx = slot_src.clamp_min(0).long()
+    g = lambda v: torch.where(live, v[:, idx], 0.0)
+    f = torch.cat([mt_rows(g(A), g(B), g(C)),
+                   torch.where(live, slot_src, int(_IDX_BIG)).to(A.dtype)[None],
+                   g(na), g(nb), g(nc)])
+    return F.pad(f, (0, 0, 0, NUM_FIELDS - f.shape[0]))
+
+
 def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
-                       vnb=None, vnc=None,
-                       cut_tris: int | None = None) -> PairsMeshTables:
+                       vnb=None, vnc=None, cut_tris: int | None = None,
+                       ids_map=None, pack: str = "morton") -> PairsMeshTables:
     """Host-side build from BVH-ordered triangle corners (T, 3); the tables
-    land on ``device``.  cut_tris is the cluster-cut granularity (member-box
-    tightness); results do not depend on it.  Raises PairsMeshTooLarge
-    past MAX_SLOTS slots."""
+    land on ``device``.  cut_tris (the cluster-cut granularity), ids_map
+    (an auxiliary cluster tree's slot remap) and pack (``morton`` or
+    ``pave``) are clustering knobs (see ``_cluster_slots``); results do
+    not depend on them.  Raises PairsMeshTooLarge past MAX_SLOTS slots."""
     if tile_t <= 0 or tile_t % 32:
         raise ValueError(f"tile_t must be a positive multiple of 32, got {tile_t}")
     A = np.asarray(A, np.float32)
     B = np.asarray(B, np.float32)
     C = np.asarray(C, np.float32)
     slot_src, nc, (m_aabb, m_tile, m_slot) = _cluster_slots(
-        bvh, tile_t, cut_tris=cut_tris)
+        bvh, A.shape[0], tile_t, cut_tris=cut_tris, ids_map=ids_map,
+        pack=pack)
     if nc * tile_t > MAX_SLOTS:
         raise PairsMeshTooLarge(
             f"mesh too large for the pairs kernels ({nc} tiles x {tile_t} "

@@ -5,7 +5,7 @@
 
 Samples run in groups of ``cfg.spp_fuse`` whose rays form one wavefront;
 each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays
-(pairs, pallas) or ``cfg.ray_chunk`` rays (dense; ``chunk_size``).  The
+(pairs, pallas, bvh) or ``cfg.ray_chunk`` rays (dense; ``chunk_size``).  The
 uniforms are keyed per (sample, row) with the threefry key that
 ``render_frame`` is given, and every sample's radiance is added to the
 accumulator in sample order, so the frame is bitwise independent of the
@@ -140,7 +140,11 @@ def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs",
     elements that the tiled kernels' 32-bit indices reach
     (``ops/_kernels._check``): a mesh past the pairs tables' ceiling has
     some 400,000 tiles, and its 524,288-ray cast's lists would pass it.
-    dense: casts of cfg.ray_chunk rays."""
+    bvh: sized as pairs (the JAX package casts cfg.ray_chunk rays, a
+    bound it sets for the dense oracle's products; every ray of the walk
+    is its own, so the cast size changes no result, and the torch walk's
+    fixed cost a step is paid per cast).  dense: casts of cfg.ray_chunk
+    rays."""
     if traversal == "dense":
         return min(cfg.ray_chunk, R)
     cap, blk = cfg.pairs_chunk, cfg.pairs_block

@@ -1,5 +1,5 @@
 """Progressive / realtime rendering loop (port of
-``raytracinggpu_tpu/render/realtime.py``, without mesh animation).
+``raytracinggpu_tpu/render/realtime.py``).
 
 The reference's interactive renderer (realtime_render.cu) becomes a
 ``step`` on a render state of device tensors; frames stream to the host as
@@ -12,13 +12,16 @@ uint8 RGB (PNG sequence or raw pipe).
   replay samples;
 - the point light orbits the Y axis through the origin, ``angular_speed *
   dt`` radians a frame;
+- with ``cfg.animate_mesh`` the mesh spins about the Y axis,
+  ``mesh_speed * dt`` radians a frame: every frame poses the scene's
+  base geometry on the device (``scene/transform.pose_mesh``) before it
+  renders;
 - the camera: yaw/pitch +-0.02 on the arrows, +-2 translation on
   a/d/r/f/w/s, any recognized key resetting the accumulation;
 - spp and depth from the config (20 and 3 for the ``realtime`` preset).
 
-The state is serializable (``utils/checkpoint.py``) in the JAX package's
-layout.  Mesh posing (``animate_mesh``) is not ported: ``step`` raises on
-it, and ``mesh_angle`` is carried unchanged.
+The state, ``mesh_angle`` included, is serializable
+(``utils/checkpoint.py``) in the JAX package's layout.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from raytracinggpu_tpu_torch.core.vec import Vec3, cos, fma, sin, sqrt
 from raytracinggpu_tpu_torch.render.image_io import tonemap_device, write_png
 from raytracinggpu_tpu_torch.render.pipeline import Camera, render_rows
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
+from raytracinggpu_tpu_torch.scene.transform import pose_mesh, rotation_y
 
 YAW_PITCH_STEP = 0.02   # realtime_render.cu arrow keys
 MOVE_STEP = 2.0         # realtime_render.cu a/d/r/f/w/s
@@ -48,7 +52,7 @@ class RenderState(NamedTuple):
     frames: torch.Tensor       # () int32, accumulated frames
     rng_frame: torch.Tensor    # () int32, monotonic frame index for the RNG
     light_angle: torch.Tensor  # () f32, orbit angle of L
-    mesh_angle: torch.Tensor   # () f32, mesh pose angle (carried unchanged)
+    mesh_angle: torch.Tensor   # () f32, mesh pose angle (animate_mesh)
     cam_c: Vec3                # camera position, 0-d f32 components
     yaw: torch.Tensor          # () f32
     pitch: torch.Tensor        # () f32
@@ -89,17 +93,23 @@ def orbit_light(scene: SceneTables, angle) -> SceneTables:
 
 
 def step(scene: SceneTables, cfg: RenderConfig, state: RenderState,
-         angular_speed=1.0, dt=2e-2):
-    """One progressive frame: orbit the light, render cfg.spp samples,
-    accumulate, and make the gamma-packed display.  Returns (new_state,
-    display (H, W, 3) uint8 on the device)."""
-    if getattr(cfg, "animate_mesh", False):
-        raise NotImplementedError("mesh animation (pose_mesh) is not ported")
+         angular_speed=1.0, dt=2e-2, mesh_speed=1.0):
+    """One progressive frame: orbit the light (and, with
+    cfg.animate_mesh, advance the mesh angle and pose the mesh), render
+    cfg.spp samples, accumulate, and make the gamma-packed display.
+    Returns (new_state, display (H, W, 3) uint8 on the device).  Each
+    angle advances as XLA:CPU rounds the JAX package's ``angle + speed *
+    dt``: one fused multiply-add."""
     dev = state.accum.device
     angle = fma(np.float32(angular_speed), np.float32(dt), state.light_angle)
+    scene_t = orbit_light(scene, angle)
+    mesh_angle = state.mesh_angle
+    if cfg.animate_mesh:
+        mesh_angle = fma(np.float32(mesh_speed), np.float32(dt), mesh_angle)
+        scene_t = pose_mesh(scene_t, rotation_y(mesh_angle))
     cam = Camera.from_yaw_pitch(state.cam_c, state.yaw, state.pitch, dev)
     rows = np.arange(cfg.height, dtype=np.int32)
-    acc, _ = render_rows(orbit_light(scene, angle), cfg, cam,
+    acc, _ = render_rows(scene_t, cfg, cam,
                          fold_in(state.key, state.rng_frame), rows,
                          range(cfg.spp))
     frame = torch.stack([(c / float(cfg.spp)).reshape(cfg.height, cfg.width)
@@ -109,19 +119,19 @@ def step(scene: SceneTables, cfg: RenderConfig, state: RenderState,
     display = tonemap_device(accum / frames.to(torch.float32))
     new_state = state._replace(accum=accum, frames=frames,
                                rng_frame=state.rng_frame + 1,
-                               light_angle=angle)
+                               light_angle=angle, mesh_angle=mesh_angle)
     return new_state, display
 
 
 def steps(scene: SceneTables, cfg: RenderConfig, n_frames: int,
           state: RenderState, angular_speed=1.0, dt=2e-2,
-          reset_each: bool = False):
+          reset_each: bool = False, mesh_speed=1.0):
     """n_frames progressive frames in a row.  reset_each clears the
     accumulator after every frame (a crisp animation of the moving light).
     Returns (state, displays (n, H, W, 3) uint8)."""
     displays = []
     for _ in range(n_frames):
-        state, disp = step(scene, cfg, state, angular_speed, dt)
+        state, disp = step(scene, cfg, state, angular_speed, dt, mesh_speed)
         if reset_each:
             state = reset_accumulation(state)
         displays.append(disp)
@@ -191,7 +201,8 @@ def _ready(handle) -> np.ndarray:
 def run_loop(scene: SceneTables, cfg: RenderConfig, n_frames: int,
              seed: int = 0, out_dir: str | None = None, raw_pipe=None,
              print_every: int = 5, angular_speed: float = 1.0,
-             pipelined: bool = True, frames_per_dispatch: int = 1):
+             mesh_speed: float = 1.0, pipelined: bool = True,
+             frames_per_dispatch: int = 1):
     """Host frame pump: steps the renderer, streams frames (PNGs into
     ``out_dir``, raw RGB24 bytes to ``raw_pipe``) and prints the frame time
     every ``print_every`` frames.
@@ -237,7 +248,8 @@ def run_loop(scene: SceneTables, cfg: RenderConfig, n_frames: int,
     i = 0
     while i < n_frames:
         gi = min(g, n_frames - i)
-        state, displays = steps(scene, cfg, gi, state, angular_speed)
+        state, displays = steps(scene, cfg, gi, state, angular_speed,
+                                mesh_speed=mesh_speed)
         handle = _fetch(displays)
         if pending is not None:
             finish(*pending, t0)

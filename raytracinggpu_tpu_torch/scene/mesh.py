@@ -25,6 +25,14 @@ def rescale(vertices: np.ndarray, scale: float, offset) -> np.ndarray:
     )
 
 
+def rotate_y(vertices: np.ndarray, angle: float) -> np.ndarray:
+    """Host Y-axis rotation of (V, 3) vertices, the matrix the reference
+    builds for its mesh pose, in f32."""
+    c, s = np.cos(angle, dtype=np.float32), np.sin(angle, dtype=np.float32)
+    m = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    return (vertices @ m.T).astype(np.float32)
+
+
 @dataclass
 class MeshData:
     """Host-side mesh in BVH (leaf) triangle order."""

@@ -137,7 +137,8 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
     tables = build_scene_tables(
         spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
         mesh_albedo=(0.25, 0.25, 0.25), tri_block=cfg.tri_block,
-        pairs_tile=cfg.pairs_tile, pairs_cut=cfg.pairs_cut,
+        pairs_tile=cfg.pairs_tile, pairs_cluster=cfg.pairs_cluster,
+        pairs_cut=cfg.pairs_cut, pairs_pack=cfg.pairs_pack,
     )
     return _autotune_pairs(cfg, tables, config_overrides), tables
 

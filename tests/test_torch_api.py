@@ -122,3 +122,35 @@ def test_render_sharded_names_the_roadmap_item():
                  max_depth=1)
     with pytest.raises(NotImplementedError, match="A13"):
         r.render_sharded()
+
+
+@pytest.mark.parametrize("over", [
+    dict(traversal="bvh"), dict(traversal="bvh", bvh_node_layout="aos10"),
+    dict(pairs_cluster="sah", pairs_pack="pave", pairs_cut=32)])
+def test_renderer_takes_the_slice_modes(over):
+    """The Renderer passes the bvh traversal and the clustering knobs to
+    its scene, as the JAX Renderer does; each renders the frame of the
+    default pairs scene within the frame standard (clusterings bitwise)."""
+    size = dict(width=16, height=16, spp=1, max_depth=2)
+    r = Renderer("array_bvh", device="cpu", **size, **over)
+    for k, v in over.items():
+        assert getattr(r.cfg, k) == v
+    img, _ = r.render_hdr(seed=0)
+    ref, _ = Renderer("array_bvh", device="cpu", **size).render_hdr(seed=0)
+    if "traversal" in over:
+        assert _frac_off(img, ref) < 0.005
+    else:
+        np.testing.assert_array_equal(img, ref)
+
+
+def test_animate_spins_the_mesh():
+    """Renderer("realtime", animate_mesh=True).animate() runs the
+    animated loop, and its batched frames equal single ones (the poses
+    themselves: tests/test_torch_transform.py)."""
+    kw = dict(width=12, height=12, spp=1, max_depth=1, traversal="bvh",
+              animate_mesh=True)
+    r = Renderer("realtime", device="cpu", **kw)
+    a = list(r.animate(2, light_speed=0.0, batch=1, reset_each=True))
+    b = list(r.animate(2, light_speed=0.0, batch=2, reset_each=True))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)

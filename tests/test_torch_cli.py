@@ -1,6 +1,8 @@
 """The port's CLI (raytracinggpu_tpu_torch/cli/main.py): the cases of
 tests/test_cli_obj.py on ``--device cpu``, the ``bench`` and ``realtime``
-subcommands, the flags it refuses, its refusal to render without a CUDA
+subcommands, the flags it refuses and the ported flags once refused
+(``--clustering``, ``--traversal bvh``, ``--animate mesh|both``), its
+refusal to render without a CUDA
 device unless asked for the CPU, and the profiling helpers it reports
 with (utils/profiling.py)."""
 import json
@@ -66,6 +68,10 @@ def test_showcase_rejects_custom_obj(tmp_path):
               "--height", "8", "--obj", str(p), "--device", "cpu"])
 
 
+# the ROADMAP items whose flags were refused until they were ported
+PORTED_ITEMS = ("A10b",)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--clustering", "sah"], "A10b"),
     (["--compact", "0.25"], "A5"),
@@ -75,18 +81,76 @@ def test_showcase_rejects_custom_obj(tmp_path):
     (["--traversal", "bvh"], "A10b"),
     (["--compact2", "0.5"], "A5"),
 ])
-def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        main(["render", "1", "1", "--width", "8", "--height", "8",
-              "--device", "cpu", *flags])
+def test_unported_flags_exit_naming_the_roadmap_item(tmp_path, flags, item):
+    """A flag of the JAX CLI whose mode the port lacks exits naming its
+    ROADMAP item; the flags of a ported item (``--clustering``,
+    ``--traversal bvh``: A10b) render."""
+    out = str(tmp_path / "f.png")
+    argv = ["render", "1", "1", "--width", "8", "--height", "8",
+            "--device", "cpu", "--out", out, *flags]
+    if item in PORTED_ITEMS:
+        assert main(argv) == 0
+        assert read_png(out).shape == (8, 8, 3)
+    else:
+        with pytest.raises(SystemExit, match=item):
+            main(argv)
 
 
-def test_realtime_subcommand_is_not_ported():
-    """What of ``realtime`` is still not ported: the animated mesh."""
-    for flags in (["--animate", "mesh"], ["--animate", "both"],
-                  ["--mesh-speed", "2.0"]):
-        with pytest.raises(SystemExit, match="A11"):
-            main(["realtime", "--device", "cpu", *flags])
+def test_clustering_flags_build_the_jax_package_tables(monkeypatch):
+    """--clustering TREE[-pave] sets pairs_cluster, and -pave also
+    pairs_pack="pave" and pairs_cut=32, as the JAX CLI does."""
+    import raytracinggpu_tpu_torch.cli.main as cli
+
+    seen = {}
+
+    class Probe:
+        def __init__(self, preset, **kw):
+            seen.clear()
+            seen.update(kw)
+            raise SystemExit(0)
+
+    monkeypatch.setattr(cli, "Renderer", Probe)
+    for flag, want in (("sah", dict(pairs_cluster="sah")),
+                       ("sah-pave", dict(pairs_cluster="sah",
+                                         pairs_pack="pave", pairs_cut=32)),
+                       ("ref-pave", dict(pairs_cluster="ref",
+                                         pairs_pack="pave", pairs_cut=32))):
+        with pytest.raises(SystemExit):
+            main(["render", "1", "1", "--device", "cpu", "--clustering",
+                  flag])
+        assert {k: seen.get(k) for k in want} == want
+        if flag == "sah":
+            assert "pairs_pack" not in seen and "pairs_cut" not in seen
+    with pytest.raises(SystemExit, match="--clustering"):
+        main(["bench", "1", "1", "--device", "cpu", "--clustering", "sah"])
+
+
+def test_realtime_subcommand_is_not_ported(tmp_path, capsys):
+    """Once refused (ROADMAP A11), now ported: ``--animate mesh`` (the
+    light held still), ``--animate both`` and ``--mesh-speed`` spin the
+    mesh; the checkpoint carries the mesh angle."""
+    from raytracinggpu_tpu_torch.utils.checkpoint import load_state
+
+    for i, flags in enumerate((["--animate", "mesh"], ["--animate", "both"],
+                               ["--mesh-speed", "2.0"])):
+        ck = str(tmp_path / f"s{i}.npz")
+        rc = main(["realtime", "1", "1", "--width", "8", "--height", "8",
+                   "--frames", "2", "--traversal", "bvh", "--device", "cpu",
+                   "--checkpoint", ck, *flags])
+        assert rc == 0
+        st = load_state(ck, "cpu")
+        summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert summary["frames"] == 2
+        light0 = float(np.float32(np.arctan2(40.0, 0.0)))
+        if flags[1] == "mesh":
+            # the mesh turns 2 x 0.02 rad, the light stays
+            assert float(st.mesh_angle) == pytest.approx(0.04, abs=1e-6)
+            assert float(st.light_angle) == light0
+        elif flags[1] == "both":
+            assert float(st.mesh_angle) > 0.0
+            assert float(st.light_angle) > light0
+        else:  # --mesh-speed without --animate mesh moves nothing but light
+            assert float(st.mesh_angle) == 0.0
 
 
 def test_ray_report_matches_the_jax_package():

@@ -137,15 +137,18 @@ def test_occlusion_distance_matches_jax(scene):
 
 
 def test_unported_modes_raise(scene):
-    """A JAX config that asks for a mode the integrator does not render is
-    refused where it enters the port."""
+    """Every mode of a JAX config now enters the port: the ``bvh``
+    traversal with its layout and leaf bound, the animated mesh and the
+    clustering knobs, once refused here, convert field for field; a
+    traversal neither package has is still refused."""
     jcfg = scene[0]
-    for over in ({"traversal": "bvh"}, {"animate_mesh": True}):
-        with pytest.raises(NotImplementedError):
-            render_config_from_dict(
-                dataclasses.asdict(dataclasses.replace(jcfg, **over)))
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(scene[2], traversal="bvh")
+    over = dict(traversal="bvh", animate_mesh=True, bvh_node_layout="aos10",
+                bvh_max_leaf=12, pairs_cluster="sah", pairs_pack="pave",
+                pairs_cut=32)
+    got = render_config_from_dict(
+        dataclasses.asdict(dataclasses.replace(jcfg, **over)))
+    assert {k: getattr(got, k) for k in over} == over
+    assert dataclasses.replace(scene[2], traversal="bvh").traversal == "bvh"
     with pytest.raises(ValueError):
         dataclasses.replace(scene[2], traversal="tiles")
     # the realtime modes and the pallas and dense traversals are ported

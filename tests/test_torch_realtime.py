@@ -196,13 +196,22 @@ def test_step_accumulates_and_display_is_tonemap_of_average(rt16):
 
 
 def test_step_refuses_mesh_animation(rt16):
-    _, _, cfg, tables = rt16
-    st = prt.init_state(cfg, tables)
-    animated = dataclasses.make_dataclass(
-        "Animated", [("animate_mesh", bool, True)], bases=(type(cfg),),
-        frozen=True)(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError):
-        prt.step(tables, animated, st)
+    """Mesh animation is ported (tests/test_torch_transform.py holds the
+    animated loop); what ``step`` still refuses, as the JAX package's
+    does, is to animate a scene without a mesh."""
+    jcfg, jtab, cfg, tables = rt16
+    animated = dataclasses.replace(cfg, animate_mesh=True)
+    with pytest.raises(ValueError, match="no mesh"):
+        prt.step(tables, animated, prt.init_state(cfg, tables))
+    with pytest.raises(ValueError, match="no mesh"):
+        jrt.step(jtab, dataclasses.replace(jcfg, animate_mesh=True),
+                 jrt.init_state(jcfg, jtab))
+    # with a mesh, the step advances the mesh angle by mesh_speed * dt
+    mcfg, mtab = build_preset("realtime", "cpu", width=8, height=8, spp=1,
+                              max_depth=1, traversal="bvh",
+                              animate_mesh=True)
+    st, _ = prt.step(mtab, mcfg, prt.init_state(mcfg, mtab), mesh_speed=2.0)
+    assert float(st.mesh_angle) == float(np.float32(0.04))
 
 
 def test_on_key_and_reset_accumulation_match_jax(rt16):

@@ -178,3 +178,40 @@ def test_convert_roundtrip_bitwise(both):
     for a, b in zip(conv.L, ptab.L):
         assert torch.equal(a, b)
     assert torch.equal(conv.intensity, ptab.intensity)
+
+
+def test_bvh_and_mesh_source_bitwise(both):
+    """The flat-BVH tables and the posing base geometry: the port's build
+    and the converted JAX tables equal the JAX package's bit for bit."""
+    _, jtab, _, ptab = both
+    conv = scene_tables_from_numpy(jtab, "cpu")
+    for tab in (ptab, conv):
+        for f in ("left", "right", "tri_start", "tri_end", "skip"):
+            _same(getattr(tab.bvh, f).numpy(), getattr(jtab.bvh, f))
+        for k in range(3):
+            _same(tab.bvh.mn[k].numpy(), jtab.bvh.mn[k])
+            _same(tab.bvh.mx[k].numpy(), jtab.bvh.mx[k])
+        for f in ("A", "B", "C", "na", "nb", "nc"):
+            for k in range(3):
+                _same(getattr(tab.mesh_src, f)[k].numpy(),
+                      getattr(jtab.mesh_src, f)[k])
+        _same(tab.mesh_src.valid.numpy(), jtab.mesh_src.valid)
+
+
+@pytest.mark.parametrize("traversal", ["bvh", "pairs"])
+def test_converted_tables_render_as_the_ports_own(traversal):
+    """A JAX scene with ``bvh`` and ``mesh_src`` converts, and the port's
+    frame from it equals the port's frame from its own build bit for bit,
+    unposed and posed."""
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+    from raytracinggpu_tpu_torch.scene.transform import pose_mesh, rotation_y
+
+    size = dict(width=16, height=16, spp=1, max_depth=2,
+                traversal=traversal)
+    _, jtab = j_build_preset("array_bvh", **size)
+    conv = scene_tables_from_numpy(jax.tree.map(np.asarray, jtab), "cpu")
+    cfg, own = build_preset("array_bvh", "cpu", **size)
+    for a, b in ((conv, own), (pose_mesh(conv, rotation_y(0.9)),
+                               pose_mesh(own, rotation_y(0.9)))):
+        assert np.array_equal(render_preset_frame(a, cfg)[0],
+                              render_preset_frame(b, cfg)[0])
