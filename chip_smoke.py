@@ -163,7 +163,27 @@ Phases, in order; any failed check exits nonzero:
    e. the headline frame with the pairs tables of each ``--clustering``
       (ref, then CLUSTERINGS): bitwise phase 4's frame, B1 and B2 launched
       once per cast; tiles, members, host build seconds and B1/B2 ms on
-      the depth-1 cast of each.
+      the depth-1 cast of each;
+14. multi-rank rendering (parallel/sharding.py): two ranks launched on
+    this one card (``sharding.launch``, gloo: NCCL takes one rank a card),
+    the kernels built by phase 2 before either starts:
+   a. the headline frame on a (px 2, sp 1) mesh equals phase 4's frame bit
+      for bit on every rank, and its world-summed TraceStats phase 4's; on
+      every rank B1 and B2 launched once per cast of its own rows, B0, B3,
+      B5 and B6 never;
+   b. the same frame on a (px 1, sp 2) mesh equals phase 4's bit for bit;
+   c. the production anchor through ``traversal="pallas"`` on (px 2,
+      sp 1) equals phase 9d's frame bit for bit, B5 and B6 launched once
+      per cast on every rank;
+   d. ``python -m raytracinggpu_tpu_torch.cli render --devices 2`` exits
+      nonzero naming 2 and the card count; with ``--device cpu`` at 8x8 it
+      writes the PNG of ``--devices 1``;
+   e. ``parallel.multihost_demo.dryrun_multichip`` on two ranks of the
+      card, a (px 1, sp 2) mesh: its ``dense`` 256x256 spp 4 and ``pairs``
+      64x64 spp 2 (SAH, pave) legs each bitwise the single-device frame;
+   each case's wall time, each rank's render and exchange times and the
+   bytes it hands to ``all_reduce`` are printed with the card: the two
+   ranks time-slice one card, so the times are no scaling result.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -710,7 +730,7 @@ def _mesh_query(cfg, tables, casts, err):
 
 def _pallas(device, card, err, timing, pairs_mrays):
     """Phase 9 (module docstring).  Returns the headline frame's launch
-    counts."""
+    counts and 9d's production-anchor frame."""
     import dataclasses
 
     import numpy as np
@@ -878,7 +898,7 @@ def _pallas(device, card, err, timing, pairs_mrays):
     print("pallas kernel timings: B5 redesigned (merge walk, staged pieces), "
           "B6 the control")
     _time_casts(casts, timing, card, depths=(1,))
-    return launches
+    return launches, aimg
 
 
 def _big_mesh(device, card, err):
@@ -1633,6 +1653,189 @@ def _clustering(device, card, head_img):
               f"({ms['pairs_shadow tests']} MT tests), on {card}")
 
 
+# Phase 14: (case, traversal, mesh (px, sp)); a and b the headline frame,
+# c the production anchor through the tiled kernels
+SHARDED_CASES = (("a", "pairs", (2, 1)), ("b", "pairs", (1, 2)),
+                 ("c", "pallas", (2, 1)))
+SHARDED_TIMEOUT = 300.0  # seconds the two ranks may take together
+
+
+def _sharded_rank(device, out_dir):
+    """Phase 14a-c, one rank: each case rendered sharded with its counters
+    zeroed just before; its frame, TraceStats, launches (and those one
+    cast a kernel predicts), render and exchange seconds and the bytes it
+    hands to all_reduce written to ``out_dir``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.parallel.sharding import (
+        make_mesh, merge_shards, render_frame_sharded, render_shard,
+        shard_shape)
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, chunk_size, group_size)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+
+    _kernels.load()  # phase 2's library: loaded, not built
+    rank = dist.get_rank()
+    meshes = {shape: make_mesh(*shape, device=device)
+              for shape in {m for _, _, m in SHARDED_CASES}}
+    size = dict(width=512, height=512, spp=32, max_depth=5)
+    scenes = {"pairs": build_preset("array_bvh", device, **size)}
+    pcfg, ptab = build_preset("array_bvh", device, traversal="pallas", **size)
+    scenes["pallas"] = (dataclasses.replace(pcfg, spp=8, max_depth=3), ptab)
+    # warm-up, not reported: a process's first frame also pays for its
+    # allocator and first launches, a group's first exchange for its
+    # buffers
+    wcfg = dataclasses.replace(scenes["pairs"][0], spp=2, max_depth=1)
+    for mesh in meshes.values():
+        render_frame_sharded(scenes["pairs"][1], wcfg,
+                             Camera.default(wcfg, device),
+                             PRNGKey(1, device), mesh)
+    for name, traversal, shape in SHARDED_CASES:
+        cfg, tables = scenes[traversal]
+        mesh = meshes[shape]
+        rows, spp = shard_shape(cfg.height, cfg.spp, *shape)
+        g = group_size(cfg, spp)
+        R_group = g * rows * cfg.width
+        n_casts = (spp // g) * cfg.max_depth * -(
+            -R_group // chunk_size(cfg, R_group, traversal))
+        expected = {n: 0 for n in _kernels.LAUNCHES}
+        expected.update({f"{traversal}_closest": n_casts,
+                         f"{traversal}_shadow": n_casts})
+        cam = Camera.default(cfg, device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        part, stats = render_shard(tables, cfg, cam, PRNGKey(0, device), mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = dict(_kernels.LAUNCHES)
+        dist.barrier()  # the exchange alone, not the wait for the peer
+        t2 = time.perf_counter()
+        img, stats = merge_shards(cfg, mesh, part, stats)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        nbytes = (part.numel() * 4 if shape[1] > 1 else 0) + (
+            img.numel() * 4 if shape[0] > 1 else 0) + 8 * sum(
+            s.numel() for s in stats)
+        np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
+                 img=img.cpu().numpy(),
+                 stats=torch.stack(tuple(stats)).cpu().numpy(),
+                 launches=json.dumps(launches), expected=json.dumps(expected),
+                 seconds=np.array([t1 - t0, t3 - t2, t3 - t0]),
+                 nbytes=nbytes)
+
+
+def _sharded(device, card, count, head_img, head_stats, pallas_anchor):
+    """Phase 14 (module docstring); ``head_img`` and ``head_stats`` phase
+    4's frame, ``pallas_anchor`` phase 9d's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.parallel.multihost_demo import (
+        dryrun_multichip)
+    from raytracinggpu_tpu_torch.parallel.sharding import launch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    want = {"a": head_img, "b": head_img, "c": pallas_anchor}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # d. the CLI in processes of its own, started beside the ranks
+        cli = [sys.executable, "-m", "raytracinggpu_tpu_torch.cli", "render",
+               "2", "2", "--width", "8", "--height", "8"]
+        png = {n: os.path.join(tmp, f"cpu{n}.png") for n in (1, 2)}
+        procs = {
+            "cuda2": cli + ["--devices", "2"],
+            "cpu1": cli + ["--device", "cpu", "--out", png[1]],
+            "cpu2": cli + ["--device", "cpu", "--devices", "2", "--out",
+                           png[2]]}
+        procs = {k: subprocess.Popen(v, cwd=repo, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, v in procs.items()}
+        try:
+            t0 = time.perf_counter()
+            rc = launch(_sharded_rank, [device, device], tmp,
+                        timeout=SHARDED_TIMEOUT)
+            world_s = time.perf_counter() - t0
+            if rc != 0:
+                _fail(f"multi-rank: a rank failed or hung (launch returned "
+                      f"{rc})")
+            print(f"multi-rank: 2 ranks on {device} over gloo, the world "
+                  f"{world_s:.2f} s from spawn to exit; the ranks time-slice "
+                  f"one card, so no time below is a scaling result; on "
+                  f"{card}")
+            for name, traversal, shape in SHARDED_CASES:
+                walls = []
+                for rank in range(2):
+                    r = np.load(os.path.join(tmp, f"{name}.rank{rank}.npz"))
+                    img = torch.from_numpy(r["img"]).to(device)
+                    launches = json.loads(str(r["launches"]))
+                    expected = json.loads(str(r["expected"]))
+                    render_s, exchange_s, wall_s = r["seconds"].tolist()
+                    walls.append(wall_s)
+                    same = torch.equal(img, want[name])
+                    print(f"multi-rank {name} ({traversal}, px {shape[0]} sp "
+                          f"{shape[1]}) rank {rank}: render {render_s:.3f} s, "
+                          f"exchange {exchange_s:.4f} s of {int(r['nbytes'])} "
+                          f"bytes, launches {launches}; frame "
+                          f"{'bitwise' if same else 'DIFFERS from'} the "
+                          f"single-device one")
+                    if not same:
+                        _fail(f"multi-rank {name}: rank {rank}'s frame is "
+                              "not the single-device frame")
+                    if launches != expected:
+                        _fail(f"multi-rank {name}: rank {rank} launched "
+                              f"{launches}, expected {expected}")
+                    if name != "c":
+                        st = np.stack([s.cpu().numpy() for s in head_stats])
+                        if not np.array_equal(r["stats"], st):
+                            _fail(f"multi-rank {name}: rank {rank}'s "
+                                  "TraceStats are not phase 4's")
+                print(f"multi-rank {name}: wall {max(walls):.3f} s (the "
+                      "slower rank, render and exchange) on "
+                      f"{card}")
+            # d.
+            outs = {}
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=SHARDED_TIMEOUT)
+                outs[k] = (p.returncode, out, err)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rc, _, err = outs["cuda2"]
+        named = f"need 2 CUDA devices; this machine has {count}"
+        print(f"multi-rank d: render --devices 2 on {count} card(s) exited "
+              f"{rc}: {err.strip().splitlines()[-1] if err.strip() else ''}")
+        if rc == 0 or named not in err:
+            _fail(f"render --devices 2 on {count} card(s) did not exit with "
+                  f"an error naming both numbers (rc {rc})")
+        for k in ("cpu1", "cpu2"):
+            if outs[k][0] != 0:
+                _fail(f"render {k}: exited {outs[k][0]}: {outs[k][2]}")
+        with open(png[1], "rb") as f, open(png[2], "rb") as g:
+            if f.read() != g.read():
+                _fail("render --device cpu --devices 2 wrote another PNG "
+                      "than --devices 1")
+        print("multi-rank d: render --device cpu --devices 2 wrote the PNG "
+              "of --devices 1, byte for byte")
+
+    # e. the multichip dry run's two legs, through its entry point
+    t0 = time.perf_counter()
+    rc = dryrun_multichip(2, device, timeout=SHARDED_TIMEOUT)
+    print(f"multi-rank e: dryrun_multichip(2) returned {rc} in "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+    if rc != 0:
+        _fail(f"dryrun_multichip on two ranks of {device} returned {rc}")
+
+
 def main() -> int:
     import torch
 
@@ -1739,7 +1942,7 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     mrays = rays_per_frame(cfg) / min(times) / 1e6
-    head_img, rays0 = img, kept["pairs_closest"][0][0]
+    head_img, head_stats, rays0 = img, stats, kept["pairs_closest"][0][0]
     print(f"headline: {mrays:.3f} Mray/s (array_bvh 512x512 spp32 d5 pairs, "
           f"{rays_per_frame(cfg)} rays/frame, frame times "
           f"{[round(t, 4) for t in times]} s) on {card}")
@@ -1779,7 +1982,8 @@ def main() -> int:
 
     # ---- 9. the tiled-kernel traversal -----------------------------------
     timing_pallas = {}
-    pallas_launches = _pallas(device, card, err, timing_pallas, mrays)
+    pallas_launches, pallas_anchor = _pallas(device, card, err,
+                                             timing_pallas, mrays)
     lap("9 tiled traversal")
 
     # ---- 10. the big-mesh path -------------------------------------------
@@ -1813,6 +2017,10 @@ def main() -> int:
     lap("13d bvh")
     _clustering(device, card, head_img)
     lap("13e clustering")
+
+    # ---- 14. multi-rank rendering ----------------------------------------
+    _sharded(device, card, count, head_img, head_stats, pallas_anchor)
+    lap("14 multi-rank")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:

@@ -24,6 +24,9 @@ LBVH builders.
   by ``ops/_kernels.py``), and the dense matrix-product oracle.
 - ``integrator`` / ``render``: the wavefront integrator, the frame
   pipeline and the realtime loop.
+- ``parallel``: one frame across a (px, sp) mesh of ``torch.distributed``
+  ranks, bitwise the single-device frame; the local launcher, the
+  multi-process demo and the multichip dry run.
 - ``convert``: carries the JAX package's host tables across (tests).
 
 The package imports torch and numpy only: never jax, never

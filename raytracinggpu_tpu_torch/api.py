@@ -14,6 +14,7 @@ One object wraps the preset, scene and pipeline plumbing:
     paved = Renderer("array_bvh", pairs_cluster="sah", pairs_pack="pave",
                      pairs_cut=32)                 # the same frames
     spin = Renderer("realtime", animate_mesh=True)  # animate() spins the cat
+    hdr, stats = r.render_sharded()      # in each rank of a world
 
 The renderer runs on ``device``, the CUDA device unless the caller asks
 for another (``device="cpu"`` runs every kernel's plain PyTorch version);
@@ -24,10 +25,19 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
-import torch
 
+from raytracinggpu_tpu_torch.core.device import render_device
+from raytracinggpu_tpu_torch.core.rng import PRNGKey
+from raytracinggpu_tpu_torch.integrator.wavefront import TraceStats
+from raytracinggpu_tpu_torch.parallel.sharding import (
+    make_mesh,
+    render_frame_sharded,
+)
 from raytracinggpu_tpu_torch.render.image_io import tonemap, write_png
-from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+from raytracinggpu_tpu_torch.render.pipeline import (
+    Camera,
+    render_preset_frame,
+)
 from raytracinggpu_tpu_torch.render.realtime import (
     init_state,
     reset_accumulation,
@@ -45,17 +55,6 @@ from raytracinggpu_tpu_torch.scene.presets import (
     PRESET_NAMES,
     build_preset,
 )
-
-
-def render_device(device=None) -> torch.device:
-    """The device to render on: ``device``, or the CUDA device when None.
-    Raises RuntimeError for a CUDA device when PyTorch has none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port renders on the card; pass "
-            "device='cpu' to run the kernels' plain PyTorch versions")
-    return dev
 
 
 class Renderer:
@@ -96,6 +95,7 @@ class Renderer:
                                  builder=bvh_builder)
         self.cfg, self.scene = build_preset(preset, self.device, mesh=mesh,
                                             **config_overrides)
+        self._mesh = None  # render_sharded's default mesh
 
     # -- single frames ---------------------------------------------------
     def render_hdr(self, seed: int = 0, camera=None):
@@ -138,6 +138,19 @@ class Renderer:
 
     # -- multi-device -----------------------------------------------------
     def render_sharded(self, seed: int = 0, mesh=None):
-        """Multi-device rendering is not ported (ROADMAP A13)."""
-        raise NotImplementedError(
-            "render_sharded is not ported yet (ROADMAP A13: multi-GPU)")
+        """Render across a mesh of ranks (``parallel/sharding.py``): every
+        rank of the initialised ``torch.distributed`` world calls it, each
+        with its Renderer on its own device.  ``mesh`` defaults to every
+        rank on the pixel axis; with no group the world is this process
+        alone, and the frame is ``render_hdr``'s.  Returns (radiance (H, W,
+        3) float32 numpy image, TraceStats of numpy arrays summed over the
+        world), the frame bitwise ``render_hdr``'s on any mesh."""
+        if mesh is None:
+            if self._mesh is None:  # dist.new_group is collective: once
+                self._mesh = make_mesh(device=self.device)
+            mesh = self._mesh
+        cam = Camera.default(self.cfg, self.device)
+        img, stats = render_frame_sharded(self.scene, self.cfg, cam,
+                                          PRNGKey(seed, self.device), mesh)
+        return img.cpu().numpy(), TraceStats(*(s.cpu().numpy()
+                                               for s in stats))

@@ -44,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from raytracinggpu_tpu_torch.api import render_device
+from raytracinggpu_tpu_torch.core.device import render_device
 from raytracinggpu_tpu_torch.bench._timing import card_line, timed
 from raytracinggpu_tpu_torch.ops._kernels import PROBE_BLK as BLK
 from raytracinggpu_tpu_torch.ops._kernels import PROBE_FIXED as N_FIXED

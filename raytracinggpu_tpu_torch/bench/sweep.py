@@ -35,7 +35,7 @@ def run_sweep(
     repeats, ``mrays`` the reference ray count over it.  ``skip(spp,
     bounces)`` leaves a cell out, ``on_cell(spp, bounces, result)`` sees
     each as it ends, ``out`` names a JSON file of the results."""
-    from raytracinggpu_tpu_torch.api import render_device
+    from raytracinggpu_tpu_torch.core.device import render_device
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.render.pipeline import (
         Camera,

@@ -6,6 +6,7 @@
     python -m raytracinggpu_tpu_torch.cli render 4 2 --obj mesh.obj \
         --bvh-builder lbvh --selfcheck
     python -m raytracinggpu_tpu_torch.cli render 2 2 --device cpu
+    python -m raytracinggpu_tpu_torch.cli render 8 3 --devices 4
     python -m raytracinggpu_tpu_torch.cli realtime --frames 60 \
         --out-dir frames/
     python -m raytracinggpu_tpu_torch.cli realtime --animate mesh
@@ -20,8 +21,10 @@ the reference's key bindings), ``bench`` sweeps
 spp x bounces (``bench/sweep.py``; positional spp and bounces restrict it
 to one cell).  Everything renders on ``--device``, the CUDA device by
 default; without one the command exits with an error unless ``--device
-cpu`` is given.  A flag of the JAX CLI whose mode the port does not have
-exits with a message naming its ROADMAP item; none is ignored.
+cpu`` is given.  ``render --devices N`` shards the frame's rows across N
+ranks (``parallel/sharding.py``), the frame bitwise that of one device.
+A flag of the JAX CLI whose mode the port does not have exits with a
+message naming its ROADMAP item; none is ignored.
 """
 from __future__ import annotations
 
@@ -35,9 +38,17 @@ import time
 import numpy as np
 import torch
 
-from raytracinggpu_tpu_torch.api import Renderer, render_device
+from raytracinggpu_tpu_torch.api import Renderer
 from raytracinggpu_tpu_torch.bench.sweep import run_sweep
+from raytracinggpu_tpu_torch.core.device import render_device
 from raytracinggpu_tpu_torch.core.rng import PRNGKey
+from raytracinggpu_tpu_torch.parallel.sharding import (
+    launch,
+    make_mesh,
+    rank_devices,
+    render_frame_sharded,
+    shard_shape,
+)
 from raytracinggpu_tpu_torch.render.image_io import tonemap, write_png
 from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
 from raytracinggpu_tpu_torch.render.realtime import (
@@ -87,7 +98,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--precision", default=None, choices=["highest", "default"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--devices", type=int, default=1,
-                   help="shard across N devices (only 1 is ported)")
+                   help="render: shard the frame's rows across N ranks, an "
+                        "(N, 1) px mesh: --device cuda puts one on each of "
+                        "the first N cards (NCCL), cuda:K all N on card K "
+                        "and cpu N CPU ranks (gloo)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; cpu runs "
                         "the kernels' plain PyTorch versions)")
@@ -118,9 +132,10 @@ def _refuse_unported(args) -> None:
     for attr, inert, why in _UNPORTED_FLAGS:
         if getattr(args, attr) not in inert:
             raise SystemExit(f"error: {why}")
-    if args.devices > 1:
-        raise SystemExit("error: --devices > 1: multi-GPU rendering is not "
-                         "ported yet (ROADMAP A13)")
+    if args.devices < 1 or (args.devices > 1 and args.cmd != "render"):
+        raise SystemExit(f"error: --devices {args.devices}: render shards "
+                         "a frame across N >= 1 devices; realtime and bench "
+                         "run on one")
     if args.obj and args.preset == "showcase":
         raise SystemExit("error: --obj is not supported with --preset "
                          "showcase (the showcase scene has no mesh slot)")
@@ -165,39 +180,67 @@ def _device(args) -> torch.device:
 
 
 def cmd_render(args) -> int:
-    dev = _device(args)
+    if args.devices == 1:
+        return _render(_device(args), args)
+    _refuse_unported(args)
+    try:
+        devices = rank_devices(args.device, args.devices)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}")
+    shard_shape(args.height, 1, args.devices, 1)  # before any rank starts
+    return launch(_render_rank, devices, args)
+
+
+def _render_rank(dev, args) -> None:
+    """One rank of ``render --devices N``: an (N, 1) px mesh."""
+    _render(dev, args, make_mesh(args.devices, 1, dev))
+
+
+def _render(dev, args, mesh=None) -> int:
+    """Render the frame on ``dev``, or across ``mesh`` when given: every
+    rank renders, rank 0 alone writes the PNG and reports."""
     cfg, tables = _build(args, dev)
     cam = Camera.default(cfg, dev)
     key = PRNGKey(args.seed, dev)
+    lead = mesh is None or mesh.rank == 0
 
     def run():
-        img, stats = render_frame(tables, cfg, cam, key)
+        if mesh is None:
+            img, stats = render_frame(tables, cfg, cam, key)
+        else:
+            img, stats = render_frame_sharded(tables, cfg, cam, key, mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return img, stats
 
+    profile = args.profile if lead else None
     if args.profile:
         run()  # build the kernels and fill the allocator outside the trace
     t0 = time.perf_counter()
-    with device_trace(args.profile):
+    with device_trace(profile):
         img, stats = run()
     wall = time.perf_counter() - t0
-    if args.profile:
-        print(f"profiler trace -> {args.profile}/trace.json (chrome://tracing"
+    if profile:
+        print(f"profiler trace -> {profile}/trace.json (chrome://tracing"
               " or Perfetto)")
 
     out = args.out or f"image_{args.preset}.png"
     arr = img.cpu().numpy()
     if args.selfcheck:
-        # a finite frame, and the same seed gives the same frame
+        # a finite frame, and the same seed gives the same frame through
+        # the same path (a sharded frame is re-rendered sharded)
         if not torch.isfinite(img).all():
             raise SystemExit("selfcheck failed: non-finite radiance")
         if not torch.equal(run()[0], img):
             raise SystemExit("selfcheck failed: nondeterministic render")
-        print("selfcheck OK: finite + deterministic")
+        if lead:
+            print("selfcheck OK: finite + deterministic")
+    if not lead:
+        return 0
     write_png(out, tonemap(arr))
     rep = ray_report(stats, cfg.spp, cfg.width, cfg.height, wall)
-    print(f"Rendering time: {wall:.3f} s on {dev}")  # reference print shape
+    where = dev if mesh is None else f"{mesh.n_px} ranks of {dev.type}"
+    print(f"Rendering time: {wall:.3f} s on {where}")  # reference print shape
     print(json.dumps(rep))
     print(f"wrote {out}")
     return 0

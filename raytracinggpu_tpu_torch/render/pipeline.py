@@ -9,7 +9,9 @@ each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays
 uniforms are keyed per (sample, row) with the threefry key that
 ``render_frame`` is given, and every sample's radiance is added to the
 accumulator in sample order, so the frame is bitwise independent of the
-group size.
+group size.  ``sample_colors`` gives the samples unsummed and
+``sum_samples`` adds them in that order: the sharded frame
+(``parallel/sharding.py``) is built from them, and is bitwise this one.
 """
 from __future__ import annotations
 
@@ -193,23 +195,23 @@ def group_size(cfg: RenderConfig, n_s: int) -> int:
     return g
 
 
-def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
-                rows: np.ndarray, sample_ids) -> tuple[Vec3, TraceStats]:
-    """Accumulated (unaveraged) radiance for a set of global rows over a set
-    of global sample ids.  Returns (color Vec3 (nr*W,), TraceStats summed).
+def _add_stats(a: TraceStats | None, b: TraceStats) -> TraceStats:
+    return b if a is None else TraceStats(*(x + y for x, y in zip(a, b)))
 
-    Samples trace in groups of cfg.spp_fuse (the largest divisor of the
-    sample count not above it); a group's rays concatenate into one
-    wavefront, sample-major."""
-    dev = scene.device
+
+def _wavefronts(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
+                rows: np.ndarray, sample_ids):
+    """Trace a set of global rows over a set of global sample ids in groups
+    of cfg.spp_fuse samples (the largest divisor of the sample count not
+    above it); a group's rays concatenate into one wavefront,
+    sample-major.  Yields, group by group in sample order, (color Vec3
+    (g*nr*W,), g, TraceStats of the group)."""
     W, D = cfg.width, cfg.max_depth
-    R = len(rows) * W
     sample_ids = [int(s) for s in sample_ids]
     n_s = len(sample_ids)
     g = group_size(cfg, n_s)
-    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=dev)
-    acc = Vec3.zeros((R,), device=dev)
-    stats = None
+    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64,
+                             device=scene.device)
     for g0 in range(0, n_s, g):
         Os, us, uns = [], [], []
         for s in sample_ids[g0:g0 + g]:
@@ -222,23 +224,66 @@ def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
         O = Vec3(*(torch.cat(c) for c in zip(*Os)))
         u = Vec3(*(torch.cat(c) for c in zip(*us)))
         col, st = trace_chunked(scene, cfg, O, u, torch.cat(uns, dim=-1))
+        yield col, g, st
+
+
+def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
+                rows: np.ndarray, sample_ids) -> tuple[Vec3, TraceStats]:
+    """Accumulated (unaveraged) radiance for a set of global rows over a set
+    of global sample ids.  Returns (color Vec3 (nr*W,), TraceStats summed).
+
+    Each wavefront's samples are added to the accumulator as it is traced,
+    one sample at a time in sample order, from zero: the sum
+    ``sum_samples`` forms from ``sample_colors``, bit for bit."""
+    R = len(rows) * cfg.width
+    acc = Vec3.zeros((R,), device=scene.device)
+    stats = None
+    for col, g, st in _wavefronts(scene, cfg, cam, key, rows, sample_ids):
         for i in range(g):
             acc = acc + Vec3(*(c[i * R:(i + 1) * R] for c in col))
-        stats = st if stats is None else TraceStats(*(a + b for a, b in
-                                                      zip(stats, st)))
+        stats = _add_stats(stats, st)
     return acc, stats
+
+
+def sample_colors(scene: SceneTables, cfg: RenderConfig, cam: Camera,
+                  key: Key, rows: np.ndarray, sample_ids
+                  ) -> tuple[torch.Tensor, TraceStats]:
+    """The radiance of every sample of a set of global rows, unsummed:
+    ((n_s, 3, nr*W) float32 in the order of ``sample_ids``, TraceStats
+    summed).  The samples trace in the wavefronts ``render_rows`` traces,
+    so each equals the term it adds."""
+    R = len(rows) * cfg.width
+    cols, stats = [], None
+    for col, g, st in _wavefronts(scene, cfg, cam, key, rows, sample_ids):
+        cols.append(torch.stack(tuple(col)).reshape(3, g, R).transpose(0, 1))
+        stats = _add_stats(stats, st)
+    return torch.cat(cols), stats
+
+
+def sum_samples(cols: torch.Tensor) -> Vec3:
+    """The accumulated radiance of (n_s, 3, R) per-sample colours: added
+    one sample at a time, in their order, from zero, as ``render_rows``
+    adds them."""
+    acc = Vec3.zeros((cols.shape[-1],), device=cols.device)
+    for c in cols:
+        acc = acc + Vec3(*c)
+    return acc
+
+
+def frame_rows(cfg: RenderConfig, acc: Vec3) -> torch.Tensor:
+    """(nr, W, 3) float32 rows of the frame from the accumulated radiance
+    of cfg.spp samples."""
+    col = acc / float(cfg.spp)
+    return torch.stack([c.reshape(-1, cfg.width) for c in col], dim=-1)
 
 
 def render_frame(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key):
     """Render one frame: (H, W, 3) float32 radiance on the scene's device
     and the summed TraceStats.  Per sample, Box-Muller jitter then a full
     trace; colors averaged over cfg.spp samples."""
-    W, H, spp = cfg.width, cfg.height, cfg.spp
-    rows = np.arange(H, dtype=np.int32)
-    acc, stats = render_rows(scene, cfg, cam, key, rows, range(spp))
-    col = acc / float(spp)
-    img = torch.stack([c.reshape(H, W) for c in col], dim=-1)
-    return img, stats
+    rows = np.arange(cfg.height, dtype=np.int32)
+    acc, stats = render_rows(scene, cfg, cam, key, rows, range(cfg.spp))
+    return frame_rows(cfg, acc), stats
 
 
 def render_preset_frame(scene: SceneTables, cfg: RenderConfig, seed: int = 0,

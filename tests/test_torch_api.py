@@ -117,11 +117,18 @@ def test_animate_batched_matches_single():
     assert not np.array_equal(a[0], a[1])  # the light moved
 
 
-def test_render_sharded_names_the_roadmap_item():
-    r = Renderer("array_bvh", device="cpu", width=8, height=8, spp=1,
-                 max_depth=1)
-    with pytest.raises(NotImplementedError, match="A13"):
-        r.render_sharded()
+def test_render_sharded_without_a_group_is_render_hdr():
+    """With no torch.distributed group the world is this process alone: a
+    1x1 mesh, and the frame and TraceStats of render_hdr bit for bit (the
+    multi-rank cases: tests/test_torch_sharding.py)."""
+    r = Renderer("array_bvh", device="cpu", width=8, height=8, spp=2,
+                 max_depth=2, traversal="pallas")
+    img, stats = r.render_sharded(seed=4)
+    ref, ref_stats = r.render_hdr(seed=4)
+    assert img.dtype == np.float32 and img.shape == (8, 8, 3)
+    np.testing.assert_array_equal(img, ref)
+    for a, b in zip(stats, ref_stats):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("over", [

@@ -69,7 +69,7 @@ def test_showcase_rejects_custom_obj(tmp_path):
 
 
 # the ROADMAP items whose flags were refused until they were ported
-PORTED_ITEMS = ("A10b",)
+PORTED_ITEMS = ("A10b", "A13")
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -84,7 +84,8 @@ PORTED_ITEMS = ("A10b",)
 def test_unported_flags_exit_naming_the_roadmap_item(tmp_path, flags, item):
     """A flag of the JAX CLI whose mode the port lacks exits naming its
     ROADMAP item; the flags of a ported item (``--clustering``,
-    ``--traversal bvh``: A10b) render."""
+    ``--traversal bvh``: A10b; ``--devices 2``: A13, two CPU ranks)
+    render."""
     out = str(tmp_path / "f.png")
     argv = ["render", "1", "1", "--width", "8", "--height", "8",
             "--device", "cpu", "--out", out, *flags]
@@ -319,3 +320,47 @@ def test_realtime_interactive_follows_keys(tmp_path, monkeypatch, capsys):
         assert main([*args, "--frames", "3"]) == 0
     os.close(master)
     assert read_png(str(tmp_path / "live.png")).shape == (8, 8, 3)
+
+
+def test_render_on_two_ranks_writes_the_png_of_one(tmp_path, capsys):
+    """``render --device cpu --devices 2`` shards the rows over two CPU
+    ranks (gloo); rank 0 alone reports, and its PNG is the one of
+    ``--devices 1`` byte for byte (the frames are bitwise equal)."""
+    argv = ["render", "2", "2", "--width", "16", "--height", "16",
+            "--device", "cpu", "--seed", "5"]
+    one, two = str(tmp_path / "one.png"), str(tmp_path / "two.png")
+    assert main([*argv, "--out", one]) == 0
+    capsys.readouterr()
+    assert main([*argv, "--devices", "2", "--out", two, "--selfcheck"]) == 0
+    out = capsys.readouterr().out
+    assert "launch: 2 ranks on cpu, cpu over gloo" in out
+    with open(one, "rb") as f, open(two, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_render_devices_on_cuda_without_a_card_exits():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["render", "1", "1", "--width", "8", "--height", "8",
+              "--devices", "2"])
+
+
+@pytest.mark.parametrize("argv,words", [
+    (["render", "--height", "15", "--devices", "2"], ("15", "px = 2")),
+    (["render", "--devices", "0"], ("--devices 0",)),
+    (["realtime", "--devices", "2"], ("realtime and bench run on one",)),
+    (["bench", "--devices", "2"], ("realtime and bench run on one",)),
+])
+def test_devices_that_cannot_shard_are_refused(argv, words, capsys):
+    """A height that the ranks do not divide, no rank at all, and
+    ``--devices`` on the subcommands that render on one device exit with
+    an error before any rank starts."""
+    argv = [*argv, "1", "1", "--device", "cpu", "--width", "8"]
+    try:
+        rc = main(argv)
+        msg = capsys.readouterr().err
+    except SystemExit as e:
+        rc, msg = 1, str(e)
+    assert rc == 1
+    assert all(w in msg for w in words)
