@@ -184,6 +184,32 @@ Phases, in order; any failed check exits nonzero:
    each case's wall time, each rank's render and exchange times and the
    bytes it hands to ``all_reduce`` are printed with the card: the two
    ranks time-slice one card, so the times are no scaling result.
+15. the numpy oracle (oracle/numpy_ref.py, the cases of
+    oracle/cases.py): the port's ``trace`` on the card, with injected
+    uniforms, against the oracle's, a ray disagreeing past 3e-3 * |ref|
+    + 3.0 in a channel: three random sphere scenes (seeds 7, 42, 1001,
+    64x64, depth 4) under 4% of the rays, two random 200-triangle meshes
+    (seeds 3, 99, 64x64) through ``pairs`` (B1, B2) and ``pallas`` (B5,
+    B6) under 5%, the realtime config with smooth normals (32x32) through
+    ``pairs`` (B3, B2) and ``pallas`` under 4%; each case's share and
+    launches printed, each mesh case launching its kernels; the smooth
+    normals' 32x32 frames through ``pallas`` and ``pairs`` against
+    ``dense``: under 1% of the pixels off by more than 1e-4 * |dense| +
+    2e-2;
+16. the native host runtime (native.py): the library built from
+    native/src/rt_native.cpp with g++ (or found built), its seconds and
+    the compiler's version; with ``native=True`` against ``native=False``,
+    bitwise: the cat OBJ with and without the embedded transform, the
+    200,000-triangle soup's ``read_obj`` and its reference ``build_bvh``
+    (seconds of each), the soup's host build through the Renderer
+    (bench/big_mesh.py's ``host_build_s``) with ``RT_NATIVE=0`` and
+    native (its tables equal), and phase 4's image written as a PNG, byte
+    for byte the numpy writer's; it never fails on time;
+17. the gallery: ``python -m raytracinggpu_tpu_torch.bench.gallery
+    --quick`` in a process of its own, the frame rows ``array_bvh`` and
+    ``showcase``, the realtime row ``realtime_512x512`` and the ablation
+    rows ``pallas_tiled_s64``, ``spp_fuse1`` and ``bvh_skiplinks``: exit
+    0, no error row, the card line in each file; the rows printed.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -1836,6 +1862,219 @@ def _sharded(device, card, count, head_img, head_stats, pallas_anchor):
         _fail(f"dryrun_multichip on two ranks of {device} returned {rc}")
 
 
+# Phase 15: the oracle cases at these sizes (pixels a side)
+ORACLE_SCENE_SIZE = 64
+ORACLE_REALTIME_SIZE = 32
+# the kernels each case must launch (the sphere scenes have no mesh)
+ORACLE_KERNELS = {
+    "pairs": ("pairs_closest", "pairs_shadow"),
+    "pallas": ("pallas_closest", "pallas_shadow"),
+    "realtime pairs": ("pairs_closest_smooth", "pairs_shadow"),
+    "realtime pallas": ("pallas_closest", "pallas_shadow"),
+}
+
+
+def _oracle(device, card):
+    """Phase 15 (module docstring)."""
+    from raytracinggpu_tpu_torch.oracle import cases
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    def held(label, make, bound, kernels=()):
+        t0 = time.perf_counter()
+        case = make()
+        _kernels.reset_launches()
+        got, ref = cases.run(case)
+        launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        share = cases.disagree(got, ref)
+        print(f"oracle {label}: {share:.4%} of {len(got)} rays disagree "
+              f"(bound {bound:.0%}), launches {launched}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not share < bound:
+            _fail(f"oracle {label}: {share:.2%} of the rays disagree")
+        if not all(launched.get(k, 0) > 0 for k in kernels) or (
+                not kernels and launched):
+            _fail(f"oracle {label}: launches {launched}, expected "
+                  f"{kernels or 'none'}")
+
+    n, m = ORACLE_SCENE_SIZE, ORACLE_REALTIME_SIZE
+    for seed in (7, 42, 1001):
+        held(f"spheres seed {seed} ({n}x{n}, depth 4)",
+             lambda: cases.sphere_case(seed, device, size=n),
+             cases.SHARE["spheres"])
+    for seed in (3, 99):
+        for trav in ("pairs", "pallas"):
+            held(f"mesh seed {seed} {trav} ({n}x{n}, 200 triangles)",
+                 lambda: cases.mesh_case(seed, trav, device, size=n),
+                 cases.SHARE["mesh"], ORACLE_KERNELS[trav])
+    for trav in ("pairs", "pallas"):
+        held(f"realtime smooth normals {trav} ({m}x{m})",
+             lambda: cases.realtime_case(trav, device, size=m),
+             cases.SHARE["realtime"], ORACLE_KERNELS[f"realtime {trav}"])
+    frames = cases.smooth_frames(device, size=m)
+    for trav in ("pallas", "pairs"):
+        share = cases.smooth_disagree(frames[trav], frames["dense"])
+        print(f"oracle smooth normals {trav} against dense ({m}x{m} frame): "
+              f"{share:.4%} of the pixels disagree (bound "
+              f"{cases.SMOOTH_SHARE:.0%})")
+        if not share < cases.SMOOTH_SHARE:
+            _fail(f"smooth normals {trav}: {share:.2%} off the dense frame")
+    print(f"oracle cases on {card}")
+
+
+def _native_phase(device, card, head_img):
+    """Phase 16 (module docstring); ``head_img`` phase 4's frame."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch import Renderer, native
+    from raytracinggpu_tpu_torch.accel.bvh import build_bvh
+    from raytracinggpu_tpu_torch.bench.big_mesh import soup_obj
+    from raytracinggpu_tpu_torch.render.image_io import (
+        read_png, tonemap, write_png)
+    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH, read_obj
+
+    t0 = time.perf_counter()
+    try:
+        native.load()
+    except RuntimeError as e:
+        _fail(str(e))
+    info = native.BUILD_INFO
+    print(f"native: {info['compiler']}; "
+          f"{'compiled' if info['compiled'] else 'cached'} "
+          f"{os.path.relpath(info['library'])} in {info['seconds']:.2f} s "
+          f"(build+load here {time.perf_counter() - t0:.2f} s)")
+
+    def same(a, b, fields, what):
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                    x.view(np.uint8), y.view(np.uint8)):
+                _fail(f"native {what}: {f} is not the numpy one")
+
+    obj_fields = ("vertices", "normals", "uvs", "vtx", "nrm", "uv")
+    bvh_fields = ("left", "right", "mn", "mx", "tri_start", "tri_end",
+                  "skip", "order")
+    for embed in (False, True):
+        same(read_obj(CAT_OBJ_PATH, embed, native=True),
+             read_obj(CAT_OBJ_PATH, embed, native=False), obj_fields,
+             f"cat OBJ (embed_transform={embed})")
+    print("native: the cat OBJ, with and without the embedded transform, "
+          "bitwise the numpy parse")
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = os.path.join(d, "soup.obj")
+        soup_obj(path, BIG_TRIS)
+        objs, secs = {}, {}
+        for nat in (False, True):
+            objs[nat], secs[nat] = clock(lambda: read_obj(path, native=nat))
+        same(objs[True], objs[False], obj_fields, "soup OBJ")
+        V, vtx = objs[False].vertices, objs[False].vtx
+        A, B, C = (V[vtx[:, k]] for k in range(3))
+        bvhs, bsecs = {}, {}
+        for nat in (False, True):
+            bvhs[nat], bsecs[nat] = clock(lambda: build_bvh(A, B, C,
+                                                            native=nat))
+        same(bvhs[True], bvhs[False], bvh_fields, "soup BVH")
+        print(f"native: the {BIG_TRIS}-triangle soup: read_obj "
+              f"{secs[False]:.3f} s numpy, {secs[True]:.3f} s native; "
+              f"build_bvh (the reference midpoint tree, "
+              f"{bvhs[True].n_nodes} nodes) {bsecs[False]:.3f} s numpy, "
+              f"{bsecs[True]:.3f} s native; both bitwise")
+        # bench/big_mesh.py's host_build_s: the Renderer's construction
+        def soup_build():
+            r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
+                         device=device, **BIG_FRAME)
+            torch.cuda.synchronize()
+            return r.scene
+
+        host, tabs = {}, {}
+        saved = os.environ.get("RT_NATIVE")
+        for nat in (False, True):
+            os.environ["RT_NATIVE"] = "1" if nat else "0"
+            try:
+                tabs[nat], host[nat] = clock(soup_build)
+            finally:
+                if saved is None:
+                    del os.environ["RT_NATIVE"]
+                else:
+                    os.environ["RT_NATIVE"] = saved
+        for part in ("pairs_mesh", "pallas_mesh"):
+            for a, b in zip(getattr(tabs[True], part),
+                            getattr(tabs[False], part)):
+                if torch.is_tensor(a) and not torch.equal(a, b):
+                    _fail(f"native: the soup's {part} differ with "
+                          "RT_NATIVE=0")
+        print(f"native: the soup's host build (bench/big_mesh.py "
+              f"host_build_s: Renderer, lbvh, {BIG_FRAME}) "
+              f"{host[False]:.3f} s with RT_NATIVE=0, {host[True]:.3f} s "
+              f"native (the lbvh builder is numpy either way: native parses "
+              f"the OBJ); the tables bitwise; on {card}")
+        del tabs
+        img = tonemap(head_img)
+        pngs = {nat: os.path.join(d, f"head_{nat}.png") for nat in (0, 1)}
+        for nat, png in pngs.items():
+            write_png(png, img, native=bool(nat))
+        with open(pngs[0], "rb") as f, open(pngs[1], "rb") as g:
+            if f.read() != g.read():
+                _fail("native: the headline PNG differs from the numpy "
+                      "writer's")
+        if not np.array_equal(read_png(pngs[1]), img):
+            _fail("native: the headline PNG does not read back")
+        print(f"native: the headline image {img.shape} written as PNG, "
+              "byte for byte the numpy writer's, read back equal")
+
+
+# Phase 17: the gallery's quick rows run here
+GALLERY_ROWS = ("array_bvh", "showcase", "realtime_512x512")
+GALLERY_ABLATIONS = ("pallas_tiled_s64", "spp_fuse1", "bvh_skiplinks")
+GALLERY_TIMEOUT = 600.0
+
+
+def _gallery(card):
+    """Phase 17 (module docstring)."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        cmd = [sys.executable, "-m", "raytracinggpu_tpu_torch.bench.gallery",
+               "--quick", "--out", d, "--only", "frames,realtime,ablations",
+               "--rows", ",".join(GALLERY_ROWS),
+               "--ablation-rows", ",".join(GALLERY_ABLATIONS)]
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(cmd, cwd=repo, capture_output=True,
+                                 text=True, timeout=GALLERY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            _fail(f"the gallery ran past {GALLERY_TIMEOUT} s")
+        print(f"gallery: exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if res.returncode != 0:
+            _fail(f"the gallery exited {res.returncode}:\n"
+                  f"{res.stderr[-3000:]}")
+        docs = {}
+        for name, want in (("torch_results.json", GALLERY_ROWS),
+                           ("torch_ablations.json", GALLERY_ABLATIONS)):
+            with open(os.path.join(d, name)) as f:
+                docs[name] = doc = json.load(f)
+            if doc["card"] != card:
+                _fail(f"gallery {name}: card {doc['card']!r}, not {card!r}")
+            if tuple(doc["rows"]) != want:
+                _fail(f"gallery {name}: rows {list(doc['rows'])}")
+            for row, val in doc["rows"].items():
+                if "error" in val:
+                    _fail(f"gallery {name} {row}: {val['error']}")
+                print(f"gallery {row}: {json.dumps(val)}")
+        head = {k: v for k, v in docs["torch_results.json"].items()
+                if k != "rows"}
+        print(f"gallery files: {json.dumps(head)}")
+
+
 def main() -> int:
     import torch
 
@@ -2021,6 +2260,18 @@ def main() -> int:
     # ---- 14. multi-rank rendering ----------------------------------------
     _sharded(device, card, count, head_img, head_stats, pallas_anchor)
     lap("14 multi-rank")
+
+    # ---- 15. the numpy oracle on the card --------------------------------
+    _oracle(device, card)
+    lap("15 oracle")
+
+    # ---- 16. the native host runtime --------------------------------------
+    _native_phase(device, card, head_img)
+    lap("16 native")
+
+    # ---- 17. the gallery -------------------------------------------------
+    _gallery(card)
+    lap("17 gallery")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:

@@ -1,5 +1,6 @@
 """Host BVH builder emitting flat SoA node arrays (port of
-``raytracinggpu_tpu/accel/bvh.py``, numpy path only).
+``raytracinggpu_tpu/accel/bvh.py``: the numpy builder, or the native one
+of ``native.py``).
 
 The reference's recursive median-of-space build, with identical semantics:
 
@@ -24,6 +25,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+
+from raytracinggpu_tpu_torch import native as native_mod
 
 LEAF_MIN_TRIS = 5  # reference: triangle_end - triangle_start < 5
 NODE_FLOATS = 10   # reference flat record width
@@ -66,13 +69,24 @@ class FlatBVH:
         return out.reshape(-1)
 
 
-def build_bvh(A: np.ndarray, B: np.ndarray, C: np.ndarray) -> FlatBVH:
+def build_bvh(A: np.ndarray, B: np.ndarray, C: np.ndarray,
+              native: bool | None = None) -> FlatBVH:
     """Build from triangle vertex arrays (T, 3); returns the flat preorder BVH.
 
     The recursion and the swap-based partition replicate the reference
     exactly (including its non-stable partition order), so the triangle
     ordering and tree shape equal the JAX package's builder bit for bit.
+
+    native: the C++ builder (``native.resolve``: False numpy, True the
+    library or RuntimeError, None the library when it builds), the same
+    tree bit for bit.
     """
+    lib = native_mod.resolve(native)
+    if lib is not None:
+        left, right, start, end, skip, mn, mx, order = native_mod.build_bvh(
+            lib, A, B, C)
+        return FlatBVH(left=left, right=right, mn=mn, mx=mx, tri_start=start,
+                       tri_end=end, order=order, skip=skip)
     A = np.asarray(A, np.float32)
     B = np.asarray(B, np.float32)
     C = np.asarray(C, np.float32)

@@ -1,6 +1,6 @@
 """Tone mapping and PNG output (port of
 ``raytracinggpu_tpu/render/image_io.py``: ``tonemap``, ``tonemap_device``,
-the stdlib ``write_png`` and its reader ``read_png``).
+``write_png``, stdlib or native, and its reader ``read_png``).
 
 The reference writes its PNGs after a gamma-2.2 tone map with a 255 clamp
 and a raw char cast: ``byte = (char) min(pow(radiance, 1/2.2), 255.0)``.
@@ -9,11 +9,14 @@ the hundreds after the power, and the clamp does the rest.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
 import numpy as np
 import torch
+
+from raytracinggpu_tpu_torch import native as native_mod
 
 
 def tonemap(img) -> np.ndarray:
@@ -38,13 +41,18 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (filter 0,
-    stdlib zlib)."""
+def write_png(path: str, rgb: np.ndarray, native: bool | None = None) -> None:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (filter 0, zlib
+    level 6).  native: the C++ encoder (``native.resolve``: False stdlib,
+    True the library or RuntimeError, None the library when it builds)."""
     rgb = np.asarray(rgb, np.uint8)
     h, w, c = rgb.shape
     if c != 3:
         raise ValueError(f"need an (H, W, 3) image, got {rgb.shape}")
+    lib = native_mod.resolve(native)
+    if lib is not None:
+        native_mod.write_png(lib, os.fspath(path), rgb)
+        return
     raw = b"".join(b"\x00" + rgb[i].tobytes() for i in range(h))
     png = (b"\x89PNG\r\n\x1a\n"
            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))

@@ -1,5 +1,5 @@
-"""Wavefront OBJ ingestion (port of ``raytracinggpu_tpu/scene/obj.py``,
-numpy path only).
+"""Wavefront OBJ ingestion (port of ``raytracinggpu_tpu/scene/obj.py``:
+the numpy parser, or the native one of ``native.py``).
 
 - ``v`` / ``vn`` / ``vt`` records parsed into float arrays,
 - faces in any of the formats ``i``, ``i/j``, ``i//k``, ``i/j/k``,
@@ -13,6 +13,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from raytracinggpu_tpu_torch import native as native_mod
 
 
 @dataclass
@@ -46,13 +48,25 @@ def _parse_corner(tok: str, nv: int, nu: int, nn: int):
     return v, u, n
 
 
-def read_obj(path: str | os.PathLike, embed_transform: bool = False) -> ObjMesh:
+def read_obj(path: str | os.PathLike, embed_transform: bool = False,
+             native: bool | None = None) -> ObjMesh:
     """Parse an OBJ file.
 
     embed_transform: apply ``v*0.8 + (0,-10,0)`` to vertices at load, the
     transform the reference hardcodes inside readOBJ for the cpu/global/
     optimized launchers.
+    native: the C++ parser (``native.resolve``: False numpy, True the
+    library or RuntimeError, None the library when it builds).  Its arrays
+    are the numpy parser's bit for bit; it does not track usemtl groups
+    (``group`` is all 0).
     """
+    lib = native_mod.resolve(native)
+    if lib is not None:
+        vertices, normals, uvs, fv, fn, fu = native_mod.parse_obj(
+            lib, os.fspath(path), embed_transform)
+        return _validated(ObjMesh(
+            vertices=vertices, normals=normals, uvs=uvs, vtx=fv, nrm=fn,
+            uv=fu, group=np.zeros(len(fv), np.int32)), path)
     vertices: list[tuple] = []
     normals: list[tuple] = []
     uvs: list[tuple] = []
