@@ -10,14 +10,16 @@ Phases, in order; any failed check exits nonzero:
    csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e)
    with nvcc for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
-   spp 32, depth 5) once while keeping the inputs the frame gives each
-   kernel at depths 0 and 1 of its first cast (4 samples fused, 524,288
-   rays); on those inputs B1 and B2 must equal their plain PyTorch
-   versions bit for bit, and so must B0, whose (t, idx) must also equal
-   B1's on the closest casts;
+   spp 32, depth 5) once with the compaction ladder off (every cast at
+   full width, as in earlier versions of this script) while keeping the
+   inputs the frame gives each kernel at depths 0 and 1 of its first cast
+   (4 samples fused, 524,288 rays); on those inputs B1 and B2 must equal
+   their plain PyTorch versions bit for bit, and so must B0, whose (t,
+   idx) must also equal B1's on the closest casts;
 4. headline frame: render the main-path frame through the public entry
-   points with the launch counters zeroed just before; the image must be
-   finite and equal the phase-3 frame (same seed), every ray must hit the
+   points (the default config: the ladder on) with the launch counters
+   zeroed just before; the image and TraceStats must be finite and equal
+   the phase-3 frame's (same seed), every ray must hit the
    enclosed scene at every depth, some shadow rays must be occluded, B1
    and B2 must have launched once per cast and B3 and B0 never; then time
    three frames and print Mray/s;
@@ -29,12 +31,14 @@ Phases, in order; any failed check exits nonzero:
    JAX package's TPU record is printed beside it (see ANCHOR_* below);
 7. realtime loop (the ``realtime`` preset, 512x512, spp 20, depth 3,
    seed 0; smooth normals, so every closest cast runs B3):
-   a. the loop's first frame (``step`` from ``init_state``) with the
-      inputs of B3's and B2's depth-0 and depth-1 casts kept; on them B3,
+   a. the loop's first frame (``step`` from ``init_state``, the ladder
+      off) with the inputs of B3's and B2's depth-0 and depth-1 casts
+      kept; on them B3,
       B2 and B0 must equal their plain versions bit for bit, and B0's
       (t, idx) B3's; B3 must launch 30 times and B1 never;
-   b. realtime anchor: the same frame through ``render_rows`` must equal
-      the step's frame, hit the enclosed scene with every ray at every
+   b. realtime anchor: the same frame through ``render_rows`` (the ladder
+      on) must equal the step's frame, hit the enclosed scene with every
+      ray at every
       depth, and its mean must lie within 1% of the JAX package's CPU
       render (ANCHOR_RT_* below);
    c. ``run_loop`` over LOOP_FRAMES frames with the counters zeroed just
@@ -77,16 +81,17 @@ Phases, in order; any failed check exits nonzero:
     field table in supertiles (B4, run here by B0-B3 over the whole
     table):
    a. the host build: its seconds, the tables' sizes and the subgroup;
-   b. one frame with the inputs of the depth-0 and depth-1 closest and
-      shadow casts kept (524,288 rays each) and the peak device memory; on
+   b. one frame (the ladder off) with the inputs of the depth-0 and
+      depth-1 closest and shadow casts kept (524,288 rays each) and the
+      peak device memory; on
       the busiest WINDOW_RAYS rays of each kept cast B1, B2 and B0 must
       equal their plain versions bit for bit, and so must B3 on a copy of
       the fields with seeded unit vertex normals (the soup has none); B0's
       and B3's (t, idx) must equal B1's;
-   c. the frame again with the counters zeroed: finite, equal to the
-      capture frame, every ray hits at every depth, B1 and B2 launched
-      once per cast (BIG_CASTS each) and no other kernel; three frames
-      timed, Mray/s printed;
+   c. the frame again (the ladder on) with the counters zeroed: finite,
+      equal to the capture frame, every ray hits at every depth, B1 and B2
+      launched once per cast (BIG_CASTS each) and no other kernel; three
+      frames timed, Mray/s printed;
    d. the same frame at ``pairs_subgroup=64`` (the soup's is 16) must
       equal it bit for bit; three frames timed, and B1 and B2 on the
       depth-1 casts of both subgroups, per Moller-Trumbore test;
@@ -161,9 +166,9 @@ Phases, in order; any failed check exits nonzero:
       and hits, t within rtol 1e-5; the walk's host-clock time and its
       kernels' device time on those rays;
    e. the headline frame with the pairs tables of each ``--clustering``
-      (ref, then CLUSTERINGS): bitwise phase 4's frame, B1 and B2 launched
-      once per cast; tiles, members, host build seconds and B1/B2 ms on
-      the depth-1 cast of each;
+      (ref, then CLUSTERINGS), the ladder off: bitwise phase 4's frame, B1
+      and B2 launched once per cast; tiles, members, host build seconds
+      and B1/B2 ms on the (whole) depth-1 cast of each;
 14. multi-rank rendering (parallel/sharding.py): two ranks launched on
     this one card (``sharding.launch``, gloo: NCCL takes one rank a card),
     the kernels built by phase 2 before either starts:
@@ -209,12 +214,44 @@ Phases, in order; any failed check exits nonzero:
     --quick`` in a process of its own, the frame rows ``array_bvh`` and
     ``showcase``, the realtime row ``realtime_512x512`` and the ablation
     rows ``pallas_tiled_s64``, ``spp_fuse1`` and ``bvh_skiplinks``: exit
-    0, no error row, the card line in each file; the rows printed.
+    0, no error row, the card line in each file; the rows printed;
+18. the compaction ladder (ops/pairs_trace.py: the default config's pairs
+    casts at depth >= 1 run on their active rays only, packed into the
+    tightest of three tiers that holds them, at full width when none
+    does; the host reads each cast's active count):
+   a. with the ladder on (the default) and off (every tier at 0), the
+      counters zeroed before each: the headline frame, the realtime
+      loop's frame 1, the animated loop's frame 1 and the soup frame
+      (``pairs_key_coarse`` 32: its 2,053 tiles key as 65 boxes, key mode
+      1) must be bitwise the same image with the same TraceStats, and
+      launch B1 and B2 80 times (headline), B3 and B2 30 (realtime and
+      animated), B1 and B2 4 (soup) both ways; per depth and query, the
+      tiers each cast took and its active count over its rays;
+   b. B1 and B2 on the headline's, B3 and B2 on the realtime frame's
+      captured depth-1 and depth-2 casts with the ladder on (compacted
+      where a tier held them) must equal their plain versions bit for
+      bit; each timed against its plain version and its bound;
+   c. the production, realtime and animated anchors (phases 6, 7b, 13b)
+      ran with the ladder on;
+   d. times, the ladder on and off in turns, LADDER_FRAMES warm frames
+      each, median and range: the headline's and the soup's Mray/s and
+      the host's wait for the counts a frame, and the headline with each
+      seed's tiers replayed without the host's reads (bitwise the frame
+      with the ladder off); the headline's kernel-device time over
+      LADDER_PROFILED frames each (``utils/profiling.device_kernels``:
+      the union of the kernels' intervals), its kernels and busy share;
+      the realtime and the animated loops' ms a frame (wall over
+      LADDER_LOOPS loops of LOOP_FRAMES frames); and the stages of the
+      headline's and the
+      realtime frame's depth-1 and depth-2 casts and the soup's depth-1
+      casts, each alone between CUDA events: the key, the feature rows,
+      the sort, the gather, the culling and the kernel on the C rays, the
+      scatter, beside the culling and the kernel at full width.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
 its largest error against the plain version, its time and the plain
-version's on a depth-1 cast, and the bound: the larger of the cast's
+version's on a whole depth-1 cast (the ladder off), and the bound: the larger of the cast's
 Moller-Trumbore tests x FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes
 it must move over PEAK_BYTES_S; a probe's numbers are those of one
 configuration at PROBE_DEFAULT, replayed from a CUDA graph, see
@@ -365,6 +402,15 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+def _ladder_off(cfg):
+    """``cfg`` with every tier of the compaction ladder at 0: each pairs
+    cast at full width (the frame is the same)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, pairs_compact=0.0, pairs_compact2=0.0,
+                               pairs_compact3=0.0)
+
+
 class _Laps:
     """Prints each phase's wall time as it ends: the time since the
     previous phase ended."""
@@ -487,24 +533,26 @@ def _window(rfT, bits, subg: int, n: int):
             bits[:, a // subg:(a + n) // subg].contiguous(), a)
 
 
-def _check_casts(kept, plan, tab, cfg, err, label, fields=None, window=None):
+def _check_casts(kept, plan, tab, cfg, err, label, fields=None, window=None,
+                 depths=(0, 1)):
     """Hold each kept cast's kernel bitwise against its plain version on
     the cast's inputs.  ``plan`` maps a captured kernel to the closest-hit
     kernels that run on its casts too (B0 on a closest cast), which must
     also equal their plain versions and give the captured kernel's (t,
     idx).  ``fields`` replaces the table's field rows; ``window`` holds
     the kernels on the busiest ``window`` rays of each cast instead of all
-    of them.  Adds to ``err`` {kernel: max abs error}; returns the casts
-    as [(name, depth, kernels, args)]."""
+    of them; ``depths`` names the kept casts.  Adds to ``err`` {kernel:
+    max abs error}; returns the casts as [(name, depth, kernels, args)]."""
     import torch
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
     casts = []
     for kname, extra in plan.items():
-        if len(kept[kname]) != 2:
-            _fail(f"{kname}: captured {len(kept[kname])} casts, expected 2")
-        for depth, (rfT, bits) in enumerate(kept[kname]):
+        if len(kept[kname]) != len(depths):
+            _fail(f"{kname}: captured {len(kept[kname])} casts, expected "
+                  f"{len(depths)}")
+        for depth, (rfT, bits) in zip(depths, kept[kname]):
             name = f"{label} depth{depth} {kname}"
             if window:
                 n_rays = rfT.shape[1]
@@ -612,16 +660,17 @@ def _realtime(device, card, err, timing):
                       "pairs_closest_smooth": n * per_frame,
                       "pairs_shadow": n * per_frame}
 
-    # a. the first frame, casts kept
+    # a. the first frame, casts kept (the ladder off: whole casts; b holds
+    # the default frame to it)
     state0 = rt.init_state(cfg, tables, seed=0)
     _kernels.reset_launches()
     t0 = time.perf_counter()
     kept, (state1, disp1) = _capture_casts(
-        lambda: rt.step(tables, cfg, state0), 2)
+        lambda: rt.step(tables, _ladder_off(cfg), state0), 2)
     torch.cuda.synchronize()
     first = dict(_kernels.LAUNCHES)
-    print(f"realtime frame 1 (casts kept): {time.perf_counter() - t0:.3f} s, "
-          f"launches {first}")
+    print(f"realtime frame 1 (casts kept, the ladder off): "
+          f"{time.perf_counter() - t0:.3f} s, launches {first}")
     if first != want(1):
         _fail(f"realtime frame 1 launches {first}, expected {want(1)}")
     casts = _check_casts(kept, {"pairs_closest_smooth": ("pairs_closest_idx",),
@@ -646,7 +695,8 @@ def _realtime(device, card, err, timing):
           f"{ANCHOR_RTOL}); hit per depth {hit}, shadowed "
           f"{stats.shadowed.tolist()}")
     if not torch.equal(img, state1.accum):
-        _fail("render_rows of frame 1 differs from the loop's frame 1")
+        _fail("render_rows of frame 1 (the ladder on) differs from the "
+              "loop's frame 1 (the ladder off)")
     if any(h != W * H * spp for h in hit):
         _fail(f"rays escaped the realtime scene: hit {hit} != {W * H * spp}")
     if int(stats.shadowed.sum()) <= 0:
@@ -929,7 +979,8 @@ def _pallas(device, card, err, timing, pairs_mrays):
 
 def _big_mesh(device, card, err):
     """Phase 10 (module docstring).  Returns (the soup frame's launch
-    counts, the B4 entry's (ms, plain_ms, bound_ms, bound_by))."""
+    counts, the B4 entry's (ms, plain_ms, bound_ms, bound_by), the soup's
+    (config, scene tables))."""
     import dataclasses
     import tempfile
 
@@ -982,8 +1033,10 @@ def _big_mesh(device, card, err):
     # the fields with seeded unit vertex normals (the soup has none)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    kept, (cap_img, _) = _capture_casts(lambda: r.render_hdr(seed=0), 2)
-    print(f"soup capture frame: {time.perf_counter() - t0:.3f} s, peak "
+    kept, (cap_img, _) = _capture_casts(
+        lambda: render_preset_frame(tables, _ladder_off(cfg), seed=0), 2)
+    print(f"soup capture frame (the ladder off): "
+          f"{time.perf_counter() - t0:.3f} s, peak "
           f"device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f}"
           f" GiB")
     nrm = np.random.default_rng(0).standard_normal((3, Tc, 3))
@@ -1013,7 +1066,8 @@ def _big_mesh(device, card, err):
     if not np.isfinite(img).all():
         _fail("the soup frame has non-finite values")
     if not np.array_equal(img, cap_img):
-        _fail("the soup: the same seed gave another frame than the capture")
+        _fail("the soup: the same seed gave another frame (the ladder on) "
+              "than the capture (the ladder off)")
     if any(h != n_rays for h in stats.hit.tolist()):
         _fail(f"the soup: rays escaped the enclosed scene: {stats.hit}")
     expected = {k: 0 for k in _kernels.LAUNCHES}
@@ -1038,7 +1092,7 @@ def _big_mesh(device, card, err):
     # d. subgroup 64: exact culling, so the same frame; its depth-1 casts
     cfg64 = dataclasses.replace(cfg, pairs_subgroup=64)
     kept64, (img64, stats64) = _capture_casts(
-        lambda: render_preset_frame(tables, cfg64, seed=0), 2)
+        lambda: render_preset_frame(tables, _ladder_off(cfg64), seed=0), 2)
     if not (np.array_equal(img64, img) and all(
             np.array_equal(a, b) for a, b in zip(stats64, stats))):
         _fail(f"the soup frame at subgroup 64 differs from subgroup "
@@ -1161,7 +1215,7 @@ def _big_mesh(device, card, err):
           f"soup's depth-1 casts): {total[0]:.4f} ms, plain versions "
           f"{total[1]:.4f} ms, bound {total[2]:.4f} ms")
     return launches, (*total, "operations" if bound_bys == {"operations"}
-                      else "bytes")
+                      else "bytes"), (cfg, tables)
 
 
 def _probe_bound(tests: int, nbytes: int) -> tuple[float, str]:
@@ -1654,7 +1708,8 @@ def _clustering(device, card, head_img):
         want.update(pairs_closest=n_casts, pairs_shadow=n_casts)
         _kernels.reset_launches()
         kept, (img, _) = _capture_casts(lambda: render_frame(
-            tables, cfg, Camera.default(cfg, device), PRNGKey(0, device)), 2)
+            tables, _ladder_off(cfg), Camera.default(cfg, device),
+            PRNGKey(0, device)), 2)
         torch.cuda.synchronize()
         launches = dict(_kernels.LAUNCHES)
         if launches != want:
@@ -2075,6 +2130,422 @@ def _gallery(card):
         print(f"gallery files: {json.dumps(head)}")
 
 
+# Phase 18: the compaction ladder.  Frames timed per variant in (d), the
+# variants in turn (each iteration starts with the next), after warm-up
+# frames; frames profiled per variant; realtime loops of LOOP_FRAMES frames
+# per variant
+LADDER_FRAMES = 6
+LADDER_PROFILED = 5
+LADDER_LOOPS = 3
+
+
+class _TierLog:
+    """Record every ladder cast while active: query (``closest`` or
+    ``shadow``), depth, the cast's padded rays R, active count n, the tiers,
+    the tier taken C (0: full width) and the host's seconds in ``_tier``
+    (the wait for the count).  Wraps the functions it reads through, and
+    puts them back on exit."""
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        from raytracinggpu_tpu_torch.integrator import wavefront as wf
+        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+        here = {"depth": -1, "query": "?", "R": 0}
+        self._saved = [(m, a, getattr(m, a)) for m, a in (
+            (wf, "depth_configs"), (wf, "_depth_step"),
+            (wf, "intersect_tris_pairs"), (wf, "intersect_tris_pairs_shadow"),
+            (pt, "_compact_key"), (pt, "_tier"))]
+        f = {a: fn for _, a, fn in self._saved}
+
+        def depth_configs(*a):
+            here["depth"] = -1
+            return f["depth_configs"](*a)
+
+        def depth_step(*a):
+            here["depth"] += 1
+            return f["_depth_step"](*a)
+
+        def query(name, fn):
+            def call(*a, **k):
+                here["query"] = name
+                return fn(*a, **k)
+            return call
+
+        def key(O, *a):
+            here["R"] = O.x.shape[0]
+            return f["_compact_key"](O, *a)
+
+        def tier(tiers, count):
+            t0 = time.perf_counter()
+            C = f["_tier"](tiers, count)
+            wait = time.perf_counter() - t0
+            self.log.append(dict(query=here["query"], depth=here["depth"],
+                                 R=here["R"], n=int(count[0]),
+                                 tiers=tuple(tiers), C=C, wait=wait))
+            return C
+
+        wf.depth_configs, wf._depth_step = depth_configs, depth_step
+        wf.intersect_tris_pairs = query("closest", f["intersect_tris_pairs"])
+        wf.intersect_tris_pairs_shadow = query(
+            "shadow", f["intersect_tris_pairs_shadow"])
+        pt._compact_key, pt._tier = key, tier
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, fn in self._saved:
+            setattr(m, a, fn)
+
+    def summary(self) -> list[str]:
+        """One line per (query, depth): casts, the tiers taken, n / R."""
+        from collections import Counter
+
+        groups = {}
+        for e in self.log:
+            groups.setdefault((e["depth"], e["query"]), []).append(e)
+        out = []
+        for (d, q), es in sorted(groups.items()):
+            share = [e["n"] / e["R"] for e in es]
+            took = Counter(e["C"] for e in es)
+            out.append(
+                f"depth {d} {q}: {len(es)} casts of {es[0]['R']} rays, tiers "
+                f"{list(es[0]['tiers'])}, taken "
+                + ", ".join(f"{'full width' if C == 0 else C} x{k}"
+                            for C, k in sorted(took.items()))
+                + f"; n_act / R {min(share):.4f} to {max(share):.4f} (mean "
+                f"{sum(share) / len(share):.4f}); host wait "
+                f"{sum(e['wait'] for e in es) * 1e3:.3f} ms")
+        return out
+
+
+class _ReplayTiers:
+    """While active, ``_tier`` returns the given tiers in turn without
+    waiting for the counts: a frame of the same seed that logged them
+    takes the same tiers and gives the same image."""
+
+    def __init__(self, taken):
+        self.taken = iter(taken)
+
+    def __enter__(self):
+        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+        self._orig = pt._tier
+        pt._tier = lambda tiers, count: next(self.taken)
+        return self
+
+    def __exit__(self, *exc):
+        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+        pt._tier = self._orig
+
+
+def _median(xs) -> float:
+    ys = sorted(xs)
+    n = len(ys)
+    return ys[n // 2] if n % 2 else (ys[n // 2 - 1] + ys[n // 2]) / 2
+
+
+def _spread(xs) -> str:
+    """median [min, max] of a list."""
+    return (f"median {_median(xs):.4f} [{min(xs):.4f}, {max(xs):.4f}] "
+            f"(n={len(xs)})")
+
+
+def _ladder_frames(name, on, off, same, want):
+    """18a, one scene: ``on()`` (the default config, tiers logged) and
+    ``off()`` (the ladder off) with the counters zeroed before each; their
+    results must be ``same`` and each launch ``want``."""
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    import torch
+
+    _kernels.reset_launches()
+    with _TierLog() as log:
+        a = on()
+    torch.cuda.synchronize()
+    l_on = dict(_kernels.LAUNCHES)
+    _kernels.reset_launches()
+    b = off()
+    torch.cuda.synchronize()
+    l_off = dict(_kernels.LAUNCHES)
+    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected.update(want)
+    if l_on != expected or l_off != expected:
+        _fail(f"ladder {name}: launches on {l_on}, off {l_off}, expected "
+              f"{expected}")
+    if not same(a, b):
+        _fail(f"ladder {name}: the frame with the ladder on differs from "
+              "the frame with it off")
+    if not log.log:
+        _fail(f"ladder {name}: no cast ran the ladder")
+    print(f"ladder {name}: the frame with the ladder on is bitwise the "
+          f"frame with it off, TraceStats equal; launches {want} both ways")
+    for line in log.summary():
+        print(f"  {line}")
+    return log
+
+
+def _capture_queries(render, n: int):
+    """Run render() keeping the arguments of the first ``n`` pairs casts
+    (``pairs_trace._rows_bits``: both queries' rays, cap, mask and ladder
+    arguments), in call order."""
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    kept, orig = [], pt._rows_bits
+
+    def keeping(*a):
+        if len(kept) < n:
+            kept.append(a)
+        return orig(*a)
+
+    pt._rows_bits = keeping
+    try:
+        render()
+    finally:
+        pt._rows_bits = orig
+    return kept
+
+
+def _stage_times(label, args, cfg, card):
+    """18d: the stages of one ladder cast, each alone between CUDA events
+    (20 launches), beside the same cast at full width."""
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops.pallas_trace import pad_rays
+
+    O, u, tab, subg, blk, cap, active, fractions, key_coarse = args
+    shadow = active is not None
+    kname = ("pairs_shadow" if shadow else "pairs_closest_smooth"
+             if cfg.smooth_normals else "pairs_closest")
+    kern = getattr(_kernels, kname)
+    O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
+    Rp = O.x.shape[0]
+    tiers, boxes, knc = pt._ladder_tiers(tab, fractions, key_coarse, Rp, blk)
+    key = lambda: pt._compact_key(O, u, boxes, knc, cap, active, R)
+    skey, n_act, shift = key()
+    n = int(n_act)
+    C = next((c for c in tiers if n <= c), 0)
+    rows = lambda: pt._live_rows(O, u, cap, active)
+    kw = (cfg.eps_leaf, subg, pt.tile_width(tab))
+    t = {"key": _time_ms(key, 20), "rows": _time_ms(rows, 20)}
+    bits = lambda: pt._bits(O, u, tab, subg, cap, active)
+    rfT, bR = pt._ray_feature_rows(O, u), bits()
+    t["culling on R"] = _time_ms(bits, 10)
+    t["kernel on R"] = _time_ms(lambda: kern(rfT, tab.fields, bR, *kw), 20)
+    line = (f"ladder stages, {label} {'shadow' if shadow else 'closest'} "
+            f"cast ({kname}): R {Rp}, n_act {n} ({n / Rp:.4f}), tiers "
+            f"{tiers}, taken {C or 'full width'}; ms: ")
+    if C:
+        t["sort"] = _time_ms(lambda: pt._compact_sort(skey, C, shift), 20)
+        src = pt._compact_sort(skey, C, shift).long()
+        rw = rows()
+        t["gather"] = _time_ms(lambda: rw.index_select(1, src), 20)
+        rf = rw.index_select(1, src)
+        Oc, uc = Vec3(rf[6], rf[7], rf[8]), Vec3(rf[0], rf[1], rf[2])
+        capc = None if cap is None else rf[9]
+        actc = None if active is None else rf[10] > 0.5
+        bitsC = lambda: pt._bits(Oc, uc, tab, subg, capc, actc)
+        t["culling on C"] = _time_ms(bitsC, 10)
+        bC = bitsC()
+        t["kernel on C"] = _time_ms(lambda: kern(rf, tab.fields, bC, *kw), 20)
+        out = kern(rf, tab.fields, bC, *kw)
+        out = (out,) if shadow else out
+        dflt = (pt.INF32, 0, 0.0, 0.0, 0.0)
+        t["scatter"] = _time_ms(lambda: pt._scatter(src, out, Rp, dflt), 20)
+        ladder = sum(v for k, v in t.items() if k not in (
+            "culling on R", "kernel on R"))
+        full = t["rows"] + t["culling on R"] + t["kernel on R"]
+        line += ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        line += (f"; the cast's stages {ladder:.4f} compacted against "
+                 f"{full:.4f} at full width (rows, culling, kernel)")
+    else:
+        line += ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+    print(f"{line}; on {card}")
+
+
+def _ladder_phase(device, card, err, head, rt_scene, soup):
+    """Phase 18 (module docstring).  ``head`` phase 4's (config, tables,
+    camera), ``rt_scene`` phase 7's (config, tables), ``soup`` phase 10's
+    (config, tables)."""
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        rays_per_frame, render_frame, render_preset_frame)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels, wall_ms
+
+    hcfg, htab, cam = head
+    res = {}
+    rcfg, rtab = rt_scene
+    scfg, stab = soup
+    acfg, atab = build_preset("realtime", device, animate_mesh=True)
+    off = _ladder_off
+    t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    n_eq = lambda a, b: np.array_equal(a[0], b[0]) and all(
+        np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    st_eq = lambda a, b: torch.equal(a[0].accum, b[0].accum) and \
+        torch.equal(a[1], b[1])
+
+    # a. frames, bitwise, with the tier each cast took
+    head_frame = lambda c, seed=0: render_frame(htab, c, cam,
+                                                PRNGKey(seed, device))
+    step1 = lambda tab, c: rt.step(tab, c, rt.init_state(c, tab, seed=0))
+    _ladder_frames("headline (array_bvh 512x512 spp32 d5)",
+                   lambda: head_frame(hcfg), lambda: head_frame(off(hcfg)),
+                   t_eq, dict(pairs_closest=80, pairs_shadow=80))
+    _ladder_frames("realtime frame 1", lambda: step1(rtab, rcfg),
+                   lambda: step1(rtab, off(rcfg)), st_eq,
+                   dict(pairs_closest_smooth=30, pairs_shadow=30))
+    _ladder_frames("animated frame 1", lambda: step1(atab, acfg),
+                   lambda: step1(atab, off(acfg)), st_eq,
+                   dict(pairs_closest_smooth=30, pairs_shadow=30))
+    nc = stab.pairs_mesh.tile_aabb.shape[0]
+    knc = -(-nc // scfg.pairs_key_coarse)
+    slog = _ladder_frames(
+        f"soup (512x512 spp4 d2, {nc} tiles, key_coarse "
+        f"{scfg.pairs_key_coarse}: {knc} key boxes)",
+        lambda: render_preset_frame(stab, scfg, seed=0),
+        lambda: render_preset_frame(stab, off(scfg), seed=0), n_eq,
+        dict(pairs_closest=4, pairs_shadow=4))
+    modes = {pt._key_mode(knc, e["R"]) for e in slog.log}
+    print(f"ladder soup: key (mode, shift) {sorted(modes)}")
+    if scfg.pairs_key_coarse != 32 or {m for m, _ in modes} != {1}:
+        _fail(f"the soup's key: key_coarse {scfg.pairs_key_coarse}, modes "
+              f"{modes}; expected 32 and mode 1")
+
+    # b. the kernels on compacted casts, depths 1 and 2, against their plain
+    # versions
+    timing = {}
+    for label, render, plan, tab in (
+            ("array_bvh", lambda: head_frame(hcfg),
+             {"pairs_closest": (), "pairs_shadow": ()}, htab.pairs_mesh),
+            ("realtime", lambda: step1(rtab, rcfg),
+             {"pairs_closest_smooth": (), "pairs_shadow": ()},
+             rtab.pairs_mesh)):
+        kept, _ = _capture_casts(render, 3)
+        kept = {k: v[1:] for k, v in kept.items()}
+        c = hcfg if label == "array_bvh" else rcfg
+        casts = _check_casts(kept, plan, tab, c, err,
+                             f"{label} (the ladder on)", depths=(1, 2))
+        _time_casts(casts, timing, card, depths=(1, 2))
+
+    # c. the anchors ran with the ladder on (phases 6, 7b, 13b)
+    print("ladder anchors: phases 6 (production), 7b (realtime) and 13b "
+          "(animated) rendered with the default config, the ladder on")
+
+    # d. times, the ladder on and off in turns
+    def timed_frame(render, seed):
+        """(image, seconds, the casts' log) of one frame."""
+        torch.cuda.synchronize()
+        with _TierLog() as log:
+            t0 = time.perf_counter()
+            out = render(seed)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, log.log
+
+    def turns(i, labs=("on", "off")):
+        """The variants in turn: iteration i starts with the i-th."""
+        k = i % len(labs)
+        return labs[k:] + labs[:k]
+
+    for scene, render, cfg in (
+            ("headline", lambda c, s: head_frame(c, s), hcfg),
+            ("soup", lambda c, s: render_preset_frame(stab, c, seed=s),
+             scfg)):
+        cfgs = {"on": cfg, "off": off(cfg)}
+        labs = ("on", "off")
+        taken = {}
+        render(off(cfg), 0)  # warm
+        if scene == "headline":
+            # "replayed": each seed's tiers, logged by an untimed frame
+            # here, taken without the host's reads: what the reads cost
+            labs += ("replayed",)
+            for i in range(LADDER_FRAMES):
+                taken[1 + i] = [e["C"] for e in timed_frame(
+                    lambda sd: render(cfg, sd), 1 + i)[2]]
+        else:
+            render(cfg, 0)  # warm
+        sec = {lab: [] for lab in labs}
+        wait = []
+        for i in range(LADDER_FRAMES):
+            seed, img = 1 + i, {}
+            for lab in turns(i, labs):
+                if lab == "replayed":
+                    with _ReplayTiers(taken[seed]):
+                        img[lab], s, _ = timed_frame(
+                            lambda sd: render(cfg, sd), seed)
+                else:
+                    img[lab], s, log = timed_frame(
+                        lambda sd: render(cfgs[lab], sd), seed)
+                    if lab == "on":
+                        wait.append(sum(e["wait"] for e in log))
+                sec[lab].append(s)
+            if "replayed" in img and not t_eq(img["replayed"], img["off"]):
+                _fail("the headline frame with its tiers replayed differs "
+                      "from the frame with the ladder off")
+        for lab, ss in sec.items():
+            mr = [rays_per_frame(cfg) / s / 1e6 for s in ss]
+            res[(scene, lab)] = _median(mr)
+            print(f"ladder {scene} {lab}: Mray/s {_spread(mr)}; on {card}")
+        print(f"ladder {scene}: the host's wait for the counts, ms a frame "
+              f"{_spread([w * 1e3 for w in wait])}; on / off median Mray/s "
+              f"{res[(scene, 'on')] / res[(scene, 'off')]:.4f}"
+              + (f", replayed / off "
+                 f"{res[(scene, 'replayed')] / res[(scene, 'off')]:.4f}"
+                 if scene == "headline" else ""))
+
+    busy = {"on": [], "off": []}
+    kms = {"on": [], "off": []}
+    launches = {}
+    for i in range(LADDER_PROFILED):
+        for lab in turns(i):
+            c = hcfg if lab == "on" else off(hcfg)
+            fms = wall_ms(lambda: head_frame(c, 1), device)
+            k = device_kernels(lambda: head_frame(c, 1))
+            if k["kernels"] == 0:
+                _fail("the profiler saw no kernel in the headline frame")
+            kms[lab].append(k["kernel_ms"])
+            busy[lab].append(k["kernel_ms"] / fms)
+            launches[lab] = k["kernels"]
+    for lab in ("on", "off"):
+        print(f"ladder headline {lab}: kernel-device ms a frame (union) "
+              f"{_spread(kms[lab])}, busy {_spread(busy[lab])}, "
+              f"{launches[lab]} kernels a frame; on {card}")
+
+    for name, tab, cfg in (("realtime", rtab, rcfg),
+                           ("animated", atab, acfg)):
+        ms = {"on": [], "off": []}
+        for i in range(LADDER_LOOPS):
+            for lab in turns(i):
+                c = cfg if lab == "on" else off(cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rt.run_loop(tab, c, LOOP_FRAMES, seed=0, print_every=0)
+                torch.cuda.synchronize()
+                ms[lab].append((time.perf_counter() - t0) / LOOP_FRAMES * 1e3)
+        for lab in ("on", "off"):
+            print(f"ladder {name} loop {lab}: ms a frame (wall over "
+                  f"{LOOP_FRAMES}-frame loops) {_spread(ms[lab])}; on {card}")
+
+    # the stages of the headline's and the realtime frame's depth-1 and
+    # depth-2 casts, and the soup's depth-1 casts
+    for label, render, cfg, keep in (
+            ("array_bvh", lambda: head_frame(hcfg), hcfg, 6),
+            ("realtime", lambda: step1(rtab, rcfg), rcfg, 6),
+            ("soup", lambda: render_preset_frame(stab, scfg, seed=0), scfg,
+             4)):
+        for i, args in enumerate(_capture_queries(render, keep)):
+            if i >= 2:
+                _stage_times(f"{label} depth {i // 2}", args, cfg, card)
+
+
 def main() -> int:
     import torch
 
@@ -2137,12 +2608,19 @@ def main() -> int:
     # The integrator launches each kernel once per depth, so the first two
     # launches of each are the depth-0 and depth-1 casts of the frame's
     # first wavefront (samples 0..g-1) and its first chunk of `chunk` rays.
+    # The capture frame runs with the compaction ladder off, so that its
+    # casts are whole (phase 18 keeps the compacted ones), and phase 4's
+    # default frame must equal it.
     t0 = time.perf_counter()
-    kept, (cap_img, _) = _capture_casts(
-        lambda: render_frame(tables, cfg, cam, PRNGKey(0, device)), 2)
+    _kernels.reset_launches()
+    kept, (cap_img, cap_stats) = _capture_casts(
+        lambda: render_frame(tables, _ladder_off(cfg), cam,
+                             PRNGKey(0, device)), 2)
     torch.cuda.synchronize()
-    print(f"capture frame: {time.perf_counter() - t0:.3f} s; casts of "
-          f"{chunk} rays ({g} samples per wavefront)")
+    cap_launches = dict(_kernels.LAUNCHES)
+    print(f"capture frame (ladder off): {time.perf_counter() - t0:.3f} s; "
+          f"casts of {chunk} rays ({g} samples per wavefront), launches "
+          f"{cap_launches}")
     err = {k: 0.0 for k in _kernels.LAUNCHES}
     casts = _check_casts(kept, {"pairs_closest": ("pairs_closest_idx",),
                                 "pairs_shadow": ()},
@@ -2163,16 +2641,21 @@ def main() -> int:
           f"{stats.shadowed.tolist()}, image mean {float(img.mean()):.3f}")
     if not bool(torch.isfinite(img).all()):
         _fail("headline image has non-finite values")
-    if not torch.equal(img, cap_img):
-        _fail("the same seed gave another frame than the capture frame")
+    if not torch.equal(img, cap_img) or any(
+            not torch.equal(a, b) for a, b in zip(stats, cap_stats)):
+        _fail("the same seed gave another frame or other TraceStats than "
+              "the capture frame (the ladder off)")
     if any(h != n_rays for h in hit):
         _fail(f"rays escaped the enclosed scene: hit {hit} != {n_rays}")
     if int(stats.shadowed.sum()) <= 0:
         _fail("no shadow ray was occluded")
     expected = {k: 0 for k in _kernels.LAUNCHES}
     expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
-    if launches != expected:
-        _fail(f"launches in the frame {launches}, expected {expected}")
+    if launches != expected or cap_launches != expected:
+        _fail(f"launches in the frame {launches}, with the ladder off "
+              f"{cap_launches}, expected {expected}")
+    print("headline frame (the ladder on, the default) bitwise the capture "
+          "frame (the ladder off), TraceStats equal")
     times = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -2227,7 +2710,7 @@ def main() -> int:
 
     # ---- 10. the big-mesh path -------------------------------------------
     err_b4 = {k: 0.0 for k in _kernels.LAUNCHES}
-    soup_launches, b4 = _big_mesh(device, card, err_b4)
+    soup_launches, b4, soup = _big_mesh(device, card, err_b4)
     lap("10 big-mesh path")
     # B4 is B1 and B2 past ST_SLOTS: its launches are theirs in the soup
     # frame, its error the largest of B0-B3's there, its times the sums of
@@ -2272,6 +2755,10 @@ def main() -> int:
     # ---- 17. the gallery -------------------------------------------------
     _gallery(card)
     lap("17 gallery")
+
+    # ---- 18. the compaction ladder ----------------------------------------
+    _ladder_phase(device, card, err, (cfg, tables, cam), (rcfg, rtab), soup)
+    lap("18 compaction ladder")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:

@@ -81,12 +81,26 @@ _BVH_NOTE = ("the bvh walk is torch ops (no kernel); the row keeps the JAX "
 # Named modes: RenderConfig overrides; "_size" (w, h, spp, depth) replaces
 # the protocol size and "_note" annotates the row.
 ABLATION_MODES = {
-    "pairs_default(s64_c512k)": {},
-    "pairs_s16": {"pairs_subgroup": 16},
-    "pairs_s32": {"pairs_subgroup": 32},
-    "pairs_s128": {"pairs_subgroup": 128},
-    "pairs_sah_pave": {"pairs_cluster": "sah", "pairs_pack": "pave",
-                       "pairs_cut": 32},
+    "pairs_default(ladder_f078_f133_s64_u8_mind1_c512k)": {},
+    "pairs_compact_all_depths": {"pairs_compact_min_depth": 0},
+    "pairs_compact_mind2": {"pairs_compact_min_depth": 2},
+    "pairs_nocompact_s16": {"pairs_compact": 0.0, "pairs_compact2": 0.0,
+                            "pairs_subgroup": 16},
+    "pairs_nocompact_s64": {"pairs_compact": 0.0, "pairs_compact2": 0.0},
+    "pairs_single_f0625": {"pairs_compact": 0.0625, "pairs_compact2": 0.0},
+    "pairs_single_f09375": {"pairs_compact": 0.09375, "pairs_compact2": 0.0},
+    "pairs_single_f125": {"pairs_compact": 0.125, "pairs_compact2": 0.0},
+    "pairs_single_f15625": {"pairs_compact": 0.15625, "pairs_compact2": 0.0},
+    "pairs_ladder_wide_f125_f25": {"pairs_compact": 0.125,
+                                   "pairs_compact2": 0.25},
+    "pairs_compact_s16": {"pairs_subgroup": 16},
+    "pairs_compact_s32": {"pairs_subgroup": 32},
+    "pairs_compact_s128": {"pairs_subgroup": 128},
+    "pairs_sah_pave_compact": {"pairs_cluster": "sah", "pairs_pack": "pave",
+                               "pairs_cut": 32},
+    "pairs_sah_pave_nocompact_s16": {
+        "pairs_cluster": "sah", "pairs_pack": "pave", "pairs_cut": 32,
+        "pairs_compact": 0.0, "pairs_subgroup": 16},
     "pairs_blk1024": {"pairs_block": 1024},
     "pairs_blk8192": {"pairs_block": 8192},
     "pairs_chunk262k": {"pairs_chunk": 262144},
@@ -109,33 +123,12 @@ ABLATION_MODES = {
 }
 
 # The JAX package's mode names whose names state a mechanism the port
-# lacks (the compaction ladder, the MXU), and the port's names for them
-RENAMED = {
-    "pairs_default(ladder_f078_f133_s64_u8_mind1_c512k)":
-        "pairs_default(s64_c512k)",
-    "pairs_compact_s16": "pairs_s16",
-    "pairs_compact_s32": "pairs_s32",
-    "pairs_compact_s128": "pairs_s128",
-    "pairs_sah_pave_compact": "pairs_sah_pave",
-    "dense_mxu_highest": "dense",
-}
+# lacks (the MXU), and the port's names for them
+RENAMED = {"dense_mxu_highest": "dense"}
 
-_LADDER = ("pairs_compact*: the compaction ladder is not ported (ROADMAP "
-           "A5, 'Not to port'); the port never compacts")
 DROPPED = {
     "depth_scan_rolled": "depth_unroll: an XLA scan back-edge; the port's "
                          "depth loop is Python ('Not to port')",
-    "pairs_compact_all_depths": _LADDER,
-    "pairs_compact_mind2": _LADDER,
-    "pairs_nocompact_s16": _LADDER + ": its frame is the row pairs_s16",
-    "pairs_nocompact_s64": _LADDER + ": its frame is the row "
-                                     "pairs_default(s64_c512k)",
-    "pairs_single_f0625": _LADDER,
-    "pairs_single_f09375": _LADDER,
-    "pairs_single_f125": _LADDER,
-    "pairs_single_f15625": _LADDER,
-    "pairs_ladder_wide_f125_f25": _LADDER,
-    "pairs_sah_pave_nocompact_s16": _LADDER,
     "dense_mxu_bf16x3": "mxu_precision: a TPU matrix-unit precision "
                         "('Not to port')",
     "pairs_wordmajor": "pairs_sgw: the TPU kernel's walk order ('Not to "

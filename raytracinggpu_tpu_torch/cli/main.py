@@ -12,6 +12,7 @@
     python -m raytracinggpu_tpu_torch.cli realtime --animate mesh
     python -m raytracinggpu_tpu_torch.cli render 8 3 --traversal bvh
     python -m raytracinggpu_tpu_torch.cli render 32 5 --clustering sah-pave
+    python -m raytracinggpu_tpu_torch.cli render 32 5 --compact 0.25
     python -m raytracinggpu_tpu_torch.cli bench 32 5 --preset array_bvh
 
 ``render`` writes one frame as a PNG, ``realtime`` runs the progressive
@@ -65,12 +66,6 @@ from raytracinggpu_tpu_torch.utils.profiling import device_trace, ray_report
 # flags of the JAX CLI for modes the port does not have: (attribute, the
 # value that asks for nothing, why it is refused)
 _UNPORTED_FLAGS = (
-    ("compact", (None,), "--compact: the compaction ladder is not ported "
-     "(ROADMAP A5; exact by construction, tuned for the TPU)"),
-    ("compact2", (None,), "--compact2: the compaction ladder is not ported "
-     "(ROADMAP A5)"),
-    ("compact3", (None,), "--compact3: the compaction ladder is not ported "
-     "(ROADMAP A5)"),
     ("precision", (None,), "--precision: the port's dense oracle runs in "
      "full f32 only (ROADMAP, Not to port: mxu_precision)"),
     ("spp_unroll", (None,), "--spp-unroll: an XLA scan knob (ROADMAP, Not "
@@ -115,9 +110,17 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["ref", "sah", "sah-pave", "ref-pave"],
                    help="pairs cluster tree and tile packing (-pave: "
                         "full-occupancy tiles, cluster cut 32)")
-    p.add_argument("--compact", type=float, default=None, metavar="FRAC")
-    p.add_argument("--compact2", type=float, default=None, metavar="FRAC")
-    p.add_argument("--compact3", type=float, default=None, metavar="FRAC")
+    p.add_argument("--compact", type=float, default=None, metavar="FRAC",
+                   help="the compaction ladder's first tier: a pairs cast "
+                        "at depth >= 1 runs on its rays with an active "
+                        "tile, packed into FRAC of the cast, when they fit "
+                        "(the frame is the same; 0 drops the tier)")
+    p.add_argument("--compact2", type=float, default=None, metavar="FRAC",
+                   help="the ladder's second tier, for casts too active "
+                        "for --compact")
+    p.add_argument("--compact3", type=float, default=None, metavar="FRAC",
+                   help="the ladder's third tier; a cast past every tier "
+                        "runs at full width")
     p.add_argument("--spp-unroll", type=int, default=None, metavar="N")
     p.add_argument("--chunk-unroll", type=int, default=None, metavar="N")
     p.add_argument("--depth-unroll", type=int, default=None, metavar="N")
@@ -166,6 +169,9 @@ def _build(args, device):
         over["pairs_cluster"] = tree
         if pack == "pave":
             over.update(pairs_pack="pave", pairs_cut=32)
+    for flag in ("compact", "compact2", "compact3"):
+        if getattr(args, flag) is not None:
+            over[f"pairs_{flag}"] = getattr(args, flag)
     r = Renderer(args.preset, obj_path=args.obj, obj_scale=args.obj_scale,
                  obj_offset=args.obj_offset, bvh_builder=args.bvh_builder,
                  device=device, **over)
@@ -339,10 +345,13 @@ def _interactive_loop(tables, cfg, args, light_speed: float) -> int:
 
 def cmd_bench(args) -> int:
     _refuse_unported(args)
-    if args.obj or args.bvh_builder != "reference" or args.clustering:
-        raise SystemExit("error: bench sweeps a preset's own scene; --obj, "
-                         "--bvh-builder and --clustering belong to render "
-                         "(custom meshes: bench/big_mesh.py)")
+    if (args.obj or args.bvh_builder != "reference" or args.clustering
+            or any(getattr(args, f) is not None
+                   for f in ("compact", "compact2", "compact3"))):
+        raise SystemExit("error: bench sweeps a preset's own scene at its "
+                         "own config; --obj, --bvh-builder, --clustering and "
+                         "--compact* belong to render and realtime (custom "
+                         "meshes: bench/big_mesh.py)")
     # Positional spp/bounces (reference CLI shape: `bench 4 2`) restrict
     # the sweep to that single cell instead of being silently ignored.
     spp, bounces = _spp_bounces(args)

@@ -19,9 +19,14 @@ Material semantics (same formulas, same epsilons):
             intensity/(4 pi |L-P|^2) * max(N.w,0) * albedo/pi; a
             cosine-weighted bounce that RESETS the medium to 1.0
 - miss:     the lane's ray is left unchanged
+
+The pairs traversal's casts run the compaction ladder of
+``ops/pairs_trace.py`` as the config's ``pairs_compact*`` fields set it,
+per depth as ``depth_configs`` says; the frame is the same with it off.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -81,6 +86,35 @@ def _fused_smooth_recovery(scene: SceneTables, O: Vec3, u: Vec3, mh):
     return phong(rows, 1.0 - beta - gamma, beta, gamma, col=16)
 
 
+def _ladder_args(cfg: RenderConfig) -> dict:
+    """The pairs queries' compaction-ladder arguments from the config."""
+    return dict(compact=cfg.pairs_compact, compact2=cfg.pairs_compact2,
+                compact3=cfg.pairs_compact3, key_coarse=cfg.pairs_key_coarse)
+
+
+def depth_configs(scene: SceneTables, cfg: RenderConfig,
+                  depth: int) -> list[RenderConfig]:
+    """The config of each depth of ``trace``: the JAX package's per-depth
+    ladder policy of its unrolled depth loop, which the Python loop here
+    always is.  When ``pairs_compact_min_depth`` > 0 and the pairs
+    traversal runs a mesh with any of ``pairs_compact``,
+    ``pairs_compact_d0``, ``pairs_subgroup_d0`` set, the depths below it
+    run a single tier of ``pairs_compact_d0`` (0: full width, no key) and
+    ``pairs_subgroup_d0`` when set; else every depth runs ``cfg``."""
+    mind = int(cfg.pairs_compact_min_depth)
+    if not (mind > 0 and (cfg.pairs_compact or cfg.pairs_compact_d0
+                          or cfg.pairs_subgroup_d0)
+            and scene.mesh is not None
+            and _effective_traversal(cfg, scene) == "pairs"):
+        return [cfg] * depth
+    over0 = dict(pairs_compact=float(cfg.pairs_compact_d0),
+                 pairs_compact2=0.0, pairs_compact3=0.0)
+    if cfg.pairs_subgroup_d0:
+        over0["pairs_subgroup"] = cfg.pairs_subgroup_d0
+    cfg0 = dataclasses.replace(cfg, **over0)
+    return [cfg0 if d < mind else cfg for d in range(depth)]
+
+
 def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hit:
     """Scene-wide nearest hit: the sphere pass plus the mesh pass merged by
     min-t.  The mesh holds the highest object id and the reference scans
@@ -98,7 +132,8 @@ def intersect_all(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3) -> Hi
             mh, N_m = intersect_tris_pairs(
                 O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
                 subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
-                payload="smooth" if cfg.smooth_normals else "geom")
+                payload="smooth" if cfg.smooth_normals else "geom",
+                **_ladder_args(cfg))
         elif traversal == "pallas":
             mh = intersect_tris_pallas(
                 O, u, scene.pallas_mesh, cfg.eps_leaf,
@@ -159,7 +194,8 @@ def occlusion_distance(scene: SceneTables, cfg: RenderConfig, O: Vec3,
         active = active & ~(t_sph * t_sph <= Lv.norm2())
     t_mesh = intersect_tris_pairs_shadow(
         O, u, scene.pairs_mesh, cfg.eps_leaf, cap=Lv.norm(),
-        subg=cfg.pairs_subgroup, blk=cfg.pairs_block, active=active)
+        subg=cfg.pairs_subgroup, blk=cfg.pairs_block, active=active,
+        **_ladder_args(cfg))
     return torch.minimum(t_sph, t_mesh)
 
 
@@ -262,8 +298,9 @@ def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     TraceStats)."""
     ray = RayBatch.make(O, u)  # primary rays start in medium 1.0
     steps = []
-    for d in range(uniforms.shape[0]):
-        ray, *out = _depth_step(scene, cfg, ray, uniforms[d, 0], uniforms[d, 1])
+    for d, cfg_d in enumerate(depth_configs(scene, cfg, uniforms.shape[0])):
+        ray, *out = _depth_step(scene, cfg_d, ray, uniforms[d, 0],
+                                uniforms[d, 1])
         steps.append(out)
 
     # ---- backward composite ----

@@ -44,8 +44,17 @@ blocks.  The port therefore pads no table to whole supertiles and has no
 tile-width rule for streaming; ``build_pairs_tables`` refuses only a
 table past ``MAX_SLOTS``, where those indices end.
 
-Left out of this port so far: the compaction ladder (exact by
-construction, tuned for the TPU).
+The compaction ladder (the JAX package's default at depth >= 1; ``compact``,
+``compact2``, ``compact3`` and ``key_coarse`` of the two queries): a cast
+keys each ray by the first and last tile box it hits (``_compact_key``),
+reads the count of rays that hit any, and when the tightest tier of
+``_compact_tiers`` holds them, sorts the keys and runs the kernel on those
+C rays only (grouped by their tile span, so a subgroup's union stays
+tight), scattering the results into the no-hit defaults; a cast that
+overflows every tier runs at full width and sorts nothing.  The compacted
+cast re-runs the exact member culling on its rays, so every ray's result
+is the full-width cast's bit for bit.  XLA chooses the tier on the device
+(``lax.cond``); here the host reads the count, once a cast.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ NUM_RF_ROWS = 16      # ray-feature rows: [u, w=O x u, O, 0-pad]
 DEF_BLK = 4096        # ray padding granularity (RenderConfig.pairs_block)
 DEF_SUBG = 16         # rays per culling subgroup
 _IDX_BIG = np.int32(2**30)  # id of padding slots
+_BOX_BATCH = 512      # boxes a slab test holds at once
 # The kernels index the (NUM_FIELDS, Tc) field table with 32-bit ints
 # (ops/_kernels._check: Tc * NUM_FIELDS < 2**31), so a table holds at most
 # this many slots (67,108,863; 2**26 - 1).  The JAX package's MAX_SLOTS
@@ -355,10 +365,9 @@ def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
     nb = boxes.shape[0]
     # batch the slab tests over boxes: the (nb, R) intermediates would
     # otherwise grow with the mesh
-    MB = 512
     mi = torch.zeros((nc, S), dtype=torch.int32, device=O.x.device)
-    for b0 in range(0, nb, MB):
-        bs = boxes[b0 : b0 + MB]
+    for b0 in range(0, nb, _BOX_BATCH):
+        bs = boxes[b0 : b0 + _BOX_BATCH]
         nbb = bs.shape[0]
         enter, _exit, hit = slab_enter_exit(O, u, bs)
         if cap is not None:
@@ -373,13 +382,190 @@ def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def _ray_feature_rows(O: Vec3, u: Vec3) -> torch.Tensor:
-    """(16, R) ray-feature rows: [u(3), w=O x u(3), O(3), 0-pad]."""
+def _ray_feature_rows(O: Vec3, u: Vec3, extra=(), pad: bool = True
+                      ) -> torch.Tensor:
+    """(16, R) ray-feature rows: [u(3), w=O x u(3), O(3), extra..., 0-pad];
+    ``pad=False`` keeps the live rows only (9 + len(extra))."""
     w = O.cross(u)
-    rows = [u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z]
-    z = torch.zeros_like(u.x)
-    rows += [z] * (NUM_RF_ROWS - len(rows))
+    rows = [u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z, *extra]
+    if pad:
+        rows += [torch.zeros_like(u.x)] * (NUM_RF_ROWS - len(rows))
     return torch.stack(rows, dim=0).contiguous()
+
+
+# ------------------------------------------------------ the compaction ladder
+
+def _key_mode(nc: int, R: int) -> tuple[int, int]:
+    """(mode, shift) of the int32 sort key (group_key << shift) | lane.
+
+    mode 2: group key first_tile * (nc+1) + last_tile (rays sharing both
+    ends of their active-tile span group together); mode 1: first_tile,
+    when the pairwise key and the lane no longer fit an int32; mode 0:
+    compaction off (not even the single key fits).  The inactive marker
+    is the mode's all-ones key, so inactive lanes sort behind every
+    active ray."""
+    for mode, bits in ((2, ((nc + 1) * (nc + 1) - 1).bit_length()),
+                       (1, int(nc).bit_length())):
+        shift = 31 - bits
+        if shift >= 0 and R <= (1 << shift):
+            return mode, shift
+    return 0, 0
+
+
+def _coarse_aabb(aabb, nc: int, g: int):
+    """((ng, 8) union boxes of g consecutive tiles, the last group padded
+    with the last tile's box; ng), for the key only.  A union box is hit
+    wherever one of its tiles is, so the coarse activity is a superset of
+    the per-tile one and the ladder stays exact."""
+    ng = -(-nc // g)
+    a = aabb[:nc]
+    if ng * g != nc:
+        a = torch.cat([a, a[-1:].expand(ng * g - nc, a.shape[1])])
+    a = a.reshape(ng, g, a.shape[1])
+    return torch.cat([a[:, :, 0:3].amin(dim=1), a[:, :, 3:6].amax(dim=1),
+                      a.new_zeros((ng, a.shape[2] - 6))], dim=1), ng
+
+
+def _compact_key(O, u, aabb, nc, cap, active, valid_n):
+    """The ladder's sort key and active count: (skey (R,) int32, n_act,
+    shift).
+
+    A ray is active when its slab interval hits one of the nc boxes
+    (entering no later than ``cap``, where ``active`` holds); lanes past
+    ``valid_n`` (the padding) never are.  Its key is the first (and in
+    mode 2 the last) box it hits, an inactive ray's the mode's inactive
+    marker, shifted over the lane id, so that the keys are distinct and
+    their low ``shift`` bits are the gather indices."""
+    R = O.x.shape[0]
+    mode, shift = _key_mode(nc, R)
+    dev = O.x.device
+    first = torch.full((R,), nc, dtype=torch.int32, device=dev)
+    last = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    for b0 in range(0, nc, _BOX_BATCH):  # bounds the (boxes, R) slabs
+        enter, _exit, hit = slab_enter_exit(O, u, aabb[b0:b0 + _BOX_BATCH])
+        if cap is not None:
+            hit = hit & (enter <= cap[None, :])
+        if active is not None:
+            hit = hit & active[None, :]
+        tid = torch.arange(b0, b0 + hit.shape[0], dtype=torch.int32,
+                           device=dev)[:, None]
+        last = torch.maximum(last, torch.where(hit, tid, -1).amax(dim=0))
+        first = torch.minimum(first, torch.where(hit, tid, nc).amin(dim=0))
+    lane = torch.arange(R, dtype=torch.int32, device=dev)
+    act = (last >= 0) & (lane < valid_n)
+    if mode == 2:
+        key, inactive = first * (nc + 1) + last, (nc + 1) * (nc + 1) - 1
+    else:
+        key, inactive = first, nc
+    key = torch.where(act, key, inactive)
+    return (key << shift) | lane, act.sum(), shift
+
+
+def _compact_sort(skey, C: int, shift: int) -> torch.Tensor:
+    """The C source lanes of the compacted cast, (C,) int32: the active
+    rays grouped by key, then inactive lanes.  The keys are distinct, so
+    an unstable sort gives the one order."""
+    return torch.sort(skey).values[:C] & ((1 << shift) - 1)
+
+
+def _compact_src(O, u, aabb, nc, cap, active, C, valid_n):
+    """Key and sort in one step: (src (C,) int32, n_act)."""
+    skey, n_act, shift = _compact_key(O, u, aabb, nc, cap, active, valid_n)
+    return _compact_sort(skey, C, shift), n_act
+
+
+def _compact_ok(compact: float, nc: int, R: int, blk: int) -> int:
+    """Compact capacity C (rounded up to whole blocks), or 0 when the
+    fraction is 0, the key and the lane cannot share an int32
+    (``_key_mode``) or C would not be below R."""
+    if not compact or not _key_mode(nc, R)[0]:
+        return 0
+    C = -(-int(R * compact) // blk) * blk
+    return C if C < R else 0
+
+
+def _compact_tiers(fractions, nc: int, R: int, blk: int) -> list:
+    """The ladder: the strictly ascending capacities of the fractions that
+    give one (in any order; zeros, duplicates and capacities that fail
+    ``_compact_ok`` drop out)."""
+    tiers: list = []
+    for f in sorted(float(x) for x in fractions if x):
+        C = _compact_ok(f, nc, R, blk)
+        if C and (not tiers or C > tiers[-1]):
+            tiers.append(C)
+    return tiers
+
+
+def _count_pending(n_act):
+    """Start the host's read of a cast's active count: on a card, a
+    non-blocking copy into pinned memory and an event after it, so that
+    the host can queue more work before it waits (``_tier``)."""
+    if n_act.device.type != "cuda":
+        return n_act, None
+    host = torch.empty((), dtype=n_act.dtype, pin_memory=True)
+    host.copy_(n_act, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(n_act.device))
+    return host, done
+
+
+def _tier(tiers, count) -> int:
+    """The tightest tier that holds the active count, 0 when none does
+    (the cast then runs at full width); waits for the count."""
+    host, done = count
+    if done is not None:
+        done.synchronize()
+    n = int(host)
+    return next((C for C in tiers if n <= C), 0)
+
+
+def _ladder_tiers(tab, fractions, key_coarse: int, Rp: int, blk: int):
+    """(tiers, key boxes, their count) of an Rp-ray cast: the key runs over
+    the tile boxes, or over unions of ``key_coarse`` of them."""
+    nc = tab.tile_aabb.shape[0]
+    if key_coarse <= 1:
+        return _compact_tiers(fractions, nc, Rp, blk), tab.tile_aabb, nc
+    boxes, knc = _coarse_aabb(tab.tile_aabb, nc, key_coarse)
+    return _compact_tiers(fractions, knc, Rp, blk), boxes, knc
+
+
+def _live_rows(O, u, cap, active) -> torch.Tensor:
+    """The rows a cast's rays carry through the gather: [u, w, O], then
+    ``cap`` (row 9) and the shadow mask (row 10, 1.0 where active) when
+    given."""
+    extra = () if cap is None else (cap,)
+    if active is not None:
+        extra = (torch.zeros_like(O.x) if cap is None else cap,
+                 active.to(torch.float32))
+    return _ray_feature_rows(O, u, extra, pad=False)
+
+
+def _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, valid_n):
+    """The ray rows of one cast under the ladder: (rf, src).
+
+    rf holds the live rows (``_live_rows``) of the src lanes: src is None
+    when the cast runs at full width on all of its rays, else the (C,)
+    int64 source lanes of the compacted cast.  Returns None when the
+    fractions give no tier (the cast is the plain full-width one)."""
+    tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse,
+                                      O.x.shape[0], blk)
+    if not tiers:
+        return None
+    skey, n_act, shift = _compact_key(O, u, boxes, knc, cap, active, valid_n)
+    count = _count_pending(n_act)
+    rows = _live_rows(O, u, cap, active)  # queued before the wait
+    C = _tier(tiers, count)
+    if not C:
+        return rows, None
+    src = _compact_sort(skey, C, shift).long()
+    return rows.index_select(1, src), src
+
+
+def _scatter(src, out, Rp: int, defaults):
+    """The compacted cast's outputs in place: each (Rp,) output holds its
+    default (the kernel's no-hit result) on the lanes the cast skipped."""
+    return [torch.full((Rp,), d, dtype=o.dtype, device=o.device)
+            .index_copy_(0, src, o) for o, d in zip(out, defaults)]
 
 
 # --------------------------------------------- plain versions of B0-B3
@@ -492,16 +678,38 @@ def cast_inputs(O: Vec3, u: Vec3, tab: PairsMeshTables, subg: int,
     """The kernel inputs of one cast: (rfT (16, Rp), bits (W, Rp/subg), R)
     for the rays padded to Rp, a multiple of blk; outputs past R are
     padding."""
-    O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
-    bits = _pair_bits(O, u, tab.tile_aabb.shape[0], subg,
+    rfT, bits, _, _, R = _rows_bits(O, u, tab, subg, blk, cap, active, (), 1)
+    return rfT, bits, R
+
+
+def _bits(O, u, tab, subg, cap=None, active=None):
+    return _pair_bits(O, u, tab.tile_aabb.shape[0], subg,
                       (tab.member_aabb, tab.member_tile), cap=cap,
                       active=active)
-    return _ray_feature_rows(O, u), bits, R
+
+
+def _rows_bits(O, u, tab, subg, blk, cap, active, fractions, key_coarse):
+    """(rfT, bits, src, Rp, R) of one cast: the kernel's inputs on the
+    rays the ladder keeps (src None: all of them, padded to Rp)."""
+    O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
+    Rp = O.x.shape[0]
+    plan = _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, R)
+    if plan is None:
+        return (_ray_feature_rows(O, u), _bits(O, u, tab, subg, cap, active),
+                None, Rp, R)
+    rf, src = plan
+    if src is not None:  # the culling again, exactly, on the C rays
+        O, u = Vec3(rf[6], rf[7], rf[8]), Vec3(rf[0], rf[1], rf[2])
+        cap = None if cap is None else rf[9]
+        active = None if active is None else rf[10] > 0.5
+    return rf, _bits(O, u, tab, subg, cap, active), src, Rp, R
 
 
 def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
                          eps_leaf: float, cap=None, subg: int = DEF_SUBG,
-                         blk: int = DEF_BLK, payload: str | None = None):
+                         blk: int = DEF_BLK, payload: str | None = None,
+                         compact: float = 0.0, compact2: float = 0.0,
+                         compact3: float = 0.0, key_coarse: int = 1):
     """Closest hit over the cluster-tiled mesh: TriHit with the ORIGINAL
     (BVH-order) triangle index.  ``cap`` (R,) culls tiles the ray enters
     beyond it (the caller's nearest sphere hit).
@@ -509,12 +717,20 @@ def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
     payload: None | "geom" | "smooth".  When set, the kernel also tracks
     the winner's normal (geometric Ng, or the Phong-interpolated vertex
     normal from field rows 17-25) and the return becomes (TriHit, N), N
-    unnormalized."""
+    unnormalized.
+
+    compact, compact2, compact3: the compaction ladder's fractions of the
+    cast (0 drops a tier; all 0, the default, is the full-width cast),
+    key_coarse the tiles a box of its key; the result is the same."""
     kernel = {None: pairs_closest_idx, "geom": pairs_closest,
               "smooth": pairs_closest_smooth}[payload]
-    rfT, bits, R = cast_inputs(O, u, tab, subg, blk, cap=cap)
-    out = [o[:R] for o in kernel(rfT, tab.fields, bits, eps_leaf, subg,
-                                 tile_width(tab))]
+    rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, None,
+                                       (compact, compact2, compact3),
+                                       key_coarse)
+    out = kernel(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
+    if src is not None:
+        out = _scatter(src, out, Rp, (INF32, 0, 0.0, 0.0, 0.0))
+    out = [o[:R] for o in out]
     hit = TriHit(t=out[0], idx=out[1])
     return (hit, Vec3(*out[2:])) if payload else hit
 
@@ -522,11 +738,19 @@ def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
 def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,
                                 eps_leaf: float, cap=None,
                                 subg: int = DEF_SUBG, blk: int = DEF_BLK,
-                                active=None):
+                                active=None, compact: float = 0.0,
+                                compact2: float = 0.0, compact3: float = 0.0,
+                                key_coarse: int = 1):
     """Nearest mesh hit distance only (occlusion query; ``cap`` = |L-P|
     culls tiles beyond the light).  ``active`` (R,) bool: lanes whose
     occlusion result is unused contribute no culling bits; a lane whose
-    whole subgroup is inactive returns INF."""
-    rfT, bits, R = cast_inputs(O, u, tab, subg, blk, cap=cap, active=active)
-    return pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg,
-                        tile_width(tab))[:R]
+    whole subgroup is inactive returns INF, and under the ladder every
+    inactive lane may (the integrator reads none of them).  The ladder's
+    arguments as in ``intersect_tris_pairs``."""
+    rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, active,
+                                       (compact, compact2, compact3),
+                                       key_coarse)
+    t = pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
+    if src is not None:
+        t = _scatter(src, (t,), Rp, (INF32,))[0]
+    return t[:R]

@@ -14,7 +14,9 @@ The dry run renders its two legs on an n-rank mesh, (n/2, 2) when n is
 even, each held bit for bit against the single-device frame on rank 0:
 
 - ``dense`` 256x256 spp 4 depth 2;
-- ``pairs`` 64x64 spp 2 depth 2 on the SAH tree's pave tables, cut 32.
+- ``pairs`` 64x64 spp 2 depth 2 on the SAH tree's pave tables, cut 32,
+  the compaction ladder's first tier at 0.25 and casts padded to 128 rays
+  (the JAX leg's knobs).
 
     python -m raytracinggpu_tpu_torch.parallel.multihost_demo  # 4 cards
     python -m raytracinggpu_tpu_torch.parallel.multihost_demo \\
@@ -43,13 +45,12 @@ DEMO = dict(width=32, height=32, spp=4, max_depth=2, traversal="dense")
 
 # The JAX leg sets spp_fuse = spp // sp so that its fusion groups align with
 # the sample shard; the port's frame is bitwise one device's at any
-# spp_fuse, so the legs keep the preset's.  The JAX pairs leg's
-# pairs_compact and pairs_block knobs belong to the compaction ladder,
-# which is not ported (ROADMAP, Not to port).
+# spp_fuse, so the legs keep the preset's.
 DRYRUN_LEGS = (
     dict(width=256, height=256, spp=4, max_depth=2, traversal="dense"),
     dict(width=64, height=64, spp=2, max_depth=2, traversal="pairs",
-         pairs_cluster="sah", pairs_pack="pave", pairs_cut=32),
+         pairs_cluster="sah", pairs_pack="pave", pairs_cut=32,
+         pairs_compact=0.25, pairs_block=128),
 )
 
 

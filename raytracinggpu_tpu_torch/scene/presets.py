@@ -144,18 +144,21 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
 
 
 def _autotune_pairs(cfg, tables, overrides):
-    """Tile-count-adaptive subgroup: 16 rays past 128 tiles, else the
-    configured 64 (every preset's cat packs into 40 tiles), unless the
-    caller set ``pairs_subgroup``.  The per-cast culling bits depend on
-    the subgroup, so the port keeps the JAX package's rule.  Its threshold
-    was tuned on the TPU; on the H100 the 2,053-tile soup's frame is 7%
-    faster at 16 than at 64 (PERF.md, "What B4 taught"), and the
-    ``pairslope`` probe (``bench/micro_kernel.py``) prices subgroups 8 to
-    64.  (The JAX rule's second knob, ``pairs_key_coarse`` from 1024
-    tiles, coarsens the compaction key, and the port has no compaction.)"""
+    """Tile-count-adaptive knobs, the JAX package's rule, each unless the
+    caller set it: subgroup 16 rays past 128 tiles, else the configured
+    64 (every preset's cat packs into 40 tiles), and a compaction key
+    over unions of 32 tiles (``pairs_key_coarse``) from 1,024 tiles (the
+    200,000-triangle soup's 2,053 tiles key as 65).  The per-cast culling
+    bits depend on the subgroup.  The thresholds were tuned on the TPU;
+    on the H100 the ``pairslope`` probe (``bench/micro_kernel.py``)
+    prices subgroups 8 to 64, and ``chip_smoke.py`` phase 10d times the
+    soup at 16 and 64."""
     if tables.pairs_mesh is None:
         return cfg
     nc = int(tables.pairs_mesh.tile_aabb.shape[0])
+    auto = {}
     if "pairs_subgroup" not in overrides and nc > 128:
-        return replace(cfg, pairs_subgroup=16)
-    return cfg
+        auto["pairs_subgroup"] = 16
+    if "pairs_key_coarse" not in overrides and nc >= 1024:
+        auto["pairs_key_coarse"] = 32
+    return replace(cfg, **auto) if auto else cfg

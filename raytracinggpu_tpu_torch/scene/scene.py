@@ -121,6 +121,20 @@ class RenderConfig:
     pairs_pack: str = "morton"  # tile packing: 'morton' first-fit of whole
                                 # clusters, 'pave' consecutive tree-order
                                 # chunks at 100% occupancy
+    pairs_compact: float = 0.078125  # the compaction ladder's tiers (see
+    pairs_compact2: float = 0.1328125  # ops/pairs_trace._compact_tiers):
+    pairs_compact3: float = 0.1875  # a pairs cast packs its rays with any
+                                # active tile into the tightest tier of
+                                # these fractions of its rays that holds
+                                # them, and runs at full width when none
+                                # does; 0 drops a tier.  Exact: the frame
+                                # is the same with every tier at 0
+    pairs_key_coarse: int = 1   # tiles a union box of the ladder's key
+                                # (1: the exact per-tile key)
+    pairs_compact_min_depth: int = 1  # first depth that runs the ladder;
+                                # the depths below it run one tier of
+    pairs_compact_d0: float = 0.0  # this fraction (0: full width, no key)
+    pairs_subgroup_d0: int = 0  # and, when set, this subgroup
     pairs_chunk: int = 524288   # rays per cast of the pairs and pallas
                                 # traversals (bounds the culling and
                                 # integrator intermediates)

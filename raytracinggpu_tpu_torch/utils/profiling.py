@@ -59,6 +59,10 @@ STAGES = (
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_closest_smooth"),
     ("raytracinggpu_tpu_torch.integrator.wavefront", "cosine_hemisphere"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_ray_feature_rows"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_key"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_tier"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_sort"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_scatter"),
     ("raytracinggpu_tpu_torch.ops.pallas_trace", "_block_active_tiles"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pallas_closest"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pallas_shadow"),
@@ -185,11 +189,13 @@ def stage_timers(device, stages=STAGES):
 
 def device_kernels(fn, top: int = 12) -> dict:
     """Run fn() under torch.profiler and sum the CUDA kernels it ran:
-    count, union of their intervals (ms) and the ``top`` names by time."""
+    count, union of their intervals (ms) and the ``top`` names by time.
+    Only the CUDA activity is traced: the host's operator events, hundreds
+    of thousands in a frame, are not collected."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans, by_name = [], defaultdict(lambda: [0.0, 0])

@@ -69,7 +69,7 @@ def test_showcase_rejects_custom_obj(tmp_path):
 
 
 # the ROADMAP items whose flags were refused until they were ported
-PORTED_ITEMS = ("A10b", "A13")
+PORTED_ITEMS = ("A5", "A10b", "A13")
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -83,9 +83,9 @@ PORTED_ITEMS = ("A10b", "A13")
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(tmp_path, flags, item):
     """A flag of the JAX CLI whose mode the port lacks exits naming its
-    ROADMAP item; the flags of a ported item (``--clustering``,
-    ``--traversal bvh``: A10b; ``--devices 2``: A13, two CPU ranks)
-    render."""
+    ROADMAP item; the flags of a ported item (``--compact``,
+    ``--compact2``: A5; ``--clustering``, ``--traversal bvh``: A10b;
+    ``--devices 2``: A13, two CPU ranks) render."""
     out = str(tmp_path / "f.png")
     argv = ["render", "1", "1", "--width", "8", "--height", "8",
             "--device", "cpu", "--out", out, *flags]
@@ -95,6 +95,30 @@ def test_unported_flags_exit_naming_the_roadmap_item(tmp_path, flags, item):
     else:
         with pytest.raises(SystemExit, match=item):
             main(argv)
+
+
+def test_compact_flags_render_the_default_image(tmp_path, monkeypatch):
+    """--compact 0.25 sets the ladder's first tier, and --compact2 and
+    --compact3 the others, as the JAX CLI does; the 48x48 spp 2 depth 3
+    frame (casts of 4,608 rays, so that a tier is below a cast) is the
+    default's bit for bit, with the tier taken on some casts."""
+    import raytracinggpu_tpu_torch.ops.pairs_trace as pt
+
+    taken = []
+    tier = pt._tier
+    monkeypatch.setattr(pt, "_tier",
+                        lambda *a: taken.append(tier(*a)) or taken[-1])
+    imgs = []
+    for flags in ([], ["--compact", "0.25", "--compact2", "0.3",
+                       "--compact3", "0"]):
+        out = str(tmp_path / f"c{len(imgs)}.png")
+        assert main(["render", "2", "3", "--width", "48", "--height", "48",
+                     "--device", "cpu", "--out", out, *flags]) == 0
+        imgs.append(read_png(out))
+    np.testing.assert_array_equal(imgs[1], imgs[0])
+    assert any(taken)
+    with pytest.raises(SystemExit, match="--compact"):
+        main(["bench", "1", "1", "--device", "cpu", "--compact", "0.25"])
 
 
 def test_clustering_flags_build_the_jax_package_tables(monkeypatch):

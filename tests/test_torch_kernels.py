@@ -1292,6 +1292,36 @@ def test_small_frame_on_cuda_matches_cpu():
 
 
 @pytest.mark.cuda
+def test_compaction_ladder_on_cuda_is_the_full_width_frame():
+    """The 48x48 spp2 d3 frame with casts padded to 128 rays, where the
+    compaction ladder's tiers of 0.02 and 0.04 of a cast overflow and
+    its third, 0.25, takes each cast at depth >= 1: bitwise the frame
+    with every tier at 0, with the same launches (one per cast either
+    way)."""
+    _need_cuda()
+    import dataclasses
+
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+
+    cfg, tables = build_preset("array_bvh", "cuda", width=48, height=48,
+                               spp=2, max_depth=3, pairs_block=128,
+                               pairs_compact=0.02, pairs_compact2=0.04,
+                               pairs_compact3=0.25)
+    off = dataclasses.replace(cfg, pairs_compact=0.0, pairs_compact2=0.0,
+                              pairs_compact3=0.0)
+    frames = []
+    for c in (cfg, off):
+        _kernels.reset_launches()
+        frames.append((render_preset_frame(tables, c, seed=0), _launched()))
+    ((img, st), on_launches), ((img0, st0), off_launches) = frames
+    assert on_launches == off_launches == {"pairs_closest": 3,
+                                           "pairs_shadow": 3}
+    np.testing.assert_array_equal(img, img0)
+    for a, b in zip(st, st0):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("subg", TILED_SUBGS)
 @pytest.mark.parametrize("capped", [True, False])
 @pytest.mark.parametrize("kind", KINDS)

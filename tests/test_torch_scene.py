@@ -118,6 +118,30 @@ def test_config_and_autotuned_subgroup(both):
             rt.max_depth, rt.eps_leaf) == (True, True, 20, 3, 1e-3)
 
 
+@pytest.mark.parametrize("nc", [40, 128, 129, 1023, 1024, 2053])
+@pytest.mark.parametrize("overrides", [{}, {"pairs_subgroup": 32},
+                                       {"pairs_key_coarse": 4}])
+def test_autotune_pairs_is_the_jax_rule(nc, overrides):
+    """Subgroup 16 past 128 tiles and a key over 32-tile unions from 1,024
+    tiles, each unless the caller set it: the JAX package's rule."""
+    from types import SimpleNamespace
+
+    from raytracinggpu_tpu.scene.presets import _autotune_pairs as j_auto
+    from raytracinggpu_tpu.scene.scene import RenderConfig as JCfg
+    from raytracinggpu_tpu_torch.scene.presets import _autotune_pairs
+    from raytracinggpu_tpu_torch.scene.scene import RenderConfig
+
+    tables = SimpleNamespace(pairs_mesh=SimpleNamespace(
+        tile_aabb=np.zeros((nc, 8), np.float32)))
+    got = _autotune_pairs(RenderConfig(**overrides), tables, overrides)
+    want = j_auto(JCfg(**overrides), tables, overrides)
+    knobs = ("pairs_subgroup", "pairs_key_coarse")
+    assert [getattr(got, k) for k in knobs] == [getattr(want, k)
+                                                for k in knobs]
+    assert got.pairs_key_coarse == overrides.get(
+        "pairs_key_coarse", 32 if nc >= 1024 else 1)
+
+
 def test_unported_presets_raise():
     """No preset of the JAX package is left unported (the four that used
     to raise build: tests/test_torch_presets.py holds their tables); a name

@@ -65,12 +65,14 @@ CASES = {
        for px, sp in MESHES for f in (1, 2, 4)},
     **{f"array_bvh-{t}-2x2": ("array_bvh", dict(SIZE, traversal=t), (2, 2))
        for t in ("pairs", "pallas", "bvh")},
-    # the legs at an eighth of their width; the pairs leg's casts padded to
-    # 128 rays instead of 4096 (a ray's result does not depend on its cast,
-    # and the plain versions on the CPU take the time of the padded cast)
-    **{f"dryrun-{leg['traversal']}-2x2":
-       ("array_bvh", dict(leg, pairs_block=128), (2, 2))
-       for leg in dryrun_legs(shrink=8)},
+    # the dense leg at an eighth of its width, its casts padded to 128 rays
+    # instead of 4096 (a ray's result does not depend on its cast, and the
+    # plain versions on the CPU take the time of the padded cast); the
+    # pairs leg (128-ray casts of its own) at half its width, where its
+    # ranks' casts compact (tests/test_torch_compact.py)
+    "dryrun-dense-2x2": ("array_bvh", dict(dryrun_legs(shrink=8)[0],
+                                           pairs_block=128), (2, 2)),
+    "dryrun-pairs-2x2": ("array_bvh", dryrun_legs(shrink=2)[1], (2, 2)),
     "renderer-default-mesh": ("array_bvh", dict(SIZE, traversal="dense"),
                               None),
 }
