@@ -232,21 +232,10 @@ Phases, in order; any failed check exits nonzero:
       where a tier held them) must equal their plain versions bit for
       bit; each timed against its plain version and its bound;
    c. the production, realtime and animated anchors (phases 6, 7b, 13b)
-      ran with the ladder on;
-   d. times, the ladder on and off in turns, LADDER_FRAMES warm frames
-      each, median and range: the headline's and the soup's Mray/s and
-      the host's wait for the counts a frame, and the headline with each
-      seed's tiers replayed without the host's reads (bitwise the frame
-      with the ladder off); the headline's kernel-device time over
-      LADDER_PROFILED frames each (``utils/profiling.device_kernels``:
-      the union of the kernels' intervals), its kernels and busy share;
-      the realtime and the animated loops' ms a frame (wall over
-      LADDER_LOOPS loops of LOOP_FRAMES frames); and the stages of the
-      headline's and the
-      realtime frame's depth-1 and depth-2 casts and the soup's depth-1
-      casts, each alone between CUDA events: the key, the feature rows,
-      the sort, the gather, the culling and the kernel on the C rays, the
-      scatter, beside the culling and the kernel at full width.
+      ran with the ladder on.
+   The ladder's times, on and off in turns (frames, kernel-device time,
+   loops, each stage of a cast), are ``python -m
+   raytracinggpu_tpu_torch.bench.ladder``'s, not this script's.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -405,10 +394,9 @@ def _fail(msg: str) -> None:
 def _ladder_off(cfg):
     """``cfg`` with every tier of the compaction ladder at 0: each pairs
     cast at full width (the frame is the same)."""
-    import dataclasses
+    from raytracinggpu_tpu_torch.bench.ladder import ladder_off
 
-    return dataclasses.replace(cfg, pairs_compact=0.0, pairs_compact2=0.0,
-                               pairs_compact3=0.0)
+    return ladder_off(cfg)
 
 
 class _Laps:
@@ -2130,139 +2118,16 @@ def _gallery(card):
         print(f"gallery files: {json.dumps(head)}")
 
 
-# Phase 18: the compaction ladder.  Frames timed per variant in (d), the
-# variants in turn (each iteration starts with the next), after warm-up
-# frames; frames profiled per variant; realtime loops of LOOP_FRAMES frames
-# per variant
-LADDER_FRAMES = 6
-LADDER_PROFILED = 5
-LADDER_LOOPS = 3
-
-
-class _TierLog:
-    """Record every ladder cast while active: query (``closest`` or
-    ``shadow``), depth, the cast's padded rays R, active count n, the tiers,
-    the tier taken C (0: full width) and the host's seconds in ``_tier``
-    (the wait for the count).  Wraps the functions it reads through, and
-    puts them back on exit."""
-
-    def __init__(self):
-        self.log = []
-
-    def __enter__(self):
-        from raytracinggpu_tpu_torch.integrator import wavefront as wf
-        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
-        here = {"depth": -1, "query": "?", "R": 0}
-        self._saved = [(m, a, getattr(m, a)) for m, a in (
-            (wf, "depth_configs"), (wf, "_depth_step"),
-            (wf, "intersect_tris_pairs"), (wf, "intersect_tris_pairs_shadow"),
-            (pt, "_compact_key"), (pt, "_tier"))]
-        f = {a: fn for _, a, fn in self._saved}
-
-        def depth_configs(*a):
-            here["depth"] = -1
-            return f["depth_configs"](*a)
-
-        def depth_step(*a):
-            here["depth"] += 1
-            return f["_depth_step"](*a)
-
-        def query(name, fn):
-            def call(*a, **k):
-                here["query"] = name
-                return fn(*a, **k)
-            return call
-
-        def key(O, *a):
-            here["R"] = O.x.shape[0]
-            return f["_compact_key"](O, *a)
-
-        def tier(tiers, count):
-            t0 = time.perf_counter()
-            C = f["_tier"](tiers, count)
-            wait = time.perf_counter() - t0
-            self.log.append(dict(query=here["query"], depth=here["depth"],
-                                 R=here["R"], n=int(count[0]),
-                                 tiers=tuple(tiers), C=C, wait=wait))
-            return C
-
-        wf.depth_configs, wf._depth_step = depth_configs, depth_step
-        wf.intersect_tris_pairs = query("closest", f["intersect_tris_pairs"])
-        wf.intersect_tris_pairs_shadow = query(
-            "shadow", f["intersect_tris_pairs_shadow"])
-        pt._compact_key, pt._tier = key, tier
-        return self
-
-    def __exit__(self, *exc):
-        for m, a, fn in self._saved:
-            setattr(m, a, fn)
-
-    def summary(self) -> list[str]:
-        """One line per (query, depth): casts, the tiers taken, n / R."""
-        from collections import Counter
-
-        groups = {}
-        for e in self.log:
-            groups.setdefault((e["depth"], e["query"]), []).append(e)
-        out = []
-        for (d, q), es in sorted(groups.items()):
-            share = [e["n"] / e["R"] for e in es]
-            took = Counter(e["C"] for e in es)
-            out.append(
-                f"depth {d} {q}: {len(es)} casts of {es[0]['R']} rays, tiers "
-                f"{list(es[0]['tiers'])}, taken "
-                + ", ".join(f"{'full width' if C == 0 else C} x{k}"
-                            for C, k in sorted(took.items()))
-                + f"; n_act / R {min(share):.4f} to {max(share):.4f} (mean "
-                f"{sum(share) / len(share):.4f}); host wait "
-                f"{sum(e['wait'] for e in es) * 1e3:.3f} ms")
-        return out
-
-
-class _ReplayTiers:
-    """While active, ``_tier`` returns the given tiers in turn without
-    waiting for the counts: a frame of the same seed that logged them
-    takes the same tiers and gives the same image."""
-
-    def __init__(self, taken):
-        self.taken = iter(taken)
-
-    def __enter__(self):
-        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
-        self._orig = pt._tier
-        pt._tier = lambda tiers, count: next(self.taken)
-        return self
-
-    def __exit__(self, *exc):
-        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
-        pt._tier = self._orig
-
-
-def _median(xs) -> float:
-    ys = sorted(xs)
-    n = len(ys)
-    return ys[n // 2] if n % 2 else (ys[n // 2 - 1] + ys[n // 2]) / 2
-
-
-def _spread(xs) -> str:
-    """median [min, max] of a list."""
-    return (f"median {_median(xs):.4f} [{min(xs):.4f}, {max(xs):.4f}] "
-            f"(n={len(xs)})")
-
-
 def _ladder_frames(name, on, off, same, want):
     """18a, one scene: ``on()`` (the default config, tiers logged) and
     ``off()`` (the ladder off) with the counters zeroed before each; their
     results must be ``same`` and each launch ``want``."""
+    import torch
+    from raytracinggpu_tpu_torch.bench.ladder import TierLog
     from raytracinggpu_tpu_torch.ops import _kernels
 
-    import torch
-
     _kernels.reset_launches()
-    with _TierLog() as log:
+    with TierLog() as log:
         a = on()
     torch.cuda.synchronize()
     l_on = dict(_kernels.LAUNCHES)
@@ -2287,85 +2152,6 @@ def _ladder_frames(name, on, off, same, want):
     return log
 
 
-def _capture_queries(render, n: int):
-    """Run render() keeping the arguments of the first ``n`` pairs casts
-    (``pairs_trace._rows_bits``: both queries' rays, cap, mask and ladder
-    arguments), in call order."""
-    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
-    kept, orig = [], pt._rows_bits
-
-    def keeping(*a):
-        if len(kept) < n:
-            kept.append(a)
-        return orig(*a)
-
-    pt._rows_bits = keeping
-    try:
-        render()
-    finally:
-        pt._rows_bits = orig
-    return kept
-
-
-def _stage_times(label, args, cfg, card):
-    """18d: the stages of one ladder cast, each alone between CUDA events
-    (20 launches), beside the same cast at full width."""
-    from raytracinggpu_tpu_torch.core.vec import Vec3
-    from raytracinggpu_tpu_torch.ops import _kernels
-    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-    from raytracinggpu_tpu_torch.ops.pallas_trace import pad_rays
-
-    O, u, tab, subg, blk, cap, active, fractions, key_coarse = args
-    shadow = active is not None
-    kname = ("pairs_shadow" if shadow else "pairs_closest_smooth"
-             if cfg.smooth_normals else "pairs_closest")
-    kern = getattr(_kernels, kname)
-    O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
-    Rp = O.x.shape[0]
-    tiers, boxes, knc = pt._ladder_tiers(tab, fractions, key_coarse, Rp, blk)
-    key = lambda: pt._compact_key(O, u, boxes, knc, cap, active, R)
-    skey, n_act, shift = key()
-    n = int(n_act)
-    C = next((c for c in tiers if n <= c), 0)
-    rows = lambda: pt._live_rows(O, u, cap, active)
-    kw = (cfg.eps_leaf, subg, pt.tile_width(tab))
-    t = {"key": _time_ms(key, 20), "rows": _time_ms(rows, 20)}
-    bits = lambda: pt._bits(O, u, tab, subg, cap, active)
-    rfT, bR = pt._ray_feature_rows(O, u), bits()
-    t["culling on R"] = _time_ms(bits, 10)
-    t["kernel on R"] = _time_ms(lambda: kern(rfT, tab.fields, bR, *kw), 20)
-    line = (f"ladder stages, {label} {'shadow' if shadow else 'closest'} "
-            f"cast ({kname}): R {Rp}, n_act {n} ({n / Rp:.4f}), tiers "
-            f"{tiers}, taken {C or 'full width'}; ms: ")
-    if C:
-        t["sort"] = _time_ms(lambda: pt._compact_sort(skey, C, shift), 20)
-        src = pt._compact_sort(skey, C, shift).long()
-        rw = rows()
-        t["gather"] = _time_ms(lambda: rw.index_select(1, src), 20)
-        rf = rw.index_select(1, src)
-        Oc, uc = Vec3(rf[6], rf[7], rf[8]), Vec3(rf[0], rf[1], rf[2])
-        capc = None if cap is None else rf[9]
-        actc = None if active is None else rf[10] > 0.5
-        bitsC = lambda: pt._bits(Oc, uc, tab, subg, capc, actc)
-        t["culling on C"] = _time_ms(bitsC, 10)
-        bC = bitsC()
-        t["kernel on C"] = _time_ms(lambda: kern(rf, tab.fields, bC, *kw), 20)
-        out = kern(rf, tab.fields, bC, *kw)
-        out = (out,) if shadow else out
-        dflt = (pt.INF32, 0, 0.0, 0.0, 0.0)
-        t["scatter"] = _time_ms(lambda: pt._scatter(src, out, Rp, dflt), 20)
-        ladder = sum(v for k, v in t.items() if k not in (
-            "culling on R", "kernel on R"))
-        full = t["rows"] + t["culling on R"] + t["kernel on R"]
-        line += ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-        line += (f"; the cast's stages {ladder:.4f} compacted against "
-                 f"{full:.4f} at full width (rows, culling, kernel)")
-    else:
-        line += ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-    print(f"{line}; on {card}")
-
-
 def _ladder_phase(device, card, err, head, rt_scene, soup):
     """Phase 18 (module docstring).  ``head`` phase 4's (config, tables,
     camera), ``rt_scene`` phase 7's (config, tables), ``soup`` phase 10's
@@ -2376,12 +2162,10 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
     from raytracinggpu_tpu_torch.render import realtime as rt
     from raytracinggpu_tpu_torch.render.pipeline import (
-        rays_per_frame, render_frame, render_preset_frame)
+        render_frame, render_preset_frame)
     from raytracinggpu_tpu_torch.scene.presets import build_preset
-    from raytracinggpu_tpu_torch.utils.profiling import device_kernels, wall_ms
 
     hcfg, htab, cam = head
-    res = {}
     rcfg, rtab = rt_scene
     scfg, stab = soup
     acfg, atab = build_preset("realtime", device, animate_mesh=True)
@@ -2439,111 +2223,6 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
     # c. the anchors ran with the ladder on (phases 6, 7b, 13b)
     print("ladder anchors: phases 6 (production), 7b (realtime) and 13b "
           "(animated) rendered with the default config, the ladder on")
-
-    # d. times, the ladder on and off in turns
-    def timed_frame(render, seed):
-        """(image, seconds, the casts' log) of one frame."""
-        torch.cuda.synchronize()
-        with _TierLog() as log:
-            t0 = time.perf_counter()
-            out = render(seed)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0, log.log
-
-    def turns(i, labs=("on", "off")):
-        """The variants in turn: iteration i starts with the i-th."""
-        k = i % len(labs)
-        return labs[k:] + labs[:k]
-
-    for scene, render, cfg in (
-            ("headline", lambda c, s: head_frame(c, s), hcfg),
-            ("soup", lambda c, s: render_preset_frame(stab, c, seed=s),
-             scfg)):
-        cfgs = {"on": cfg, "off": off(cfg)}
-        labs = ("on", "off")
-        taken = {}
-        render(off(cfg), 0)  # warm
-        if scene == "headline":
-            # "replayed": each seed's tiers, logged by an untimed frame
-            # here, taken without the host's reads: what the reads cost
-            labs += ("replayed",)
-            for i in range(LADDER_FRAMES):
-                taken[1 + i] = [e["C"] for e in timed_frame(
-                    lambda sd: render(cfg, sd), 1 + i)[2]]
-        else:
-            render(cfg, 0)  # warm
-        sec = {lab: [] for lab in labs}
-        wait = []
-        for i in range(LADDER_FRAMES):
-            seed, img = 1 + i, {}
-            for lab in turns(i, labs):
-                if lab == "replayed":
-                    with _ReplayTiers(taken[seed]):
-                        img[lab], s, _ = timed_frame(
-                            lambda sd: render(cfg, sd), seed)
-                else:
-                    img[lab], s, log = timed_frame(
-                        lambda sd: render(cfgs[lab], sd), seed)
-                    if lab == "on":
-                        wait.append(sum(e["wait"] for e in log))
-                sec[lab].append(s)
-            if "replayed" in img and not t_eq(img["replayed"], img["off"]):
-                _fail("the headline frame with its tiers replayed differs "
-                      "from the frame with the ladder off")
-        for lab, ss in sec.items():
-            mr = [rays_per_frame(cfg) / s / 1e6 for s in ss]
-            res[(scene, lab)] = _median(mr)
-            print(f"ladder {scene} {lab}: Mray/s {_spread(mr)}; on {card}")
-        print(f"ladder {scene}: the host's wait for the counts, ms a frame "
-              f"{_spread([w * 1e3 for w in wait])}; on / off median Mray/s "
-              f"{res[(scene, 'on')] / res[(scene, 'off')]:.4f}"
-              + (f", replayed / off "
-                 f"{res[(scene, 'replayed')] / res[(scene, 'off')]:.4f}"
-                 if scene == "headline" else ""))
-
-    busy = {"on": [], "off": []}
-    kms = {"on": [], "off": []}
-    launches = {}
-    for i in range(LADDER_PROFILED):
-        for lab in turns(i):
-            c = hcfg if lab == "on" else off(hcfg)
-            fms = wall_ms(lambda: head_frame(c, 1), device)
-            k = device_kernels(lambda: head_frame(c, 1))
-            if k["kernels"] == 0:
-                _fail("the profiler saw no kernel in the headline frame")
-            kms[lab].append(k["kernel_ms"])
-            busy[lab].append(k["kernel_ms"] / fms)
-            launches[lab] = k["kernels"]
-    for lab in ("on", "off"):
-        print(f"ladder headline {lab}: kernel-device ms a frame (union) "
-              f"{_spread(kms[lab])}, busy {_spread(busy[lab])}, "
-              f"{launches[lab]} kernels a frame; on {card}")
-
-    for name, tab, cfg in (("realtime", rtab, rcfg),
-                           ("animated", atab, acfg)):
-        ms = {"on": [], "off": []}
-        for i in range(LADDER_LOOPS):
-            for lab in turns(i):
-                c = cfg if lab == "on" else off(cfg)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                rt.run_loop(tab, c, LOOP_FRAMES, seed=0, print_every=0)
-                torch.cuda.synchronize()
-                ms[lab].append((time.perf_counter() - t0) / LOOP_FRAMES * 1e3)
-        for lab in ("on", "off"):
-            print(f"ladder {name} loop {lab}: ms a frame (wall over "
-                  f"{LOOP_FRAMES}-frame loops) {_spread(ms[lab])}; on {card}")
-
-    # the stages of the headline's and the realtime frame's depth-1 and
-    # depth-2 casts, and the soup's depth-1 casts
-    for label, render, cfg, keep in (
-            ("array_bvh", lambda: head_frame(hcfg), hcfg, 6),
-            ("realtime", lambda: step1(rtab, rcfg), rcfg, 6),
-            ("soup", lambda: render_preset_frame(stab, scfg, seed=0), scfg,
-             4)):
-        for i, args in enumerate(_capture_queries(render, keep)):
-            if i >= 2:
-                _stage_times(f"{label} depth {i // 2}", args, cfg, card)
 
 
 def main() -> int:

@@ -96,22 +96,19 @@ def depth_configs(scene: SceneTables, cfg: RenderConfig,
                   depth: int) -> list[RenderConfig]:
     """The config of each depth of ``trace``: the JAX package's per-depth
     ladder policy of its unrolled depth loop, which the Python loop here
-    always is.  When ``pairs_compact_min_depth`` > 0 and the pairs
-    traversal runs a mesh with any of ``pairs_compact``,
-    ``pairs_compact_d0``, ``pairs_subgroup_d0`` set, the depths below it
-    run a single tier of ``pairs_compact_d0`` (0: full width, no key) and
-    ``pairs_subgroup_d0`` when set; else every depth runs ``cfg``."""
+    always is, at its defaults.  When ``pairs_compact_min_depth`` > 0 and
+    the pairs traversal runs a mesh with ``pairs_compact`` set, the depths
+    below it run with every tier at 0 (full width, no key); else every
+    depth runs ``cfg``.  (The JAX package's ``pairs_compact_d0`` and
+    ``pairs_subgroup_d0``, a tier and a subgroup of those depths' own,
+    are TPU knobs the port leaves out: at their default, 0, the policy is
+    this one.)"""
     mind = int(cfg.pairs_compact_min_depth)
-    if not (mind > 0 and (cfg.pairs_compact or cfg.pairs_compact_d0
-                          or cfg.pairs_subgroup_d0)
-            and scene.mesh is not None
+    if not (mind > 0 and cfg.pairs_compact and scene.mesh is not None
             and _effective_traversal(cfg, scene) == "pairs"):
         return [cfg] * depth
-    over0 = dict(pairs_compact=float(cfg.pairs_compact_d0),
-                 pairs_compact2=0.0, pairs_compact3=0.0)
-    if cfg.pairs_subgroup_d0:
-        over0["pairs_subgroup"] = cfg.pairs_subgroup_d0
-    cfg0 = dataclasses.replace(cfg, **over0)
+    cfg0 = dataclasses.replace(cfg, pairs_compact=0.0, pairs_compact2=0.0,
+                               pairs_compact3=0.0)
     return [cfg0 if d < mind else cfg for d in range(depth)]
 
 

@@ -52,8 +52,8 @@ reads the count of rays that hit any, and when the tightest tier of
 C rays only (grouped by their tile span, so a subgroup's union stays
 tight), scattering the results into the no-hit defaults; a cast that
 overflows every tier runs at full width and sorts nothing.  The compacted
-cast re-runs the exact member culling on its rays, so every ray's result
-is the full-width cast's bit for bit.  XLA chooses the tier on the device
+cast re-runs the exact member culling on its rays, so every ray's hit
+within its ``cap`` is the full-width cast's bit for bit.  XLA chooses the tier on the device
 (``lax.cond``); here the host reads the count, once a cast.
 """
 from __future__ import annotations
@@ -63,6 +63,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.ops.pallas_trace import (
@@ -519,13 +520,21 @@ def _tier(tiers, count) -> int:
     return next((C for C in tiers if n <= C), 0)
 
 
+# the union boxes of each table's tile boxes, per key_coarse, built once a
+# table (tables are never written in place: a posed mesh gets new ones)
+_COARSE = WeakIdKeyDictionary()
+
+
 def _ladder_tiers(tab, fractions, key_coarse: int, Rp: int, blk: int):
     """(tiers, key boxes, their count) of an Rp-ray cast: the key runs over
     the tile boxes, or over unions of ``key_coarse`` of them."""
     nc = tab.tile_aabb.shape[0]
     if key_coarse <= 1:
         return _compact_tiers(fractions, nc, Rp, blk), tab.tile_aabb, nc
-    boxes, knc = _coarse_aabb(tab.tile_aabb, nc, key_coarse)
+    per_table = _COARSE.setdefault(tab.tile_aabb, {})
+    if key_coarse not in per_table:
+        per_table[key_coarse] = _coarse_aabb(tab.tile_aabb, nc, key_coarse)
+    boxes, knc = per_table[key_coarse]
     return _compact_tiers(fractions, knc, Rp, blk), boxes, knc
 
 
@@ -558,7 +567,12 @@ def _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, valid_n):
     if not C:
         return rows, None
     src = _compact_sort(skey, C, shift).long()
-    return rows.index_select(1, src), src
+    return _gather(rows, src), src
+
+
+def _gather(rows, src):
+    """The compacted cast's rows: the live rows of its src lanes."""
+    return rows.index_select(1, src)
 
 
 def _scatter(src, out, Rp: int, defaults):
@@ -721,7 +735,13 @@ def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
 
     compact, compact2, compact3: the compaction ladder's fractions of the
     cast (0 drops a tier; all 0, the default, is the full-width cast),
-    key_coarse the tiles a box of its key; the result is the same."""
+    key_coarse the tiles a box of its key.  The result is the full-width
+    cast's on every lane whose t is at most ``cap`` there: such a hit lies
+    in a tile the ray itself enters before ``cap``.  Past ``cap`` the two
+    may differ (a lane whose every tile lies past ``cap`` is not active;
+    at full width a subgroup-mate's tiles can still give it a hit), but
+    both give a t above ``cap`` or INF.  The integrator, which keeps the
+    nearer of the mesh's t and the sphere's ``cap``, sees no difference."""
     kernel = {None: pairs_closest_idx, "geom": pairs_closest,
               "smooth": pairs_closest_smooth}[payload]
     rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, None,
@@ -746,7 +766,8 @@ def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,
     occlusion result is unused contribute no culling bits; a lane whose
     whole subgroup is inactive returns INF, and under the ladder every
     inactive lane may (the integrator reads none of them).  The ladder's
-    arguments as in ``intersect_tris_pairs``."""
+    arguments and its contract as in ``intersect_tris_pairs``: the same t
+    on every active lane whose full-width t is at most ``cap``."""
     rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, active,
                                        (compact, compact2, compact3),
                                        key_coarse)

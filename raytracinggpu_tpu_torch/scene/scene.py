@@ -132,9 +132,7 @@ class RenderConfig:
     pairs_key_coarse: int = 1   # tiles a union box of the ladder's key
                                 # (1: the exact per-tile key)
     pairs_compact_min_depth: int = 1  # first depth that runs the ladder;
-                                # the depths below it run one tier of
-    pairs_compact_d0: float = 0.0  # this fraction (0: full width, no key)
-    pairs_subgroup_d0: int = 0  # and, when set, this subgroup
+                                # the depths below it run at full width
     pairs_chunk: int = 524288   # rays per cast of the pairs and pallas
                                 # traversals (bounds the culling and
                                 # integrator intermediates)

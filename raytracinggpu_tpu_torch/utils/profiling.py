@@ -157,20 +157,28 @@ def wall_ms(fn, device) -> float:
 
 
 @contextlib.contextmanager
-def stage_timers(device, stages=STAGES):
+def stage_timers(device, stages=STAGES, events: bool = False):
     """Wrap each stage function so that every call is synchronised and
     timed; yields {stage: [ms, calls]} and restores the functions on
-    exit."""
+    exit.  ``events`` (a CUDA device): time each call between two CUDA
+    events instead of the host clock, leaving out the synchronisation."""
     out = defaultdict(lambda: [0.0, 0])
     saved = []
 
     def timed(name, fn):
         def call(*a, **k):
             _sync(device)
+            if events:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
             t0 = time.perf_counter()
             r = fn(*a, **k)
+            if events:
+                end.record()
             _sync(device)
-            out[name][0] += (time.perf_counter() - t0) * 1e3
+            out[name][0] += (start.elapsed_time(end) if events
+                             else (time.perf_counter() - t0) * 1e3)
             out[name][1] += 1
             return r
         return call

@@ -13,8 +13,10 @@ integrator/wavefront.depth_configs) against the JAX package's
   (an inactive shadow lane is "don't care": the full cast leaks its
   subgroup-mates' tiles into it, the compacted one returns INF), at
   fractions 0.25 (the cast compacts) and 0.05 (the closest cast
-  overflows and runs at full width).  A cast that overflows every tier
-  sorts nothing.
+  overflows and runs at full width), with a cap past every hit.  With
+  seeded finite caps the two agree on every lane whose full-width t is
+  at most its cap, and elsewhere both give a t past the cap or INF.  A
+  cast that overflows every tier sorts nothing.
 - Frames: the configurations of tests/test_compact.py's
   ``test_render_parity_with_overflow`` (48x48, spp 2, depth 3) and the
   ladder at every depth (``pairs_compact_min_depth`` 0), with casts
@@ -38,6 +40,7 @@ from raytracinggpu_tpu.render.pipeline import (
 )
 from raytracinggpu_tpu.scene.presets import build_preset as j_build_preset
 from raytracinggpu_tpu.scene.scene import RenderConfig as JRenderConfig
+from raytracinggpu_tpu_torch.bench import ladder as ladder_bench
 from raytracinggpu_tpu_torch.convert import render_config_from_dict
 from raytracinggpu_tpu_torch.core.vec import Vec3 as PV
 from raytracinggpu_tpu_torch.integrator.wavefront import depth_configs
@@ -46,6 +49,7 @@ from raytracinggpu_tpu_torch.parallel.multihost_demo import dryrun_legs
 from raytracinggpu_tpu_torch.core.rng import PRNGKey
 from raytracinggpu_tpu_torch.render.pipeline import (
     Camera,
+    render_frame,
     render_preset_frame,
     render_rows,
 )
@@ -58,8 +62,7 @@ torch.set_num_threads(2)
 
 R = 8192
 LADDER = ("pairs_compact", "pairs_compact2", "pairs_compact3",
-          "pairs_key_coarse", "pairs_compact_min_depth", "pairs_compact_d0",
-          "pairs_subgroup_d0")
+          "pairs_key_coarse", "pairs_compact_min_depth")
 OFF = dict(pairs_compact=0.0, pairs_compact2=0.0, pairs_compact3=0.0)
 FRAME = dict(width=48, height=48, spp=2, max_depth=3)
 
@@ -234,6 +237,63 @@ def test_direct_cast_parity(cat, rays, frac, monkeypatch):
     assert (taken[0] > 0) == (taken[1] > 0) == (frac == 0.25)
 
 
+@pytest.mark.parametrize("frac", [0.25, 0.05])
+def test_direct_cast_parity_within_cap(cat, rays, frac, monkeypatch):
+    """With the seeded finite caps (0 to 40): on every lane whose
+    full-width t is at most its cap (and is active, for B2) the
+    compacted B1, B3 and B2 casts give the full-width results bitwise; on
+    the others both give a t past the cap or INF."""
+    _, tab = cat
+    O, d, cap, act = rays
+    O, u, cap, a = _p(O), _p(d), torch.from_numpy(cap), torch.from_numpy(act)
+    seen = _tiers_taken(monkeypatch)
+
+    def agree(t0, t1, rest0, rest1, lanes):
+        inside = lanes & (t0 <= cap)
+        assert int(inside.sum()) > 100
+        for x, y in zip((t0, *rest0), (t1, *rest1)):
+            assert torch.equal(x[inside], y[inside])
+        rest = lanes & ~inside
+        for t in (t0, t1):
+            assert bool((t[rest] > cap[rest]).all())
+
+    for payload in ("geom", "smooth"):
+        h0, n0 = ppt.intersect_tris_pairs(O, u, tab, 1e-4, cap=cap,
+                                          payload=payload, blk=512)
+        h1, n1 = ppt.intersect_tris_pairs(O, u, tab, 1e-4, cap=cap,
+                                          payload=payload, blk=512,
+                                          compact=frac)
+        agree(h0.t, h1.t, (h0.idx, *n0), (h1.idx, *n1),
+              torch.ones_like(a))
+    t0 = ppt.intersect_tris_pairs_shadow(O, u, tab, 1e-4, cap=cap, active=a,
+                                         blk=512)
+    t1 = ppt.intersect_tris_pairs_shadow(O, u, tab, 1e-4, cap=cap, active=a,
+                                         blk=512, compact=frac)
+    agree(t0, t1, (), (), a)
+    # at 0.05 the closest casts overflow their 512-ray tier, the shadow
+    # cast compacts
+    assert [C for _, _, C in seen] == ([2048] * 3 if frac == 0.25
+                                       else [0, 0, 512])
+
+
+def test_coarse_key_boxes_are_built_once_a_table(cat, rays, monkeypatch):
+    """The union boxes of a coarse key are built on a table's first cast
+    and reused by the next, and the casts stay bitwise full width."""
+    _, tab = cat
+    O, d, _, _ = rays
+    built = []
+    coarse = ppt._coarse_aabb
+    monkeypatch.setattr(ppt, "_coarse_aabb",
+                        lambda *a: built.append(a[2]) or coarse(*a))
+    kw = dict(blk=512, payload="geom")
+    h0 = ppt.intersect_tris_pairs(_p(O), _p(d), tab, 1e-4, **kw)[0]
+    for g in (4, 4, 8, 4):
+        h1 = ppt.intersect_tris_pairs(_p(O), _p(d), tab, 1e-4, compact=0.25,
+                                      key_coarse=g, **kw)[0]
+        assert torch.equal(h0.t, h1.t) and torch.equal(h0.idx, h1.idx)
+    assert built == [4, 8]
+
+
 def test_overflowing_cast_sorts_nothing(cat, rays, monkeypatch):
     """The sort runs only on the tier that is taken: none on a cast that
     overflows every tier, one on a cast that compacts."""
@@ -254,8 +314,8 @@ def test_overflowing_cast_sorts_nothing(cat, rays, monkeypatch):
 
 # ------------------------------------------------------------------ frames
 
-# tests/test_compact.py's configurations (its d0 tier without the JAX
-# package's depth_unroll: the port's depth loop is always unrolled)
+# tests/test_compact.py's configurations, but its d0 tier (the JAX
+# package's pairs_compact_d0, which the port leaves out)
 FRAME_CONFIGS = {
     "cmp25": dict(pairs_compact=0.25),
     "cmp_overflow": dict(pairs_compact=0.02),
@@ -269,7 +329,6 @@ FRAME_CONFIGS = {
                          pairs_cut=32, pairs_compact=0.25),
     "key_coarse": dict(pairs_compact=0.25, pairs_key_coarse=4),
     "key_coarse_overflow": dict(pairs_compact=0.02, pairs_key_coarse=8),
-    "d0_tier": dict(pairs_compact=0.25, pairs_compact_d0=0.5),
     "all_depths": dict(pairs_compact_min_depth=0),
 }
 
@@ -297,7 +356,7 @@ def test_render_parity_with_overflow(base, name, monkeypatch):
     for a, b in zip(stats, base[1]):
         np.testing.assert_array_equal(a, b)
     taken = [C for _, _, C in seen]
-    keyed = 2 * (cfg.max_depth - (name not in ("all_depths", "d0_tier")))
+    keyed = 2 * (cfg.max_depth - (name != "all_depths"))
     assert len(taken) == keyed  # one key a cast at every keyed depth
     if name == "ladder3_overflow":
         assert not any(taken)   # every tier overflows: full width
@@ -334,6 +393,31 @@ def test_the_dry_run_pairs_leg_compacts(monkeypatch):
     assert any(C for _, _, C in seen)
 
 
+def test_ladder_bench_replays_a_frames_casts():
+    """bench/ladder.py's machinery on the CPU: ``TierLog`` logs a frame's
+    ladder casts by depth and query, and the casts ``capture_queries``
+    keeps, run again through the public queries, take the tiers the frame
+    took on the same active counts."""
+    cfg, tables = build_preset("array_bvh", "cpu", **FRAME, pairs_block=128,
+                               pairs_compact=0.25)
+    cam = Camera.default(cfg, "cpu")
+    frame = lambda: render_frame(tables, cfg, cam, PRNGKey(0, "cpu"))
+    with ladder_bench.TierLog() as log:
+        frame()
+    assert [(e["depth"], e["query"]) for e in log.log] == [
+        (d, q) for d in (1, 2) for q in ("closest", "shadow")]
+    assert len(log.summary()) == 4
+    kept = ladder_bench.capture_queries(frame, 6)
+    assert [q for q, *_ in kept] == ["closest", "shadow"] * 3
+    for (query, fn, a, k), want in zip(kept[2:], log.log):
+        with ladder_bench.TierLog() as again:
+            fn(*a, **k)
+        (got,) = again.log
+        assert (query, got["n"], got["C"]) == (want["query"], want["n"],
+                                               want["C"])
+        assert got["C"] > 0
+
+
 # ---------------------------------------------------------- the config
 
 def test_render_config_carries_the_jax_ladder():
@@ -342,30 +426,40 @@ def test_render_config_carries_the_jax_ladder():
     j, p = JRenderConfig(), RenderConfig()
     assert [getattr(p, f) for f in LADDER] == [getattr(j, f) for f in LADDER]
     assert [getattr(p, f) for f in LADDER] == [0.078125, 0.1328125, 0.1875,
-                                               1, 1, 0.0, 0]
+                                               1, 1]
     d = dataclasses.asdict(dataclasses.replace(
         j, pairs_compact=0.25, pairs_compact2=0.0, pairs_compact3=0.5,
-        pairs_key_coarse=4, pairs_compact_min_depth=2, pairs_compact_d0=0.3,
-        pairs_subgroup_d0=128))
+        pairs_key_coarse=4, pairs_compact_min_depth=2))
     conv = render_config_from_dict(d)
     assert [getattr(conv, f) for f in LADDER] == [d[f] for f in LADDER]
+
+
+def test_render_config_drops_the_jax_d0_knobs():
+    """The JAX package's d0 tier and subgroup (speed knobs of its depths
+    below ``pairs_compact_min_depth``) have no field in the port: a JAX
+    config that sets them converts to one whose depths below it run at
+    full width."""
+    j = dataclasses.replace(JRenderConfig(), pairs_compact_d0=0.3,
+                            pairs_subgroup_d0=128)
+    conv = render_config_from_dict(dataclasses.asdict(j))
+    assert not any(hasattr(conv, f) for f in ("pairs_compact_d0",
+                                              "pairs_subgroup_d0"))
+    assert conv == RenderConfig()
 
 
 @pytest.mark.parametrize("over,d0", [
     ({}, dict(pairs_compact=0.0, pairs_compact2=0.0, pairs_compact3=0.0)),
     (dict(pairs_compact_min_depth=0), None),
     (dict(pairs_compact=0.0), None),  # JAX: its scan, every depth at cfg
-    (dict(pairs_compact=0.0, pairs_subgroup_d0=128, pairs_compact_min_depth=2),
-     dict(pairs_compact=0.0, pairs_compact2=0.0, pairs_compact3=0.0,
-          pairs_subgroup=128)),
-    (dict(pairs_compact_d0=0.5), dict(pairs_compact=0.5, pairs_compact2=0.0,
-                                      pairs_compact3=0.0)),
+    (dict(pairs_compact=0.0, pairs_compact2=0.25), None),
+    (dict(pairs_compact_min_depth=2),
+     dict(pairs_compact=0.0, pairs_compact2=0.0, pairs_compact3=0.0)),
     (dict(traversal="pallas"), None)])
 def test_depth_configs_follow_the_jax_policy(over, d0):
-    """The JAX package's unrolled per-depth policy (its wavefront.trace):
-    depths below pairs_compact_min_depth take the d0 tier and subgroup,
-    the others the config's ladder; when the policy does not apply every
-    depth runs the config."""
+    """The JAX package's unrolled per-depth policy (its wavefront.trace)
+    at its d0 defaults: depths below pairs_compact_min_depth run at full
+    width, the others the config's ladder; when the policy does not apply
+    (``pairs_compact`` 0 among them) every depth runs the config."""
     cfg, tables = build_preset("array_bvh", "cpu", width=8, height=8,
                                **over)
     got = depth_configs(tables, cfg, 4)
