@@ -7,8 +7,9 @@ Phases, in order; any failed check exits nonzero:
 1. environment: the card's name and power limit (nvidia-smi), torch,
    CUDA and nvcc versions;
 2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
-   csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e)
-   with nvcc for sm_90a, one process per source, and load them;
+   csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e,
+   csrc/cull.cu: the pairs culling, pair_bits and compact_key) with nvcc
+   for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once with the compaction ladder off (every cast at
    full width, as in earlier versions of this script) while keeping the
@@ -21,8 +22,12 @@ Phases, in order; any failed check exits nonzero:
    zeroed just before; the image and TraceStats must be finite and equal
    the phase-3 frame's (same seed), every ray must hit the
    enclosed scene at every depth, some shadow rays must be occluded, B1
-   and B2 must have launched once per cast and B3 and B0 never; then time
-   three frames and print Mray/s;
+   and B2 must have launched once per cast and B3 and B0 never, pair_bits
+   once per cast and compact_key once per cast at depth >= 1 (the
+   ladder's key); then time three frames and print Mray/s.  Every other
+   phase's launch counts leave the culling kernels out after holding them
+   to the casts (pair_bits once per launch of B0-B3, compact_key at most
+   as often);
 5. timings: each kernel against its plain version on the casts kept in
    phase 3, with ps a Moller-Trumbore test and the no-FMA floor (see
    NO_FMA_OPS_S) beside the bound;
@@ -236,6 +241,34 @@ Phases, in order; any failed check exits nonzero:
    The ladder's times, on and off in turns (frames, kernel-device time,
    loops, each stage of a cast), are ``python -m
    raytracinggpu_tpu_torch.bench.ladder``'s, not this script's.
+19. the culling kernels (csrc/cull.cu: ``pair_bits``, the per-subgroup
+    active-tile bitmask of every pairs cast, and ``compact_key``, the
+    ladder's sort key and active count; ops/pairs_trace.py's
+    ``_pair_bits`` and ``_compact_key`` launch them on CUDA tensors):
+   a. the inputs of the calls the frames make are kept (the headline with
+      the ladder off: its depth-0 and depth-1 full-width casts; the
+      headline and the realtime frame 1: depths 0-2, compacted where a
+      tier held the cast, and the keys of depths 1 and 2; the soup: its
+      depth-0 and depth-1 casts at subgroup 16, 65 words, and the keys
+      over its 65 union boxes, mode 1); on each, the kernel must equal
+      its plain version bit for bit (bits; skey, n_act and shift);
+   b. bench/cull.py's adversarial rays (65,536 rays, seeds 0 and 1:
+      exactly-zero and -0.0 direction components, origins on box faces,
+      zero-thickness boxes, caps at an enter distance) over 1,100 boxes
+      in 300 tiles: pair_bits at subgroups 16, 32, 64 and the key over 40
+      boxes (mode 2) and 1,100 (mode 1), with and without cap and active,
+      bitwise;
+   c. the headline frame (phase 4's), the realtime frame 1 and the soup
+      frame must be bitwise (image and TraceStats) the same frames with
+      the plain versions patched in for ``_pair_bits`` and
+      ``_compact_key`` (the previous torch-op path), which launch no
+      culling kernel and the same B0-B3;
+   d. each kernel on the cat's depth-1 casts (full width and compacted)
+      and the soup's: its time replayed from a CUDA graph and eager, its
+      plain version's, and the bound of bench/cull.py; the kernels a
+      headline frame launches and their device time, through the kernels
+      and with the plain culling (utils/profiling.device_kernels), and
+      the frame's host-clock time both ways in turns.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -244,7 +277,9 @@ version's on a whole depth-1 cast (the ladder off), and the bound: the larger of
 Moller-Trumbore tests x FLOP_PER_TEST over PEAK_F32_FLOPS and the bytes
 it must move over PEAK_BYTES_S; a probe's numbers are those of one
 configuration at PROBE_DEFAULT, replayed from a CUDA graph, see
-_PROBE_ROW); the last line is the JSON result.
+_PROBE_ROW; the culling kernels' are phase 19d's on the cat's depth-1
+closest cast, full width, replayed from a CUDA graph, with their launches
+in phase 4's frame); the last line is the JSON result.
 Without a CUDA device the script exits nonzero at once and prints no
 result.
 """
@@ -339,11 +374,14 @@ _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pair_slope_kernelILi4E": "probe_pair_slope (subgroup 8)",
           "pair_slope_kernelILi8E": "probe_pair_slope (subgroup 4)",
           "pair_slope_kernelILi16E": "probe_pair_slope (subgroup 2)",
-          "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)"}
+          "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)",
+          "pair_bits_kernel": "pair_bits",
+          "compact_key_kernel": "compact_key"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
 _MICRO = "raytracinggpu_tpu_torch/csrc/micro_kernel.cu"
+_CULL = "raytracinggpu_tpu_torch/csrc/cull.cu"
 _ORIGIN = {
     "pairs_closest": _PAIRS, "pairs_shadow": _PAIRS,
     "pairs_closest_smooth": _PAIRS, "pairs_closest_idx": _PAIRS,
@@ -354,6 +392,11 @@ _ORIGIN = {
     # B4, the JAX kernel's streamed-supertile grid: B1 and B2 past ST_SLOTS
     "pairs_b4": ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
                  "raytracinggpu_tpu/ops/pairs_trace.py:784"),
+    # XLA-side work in the JAX package (no Pallas kernel): the culling
+    "pair_bits": (_CULL, "raytracinggpu_tpu/ops/pairs_trace.py:423 "
+                  "_pair_bits with members (XLA-side, no Pallas kernel)"),
+    "compact_key": (_CULL, "raytracinggpu_tpu/ops/pairs_trace.py:928 "
+                    "_compact_key (XLA-side, no Pallas kernel)"),
     "probe_tile_slope": (_MICRO, "raytracinggpu_tpu/bench/micro_kernel.py:75"),
     "probe_block_mask": (_MICRO,
                          "raytracinggpu_tpu/bench/micro_kernel.py:128"),
@@ -391,6 +434,36 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+# B0-B3: each launch is one pairs cast, which culls once (pair_bits)
+_PAIRS_KERNELS = ("pairs_closest", "pairs_shadow", "pairs_closest_smooth",
+                  "pairs_closest_idx")
+
+
+def _launched(culling: dict | None = None) -> dict:
+    """The launches since the last ``reset_launches()``, by kernel, without
+    the culling kernels of csrc/cull.cu, which are held here: every pairs
+    cast culls once, so pair_bits launched as often as B0-B3 together,
+    and the ladder keys at most every cast (compact_key).  ``culling``
+    receives their counts."""
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    out = dict(_kernels.LAUNCHES)
+    cull = {k: out.pop(k) for k in _kernels.CULLING}
+    casts = sum(out[k] for k in _PAIRS_KERNELS)
+    if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts:
+        _fail(f"culling launches {cull} for {casts} pairs casts")
+    if culling is not None:
+        culling.update(cull)
+    return out
+
+
+def _none() -> dict:
+    """No launch of any kernel but the culling ones (see _launched)."""
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    return {k: 0 for k in _kernels.LAUNCHES if k not in _kernels.CULLING}
+
+
 def _ladder_off(cfg):
     """``cfg`` with every tier of the compaction ladder at 0: each pairs
     cast at full width (the frame is the same)."""
@@ -421,12 +494,14 @@ def _card_line() -> str:
         _fail(str(e))
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, graph: bool = False) -> float:
     """Mean device time of fn over iters launches (CUDA events), after one
-    warm-up call."""
+    warm-up call; ``graph``: the launches replayed from one CUDA graph
+    (see bench/_timing.timed), the kernels without the host's launch
+    cost."""
     from raytracinggpu_tpu_torch.bench._timing import timed
 
-    return timed(fn, iters) * 1e3
+    return timed(fn, iters, graph=graph) * 1e3
 
 
 def _max_abs_err(a, b) -> float:
@@ -644,7 +719,7 @@ def _realtime(device, card, err, timing):
             or not cfg.smooth_normals):
         _fail("the realtime preset is not 512x512 spp 20 depth 3 with smooth "
               "normals and 30 closest casts a frame")
-    want = lambda n: {**{k: 0 for k in _kernels.LAUNCHES},
+    want = lambda n: {**_none(),
                       "pairs_closest_smooth": n * per_frame,
                       "pairs_shadow": n * per_frame}
 
@@ -656,7 +731,7 @@ def _realtime(device, card, err, timing):
     kept, (state1, disp1) = _capture_casts(
         lambda: rt.step(tables, _ladder_off(cfg), state0), 2)
     torch.cuda.synchronize()
-    first = dict(_kernels.LAUNCHES)
+    first = _launched()
     print(f"realtime frame 1 (casts kept, the ladder off): "
           f"{time.perf_counter() - t0:.3f} s, launches {first}")
     if first != want(1):
@@ -703,7 +778,7 @@ def _realtime(device, card, err, timing):
                                  raw_pipe=pipe, print_every=0)
     torch.cuda.synchronize()
     frame_s = (time.perf_counter() - t0) / LOOP_FRAMES
-    loop_launches = dict(_kernels.LAUNCHES)
+    loop_launches = _launched()
     print(f"realtime loop: {LOOP_FRAMES} frames, {frame_s * 1e3:.3f} ms per "
           f"frame, {1 / frame_s:.3f} FPS, "
           f"{rays_per_frame(cfg) / frame_s / 1e6:.3f} Mray/s "
@@ -767,8 +842,8 @@ def _mesh_query(cfg, tables, casts, err):
     _kernels.reset_launches()
     hit = pt.intersect_tris_pairs(O, u, tab, cfg.eps_leaf, payload=None, **kw)
     torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    launches = _launched()
+    expected = _none()
     expected["pairs_closest_idx"] = 1
     print(f"mesh query: {O.x.shape[0]} primary rays, "
           f"{int((hit.t < pt.INF32).sum())} mesh hits, launches {launches}")
@@ -860,7 +935,7 @@ def _pallas(device, card, err, timing, pairs_mrays):
     t0 = time.perf_counter()
     img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
     torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
+    launches = _launched()
     n_rays = cfg.width * cfg.height * cfg.spp
     hit = stats.hit.tolist()
     print(f"pallas headline frame: {time.perf_counter() - t0:.3f} s, "
@@ -875,7 +950,7 @@ def _pallas(device, card, err, timing, pairs_mrays):
         _fail(f"pallas: rays escaped the enclosed scene: hit {hit}")
     if int(stats.shadowed.sum()) <= 0:
         _fail("pallas: no shadow ray was occluded")
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected = _none()
     expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
     if launches != expected:
         _fail(f"pallas launches in the frame {launches}, expected {expected}")
@@ -1046,7 +1121,7 @@ def _big_mesh(device, card, err):
     t0 = time.perf_counter()
     img, stats = r.render_hdr(seed=0)
     counted_s = time.perf_counter() - t0
-    launches = dict(_kernels.LAUNCHES)
+    launches = _launched()
     n_rays = W_ * H_ * spp
     print(f"soup frame: {counted_s:.3f} s, launches {launches}, hit per depth "
           f"{stats.hit.tolist()}, shadowed {stats.shadowed.tolist()}, image "
@@ -1058,7 +1133,7 @@ def _big_mesh(device, card, err):
               "than the capture (the ladder off)")
     if any(h != n_rays for h in stats.hit.tolist()):
         _fail(f"the soup: rays escaped the enclosed scene: {stats.hit}")
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected = _none()
     expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
     if launches != expected:
         _fail(f"soup frame launches {launches}, expected {expected}")
@@ -1107,8 +1182,8 @@ def _big_mesh(device, card, err):
     cfgp = dataclasses.replace(cfg, traversal="pallas")
     _kernels.reset_launches()
     imgp, statsp = render_preset_frame(tables, cfgp, seed=0)
-    launches_p = dict(_kernels.LAUNCHES)
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    launches_p = _launched()
+    expected = _none()
     expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
     diff = float(np.abs(imgp.astype(np.float64) - img).max())
     print(f"soup pallas frame: launches {launches_p}, hit per depth "
@@ -1252,7 +1327,7 @@ def _probes(device, card, err):
     _kernels.reset_launches()
     res = mk.main([])
     torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
+    launches = _launched()
     print(f"probe entry point: launches {launches} on {card}")
     for k, n in launches.items():
         if (n > 0) != (k in _kernels.PROBES):
@@ -1332,12 +1407,12 @@ def _sweep_and_presets(device, card, headline_mrays):
     res = run_sweep(preset="array_bvh", width=512, height=512, spps=spps,
                     bounces=bounces, repeats=repeats, traversal="pairs",
                     device=device)
-    launches = dict(_kernels.LAUNCHES)
+    launches = _launched()
     frames = 1 + max(1, repeats - 1)
     n_casts = frames * sum(
         casts(make_config("array_bvh", width=512, height=512, spp=s,
                           max_depth=b)) for s in spps for b in bounces)
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected = _none()
     expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
     print(f"sweep: launches {launches} (expected {n_casts} each of B1, B2)")
     if launches != expected:
@@ -1367,9 +1442,9 @@ def _sweep_and_presets(device, card, headline_mrays):
         _kernels.reset_launches()
         img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
         torch.cuda.synchronize()
-        launches = dict(_kernels.LAUNCHES)
+        launches = _launched()
         n = 0 if tables.mesh is None else casts(cfg)
-        expected = {k: 0 for k in _kernels.LAUNCHES}
+        expected = _none()
         expected.update(pairs_closest=n, pairs_shadow=n)
         n_rays = cfg.width * cfg.height * cfg.spp
         if not bool(torch.isfinite(img).all()):
@@ -1441,7 +1516,7 @@ def _animated_loop(device, card, err, unanimated_ms):
             or not cfg.animate_mesh:
         _fail("the animated realtime scene is not 512x512 spp 20 depth 3")
     per_frame = 30
-    want = {k: 0 for k in _kernels.LAUNCHES}
+    want = _none()
     want.update(pairs_closest_smooth=per_frame * LOOP_FRAMES,
                 pairs_shadow=per_frame * LOOP_FRAMES)
     pipe = io.BytesIO()
@@ -1452,7 +1527,7 @@ def _animated_loop(device, card, err, unanimated_ms):
                            print_every=0)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) / LOOP_FRAMES * 1e3
-    launches = dict(_kernels.LAUNCHES)
+    launches = _launched()
     angle = np.float32(0.0)
     for _ in range(LOOP_FRAMES):   # angle + mesh_speed * dt, one rounding
         angle = np.float32(np.float64(angle) + np.float64(np.float32(1.0))
@@ -1614,7 +1689,7 @@ def _bvh_walk(device, card, rfT):
                                spp=8, max_depth=3, traversal="bvh")
     cam = Camera.default(cfg, device)
     n_rays = cfg.width * cfg.height * cfg.spp
-    none = {k: 0 for k in _kernels.LAUNCHES}
+    none = _none()
     imgs = {}
     for layout in ("soa", "aos10"):
         lcfg = dataclasses.replace(cfg, bvh_node_layout=layout)
@@ -1630,9 +1705,9 @@ def _bvh_walk(device, card, rfT):
         print(f"bvh ({layout}): production anchor 512x512 spp8 d3 seed 0 in "
               f"{secs:.3f} s, mean {mean:.3f} vs the JAX package on CPU "
               f"{ANCHOR_CPU_MEAN:.3f} (rel {rel:+.6f}, limit {ANCHOR_RTOL}), "
-              f"hit per depth {hit}, launches {dict(_kernels.LAUNCHES)}, on "
+              f"hit per depth {hit}, launches {_launched()}, on "
               f"{card}")
-        if dict(_kernels.LAUNCHES) != none:
+        if _launched() != none:
             _fail(f"bvh ({layout}) launched a kernel")
         if any(h != n_rays for h in hit):
             _fail(f"bvh ({layout}): rays escaped the enclosed scene: {hit}")
@@ -1692,14 +1767,14 @@ def _clustering(device, card, head_img):
         R_group = g * cfg.width * cfg.height
         n_casts = (cfg.spp // g) * cfg.max_depth * -(
             -R_group // chunk_size(cfg, R_group))
-        want = {k: 0 for k in _kernels.LAUNCHES}
+        want = _none()
         want.update(pairs_closest=n_casts, pairs_shadow=n_casts)
         _kernels.reset_launches()
         kept, (img, _) = _capture_casts(lambda: render_frame(
             tables, _ladder_off(cfg), Camera.default(cfg, device),
             PRNGKey(0, device)), 2)
         torch.cuda.synchronize()
-        launches = dict(_kernels.LAUNCHES)
+        launches = _launched()
         if launches != want:
             _fail(f"clustering {name}: launches {launches}, expected {want}")
         if not torch.equal(img, head_img):
@@ -1772,7 +1847,7 @@ def _sharded_rank(device, out_dir):
         R_group = g * rows * cfg.width
         n_casts = (spp // g) * cfg.max_depth * -(
             -R_group // chunk_size(cfg, R_group, traversal))
-        expected = {n: 0 for n in _kernels.LAUNCHES}
+        expected = _none()
         expected.update({f"{traversal}_closest": n_casts,
                          f"{traversal}_shadow": n_casts})
         cam = Camera.default(cfg, device)
@@ -1783,7 +1858,7 @@ def _sharded_rank(device, out_dir):
         part, stats = render_shard(tables, cfg, cam, PRNGKey(0, device), mesh)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        launches = dict(_kernels.LAUNCHES)
+        launches = _launched()
         dist.barrier()  # the exchange alone, not the wait for the peer
         t2 = time.perf_counter()
         img, stats = merge_shards(cfg, mesh, part, stats)
@@ -2130,23 +2205,30 @@ def _ladder_frames(name, on, off, same, want):
     with TierLog() as log:
         a = on()
     torch.cuda.synchronize()
-    l_on = dict(_kernels.LAUNCHES)
+    c_on, c_off = {}, {}
+    l_on = _launched(c_on)
     _kernels.reset_launches()
     b = off()
     torch.cuda.synchronize()
-    l_off = dict(_kernels.LAUNCHES)
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    l_off = _launched(c_off)
+    expected = _none()
     expected.update(want)
     if l_on != expected or l_off != expected:
         _fail(f"ladder {name}: launches on {l_on}, off {l_off}, expected "
               f"{expected}")
+    # the key runs only with the ladder on
+    if c_on["compact_key"] != len(log.log) or c_off["compact_key"]:
+        _fail(f"ladder {name}: compact_key launched {c_on['compact_key']} "
+              f"times on ({len(log.log)} casts keyed), {c_off['compact_key']}"
+              " off")
     if not same(a, b):
         _fail(f"ladder {name}: the frame with the ladder on differs from "
               "the frame with it off")
     if not log.log:
         _fail(f"ladder {name}: no cast ran the ladder")
     print(f"ladder {name}: the frame with the ladder on is bitwise the "
-          f"frame with it off, TraceStats equal; launches {want} both ways")
+          f"frame with it off, TraceStats equal; launches {want} both ways, "
+          f"of the culling {c_on} on and {c_off} off")
     for line in log.summary():
         print(f"  {line}")
     return log
@@ -2225,6 +2307,304 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
           "(animated) rendered with the default config, the ladder on")
 
 
+def _capture_culling(render, n_bits: int, n_keys: int):
+    """Run render() with ops/pairs_trace's ``_pair_bits`` and
+    ``_compact_key`` wrapped so that the inputs of their first ``n_bits``
+    and ``n_keys`` calls are kept (cloned), each labelled with its depth
+    and query as bench/ladder.TierLog tracks them; the wrapped functions
+    are the real ones, which launch and count as always, and are put back
+    afterwards.  Returns ({"pair_bits": [(label, args)], "compact_key":
+    [...]}, render's result)."""
+    import torch
+    from raytracinggpu_tpu_torch.bench.ladder import TierLog
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    kept = {"pair_bits": [], "compact_key": []}
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return Vec3(*(c.clone() for c in x)) if isinstance(x, Vec3) else x
+
+    with TierLog() as log:
+        here = log.here
+
+        def keeping(name, n, fn):
+            def call(*args):
+                if len(kept[name]) < n:
+                    kept[name].append(
+                        (f"depth {here['depth']} {here['query']}",
+                         tuple(map(clone, args))))
+                return fn(*args)
+            return call
+
+        saved = pt._pair_bits, pt._compact_key
+        bits = keeping("pair_bits", n_bits, saved[0])
+        pt._pair_bits = lambda O, u, nc, subg, members, cap=None, \
+            active=None: bits(O, u, nc, subg, members, cap, active)
+        pt._compact_key = keeping("compact_key", n_keys, saved[1])
+        try:
+            out = render()
+        finally:
+            pt._pair_bits, pt._compact_key = saved
+    return kept, out
+
+
+def _plain_culling(fn):
+    """fn() with the plain culling of ops/pairs_trace patched in for
+    ``_pair_bits`` and ``_compact_key`` (the parent's path: torch ops);
+    the dispatching functions are put back afterwards."""
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    saved = pt._pair_bits, pt._compact_key
+    pt._pair_bits, pt._compact_key = pt.pair_bits_plain, pt.compact_key_plain
+    try:
+        return fn()
+    finally:
+        pt._pair_bits, pt._compact_key = saved
+
+
+def _cull_bound(name, args, out):
+    """(bound_ms, bound_by) of one culling call (bench/cull.bound_ms): its
+    slab tests, and its inputs read and outputs written once."""
+    from raytracinggpu_tpu_torch.bench.cull import bound_ms
+
+    if name == "pair_bits":
+        O, _, _, _, (boxes, _), cap, active = args
+        nb, out_bytes = boxes.shape[0], out.numel() * 4
+        extra = nb * (6 + 1) * 4
+    else:
+        O, _, boxes, nb, cap, active, _ = args
+        out_bytes = out[0].numel() * 4 + 8
+        extra = nb * 6 * 4
+    R = O.x.shape[0]
+    extra += (0 if cap is None else 4 * R) + (0 if active is None else R)
+    return bound_ms(R, nb, extra, out_bytes)
+
+
+def _hold_culling(kept, where, err):
+    """19a/b: each kept call's kernel bitwise its plain version."""
+    import torch
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+
+    for label, args in kept["pair_bits"]:
+        O, _, nc, subg, (boxes, _), cap, active = args
+        got = _kernels.pair_bits(*args)
+        want = pt.pair_bits_plain(*args)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got, want)
+        err["pair_bits"] = max(err["pair_bits"], e)
+        n_set = int(sum(int(((want.to(torch.int64) >> b) & 1).sum())
+                        for b in range(32)))
+        print(f"culling {where} {label}: pair_bits on {O.x.shape[0]} rays, "
+              f"subgroup {subg}, {boxes.shape[0]} member boxes of {nc} tiles,"
+              f" words {tuple(want.shape)}, cap {cap is not None}, active "
+              f"{active is not None}, {n_set} bits set: "
+              + ("bitwise equal" if torch.equal(got, want)
+                 else f"DIFFER (max abs {e})"))
+        if not torch.equal(got, want):
+            _fail(f"pair_bits differs from its plain version on {where} "
+                  f"{label}")
+    for label, args in kept["compact_key"]:
+        O, _, boxes, nc, cap, active, valid_n = args
+        skey, n_act, shift = pt._compact_key(*args)
+        wkey, wn, wshift = pt.compact_key_plain(*args)
+        torch.cuda.synchronize()
+        e = _max_abs_err(skey, wkey)
+        err["compact_key"] = max(err["compact_key"], e)
+        same = (torch.equal(skey, wkey) and n_act.dtype == wn.dtype
+                and int(n_act) == int(wn) and shift == wshift)
+        mode = pt._key_mode(nc, O.x.shape[0])[0]
+        print(f"culling {where} {label}: compact_key on {O.x.shape[0]} rays "
+              f"(valid {valid_n}), {nc} key boxes, mode {mode}, shift "
+              f"{shift}, n_act {int(wn)}: "
+              + ("bitwise equal" if same else f"DIFFER (max abs {e}, n_act "
+                 f"{int(n_act)})"))
+        if not same:
+            _fail(f"compact_key differs from its plain version on {where} "
+                  f"{label}")
+
+
+def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
+    """Phase 19 (module docstring).  ``head`` phase 4's (config, tables,
+    camera), ``head_out`` its (image, TraceStats), ``rt_scene`` phase 7's
+    (config, tables), ``soup`` phase 10's (config, tables).  Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by)} on the cat's depth-1
+    closest cast."""
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.bench.cull import adversarial
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        render_frame, render_preset_frame)
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels
+
+    hcfg, htab, cam = head
+    rcfg, rtab = rt_scene
+    scfg, stab = soup
+    head_frame = lambda c, seed=0: render_frame(htab, c, cam,
+                                                PRNGKey(seed, device))
+    step1 = lambda: rt.step(rtab, rcfg, rt.init_state(rcfg, rtab, seed=0))
+    soup_frame = lambda: render_preset_frame(stab, scfg, seed=0)
+
+    # a. bitwise on the frames' own casts
+    captured = {}
+    for where, render, n_bits, n_keys in (
+            ("headline, the ladder off", lambda: head_frame(
+                _ladder_off(hcfg)), 4, 0),
+            ("headline", lambda: head_frame(hcfg), 6, 4),
+            ("realtime frame 1", step1, 6, 4),
+            ("soup", soup_frame, 4, 2)):
+        kept, _ = _capture_culling(render, n_bits, n_keys)
+        torch.cuda.synchronize()
+        if len(kept["pair_bits"]) != n_bits \
+                or len(kept["compact_key"]) != n_keys:
+            _fail(f"culling {where}: kept {len(kept['pair_bits'])} casts "
+                  f"and {len(kept['compact_key'])} keys, expected {n_bits} "
+                  f"and {n_keys}")
+        _hold_culling(kept, where, err)
+        captured[where] = kept
+    soup_subg = {a[3] for _, a in captured["soup"]["pair_bits"]}
+    soup_w = {-(-a[2] // 32) for _, a in captured["soup"]["pair_bits"]}
+    soup_key = {(a[3], pt._key_mode(a[3], a[0].x.shape[0])[0])
+                for _, a in captured["soup"]["compact_key"]}
+    print(f"culling soup: subgroups {soup_subg}, words {soup_w}, key (boxes, "
+          f"mode) {soup_key}")
+    if soup_subg != {16} or soup_w != {65} or soup_key != {(65, 1)}:
+        _fail("the soup's casts are not subgroup 16, 65 words, key mode 1 "
+              "over 65 unions")
+
+    # b. adversarial rays (bench/cull.py), bitwise
+    R, nb, nt = 65536, 1100, 300
+    for seed in (0, 1):
+        O, d, boxes, tiles, cap, act = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in adversarial(seed, R, nb, nt))
+        O, u = Vec3(*O), Vec3(*d)
+        combos = ((None, None), (cap, None), (None, act), (cap, act))
+        kept = {"pair_bits": [(f"seed {seed}", (O, u, nt, subg,
+                                                (boxes, tiles), c, a))
+                              for subg in (16, 32, 64) for c, a in combos],
+                "compact_key": [(f"seed {seed}", (O, u, kb.contiguous(), n,
+                                                  c, a, R - 7))
+                                for kb, n in ((boxes[:40], 40), (boxes, nb))
+                                for c, a in combos]}
+        _hold_culling(kept, "adversarial", err)
+
+    # c. whole frames, bitwise the frames with the plain culling patched in
+    def counted(fn):
+        _kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES)
+
+    t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    n_eq = lambda a, b: np.array_equal(a[0], b[0]) and all(
+        np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    st_eq = lambda a, b: torch.equal(a[0].accum, b[0].accum) and \
+        torch.equal(a[1], b[1])
+    for name, fn, same, kern_out in (
+            ("headline", lambda: head_frame(hcfg), t_eq, head_out),
+            ("realtime frame 1", step1, st_eq, None),
+            ("soup", soup_frame, n_eq, None)):
+        if kern_out is None:
+            kern_out, l_kern = counted(fn)
+        else:   # phase 4's frame, counted there
+            l_kern = None
+        plain_out, l_plain = counted(lambda: _plain_culling(fn))
+        if l_plain["pair_bits"] or l_plain["compact_key"]:
+            _fail(f"culling frames {name}: the patched frame launched "
+                  f"{l_plain}")
+        if l_kern is not None and (
+                l_kern["pair_bits"] != sum(l_kern[k] for k in _PAIRS_KERNELS)
+                or not l_kern["compact_key"]
+                or {k: v for k, v in l_kern.items()
+                    if k not in _kernels.CULLING}
+                != {k: v for k, v in l_plain.items()
+                    if k not in _kernels.CULLING}):
+            _fail(f"culling frames {name}: launches {l_kern} through the "
+                  f"kernels, {l_plain} with the plain culling")
+        if not same(kern_out, plain_out):
+            _fail(f"culling frames {name}: the frame through the culling "
+                  "kernels differs from the frame with the plain culling")
+        print(f"culling frames {name}: bitwise the frame with the plain "
+              f"culling patched in (image and TraceStats); launches with "
+              f"the plain culling {l_plain}")
+
+    # d. timings: the kernel replayed from a CUDA graph and eager, its
+    # plain version eager, the bound
+    def first(where, name, label):
+        return next(a for lab, a in captured[where][name] if lab == label)
+
+    timing = {}
+    for row, where, name, label in (
+            ("cat depth-1 closest, full width", "headline, the ladder off",
+             "pair_bits", "depth 1 closest"),
+            ("cat depth-1 shadow, full width", "headline, the ladder off",
+             "pair_bits", "depth 1 shadow"),
+            ("cat depth-1 closest, compacted", "headline", "pair_bits",
+             "depth 1 closest"),
+            ("cat depth-1 closest", "headline", "compact_key",
+             "depth 1 closest"),
+            ("soup depth-1 closest", "soup", "pair_bits", "depth 1 closest"),
+            ("soup depth-1 closest", "soup", "compact_key",
+             "depth 1 closest")):
+        args = first(where, name, label)
+        if name == "pair_bits":
+            kern = lambda: _kernels.pair_bits(*args)
+            plain = lambda: pt.pair_bits_plain(*args)
+            n_boxes = args[4][0].shape[0]
+        else:
+            kern = lambda: pt._compact_key(*args)
+            plain = lambda: pt.compact_key_plain(*args)
+            n_boxes = args[3]
+        ms = _time_ms(kern, 50, graph=True)
+        eager_ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        bound, by = _cull_bound(name, args, kern())
+        if row == "cat depth-1 closest, full width" or (
+                name == "compact_key" and row.startswith("cat")):
+            timing[name] = (ms, plain_ms, bound, by)
+        print(f"timing {name} on the {row} cast ({args[0].x.shape[0]} rays, "
+              f"{n_boxes} boxes): kernel {ms:.4f} ms (graph replay; eager "
+              f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}) on "
+              f"{card}")
+
+    # the kernels a headline frame launches, through the culling kernels and
+    # with the plain culling (utils/profiling.device_kernels), and frame
+    # times in turns
+    for label, fn in (("culling kernels", lambda: head_frame(hcfg, 1)),
+                      ("plain culling", lambda: _plain_culling(
+                          lambda: head_frame(hcfg, 1)))):
+        k = device_kernels(fn, top=6)
+        print(f"culling headline kernels ({label}): {k['kernels']} kernels, "
+              f"{k['kernel_ms']:.1f} ms of device time a frame on {card}")
+        for e in k["by_name"]:
+            print(f"  {e['ms']:9.1f} ms {e['count']:7d}x  {e['name']}")
+    walls = {"kernels": [], "plain": []}
+    for way in ("kernels", "plain", "plain", "kernels"):
+        fn = (lambda: head_frame(hcfg, 2)) if way == "kernels" else (
+            lambda: _plain_culling(lambda: head_frame(hcfg, 2)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[way].append(time.perf_counter() - t0)
+    print(f"culling headline frame (host clock, in turns): through the "
+          f"kernels {[round(t, 4) for t in walls['kernels']]} s, with the "
+          f"plain culling {[round(t, 4) for t in walls['plain']]} s on "
+          f"{card}")
+    return timing
+
+
 def main() -> int:
     import torch
 
@@ -2296,7 +2676,7 @@ def main() -> int:
         lambda: render_frame(tables, _ladder_off(cfg), cam,
                              PRNGKey(0, device)), 2)
     torch.cuda.synchronize()
-    cap_launches = dict(_kernels.LAUNCHES)
+    cap_launches = _launched()
     print(f"capture frame (ladder off): {time.perf_counter() - t0:.3f} s; "
           f"casts of {chunk} rays ({g} samples per wavefront), launches "
           f"{cap_launches}")
@@ -2312,11 +2692,16 @@ def main() -> int:
     img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    launches = dict(_kernels.LAUNCHES)
+    culling = {}
+    launches = _launched(culling)
     n_rays = cfg.width * cfg.height * cfg.spp
     hit = stats.hit.tolist()
+    # every cast culls once; the ladder keys each cast at depth >= 1
+    keyed = n_casts * (cfg.max_depth - 1) // cfg.max_depth
     print(f"headline frame: {counted_s:.3f} s, launches {launches} "
-          f"(expected {n_casts} each), hit per depth {hit}, shadowed "
+          f"(expected {n_casts} each) and of the culling {culling} "
+          f"(expected pair_bits {2 * n_casts}, compact_key {2 * keyed}), "
+          f"hit per depth {hit}, shadowed "
           f"{stats.shadowed.tolist()}, image mean {float(img.mean()):.3f}")
     if not bool(torch.isfinite(img).all()):
         _fail("headline image has non-finite values")
@@ -2328,11 +2713,14 @@ def main() -> int:
         _fail(f"rays escaped the enclosed scene: hit {hit} != {n_rays}")
     if int(stats.shadowed.sum()) <= 0:
         _fail("no shadow ray was occluded")
-    expected = {k: 0 for k in _kernels.LAUNCHES}
+    expected = _none()
     expected.update(pairs_closest=n_casts, pairs_shadow=n_casts)
     if launches != expected or cap_launches != expected:
         _fail(f"launches in the frame {launches}, with the ladder off "
               f"{cap_launches}, expected {expected}")
+    if culling != {"pair_bits": 2 * n_casts, "compact_key": 2 * keyed}:
+        _fail(f"culling launches in the frame {culling}, expected "
+              f"pair_bits {2 * n_casts} and compact_key {2 * keyed}")
     print("headline frame (the ladder on, the default) bitwise the capture "
           "frame (the ladder off), TraceStats equal")
     times = []
@@ -2439,6 +2827,11 @@ def main() -> int:
     _ladder_phase(device, card, err, (cfg, tables, cam), (rcfg, rtab), soup)
     lap("18 compaction ladder")
 
+    # ---- 19. the culling kernels ------------------------------------------
+    timing_cull = _culling_phase(device, card, err, (cfg, tables, cam),
+                                 (head_img, head_stats), (rcfg, rtab), soup)
+    lap("19 culling kernels")
+
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:
     # torch.mul) and the row gather (torch.index_select)
@@ -2456,6 +2849,8 @@ def main() -> int:
             ("pallas_closest", pallas_launches, timing_pallas),
             ("pallas_shadow", pallas_launches, timing_pallas),
             ("pairs_b4", soup_launches, timing_b4),
+            ("pair_bits", culling, timing_cull),
+            ("compact_key", culling, timing_cull),
             *((k, probe_launches, timing_probes) for k in _PROBE_ROW))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -86,7 +86,8 @@ class TierLog:
         from raytracinggpu_tpu_torch.integrator import wavefront as wf
         from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
-        here = {"depth": -1, "query": "?", "R": 0}
+        # the cast being run: its depth, its query and its rays
+        self.here = here = {"depth": -1, "query": "?", "R": 0}
         self._saved = [(m, a, getattr(m, a)) for m, a in (
             (wf, "depth_configs"), (wf, "_depth_step"),
             (wf, "intersect_tris_pairs"), (wf, "intersect_tris_pairs_shadow"),

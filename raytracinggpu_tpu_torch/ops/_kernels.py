@@ -3,7 +3,8 @@
 ``csrc/pairs_trace.cu`` (B0-B3), ``csrc/pallas_trace.cu`` (B5, B6) and
 ``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
 Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
-staging of ``csrc/stage.cuh``), are compiled by ``nvcc`` for
+staging of ``csrc/stage.cuh``), and ``csrc/cull.cu`` (the pairs
+culling: ``pair_bits`` and ``compact_key``), are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
@@ -34,7 +35,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
                 for f in ("pairs_trace.cu", "pallas_trace.cu",
-                          "micro_kernel.cu"))
+                          "micro_kernel.cu", "cull.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
@@ -69,8 +70,11 @@ PROBE_BLK = 1024  # rays per block of B7b and B7e
 PROBE_SUBG = 64   # rays per subgroup of B7a and B7c
 PROBE_FIXED = 8   # tiles of B7c
 
+# The culling kernels of csrc/cull.cu (see pair_bits and compact_key).
+CULLING = ("pair_bits", "compact_key")
+
 # Kernel launches since the last reset_launches(), by wrapper.
-LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES)}
+LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING)}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -162,7 +166,10 @@ def load():
                 ("rt_probe_block_mask", [p, i, p, p]),
                 ("rt_probe_block_mask_control", [p, i, p, p]),
                 ("rt_probe_row_gather", [p, p, i, i, p, p]),
-                ("rt_probe_pair_slope", [p, p, p, i, i, i, i, p, p])):
+                ("rt_probe_pair_slope", [p, p, p, i, i, i, i, p, p]),
+                ("rt_pair_bits", [p] * 7 + [i, p, i, p, p, i, i, i, p, p]),
+                ("rt_compact_key", [p] * 7 + [i] * 4 + [p, p, i, i, p, p,
+                                                         p])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i
@@ -289,11 +296,12 @@ def _need(name, x, dtype, cols=None):
 
 
 def _on_card(*tensors):
-    """The probe kernels take tensors of one CUDA device (a CPU tensor's
-    place is the plain version in bench/micro_kernel.py)."""
+    """The probe and culling kernels take tensors of one CUDA device (a
+    CPU tensor's place is the plain version in bench/micro_kernel.py or
+    ops/pairs_trace.py)."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
-        raise ValueError("the probe kernels need their tensors on one CUDA "
+        raise ValueError("these kernels need their tensors on one CUDA "
                          f"device, got {[str(x.device) for x in tensors]}")
 
 
@@ -409,3 +417,90 @@ def probe_pair_slope(pairs, rf, tri, subg):
              pairs.data_ptr(), rf.data_ptr(), tri.data_ptr(), R, Tp,
              pairs.shape[1], subg, t.data_ptr(), st))
     return t
+
+
+# ------------------------------------------ the pairs culling (cull.cu)
+
+def _ray_rows(O, u, cap, active):
+    """The culling kernels' per-ray inputs, each (R,) and contiguous (the
+    rows of a compacted cast's gathered ray rows are): the six f32 rows of
+    O and u, cap (f32) and active (bool) or None; returns (rows, cap,
+    active, R)."""
+    rows = (*O, *u)
+    R = rows[0].shape[0]
+    for name, x, dt in (*zip(("O.x", "O.y", "O.z", "u.x", "u.y", "u.z"),
+                             rows, (torch.float32,) * 6),
+                        ("cap", cap, torch.float32),
+                        ("active", active, torch.bool)):
+        if x is not None and (x.dtype != dt or x.shape != (R,)):
+            raise ValueError(f"{name}: need a ({R},) {dt} tensor, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if R >= 2**31:
+        raise ValueError("kernel indices are 32-bit: cast too large")
+    c = lambda x: None if x is None else x.contiguous()
+    return tuple(x.contiguous() for x in rows), c(cap), c(active), R
+
+
+def _boxes(name, boxes):
+    """(nb, >= 6) f32 box rows [lo.xyz, hi.xyz, ...]."""
+    _need(name, boxes, torch.float32)
+    if boxes.shape[1] < 6:
+        raise ValueError(f"{name}: need at least 6 columns (lo, hi), got "
+                         f"{tuple(boxes.shape)}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def pair_bits(O, u, nc, subg, members, cap=None, active=None):
+    """Culling kernel (rt_pair_bits): the (W, R/subg) int32 active-tile
+    bitmask of ``ops/pairs_trace.pair_bits_plain``, W = ceil(nc / 32);
+    members = (member boxes (nm, 8) f32, member_tile (nm,) int32)."""
+    boxes, member_tile = members
+    rows, cap, active, R = _ray_rows(O, u, cap, active)
+    _boxes("member boxes", boxes)
+    if member_tile.dtype != torch.int32 or member_tile.shape != (
+            boxes.shape[0],) or not member_tile.is_contiguous():
+        raise ValueError(f"member_tile: need a contiguous ({boxes.shape[0]},)"
+                         f" int32 tensor, got {member_tile.dtype} "
+                         f"{tuple(member_tile.shape)}")
+    if subg <= 0 or R % subg or nc < 0:
+        raise ValueError(f"subgroup {subg} does not divide the {R} rays, or "
+                         f"nc {nc} < 0")
+    _on_card(*rows, boxes, member_tile,
+             *(x for x in (cap, active) if x is not None))
+    W, S = -(-nc // 32), R // subg
+    if W * S >= 2**31:
+        raise ValueError("kernel indices are 32-bit: bitmask too large")
+    bits = torch.empty((W, S), dtype=torch.int32, device=rows[0].device)
+    if bits.numel():
+        _run("pair_bits", bits.device, lambda lib, st: lib.rt_pair_bits(
+            *(x.data_ptr() for x in rows), boxes.data_ptr(), boxes.shape[1],
+            member_tile.data_ptr(), boxes.shape[0], _ptr(cap), _ptr(active),
+            R, subg, nc, bits.data_ptr(), st))
+    return bits
+
+
+def compact_key(O, u, aabb, nc, mode, shift, cap, active, valid_n):
+    """Culling kernel (rt_compact_key): the ladder's (skey (R,) int32,
+    n_act 0-d int64) of ``ops/pairs_trace.compact_key_plain`` over the nc
+    key boxes ``aabb``, for the (mode, shift) of ``_key_mode``."""
+    rows, cap, active, R = _ray_rows(O, u, cap, active)
+    _boxes("key boxes", aabb)
+    if aabb.shape[0] != nc or mode not in (0, 1, 2) \
+            or not 0 <= shift <= 31:
+        raise ValueError(f"need nc ({nc}) key boxes, got "
+                         f"{aabb.shape[0]}, or key mode {mode} / shift "
+                         f"{shift} out of range")
+    _on_card(*rows, aabb, *(x for x in (cap, active) if x is not None))
+    dev = rows[0].device
+    skey = torch.empty(R, dtype=torch.int32, device=dev)
+    n_act = torch.empty((), dtype=torch.int64, device=dev)
+    if not R:
+        return skey, n_act.zero_()
+    _run("compact_key", dev, lambda lib, st: lib.rt_compact_key(
+        *(x.data_ptr() for x in rows), aabb.data_ptr(), aabb.shape[1], nc,
+        mode, shift, _ptr(cap), _ptr(active), R,
+        max(min(int(valid_n), R), 0), skey.data_ptr(), n_act.data_ptr(), st))
+    return skey, n_act

@@ -29,7 +29,11 @@ function.  The public wrappers dispatch on the tensor's device: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (or
 raises).  Both compute every sum left to right in f32 with a reciprocal
 and multiplies (never a divide); with the kernel built ``--fmad=false``
-the two agree bit for bit on the card.  The slab test, the ray padding,
+the two agree bit for bit on the card.  The culling (``_pair_bits``) and
+the ladder's key (``_compact_key``), XLA-side work in the JAX package,
+dispatch the same way: the kernels of ``csrc/cull.cu`` for CUDA tensors,
+``pair_bits_plain`` and ``compact_key_plain`` for CPU tensors, bit for
+bit the same on the card.  The slab test, the ray padding,
 the plain Moller-Trumbore core and the device dispatch are the tiled
 traversal's (``ops/pallas_trace.py``), as in the JAX package.
 
@@ -69,6 +73,7 @@ from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.ops.pallas_trace import (
     INF32,
     TILE_T,
+    _on_cuda,
     dispatch,
     mt_slots,
     pad_rays,
@@ -352,13 +357,14 @@ def build_pairs_tables(A, B, C, bvh, device, tile_t: int = TILE_T, vna=None,
 
 # ------------------------------------------------------------------ culling
 
-def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
-    """Culling to a packed per-subgroup active-tile bitmask: (W, R/subg)
-    int32, bit j of word (w, sg) set iff tile 32w+j is active for subgroup
-    sg.  A member box is active for a ray when the ray's slab interval hits
-    it (and enters it no later than ``cap``, for rays in ``active``); a tile
-    is active for a subgroup when any ray of the subgroup activates any of
-    its member boxes.  Bit 31 is the int32 sign bit (two's complement)."""
+def pair_bits_plain(O, u, nc, subg, members, cap=None, active=None):
+    """Plain PyTorch culling to a packed per-subgroup active-tile bitmask:
+    (W, R/subg) int32, bit j of word (w, sg) set iff tile 32w+j is active
+    for subgroup sg.  A member box is active for a ray when the ray's slab
+    interval hits it (and enters it no later than ``cap``, for rays in
+    ``active``); a tile is active for a subgroup when any ray of the
+    subgroup activates any of its member boxes.  Bit 31 is the int32 sign
+    bit (two's complement)."""
     boxes, member_tile = members
     R = O.x.shape[0]
     S = R // subg
@@ -381,6 +387,17 @@ def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
     sh = torch.arange(32, dtype=torch.int64, device=O.x.device)
     words = (act.reshape(W, 32, S) << sh[None, :, None]).sum(dim=1)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
+    """The culling bitmask of ``pair_bits_plain`` on the rays' device: the
+    kernel of ``csrc/cull.cu`` (``_kernels.pair_bits``) for CUDA tensors,
+    the plain version for CPU tensors."""
+    if _on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.pair_bits(O, u, nc, subg, members, cap, active)
+    return pair_bits_plain(O, u, nc, subg, members, cap, active)
 
 
 def _ray_feature_rows(O: Vec3, u: Vec3, extra=(), pad: bool = True
@@ -427,9 +444,9 @@ def _coarse_aabb(aabb, nc: int, g: int):
                       a.new_zeros((ng, a.shape[2] - 6))], dim=1), ng
 
 
-def _compact_key(O, u, aabb, nc, cap, active, valid_n):
-    """The ladder's sort key and active count: (skey (R,) int32, n_act,
-    shift).
+def compact_key_plain(O, u, aabb, nc, cap, active, valid_n):
+    """Plain PyTorch: the ladder's sort key and active count: (skey (R,)
+    int32, n_act (0-d int64), shift).
 
     A ray is active when its slab interval hits one of the nc boxes
     (entering no later than ``cap``, where ``active`` holds); lanes past
@@ -460,6 +477,20 @@ def _compact_key(O, u, aabb, nc, cap, active, valid_n):
         key, inactive = first, nc
     key = torch.where(act, key, inactive)
     return (key << shift) | lane, act.sum(), shift
+
+
+def _compact_key(O, u, aabb, nc, cap, active, valid_n):
+    """The key of ``compact_key_plain`` on the rays' device: the kernel of
+    ``csrc/cull.cu`` (``_kernels.compact_key``) for CUDA tensors, whose
+    n_act stays on the card, the plain version for CPU tensors."""
+    if _on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        mode, shift = _key_mode(nc, O.x.shape[0])
+        skey, n_act = _kernels.compact_key(O, u, aabb, nc, mode, shift, cap,
+                                           active, valid_n)
+        return skey, n_act, shift
+    return compact_key_plain(O, u, aabb, nc, cap, active, valid_n)
 
 
 def _compact_sort(skey, C: int, shift: int) -> torch.Tensor:

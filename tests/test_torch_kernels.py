@@ -186,7 +186,8 @@ def test_kernel_wrappers_check_their_inputs(bad):
     assert set(_kernels.LAUNCHES) == {"pairs_closest", "pairs_shadow",
                                       "pairs_closest_smooth",
                                       "pairs_closest_idx", "pallas_closest",
-                                      "pallas_shadow", *_kernels.PROBES}
+                                      "pallas_shadow", *_kernels.PROBES,
+                                      "pair_bits", "compact_key"}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -1283,7 +1284,9 @@ def test_small_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    assert _launched() == {"pairs_closest": 2, "pairs_shadow": 2}
+    # the culling of every cast and the ladder's key of the depth-1 casts
+    assert _launched() == {"pairs_closest": 2, "pairs_shadow": 2,
+                           "pair_bits": 4, "compact_key": 2}
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -1296,8 +1299,9 @@ def test_compaction_ladder_on_cuda_is_the_full_width_frame():
     """The 48x48 spp2 d3 frame with casts padded to 128 rays, where the
     compaction ladder's tiers of 0.02 and 0.04 of a cast overflow and
     its third, 0.25, takes each cast at depth >= 1: bitwise the frame
-    with every tier at 0, with the same launches (one per cast either
-    way)."""
+    with every tier at 0, with the same launches of B1 and B2 and of the
+    culling (one per cast either way) and the ladder's key on the four
+    casts at depth >= 1."""
     _need_cuda()
     import dataclasses
 
@@ -1314,8 +1318,9 @@ def test_compaction_ladder_on_cuda_is_the_full_width_frame():
         _kernels.reset_launches()
         frames.append((render_preset_frame(tables, c, seed=0), _launched()))
     ((img, st), on_launches), ((img0, st0), off_launches) = frames
-    assert on_launches == off_launches == {"pairs_closest": 3,
-                                           "pairs_shadow": 3}
+    off_want = {"pairs_closest": 3, "pairs_shadow": 3, "pair_bits": 6}
+    assert off_launches == off_want
+    assert on_launches == {**off_want, "compact_key": 4}
     np.testing.assert_array_equal(img, img0)
     for a, b in zip(st, st0):
         np.testing.assert_array_equal(a, b)
@@ -1791,3 +1796,140 @@ def test_cpu_preset_loses_the_recorded_rays_on_the_card():
     n = CPU_FRAME["width"] * CPU_FRAME["height"] * CPU_FRAME["spp"]
     assert [n - sum(lane[2][d] for lane in found)
             for d in range(CPU_FRAME["max_depth"])] == rec["hits_per_depth"]
+
+
+# ------------------------- the pairs culling (csrc/cull.cu), CPU and CUDA
+
+def _culling_inputs(device, R=4096, n_boxes=1100, n_tiles=300, seed=0):
+    """bench/cull.py's adversarial rays and boxes as tensors on device:
+    (O, u, boxes, tiles, cap, active)."""
+    from raytracinggpu_tpu_torch.bench.cull import adversarial
+
+    O, d, boxes, tiles, cap, act = adversarial(seed, R, n_boxes, n_tiles)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (Vec3(*map(t, O)), Vec3(*map(t, d)), t(boxes), t(tiles), t(cap),
+            t(act))
+
+
+@pytest.mark.parametrize("bad,why", [
+    ("dtype", "float32"), ("cap", "float32"), ("active", "bool"),
+    ("tile dtype", "int32"), ("columns", "6 columns"),
+    ("subgroup", "does not divide"), ("device", "CUDA"),
+    ("key boxes", "key boxes"), ("mode", "key mode")])
+def test_culling_wrappers_check_their_inputs(bad, why):
+    """The culling wrappers take CUDA tensors only (a CPU tensor's place is
+    the plain version in ops/pairs_trace.py) and refuse a wrong dtype,
+    shape or device before anything is built or launched."""
+    R, nb = 256, 8
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    O = Vec3(*(meta(R) for _ in range(3)))
+    u = Vec3(*(meta(R) for _ in range(3)))
+    boxes, tiles = meta(nb, 8), meta(nb, dt=torch.int32)
+    cap, act = meta(R), meta(R, dt=torch.bool)
+    cpu = Vec3(*(torch.zeros(R) for _ in range(3)))
+    bits = lambda *a, **k: _kernels.pair_bits(*a, **k)
+    key = lambda *a: _kernels.compact_key(*a)
+    calls = {
+        "dtype": lambda: bits(Vec3(O.x.double(), O.y, O.z), u, 40, 16,
+                              (boxes, tiles)),
+        "cap": lambda: bits(O, u, 40, 16, (boxes, tiles), meta(R - 1)),
+        "active": lambda: bits(O, u, 40, 16, (boxes, tiles), cap,
+                               meta(R)),
+        "tile dtype": lambda: bits(O, u, 40, 16, (boxes, tiles.long())),
+        "columns": lambda: key(O, u, meta(nb, 5), nb, 2, 20, None, None, R),
+        "subgroup": lambda: bits(O, u, 40, 48, (boxes, tiles)),
+        "device": lambda: bits(cpu, cpu, 40, 16, (torch.zeros(nb, 8),
+                                                   tiles.new_zeros(nb,
+                                                                   device="cpu"))),
+        "key boxes": lambda: key(O, u, boxes, nb + 1, 2, 20, cap, act, R),
+        "mode": lambda: key(O, u, boxes, nb, 3, 20, cap, act, R),
+    }
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=why):
+        calls[bad]()
+    assert _kernels.LAUNCHES == before
+
+
+def _check_culling(O, u, members, nc, cap, active, subg, key_sets, valid_n):
+    """Both culling kernels on CUDA tensors against their plain versions,
+    bitwise: pair_bits over ``members``, and for each (boxes, n) of
+    ``key_sets`` the key of ``ops/pairs_trace._compact_key``; each launch
+    counted once.  Returns the key modes taken."""
+    n0 = dict(_kernels.LAUNCHES)
+    got = pt._pair_bits(O, u, nc, subg, members, cap, active)
+    torch.cuda.synchronize()
+    want = pt.pair_bits_plain(O, u, nc, subg, members, cap, active)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    modes = set()
+    for boxes, n in key_sets:
+        skey, n_act, shift = pt._compact_key(O, u, boxes, n, cap, active,
+                                             valid_n)
+        torch.cuda.synchronize()
+        wkey, wn, wshift = pt.compact_key_plain(O, u, boxes, n, cap, active,
+                                                valid_n)
+        assert shift == wshift and torch.equal(skey, wkey)
+        assert n_act.is_cuda and n_act.dtype == torch.int64 \
+            and n_act.dim() == 0 and int(n_act) == int(wn)
+        modes.add(pt._key_mode(n, O.x.shape[0])[0])
+    assert _kernels.LAUNCHES["pair_bits"] == n0["pair_bits"] + 1
+    assert _kernels.LAUNCHES["compact_key"] == n0["compact_key"] \
+        + len(key_sets)
+    return modes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cap,with_active", [(False, False),
+                                                  (True, False),
+                                                  (True, True)])
+@pytest.mark.parametrize("subg", [16, 32, 64])
+@pytest.mark.parametrize("kind", KINDS)
+def test_culling_kernels_bitwise_equal_plain(scene, kind, subg, with_cap,
+                                             with_active):
+    """rt_pair_bits over the cat's member boxes and rt_compact_key over its
+    tile boxes and their unions of 4, bitwise the plain versions on the
+    cast of each kind, the last 100 lanes padding for the key."""
+    _need_cuda()
+    tab, O, u, cap, active, _, _ = _cast(scene, kind, 8192, "cuda",
+                                         shadow=True)
+    nc = tab.tile_aabb.shape[0]
+    coarse, knc = pt._coarse_aabb(tab.tile_aabb, nc, 4)
+    _check_culling(O, u, (tab.member_aabb, tab.member_tile), nc,
+                   cap if with_cap else None,
+                   active if with_active else None, subg,
+                   ((tab.tile_aabb, nc), (coarse, knc)), 8192 - 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("subg", [16, 32, 64, 128])
+def test_culling_kernels_bitwise_on_adversarial_rays(subg, seed):
+    """bench/cull.py's rays (exactly-zero and -0.0 direction components,
+    origins on box faces, zero-thickness boxes, caps at an enter distance)
+    over 1,100 member boxes of 300 tiles (three chunks of the kernel's
+    staged boxes, bit 31 set): pair_bits bitwise, with and without cap and
+    active; the key over 40 boxes (mode 2) and 1,100 (mode 1)."""
+    _need_cuda()
+    O, u, boxes, tiles, cap, act = _culling_inputs("cuda", seed=seed)
+    modes = set()
+    for c, a in ((None, None), (cap, None), (None, act), (cap, act)):
+        modes |= _check_culling(O, u, (boxes, tiles), 300, c, a, subg,
+                                ((boxes[:40].contiguous(), 40),
+                                 (boxes, 1100)), 4096 - 7)
+    assert modes == {1, 2}
+
+
+@pytest.mark.cuda
+def test_culling_kernels_on_a_wide_table_and_the_compacted_rows():
+    """A bitmask past one pass of the kernel's shared words (5,000 tiles,
+    157 words, at subgroup 2: a block holds 32 words of its 128 subgroups
+    at a time), and rays read as the rows of a compacted cast's (11, C)
+    ray rows, as _rows_bits passes them: bitwise the plain versions."""
+    _need_cuda()
+    O, u, boxes, tiles, cap, act = _culling_inputs("cuda", n_tiles=5000)
+    _check_culling(O, u, (boxes, tiles), 5000, cap, act, 2, (), 4096)
+    rows = pt._live_rows(O, u, cap, act)
+    Or, ur = Vec3(rows[6], rows[7], rows[8]), Vec3(rows[0], rows[1], rows[2])
+    _check_culling(Or, ur, (boxes, tiles), 5000, rows[9], rows[10] > 0.5,
+                   64, ((boxes[:40].contiguous(), 40),), 4096)
