@@ -265,10 +265,21 @@ Phases, in order; any failed check exits nonzero:
       culling kernel and the same B0-B3;
    d. each kernel on the cat's depth-1 casts (full width and compacted)
       and the soup's: its time replayed from a CUDA graph and eager, its
-      plain version's, and the bound of bench/cull.py; the kernels a
-      headline frame launches and their device time, through the kernels
-      and with the plain culling (utils/profiling.device_kernels), and
-      the frame's host-clock time both ways in turns.
+      plain version's, and the bound and no-FMA floor of bench/cull.py;
+      the kernels a headline frame launches and their device time,
+      through the kernels and with the plain culling
+      (utils/profiling.device_kernels), and the frame's host-clock time
+      both ways in turns (the kernels of an earlier tree beside these:
+      ``python -m raytracinggpu_tpu_torch.bench.cull_design``);
+   e. bench/cull.index_cases at 1,037 subgroups (subgroups 8 to 512, the
+      rays no multiple of a block's, members naming tiles outside [0,
+      nc), 5,000 tiles in several passes of a block's words at subgroups
+      2 and 8, keys over 40, 129 and 1,100 boxes): each through the
+      wrapper and at every rays-a-thread the kernels take
+      (bench/cull_design.hold_index_cases), bitwise;
+   f. compact_key is one device operation a call (no memset: one kernel
+      node in a CUDA graph that captures a call), and its n_act equals the plain count over three calls in a row and
+      two replays of one captured CUDA graph (the counter resets).
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -2307,50 +2318,6 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
           "(animated) rendered with the default config, the ladder on")
 
 
-def _capture_culling(render, n_bits: int, n_keys: int):
-    """Run render() with ops/pairs_trace's ``_pair_bits`` and
-    ``_compact_key`` wrapped so that the inputs of their first ``n_bits``
-    and ``n_keys`` calls are kept (cloned), each labelled with its depth
-    and query as bench/ladder.TierLog tracks them; the wrapped functions
-    are the real ones, which launch and count as always, and are put back
-    afterwards.  Returns ({"pair_bits": [(label, args)], "compact_key":
-    [...]}, render's result)."""
-    import torch
-    from raytracinggpu_tpu_torch.bench.ladder import TierLog
-    from raytracinggpu_tpu_torch.core.vec import Vec3
-    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
-    kept = {"pair_bits": [], "compact_key": []}
-
-    def clone(x):
-        if isinstance(x, torch.Tensor):
-            return x.clone()
-        return Vec3(*(c.clone() for c in x)) if isinstance(x, Vec3) else x
-
-    with TierLog() as log:
-        here = log.here
-
-        def keeping(name, n, fn):
-            def call(*args):
-                if len(kept[name]) < n:
-                    kept[name].append(
-                        (f"depth {here['depth']} {here['query']}",
-                         tuple(map(clone, args))))
-                return fn(*args)
-            return call
-
-        saved = pt._pair_bits, pt._compact_key
-        bits = keeping("pair_bits", n_bits, saved[0])
-        pt._pair_bits = lambda O, u, nc, subg, members, cap=None, \
-            active=None: bits(O, u, nc, subg, members, cap, active)
-        pt._compact_key = keeping("compact_key", n_keys, saved[1])
-        try:
-            out = render()
-        finally:
-            pt._pair_bits, pt._compact_key = saved
-    return kept, out
-
-
 def _plain_culling(fn):
     """fn() with the plain culling of ops/pairs_trace patched in for
     ``_pair_bits`` and ``_compact_key`` (the parent's path: torch ops);
@@ -2363,24 +2330,6 @@ def _plain_culling(fn):
         return fn()
     finally:
         pt._pair_bits, pt._compact_key = saved
-
-
-def _cull_bound(name, args, out):
-    """(bound_ms, bound_by) of one culling call (bench/cull.bound_ms): its
-    slab tests, and its inputs read and outputs written once."""
-    from raytracinggpu_tpu_torch.bench.cull import bound_ms
-
-    if name == "pair_bits":
-        O, _, _, _, (boxes, _), cap, active = args
-        nb, out_bytes = boxes.shape[0], out.numel() * 4
-        extra = nb * (6 + 1) * 4
-    else:
-        O, _, boxes, nb, cap, active, _ = args
-        out_bytes = out[0].numel() * 4 + 8
-        extra = nb * 6 * 4
-    R = O.x.shape[0]
-    extra += (0 if cap is None else 4 * R) + (0 if active is None else R)
-    return bound_ms(R, nb, extra, out_bytes)
 
 
 def _hold_culling(kept, where, err):
@@ -2435,7 +2384,10 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
     closest cast."""
     import numpy as np
     import torch
-    from raytracinggpu_tpu_torch.bench.cull import adversarial
+    from raytracinggpu_tpu_torch.bench.cull import (
+        adversarial, call_bound, index_cases)
+    from raytracinggpu_tpu_torch.bench.cull_design import (
+        capture, graph_nodes, hold_index_cases)
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.core.vec import Vec3
     from raytracinggpu_tpu_torch.ops import _kernels
@@ -2461,7 +2413,7 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
             ("headline", lambda: head_frame(hcfg), 6, 4),
             ("realtime frame 1", step1, 6, 4),
             ("soup", soup_frame, 4, 2)):
-        kept, _ = _capture_culling(render, n_bits, n_keys)
+        kept, _ = capture(render, n_bits, n_keys)
         torch.cuda.synchronize()
         if len(kept["pair_bits"]) != n_bits \
                 or len(kept["compact_key"]) != n_keys:
@@ -2568,15 +2520,15 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
         ms = _time_ms(kern, 50, graph=True)
         eager_ms = _time_ms(kern, 20)
         plain_ms = _time_ms(plain, 3)
-        bound, by = _cull_bound(name, args, kern())
+        bound, by, floor = call_bound(name, args, kern())
         if row == "cat depth-1 closest, full width" or (
                 name == "compact_key" and row.startswith("cat")):
             timing[name] = (ms, plain_ms, bound, by)
         print(f"timing {name} on the {row} cast ({args[0].x.shape[0]} rays, "
               f"{n_boxes} boxes): kernel {ms:.4f} ms (graph replay; eager "
               f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}) on "
-              f"{card}")
+              f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}), "
+              f"no-FMA floor {floor:.4f} ms ({floor / ms:.1%}) on {card}")
 
     # the kernels a headline frame launches, through the culling kernels and
     # with the plain culling (utils/profiling.device_kernels), and frame
@@ -2602,6 +2554,40 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
           f"kernels {[round(t, 4) for t in walls['kernels']]} s, with the "
           f"plain culling {[round(t, 4) for t in walls['plain']]} s on "
           f"{card}")
+
+    # e. the kernels' index math (bench/cull.index_cases), through the
+    # wrappers and at every rays-a-thread the kernels take, bitwise
+    held = hold_index_cases(index_cases(device, n_sg=1037))
+    bad = [(label, k) for label, k, ok in held if not ok]
+    if bad:
+        _fail(f"culling index cases differ from the plain versions: {bad}")
+    print(f"culling index cases: {len(held)} calls on "
+          f"{len({label for label, _, _ in held})} cases (subgroups 2-512, "
+          "rays no multiple of a block's, members outside the tiles, 157 "
+          "words in passes, keys past a staging chunk), each bitwise the "
+          "plain version")
+
+    # f. the key's count in one launch: one kernel a call (no memset), and
+    # n_act right over three calls in a row and two replays of one graph
+    args = first("headline", "compact_key", "depth 1 closest")
+    want = int(pt.compact_key_plain(*args)[1])
+    one = graph_nodes(lambda: pt._compact_key(*args))
+    in_row = [int(pt._compact_key(*args)[1]) for _ in range(3)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pt._compact_key(*args)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(int(captured[1]))
+    print(f"culling key count: one call captures {len(one)} graph node(s) "
+          f"of types {one} (0 a kernel, 2 a memset); n_act {in_row} in a "
+          f"row, {replays} from graph replays, plain {want}")
+    if one != [0] or in_row != [want] * 3 or replays != [want] * 2:
+        _fail("compact_key is not one launch a call, or its n_act is wrong "
+              "across calls or graph replays")
     return timing
 
 

@@ -13,7 +13,11 @@ kernels to the plain versions.
 ``bound_ms`` is the least time the card could take for one call (see
 the on-chip bound of chip_smoke.py): every slab test's operations at the
 f32 peak, or every input read and every output written once at the
-memory rate, whichever is larger.
+memory rate, whichever is larger.  It also gives the no-FMA floor: the
+f32 peak counts an FMA as two operations, and a slab test has none (its
+products are rounded alone), so a lane retires one of its operations a
+cycle: the same operations at half the peak, the bytes term unchanged.
+``call_bound`` counts both for one call of a culling kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 # once.
 SLAB_OPS = 24
 PEAK_F32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, f32 without tensor cores
+NO_FMA_OPS_S = PEAK_F32_FLOPS / 2  # an FMA counts two; a slab test has none
 PEAK_BYTES_S = 3.35e12  # its HBM3
 
 
@@ -107,11 +112,102 @@ def enter_of(O, u, boxes):
 
 
 def bound_ms(R: int, n_boxes: int, extra_in: int, out_bytes: int):
-    """(ms, "operations" or "bytes") of one call over R rays and n_boxes
-    boxes: R * n_boxes slab tests and 3 R reciprocals at PEAK_F32_FLOPS,
-    or the rays' six f32 rows, ``extra_in`` more input bytes (cap, active,
-    the boxes and their tiles) and ``out_bytes`` at PEAK_BYTES_S."""
-    ops_s = (R * n_boxes * SLAB_OPS + 3 * R) / PEAK_F32_FLOPS
+    """(ms, "operations" or "bytes", no-FMA floor ms) of one call over R
+    rays and n_boxes boxes: R * n_boxes slab tests and 3 R reciprocals at
+    PEAK_F32_FLOPS, or the rays' six f32 rows, ``extra_in`` more input
+    bytes (cap, active, the boxes and their tiles) and ``out_bytes`` at
+    PEAK_BYTES_S; the floor takes the operations at half PEAK_F32_FLOPS."""
+    ops = R * n_boxes * SLAB_OPS + 3 * R
+    ops_s = ops / PEAK_F32_FLOPS
     bytes_s = (24 * R + extra_in + out_bytes) / PEAK_BYTES_S
     return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
+            "operations" if ops_s >= bytes_s else "bytes",
+            max(ops / NO_FMA_OPS_S, bytes_s) * 1e3)
+
+
+def call_bound(name: str, args, out):
+    """``bound_ms`` of one call of ``ops/pairs_trace._pair_bits`` (name
+    "pair_bits", args (O, u, nc, subg, (boxes, tiles), cap, active), out
+    the bits) or ``_compact_key`` ("compact_key", args (O, u, boxes, nc,
+    cap, active, valid_n), out (skey, n_act, ...)): its slab tests, and its
+    inputs read and outputs written once."""
+    if name == "pair_bits":
+        O, _, _, _, (boxes, _), cap, active = args
+        nb, out_bytes = boxes.shape[0], out.numel() * 4
+        extra = nb * (6 + 1) * 4
+    else:
+        O, _, _, nb, cap, active, _ = args
+        out_bytes = out[0].numel() * 4 + 8
+        extra = nb * 6 * 4
+    R = O.x.shape[0]
+    extra += (0 if cap is None else 4 * R) + (0 if active is None else R)
+    return bound_ms(R, nb, extra, out_bytes)
+
+
+# subgroups of index_cases: a warp, part of one, several, and a subgroup
+# wider than the kernel's block
+SUBGROUPS = (8, 16, 32, 64, 128, 512)
+OUTSIDE = (-1, -2**31, 2**30)  # member tiles outside [0, nc) (+ nc itself)
+
+
+def index_cases(device, n_sg: int = 37, seed: int = 2) -> list:
+    """[(label, name, args, plain_args)]: calls of ops/pairs_trace's
+    ``_pair_bits`` ("pair_bits", args (O, u, nc, subg, members, cap,
+    active)) and ``_compact_key`` ("compact_key", args (O, u, boxes, nc,
+    cap, active, valid_n)) on ``adversarial`` rays and boxes as tensors on
+    ``device``, shaped to reach every branch of the kernels' index math;
+    ``plain_args`` are the plain version's, whose result the kernel's must
+    equal bit for bit:
+
+    - pair_bits at each of SUBGROUPS over n_sg subgroups (an odd count,
+      so the rays are no multiple of the rays a block holds), 1,100 member
+      boxes (several staging chunks) in 300 tiles, plus members naming
+      tiles outside [0, 300) (OUTSIDE and 300), which the kernel ignores
+      and the plain version is not given; with cap and active, and at
+      subgroups 16 and 128 without;
+    - pair_bits over 5,000 tiles (157 words a subgroup, several passes of
+      a block's words) at subgroups 2 and 8, 2,075 subgroups;
+    - compact_key on 5,000 rays (no multiple of a block's), valid_n 4,993,
+      over 40 boxes (mode 2), 129 (one past a staging chunk) and 1,100
+      (mode 1)."""
+    import torch
+
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+
+    def tensors(R, n_boxes, n_tiles, s):
+        O, d, boxes, tiles, cap, act = adversarial(s, R, n_boxes, n_tiles)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return (Vec3(*map(t, O)), Vec3(*map(t, d)), t(boxes), t(tiles),
+                t(cap), t(act))
+
+    cases = []
+    for i, subg in enumerate(SUBGROUPS):
+        O, u, boxes, tiles, cap, act = tensors(subg * n_sg, 1100, 300,
+                                               seed + i)
+        out = torch.tensor((*OUTSIDE, 300), dtype=torch.int32, device=device)
+        all_boxes = torch.cat([boxes, boxes[:out.shape[0]]])
+        all_tiles = torch.cat([tiles, out])
+        perm = torch.from_numpy(np.random.default_rng(seed + i).permutation(
+            all_tiles.shape[0])).to(device)
+        members = (all_boxes[perm].contiguous(), all_tiles[perm].contiguous())
+        for c, a in ((cap, act),) + (((None, None),) if subg in (16, 128)
+                                     else ()):
+            tail = (c, a)
+            cases.append((f"subgroup {subg}, {subg * n_sg} rays, 1,104 "
+                          f"members (4 outside the 300 tiles), "
+                          f"{'with' if c is not None else 'without'} cap "
+                          "and active", "pair_bits",
+                          (O, u, 300, subg, members, *tail),
+                          (O, u, 300, subg, (boxes, tiles), *tail)))
+    for subg in (2, 8):
+        O, u, boxes, tiles, cap, act = tensors(subg * 2075, 1100, 5000,
+                                               seed + subg)
+        args = (O, u, 5000, subg, (boxes, tiles), cap, act)
+        cases.append((f"subgroup {subg}, {subg * 2075} rays, 5,000 tiles",
+                      "pair_bits", args, args))
+    O, u, boxes, _, cap, act = tensors(5000, 1100, 300, seed + 20)
+    for n in (40, 129, 1100):
+        args = (O, u, boxes[:n].contiguous(), n, cap, act, 4993)
+        cases.append((f"5,000 rays, valid 4,993, {n} key boxes",
+                      "compact_key", args, args))
+    return cases

@@ -33,43 +33,94 @@
 //     torch's int32 ops wrap); n_act (int64) the active lanes.
 //
 // Numerics: every product is (box - O) * rc, rounded alone (--fmad=false),
-// and rc the IEEE reciprocal, so each slab test is the plain version's bit
-// for bit; the OR, the any-reduce and first / last do not depend on the
-// order the boxes and rays are visited in.
+// and rc the IEEE reciprocal, so each t0 and t1 is the plain version's bit
+// for bit.  The test is then rewritten without changing a result:
+//   with e = max(n_x, n_y, n_z), x = min(f_x, f_y, f_z) (n = min(t0, t1),
+//   f = max(t0, t1), NaN-propagating), enter = max(-3.4e38, e) and exit =
+//   min(3.4e38, x), and the hit is
+//     x >= 0 && x >= e && e <= capm,
+//   capm = min(3.4e38, cap) where active and -3.4e38 <= cap, else NaN
+//   (which no e passes), folded once a ray.  (A NaN in e or x misses both
+//   ways; else exit >= 0 iff x >= 0, and then exit >= enter iff x >= e and
+//   e <= 3.4e38, enter <= cap iff e <= cap and -3.4e38 <= cap.)  That is
+//   10 min / max and 3 compares a test, not 12 and 3 and two ands.  min
+//   and max are PTX min.NaN / max.NaN (one FMNMX each); only comparisons
+//   read them, so which zero they return cannot change a bit.  The OR, the
+//   any-reduce and first / last do not depend on the order the boxes and
+//   rays are visited in.
 //
-// What bounds it on this card: operations (about 24 f32 operations a
-// slab test; the cat's depth-1 cast is 524,288 rays x 62 member boxes,
-// and the rays' 28 bytes each are read once).  The design is the simple
-// one: one thread a ray, the boxes staged through shared memory in chunks
-// of kBoxChunk (each box a broadcast read), the reciprocal once a ray and
-// axis.  rt_pair_bits gives each block whole subgroups: a warp's ballot
-// and the first lane of each subgroup's run in the warp OR the tile bit
-// into the block's words in shared memory (one atomic a run and box hit),
-// and the words are stored once at the end, in passes of kWordSlots words
-// when the table has more tiles.  rt_compact_key counts the active lanes
-// with __syncthreads_count and one 64-bit atomic add a block.
+// What bounds it on this card: operations (24 f32 operations a slab test
+// as the plain version counts them, none of which can fuse into an FMA,
+// so the floor is their issue at one a lane and cycle; the cat's depth-1
+// cast is 524,288 rays x 62 member boxes, and the rays' 28 bytes each are
+// read once).  The design:
+//   - K rays a thread (rt_pair_bits 4, 2 or 1: a divisor of the subgroup;
+//     rt_compact_key 2 or 1; halved while the grid would give the card
+//     fewer than kMinBlocksPerSm blocks an SM), their origin, reciprocal
+//     and folded cap in registers; blocks
+//     of kThreads held to 64 registers a thread, so that an SM holds
+//     kMinResident of them and the cat's and the soup's 1,024 blocks run
+//     in one wave on 132 SMs;
+//   - boxes staged through shared memory as 32-byte rows, kBoxChunk at a
+//     time: two 16-byte broadcast loads a box feed K slab tests;
+//   - the three compares of each of a thread's K rays chain through one
+//     predicate (PTX setp with .and), never leaving it: no select a ray;
+//   - rt_pair_bits stages only the members whose tile lies in [0, nc) and
+//     in the current pass's words, compacted with a block-wide prefix, with
+//     the tile's word slot and bit beside the box, so the inner loop has no
+//     range test and no index math; a thread ORs its K rays' hits (all of
+//     one subgroup, as K divides it), a warp runs one ballot a box, and the
+//     first lane of each subgroup's run in the warp ORs the tile bit into
+//     the block's words in shared memory with a predicated red (no branch;
+//     a block owns whole subgroups, in passes of kThreads * K rays when a
+//     subgroup is wider); the words are stored once at the end, in passes
+//     of kWordSlots words when the table has more tiles;
+//   - rt_compact_key ORs a ray's hits over 32 boxes into a mask, one
+//     predicated or a test, and takes first and last from it; it counts its
+//     active lanes in the same launch: each block adds its count to a
+//     device counter and the last block to take a ticket moves the sum into
+//     n_act and resets counter and ticket, so the next call (or graph
+//     replay) starts from zero.  The counter is the module's, one a device:
+//     calls on one device must not overlap on two streams (the port
+//     launches on PyTorch's current stream).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;     // rays a block, one a thread
-constexpr int kBoxChunk = 256;    // boxes staged in shared memory at a time
-constexpr int kWordSlots = 4096;  // bitmask words a pass of a block holds
+constexpr int kThreads = 128;      // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kBoxChunk = kThreads;  // boxes staged at a time, one a thread
+constexpr int kWordSlots = 4096;   // bitmask words a pass of a block holds
+constexpr int kMinBlocksPerSm = 4;
+constexpr int kMinResident = 8;  // blocks an SM holds: at most 64 registers
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
 
+// rt_compact_key's block counts and ticket (zero when no launch runs)
+__device__ unsigned long long g_key_count;
+__device__ unsigned g_key_ticket;
+
 // torch.minimum / torch.maximum: NaN in either operand gives NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
+struct __align__(16) Box {
+  float4 lo, hi;  // rt_pair_bits: lo.w 4 x the tile's first word slot of
+                  // the pass (bytes), hi.w the tile's bit
+};
+
 struct SlabRay {
-  float o[3], rc[3], cap;
-  bool on;
+  float o[3], rc[3];
+  float capm;  // min(3.4e38, cap) where active and -3.4e38 <= cap, else NaN
 };
 
 struct RayRows {
@@ -80,11 +131,11 @@ struct RayRows {
 __device__ __forceinline__ SlabRay load_ray(const RayRows& in, int r,
                                             bool live) {
   SlabRay q;
+  const float nan = __int_as_float(0x7fffffff);
   if (!live) {
     q.o[0] = q.o[1] = q.o[2] = 0.0f;
     q.rc[0] = q.rc[1] = q.rc[2] = 1.0f;
-    q.cap = 0.0f;
-    q.on = false;
+    q.capm = nan;
     return q;
   }
   q.o[0] = in.ox[r];
@@ -94,49 +145,165 @@ __device__ __forceinline__ SlabRay load_ray(const RayRows& in, int r,
   q.rc[1] = 1.0f / in.uy[r];
   q.rc[2] = 1.0f / in.uz[r];
   // no cap: +inf, which every enter that can hit (exit <= 3.4e38) passes
-  q.cap = in.cap ? in.cap[r] : __int_as_float(0x7f800000);
-  q.on = in.active ? in.active[r] != 0 : true;
+  const float cap = in.cap ? in.cap[r] : __int_as_float(0x7f800000);
+  const bool on = (in.active ? in.active[r] != 0 : true) && -kBig <= cap;
+  q.capm = on ? min_nan(kBig, cap) : nan;
   return q;
 }
 
-// box: lo.xyz, hi.xyz
-__device__ __forceinline__ bool slab_hit(const SlabRay& q, const float* box) {
-  float enter = -kBig, exit = kBig;
+// The slab test's e = max(n_x, n_y, n_z) and x = min(f_x, f_y, f_z); the
+// ray hits the box iff x >= 0 && x >= e && e <= capm (see the header).
+__device__ __forceinline__ void slab(const SlabRay& q, const float4& lo,
+                                     const float4& hi, float& e, float& x) {
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float t0 = (box[a] - q.o[a]) * q.rc[a];
-    const float t1 = (box[3 + a] - q.o[a]) * q.rc[a];
-    enter = max_nan(enter, min_nan(t0, t1));
-    exit = min_nan(exit, max_nan(t0, t1));
+    const float t0 = (l[a] - q.o[a]) * q.rc[a];
+    const float t1 = (h[a] - q.o[a]) * q.rc[a];
+    const float n = min_nan(t0, t1), f = max_nan(t0, t1);
+    e = a ? max_nan(e, n) : n;
+    x = a ? min_nan(x, f) : f;
   }
-  return exit >= enter && exit >= 0.0f && enter <= q.cap && q.on;
 }
 
-// Stage boxes [m0, m0 + n) of the (nb, ld) rows into shared memory (and
-// their tiles, when given); the block waits before and after.
-__device__ __forceinline__ void stage_boxes(float (*sbox)[6], int* stile,
-                                            const float* boxes, int ld,
-                                            const int* tiles, int m0, int n) {
-  __syncthreads();  // the previous chunk is consumed
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    const float* b = boxes + static_cast<long long>(m0 + j) * ld;
+// PTX: predicate P = the hit of the ray whose e, x, capm are operands E, X,
+// C (three compares chained through the predicate, NaN-false)
+#define RT_HIT(P, E, X, C)                                      \
+  "setp.ge.f32 " P ", " X ", 0f00000000;\n\t"                   \
+  "setp.ge.and.f32 " P ", " X ", " E ", " P ";\n\t"             \
+  "setp.le.and.f32 " P ", " E ", " C ", " P ";\n\t"
+
+// One box against a thread's K rays (e, x, c: their slab results and
+// capm): the warp's ballot of "some of my rays hits", ANDed with the
+// thread's run mask (0 unless it leads a run); where that is not zero the
+// thread ORs ``bit`` into the shared word at ``addr``.  The predicates
+// never leave the asm: no select a ray, no branch a box.
+template <int K>
+__device__ __forceinline__ void or_hits(const float* e, const float* x,
+                                        const float* c, unsigned run,
+                                        unsigned addr, unsigned bit);
+template <>
+__device__ __forceinline__ void or_hits<1>(const float* e, const float* x,
+                                           const float* c, unsigned run,
+                                           unsigned addr, unsigned bit) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .b32 h;\n\t" RT_HIT("p", "%0", "%1", "%2")
+      "vote.sync.ballot.b32 h, p, 0xffffffff;\n\t"
+      "and.b32 h, h, %3;\n\tsetp.ne.b32 p, h, 0;\n\t"
+      "@p red.shared.or.b32 [%4], %5;\n\t}"
+      ::"f"(e[0]), "f"(x[0]), "f"(c[0]), "r"(run), "r"(addr), "r"(bit));
+}
+template <>
+__device__ __forceinline__ void or_hits<2>(const float* e, const float* x,
+                                           const float* c, unsigned run,
+                                           unsigned addr, unsigned bit) {
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t.reg .b32 h;\n\t"
+      RT_HIT("p", "%0", "%1", "%2") RT_HIT("q", "%3", "%4", "%5")
+      "or.pred p, p, q;\n\t"
+      "vote.sync.ballot.b32 h, p, 0xffffffff;\n\t"
+      "and.b32 h, h, %6;\n\tsetp.ne.b32 p, h, 0;\n\t"
+      "@p red.shared.or.b32 [%7], %8;\n\t}"
+      ::"f"(e[0]), "f"(x[0]), "f"(c[0]), "f"(e[1]), "f"(x[1]), "f"(c[1]),
+      "r"(run), "r"(addr), "r"(bit));
+}
+template <>
+__device__ __forceinline__ void or_hits<4>(const float* e, const float* x,
+                                           const float* c, unsigned run,
+                                           unsigned addr, unsigned bit) {
+  asm volatile(
+      "{\n\t.reg .pred p, q, r, s;\n\t.reg .b32 h;\n\t"
+      RT_HIT("p", "%0", "%1", "%2") RT_HIT("q", "%3", "%4", "%5")
+      RT_HIT("r", "%6", "%7", "%8") RT_HIT("s", "%9", "%10", "%11")
+      "or.pred p, p, q;\n\tor.pred r, r, s;\n\tor.pred p, p, r;\n\t"
+      "vote.sync.ballot.b32 h, p, 0xffffffff;\n\t"
+      "and.b32 h, h, %12;\n\tsetp.ne.b32 p, h, 0;\n\t"
+      "@p red.shared.or.b32 [%13], %14;\n\t}"
+      ::"f"(e[0]), "f"(x[0]), "f"(c[0]), "f"(e[1]), "f"(x[1]), "f"(c[1]),
+      "f"(e[2]), "f"(x[2]), "f"(c[2]), "f"(e[3]), "f"(x[3]), "f"(c[3]),
+      "r"(run), "r"(addr), "r"(bit));
+}
+
+// m |= bit where the ray (e, x, c) hits the box.
+__device__ __forceinline__ void mark_hit(unsigned& m, float e, float x,
+                                         float c, unsigned bit) {
+  asm("{\n\t.reg .pred p;\n\t" RT_HIT("p", "%1", "%2", "%3")
+      "@p or.b32 %0, %0, %4;\n\t}"
+      : "+r"(m)
+      : "f"(e), "f"(x), "f"(c), "r"(bit));
+}
+
+// Rays a thread: the largest of 4, 2, 1 dividing subg, halved while
+// blocks(K) would give fewer than kMinBlocksPerSm blocks an SM; ``forced``
+// (1, 2 or 4) overrides.
+template <typename Blocks>
+int rays_per_thread(int subg, int forced, Blocks blocks) {
+  if (forced == 1 || forced == 2 || forced == 4) return forced;
+  static int sms[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (!sms[dev])
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  int k = subg % 4 == 0 ? 4 : subg % 2 == 0 ? 2 : 1;
+  while (k > 1 && blocks(k) < static_cast<long long>(kMinBlocksPerSm) *
+                                  (sms[dev] > 0 ? sms[dev] : 132))
+    k /= 2;
+  return k;
+}
+
+// Stage the members [m0, m0 + kBoxChunk) whose tile lies in [0, nc) and in
+// [t0, t0 + nt), compacted to the front of sbox (lo.w 4 x the tile's word
+// slot, (t - t0) / 32 x n_sg, hi.w its bit); returns how many.  The block
+// waits before and after.
+__device__ __forceinline__ int stage_members(Box* sbox, int* warp_n,
+                                             const float* boxes, int ld,
+                                             const int* tiles, int m0, int nm,
+                                             int nc, int t0, int nt,
+                                             int n_sg) {
+  __syncthreads();  // the previous chunk (and warp_n) is consumed
+  const int m = m0 + static_cast<int>(threadIdx.x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int t = 0;
+  bool keep = false;
+  if (m < nm) {
+    const int tile = tiles[m];
+    t = tile - t0;
+    keep = tile >= 0 && tile < nc && t >= 0 && t < nt;
+  }
+  const unsigned mask = __ballot_sync(kFull, keep);
+  if (lane == 0) warp_n[warp] = __popc(mask);
+  __syncthreads();
+  int pos = __popc(mask & ((1u << lane) - 1u)), total = 0;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) sbox[j][c] = b[c];
-    if (tiles) stile[j] = tiles[m0 + j];
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_n[w];
+    pos += w < warp ? c : 0;
+    total += c;
+  }
+  if (keep) {
+    const float* b = boxes + static_cast<long long>(m) * ld;
+    sbox[pos].lo = make_float4(b[0], b[1], b[2],
+                               __int_as_float((t >> 5) * n_sg * 4));
+    sbox[pos].hi = make_float4(b[3], b[4], b[5],
+                               __uint_as_float(1u << (t & 31)));
   }
   __syncthreads();
+  return total;
 }
 
 // Block b owns subgroups [b * G, b * G + G) (rays of whole subgroups, in
-// passes of kThreads when a subgroup is wider than the block) and builds
-// their words in shared memory, Wc words a subgroup at a time.
-__global__ void __launch_bounds__(kThreads)
+// passes of kThreads * K when a subgroup is wider than that) and builds
+// their words in shared memory, Wc words a subgroup at a time.  Thread t
+// of a pass holds rays K t .. K t + K - 1, of one subgroup (K | subg).
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinResident)
 pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
                  const int* __restrict__ member_tile, int nm, int R, int subg,
                  int nc, int W, int G, int Wc, int* __restrict__ bits) {
   __shared__ unsigned words[kWordSlots];
-  __shared__ float sbox[kBoxChunk][6];
-  __shared__ int stile[kBoxChunk];
+  __shared__ Box sbox[kBoxChunk];
+  __shared__ int warp_n[kWarps];
 
   const int S = R / subg;
   const int sg0 = blockIdx.x * G;
@@ -147,12 +314,15 @@ pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
   for (int w0 = 0; w0 < W; w0 += Wc) {
     const int nw = min(Wc, W - w0);
     for (int i = threadIdx.x; i < nw * n_sg; i += kThreads) words[i] = 0u;
-    for (int base = 0; base < n_rays; base += kThreads) {
-      const int i = base + threadIdx.x;
-      const bool live = i < n_rays;
-      const SlabRay q = load_ray(in, sg0 * subg + i, live);
+    for (int base = 0; base < n_rays; base += kThreads * K) {
+      const int i0 = base + static_cast<int>(threadIdx.x) * K;
+      const bool live = i0 < n_rays;  // K | n_rays: all K rays or none
+      SlabRay q[K];
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+        q[r] = load_ray(in, sg0 * subg + i0 + r, live);
       // the first lane of each subgroup's run in this warp ORs for the run
-      const int sg = live ? i / subg : -1;
+      const int sg = live ? i0 / subg : -1;
       const int prev = __shfl_up_sync(kFull, sg, 1);
       const bool leader = live && (lane == 0 || prev != sg);
       const unsigned leaders = __ballot_sync(kFull, leader);
@@ -160,16 +330,25 @@ pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
       const int end = above ? __ffs(static_cast<int>(above)) - 1 : 32;
       const unsigned run =
           (end == 32 ? kFull : (1u << end) - 1u) & (kFull << lane);
+      const unsigned lead_run = leader ? run : 0u;
+      // this thread's subgroup's word slot 0 (a shared-memory address)
+      const unsigned sg_addr = static_cast<unsigned>(
+          __cvta_generic_to_shared(&words[live ? sg : 0]));
       for (int m0 = 0; m0 < nm; m0 += kBoxChunk) {
-        const int n = min(kBoxChunk, nm - m0);
-        stage_boxes(sbox, stile, boxes, ld, member_tile, m0, n);
+        const int n = stage_members(sbox, warp_n, boxes, ld, member_tile, m0,
+                                    nm, nc, 32 * w0, 32 * nw, n_sg);
+#pragma unroll 2
         for (int j = 0; j < n; ++j) {
-          const int tile = stile[j];  // block-uniform: so is the skip
-          const int t = tile - 32 * w0;
-          if (tile < 0 || tile >= nc || t < 0 || t >= 32 * nw) continue;
-          const unsigned hits = __ballot_sync(kFull, slab_hit(q, sbox[j]));
-          if (leader && (hits & run))
-            atomicOr(&words[(t >> 5) * n_sg + sg], 1u << (t & 31));
+          const float4 lo = sbox[j].lo, hi = sbox[j].hi;
+          float e[K], x[K], c[K];
+#pragma unroll
+          for (int r = 0; r < K; ++r) {
+            slab(q[r], lo, hi, e[r], x[r]);
+            c[r] = q[r].capm;
+          }
+          or_hits<K>(e, x, c, lead_run,
+                     sg_addr + static_cast<unsigned>(__float_as_int(lo.w)),
+                     __float_as_uint(hi.w));
         }
       }
     }
@@ -181,61 +360,191 @@ pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Thread t of block b holds rays K (b kThreads + t) .. + K - 1.
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinResident)
 compact_key_kernel(RayRows in, const float* __restrict__ boxes, int ld, int nc,
                    int mode, int shift, int R, int valid_n,
                    int* __restrict__ skey,
                    unsigned long long* __restrict__ n_act) {
-  __shared__ float sbox[kBoxChunk][6];
+  __shared__ Box sbox[kBoxChunk];
+  __shared__ int warp_n[kWarps];
 
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = r < R;
-  const SlabRay q = load_ray(in, r, live);
-  int first = nc, last = -1;
+  const int r0 = (blockIdx.x * kThreads + threadIdx.x) * K;
+  SlabRay q[K];
+  int first[K], last[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    q[r] = load_ray(in, r0 + r, r0 + r < R);
+    first[r] = nc;
+    last[r] = -1;
+  }
   for (int m0 = 0; m0 < nc; m0 += kBoxChunk) {
     const int n = min(kBoxChunk, nc - m0);
-    stage_boxes(sbox, nullptr, boxes, ld, nullptr, m0, n);
-    for (int j = 0; j < n; ++j) {
-      if (slab_hit(q, sbox[j])) {  // ascending boxes: first once, last max
-        if (first == nc) first = m0 + j;
-        last = m0 + j;
+    __syncthreads();  // the previous chunk is consumed
+    if (static_cast<int>(threadIdx.x) < n) {
+      const float* p = boxes + static_cast<long long>(m0 + threadIdx.x) * ld;
+      sbox[threadIdx.x].lo = make_float4(p[0], p[1], p[2], 0.0f);
+      sbox[threadIdx.x].hi = make_float4(p[3], p[4], p[5], 0.0f);
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int nj = min(32, n - j0);
+      unsigned hit[K];
+#pragma unroll
+      for (int r = 0; r < K; ++r) hit[r] = 0u;
+#pragma unroll 4
+      for (int j = 0; j < nj; ++j) {
+        const float4 lo = sbox[j0 + j].lo, hi = sbox[j0 + j].hi;
+        const unsigned bit = 1u << j;
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          float e, x;
+          slab(q[r], lo, hi, e, x);
+          mark_hit(hit[r], e, x, q[r].capm, bit);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        if (hit[r]) {  // ascending boxes: first once, last the highest
+          if (first[r] == nc) first[r] = m0 + j0 + __ffs(hit[r]) - 1;
+          last[r] = m0 + j0 + 31 - __clz(hit[r]);
+        }
       }
     }
   }
-  const bool act = live && last >= 0 && r < valid_n;
   const unsigned n1 = static_cast<unsigned>(nc) + 1u;
-  unsigned key;
-  if (mode == 2)
-    key = act ? static_cast<unsigned>(first) * n1 + static_cast<unsigned>(last)
-              : n1 * n1 - 1u;
-  else
-    key = static_cast<unsigned>(act ? first : nc);
-  if (live)
-    skey[r] = static_cast<int>((key << shift) | static_cast<unsigned>(r));
-  const int n = __syncthreads_count(act);
-  if (threadIdx.x == 0 && n) atomicAdd(n_act, static_cast<unsigned long long>(n));
+  int n_on = 0;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int lane_id = r0 + r;
+    if (lane_id >= R) break;
+    const bool act = last[r] >= 0 && lane_id < valid_n;
+    unsigned key;
+    if (mode == 2)
+      key = act ? static_cast<unsigned>(first[r]) * n1 +
+                      static_cast<unsigned>(last[r])
+                : n1 * n1 - 1u;
+    else
+      key = static_cast<unsigned>(act ? first[r] : nc);
+    skey[lane_id] =
+        static_cast<int>((key << shift) | static_cast<unsigned>(lane_id));
+    n_on += act;
+  }
+  n_on = __reduce_add_sync(kFull, n_on);
+  if ((threadIdx.x & 31) == 0) warp_n[threadIdx.x >> 5] = n_on;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long n = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n += static_cast<unsigned>(warp_n[w]);
+    if (n) atomicAdd(&g_key_count, n);
+    __threadfence();  // the count lands before the ticket
+    if (atomicAdd(&g_key_ticket, 1u) == gridDim.x - 1) {
+      __threadfence();
+      *n_act = atomicExch(&g_key_count, 0ull);
+      atomicExch(&g_key_ticket, 0u);
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch_pair_bits(const RayRows& in, const float* boxes, int ld,
+                             const int* member_tile, int nm, int R, int subg,
+                             int nc, int* bits, cudaStream_t st) {
+  const int S = R / subg;
+  const int W = (nc + 31) / 32;
+  const int G = subg >= kThreads * K ? 1 : kThreads * K / subg;
+  const int Wc = kWordSlots / G;
+  pair_bits_kernel<K><<<(S + G - 1) / G, kThreads, 0, st>>>(
+      in, boxes, ld, member_tile, nm, R, subg, nc, W, G, Wc, bits);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_compact_key(const RayRows& in, const float* boxes, int ld,
+                               int nc, int mode, int shift, int R,
+                               int valid_n, int* skey, long long* n_act,
+                               cudaStream_t st) {
+  const long long per_block = static_cast<long long>(kThreads) * K;
+  compact_key_kernel<K><<<static_cast<int>((R + per_block - 1) / per_block),
+                          kThreads, 0, st>>>(
+      in, boxes, ld, nc, mode, shift, R, valid_n, skey,
+      reinterpret_cast<unsigned long long*>(n_act));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// k: rays a thread (1, 2 or 4; 1 or 2 only where it divides subg), or 0
+// for the default (rays_per_thread).
+int rt_pair_bits_k(const float* ox, const float* oy, const float* oz,
+                   const float* ux, const float* uy, const float* uz,
+                   const float* boxes, int ld, const int* member_tile, int nm,
+                   const float* cap, const unsigned char* active, int R,
+                   int subg, int nc, int* bits, int k, void* stream) {
+  if (R <= 0 || subg <= 0 || R % subg || nc <= 0 || ld < 6 || nm < 0 ||
+      (k && (k != 1 && k != 2 && k != 4)) || (k && subg % k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long S = R / subg;
+  k = rays_per_thread(subg, k, [&](int kk) {
+    const long long G = subg >= kThreads * kk ? 1 : kThreads * kk / subg;
+    return (S + G - 1) / G;
+  });
+  const RayRows in{ox, oy, oz, ux, uy, uz, cap, active};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (k == 4)
+    err = launch_pair_bits<4>(in, boxes, ld, member_tile, nm, R, subg, nc,
+                              bits, st);
+  else if (k == 2)
+    err = launch_pair_bits<2>(in, boxes, ld, member_tile, nm, R, subg, nc,
+                              bits, st);
+  else
+    err = launch_pair_bits<1>(in, boxes, ld, member_tile, nm, R, subg, nc,
+                              bits, st);
+  return static_cast<int>(err);
+}
+
 int rt_pair_bits(const float* ox, const float* oy, const float* oz,
                  const float* ux, const float* uy, const float* uz,
                  const float* boxes, int ld, const int* member_tile, int nm,
                  const float* cap, const unsigned char* active, int R,
                  int subg, int nc, int* bits, void* stream) {
-  if (R <= 0 || subg <= 0 || R % subg || nc <= 0 || ld < 6 || nm < 0)
+  return rt_pair_bits_k(ox, oy, oz, ux, uy, uz, boxes, ld, member_tile, nm,
+                        cap, active, R, subg, nc, bits, 0, stream);
+}
+
+int rt_compact_key_k(const float* ox, const float* oy, const float* oz,
+                     const float* ux, const float* uy, const float* uz,
+                     const float* boxes, int ld, int nc, int mode, int shift,
+                     const float* cap, const unsigned char* active, int R,
+                     int valid_n, int* skey, long long* n_act, int k,
+                     void* stream) {
+  if (R <= 0 || nc < 0 || ld < 6 || shift < 0 || shift > 31 ||
+      (k && (k != 1 && k != 2 && k != 4)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int S = R / subg;
-  const int W = (nc + 31) / 32;
-  const int G = subg >= kThreads ? 1 : kThreads / subg;
-  const int Wc = kWordSlots / G;
+  // from K = 2: the cat's key then runs 2,048 blocks in two waves, one
+  // block's ray loads under another's tests, and beats K = 4 in one wave
+  // (bench/cull_design)
+  k = rays_per_thread(2, k, [&](int kk) {
+    return (static_cast<long long>(R) + kThreads * kk - 1) / (kThreads * kk);
+  });
   const RayRows in{ox, oy, oz, ux, uy, uz, cap, active};
-  pair_bits_kernel<<<(S + G - 1) / G, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      in, boxes, ld, member_tile, nm, R, subg, nc, W, G, Wc, bits);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (k == 4)
+    err = launch_compact_key<4>(in, boxes, ld, nc, mode, shift, R, valid_n,
+                                skey, n_act, st);
+  else if (k == 2)
+    err = launch_compact_key<2>(in, boxes, ld, nc, mode, shift, R, valid_n,
+                                skey, n_act, st);
+  else
+    err = launch_compact_key<1>(in, boxes, ld, nc, mode, shift, R, valid_n,
+                                skey, n_act, st);
+  return static_cast<int>(err);
 }
 
 int rt_compact_key(const float* ox, const float* oy, const float* oz,
@@ -243,16 +552,8 @@ int rt_compact_key(const float* ox, const float* oy, const float* oz,
                    const float* boxes, int ld, int nc, int mode, int shift,
                    const float* cap, const unsigned char* active, int R,
                    int valid_n, int* skey, long long* n_act, void* stream) {
-  if (R <= 0 || nc < 0 || ld < 6 || shift < 0 || shift > 31)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(n_act, 0, sizeof(long long), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const RayRows in{ox, oy, oz, ux, uy, uz, cap, active};
-  compact_key_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      in, boxes, ld, nc, mode, shift, R, valid_n, skey,
-      reinterpret_cast<unsigned long long*>(n_act));
-  return static_cast<int>(cudaGetLastError());
+  return rt_compact_key_k(ox, oy, oz, ux, uy, uz, boxes, ld, nc, mode, shift,
+                          cap, active, R, valid_n, skey, n_act, 0, stream);
 }
 
 }  // extern "C"

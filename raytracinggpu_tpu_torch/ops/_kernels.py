@@ -169,7 +169,12 @@ def load():
                 ("rt_probe_pair_slope", [p, p, p, i, i, i, i, p, p]),
                 ("rt_pair_bits", [p] * 7 + [i, p, i, p, p, i, i, i, p, p]),
                 ("rt_compact_key", [p] * 7 + [i] * 4 + [p, p, i, i, p, p,
-                                                         p])):
+                                                         p]),
+                # the same with the rays a thread forced (the last int)
+                ("rt_pair_bits_k", [p] * 7 + [i, p, i, p, p, i, i, i, p, i,
+                                              p]),
+                ("rt_compact_key_k", [p] * 7 + [i] * 4 + [p, p, i, i, p, p,
+                                                           i, p])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i

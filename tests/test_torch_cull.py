@@ -241,3 +241,106 @@ def test_cpu_tensors_leave_the_launch_counts_untouched(adv):
         and a[2] == b[2]
     assert _kernels.LAUNCHES == before
     assert set(_kernels.CULLING) <= set(_kernels.LAUNCHES)
+
+
+def test_no_fma_floor_is_twice_the_operation_term():
+    """bench/cull.bound_ms's no-FMA floor: the slab tests' operations at
+    half the f32 peak (a slab test has no FMA), the bytes term unchanged.
+    On the cat's depth-1 cast (524,288 rays x 62 member boxes, cap and
+    active, 8,192 subgroups of 64, 2 words) it is 0.0234 ms, twice the
+    bound's operation term; a bytes-bound call keeps its bytes time; and
+    ``call_bound`` counts a call's bytes from its tensors."""
+    from raytracinggpu_tpu_torch.bench.cull import (
+        NO_FMA_OPS_S, PEAK_BYTES_S, PEAK_F32_FLOPS, SLAB_OPS, bound_ms,
+        call_bound)
+
+    R, nb = 524288, 62
+    out_bytes = 2 * (R // 64) * 4
+    ms, by, floor = bound_ms(R, nb, nb * 7 * 4 + 5 * R, out_bytes)
+    ops = R * nb * SLAB_OPS + 3 * R
+    assert by == "operations" and NO_FMA_OPS_S == PEAK_F32_FLOPS / 2
+    assert ms == pytest.approx(ops / PEAK_F32_FLOPS * 1e3, rel=1e-12)
+    assert floor == pytest.approx(2 * ms, rel=1e-12)
+    assert floor == pytest.approx(0.0234, abs=1e-4)
+    ms1, by1, floor1 = bound_ms(R, 1, 0, 4 * R)  # one box: bytes-bound
+    assert by1 == "bytes" and floor1 == ms1 \
+        == pytest.approx(28 * R / PEAK_BYTES_S * 1e3, rel=1e-12)
+    t = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt)
+    O = PV(t(R), t(R), t(R))
+    members = (t(nb, 8), t(nb, dt=torch.int32))
+    assert call_bound("pair_bits", (O, O, 40, 64, members, t(R),
+                                    t(R, dt=torch.bool)),
+                      t(2, R // 64, dt=torch.int32)) == (ms, by, floor)
+    key = call_bound("compact_key", (O, O, t(40, 8), 40, None, None, R),
+                     (t(R, dt=torch.int32), t(dt=torch.int64)))
+    assert key == bound_ms(R, 40, 40 * 6 * 4, 4 * R + 8)
+
+
+def test_index_cases_reach_the_kernels_branches():
+    """bench/cull.index_cases, which tests/test_torch_kernels.py and
+    chip_smoke.py run through the kernels, hold what the kernels' index
+    math must survive: every subgroup of SUBGROUPS, ray counts no multiple
+    of a block's 512, members naming tiles outside [0, nc) that the plain
+    version is not given (the kernel ignores them), 157 words at
+    subgroups 2 and 8, keys over 40, 129 and 1,100 boxes in both modes;
+    on the CPU the dispatching functions give the plain results."""
+    from raytracinggpu_tpu_torch.bench.cull import (
+        OUTSIDE, SUBGROUPS, index_cases)
+
+    cases = index_cases("cpu")
+    bits = [c for c in cases if c[1] == "pair_bits"]
+    keys = [c for c in cases if c[1] == "compact_key"]
+    assert {c[2][3] for c in bits} == set(SUBGROUPS) | {2}
+    for label, _, args, plain in bits:
+        R, nc, subg = args[0].x.shape[0], args[2], args[3]
+        assert R % subg == 0 and (R % 512 or subg >= 512)
+        tiles, plain_tiles = args[4][1], plain[4][1]
+        if nc == 300:
+            assert set(OUTSIDE) | {300} <= set(tiles.tolist())
+            assert plain_tiles.min() >= 0 and plain_tiles.max() < nc
+            assert args[4][0].shape[0] == plain[4][0].shape[0] + 4
+        else:
+            assert -(-nc // 32) == 157 and subg in (2, 8)
+            assert ppt._pair_bits(*args).shape == (157, R // subg)
+    assert [c[2][3] for c in keys] == [40, 129, 1100]
+    assert {ppt._key_mode(c[2][3], 5000)[0] for c in keys} == {1, 2}
+    for _, _, args, _ in keys:
+        got, want = ppt._compact_key(*args), ppt.compact_key_plain(*args)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+
+def test_culling_inputs_of_a_frame_are_contiguous():
+    """The culling wrappers' ``.contiguous()`` (ops/_kernels._ray_rows)
+    copies nothing on the frames' casts: every ray row, cap and mask that
+    a headline-style and a realtime frame hand to ``_pair_bits`` and
+    ``_compact_key`` is already contiguous (the compacted casts' rows are
+    rows of one gathered tensor), so the kernels need no strides."""
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+    from raytracinggpu_tpu_torch.scene.presets import build_preset as pbp
+
+    seen = []
+
+    def note(O, u, *rest):
+        seen.append([x.is_contiguous() for x in (*O, *u, *rest)
+                     if isinstance(x, torch.Tensor)])
+
+    saved = ppt._pair_bits, ppt._compact_key
+
+    def bits(O, u, nc, subg, members, cap=None, active=None):
+        note(O, u, cap, active)
+        return saved[0](O, u, nc, subg, members, cap, active)
+
+    def key(O, u, aabb, nc, cap, active, valid_n):
+        note(O, u, cap, active)
+        return saved[1](O, u, aabb, nc, cap, active, valid_n)
+
+    ppt._pair_bits, ppt._compact_key = bits, key
+    try:
+        for preset in ("array_bvh", "realtime"):
+            cfg, tables = pbp(preset, "cpu", width=48, height=48, spp=2,
+                              max_depth=3)
+            render_preset_frame(tables, cfg, seed=0)
+    finally:
+        ppt._pair_bits, ppt._compact_key = saved
+    assert len(seen) > 10 and all(all(s) for s in seen)
+    assert any(len(s) == 8 for s in seen)  # cap and mask both given

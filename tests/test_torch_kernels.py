@@ -1933,3 +1933,62 @@ def test_culling_kernels_on_a_wide_table_and_the_compacted_rows():
     Or, ur = Vec3(rows[6], rows[7], rows[8]), Vec3(rows[0], rows[1], rows[2])
     _check_culling(Or, ur, (boxes, tiles), 5000, rows[9], rows[10] > 0.5,
                    64, ((boxes[:40].contiguous(), 40),), 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["subgroups", "wide table", "keys"])
+def test_culling_kernels_bitwise_on_the_index_cases(part):
+    """bench/cull.index_cases: pair_bits at subgroups 8, 16, 32, 64, 128
+    and 512 (wider than a block) over 37 subgroups (rays no multiple of
+    the rays a block holds), 1,100 member boxes (several staging chunks)
+    and members naming tiles outside [0, nc); over 5,000 tiles (several
+    passes of a block's words) at subgroups 2 and 8; the key on 5,000 rays
+    over 40, 129 (one past a staging chunk) and 1,100 boxes: each through
+    the wrapper (counted) and at every rays-a-thread the kernels take
+    (1, 2, 4 where it divides the subgroup), bitwise the plain version."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench.cull import SUBGROUPS, index_cases
+    from raytracinggpu_tpu_torch.bench.cull_design import hold_index_cases
+
+    cases = [c for c in index_cases("cuda")
+             if {"subgroups": c[1] == "pair_bits" and "5,000" not in c[0],
+                 "wide table": "5,000 tiles" in c[0],
+                 "keys": c[1] == "compact_key"}[part]]
+    n0 = dict(_kernels.LAUNCHES)
+    held = hold_index_cases(cases)
+    assert [(label, k) for label, k, ok in held if not ok] == []
+    name = "compact_key" if part == "keys" else "pair_bits"
+    assert _kernels.LAUNCHES[name] == n0[name] + len(cases)
+    assert {k for _, k, _ in held} == {None, 1, 2, 4}
+    if part == "subgroups":
+        assert {c[2][3] for c in cases} == set(SUBGROUPS)
+        assert all(c[2][0].x.shape[0] % 512 for c in cases if c[2][3] < 512)
+
+
+@pytest.mark.cuda
+def test_compact_key_is_one_launch_and_its_count_resets():
+    """rt_compact_key runs one device operation a call (the count lands in
+    n_act from the kernel's last block; no memset: a CUDA graph capturing
+    a call holds one kernel node), and n_act is the plain count over three
+    calls in a row and over two replays of one captured CUDA graph: the
+    counter and the ticket are back at zero after each."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench.cull_design import graph_nodes
+
+    O, u, boxes, _, cap, act = _culling_inputs("cuda", R=70000)
+    args = (O, u, boxes[:40].contiguous(), 40, cap, act, 69000)
+    want = pt.compact_key_plain(*args)
+    assert graph_nodes(lambda: pt._compact_key(*args)) == [0]
+    for _ in range(3):
+        skey, n_act, shift = pt._compact_key(*args)
+        assert torch.equal(skey, want[0]) and int(n_act) == int(want[1])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pt._compact_key(*args)
+    for _ in range(2):
+        captured[1].fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured[0], want[0])
+        assert int(captured[1]) == int(want[1]) > 0
