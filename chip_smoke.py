@@ -8,8 +8,8 @@ Phases, in order; any failed check exits nonzero:
    CUDA and nvcc versions;
 2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
    csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e,
-   csrc/cull.cu: the pairs culling, pair_bits and compact_key) with nvcc
-   for sm_90a, one process per source, and load them;
+   csrc/cull.cu: the culling, pair_bits, compact_key and tile_lists) with
+   nvcc for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once with the compaction ladder off (every cast at
    full width, as in earlier versions of this script) while keeping the
@@ -64,7 +64,8 @@ Phases, in order; any failed check exits nonzero:
       their plain versions bit for bit;
    b. the same frame again with the counters zeroed: finite, equal to the
       capture frame, every ray hits at every depth, some shadow rays
-      occluded, B5 and B6 launched once per cast and B0-B3 never; three
+      occluded, B5 and B6 launched once per cast (and the tiled culling,
+      tile_lists, once per cast of either) and B0-B3 never; three
       frames timed, Mray/s printed beside the pairs headline of phase 4;
    c. on the kept depth-0 rays with no cap: B5's (t, idx) through
       ``intersect_tris_pallas`` must equal B0's through
@@ -280,6 +281,37 @@ Phases, in order; any failed check exits nonzero:
    f. compact_key is one device operation a call (no memset: one kernel
       node in a CUDA graph that captures a call), and its n_act equals the plain count over three calls in a row and
       two replays of one captured CUDA graph (the counter resets).
+20. the tiled culling kernel (csrc/cull.cu: ``tile_lists``, the
+    per-subgroup list rows [count, active tiles, inactive tiles] of every
+    tiled cast, rt_pair_bits' kernel over the valid tile boxes and one
+    warp a row; ops/pallas_trace.py's ``_block_active_tiles`` launches it
+    on CUDA tensors, as often as B5 and B6 together, which _launched
+    holds in every phase):
+   a. the inputs of the calls the frames make are kept (the pallas
+      headline's depth-0 and depth-1 closest and shadow casts, the soup's
+      eight pallas casts over its 1,564 tiles, the posed first cast of
+      the animated pallas frame 1); on each the kernel must equal its
+      plain version bit for bit; so must it on bench/cull.py's adversarial
+      tables (65,536 rays; 4, 31, 32, 33, 126, 127 and 300 tiles with the
+      padding tiles' inverted boxes, NaN boxes and a box of infinite
+      extent; subgroups 1-128; with and without cap) and on the tiled
+      index cases at 1,037 subgroups (5,000 tiles in passes of a block's
+      words, 140,000 tiles, every rays-a-thread;
+      bench/cull_design.hold_index_cases);
+   b. the pallas headline frame and the soup pallas frame must be bitwise
+      (image and TraceStats) the same frames with the plain version
+      patched in for ``_block_active_tiles`` (the previous torch-op path),
+      which launches no tile_lists and the same B5 and B6;
+   c. the kernel on the pallas headline's depth-1 closest and shadow casts
+      and the soup's depth-1 closest cast: its time replayed from a CUDA
+      graph and eager, its plain version's, and the bound and no-FMA
+      floor of bench/cull.py; the kernels a pallas headline frame
+      launches and their device time both ways
+      (utils/profiling.device_kernels); the pallas headline's and the
+      soup pallas frame's host-clock time and Mray/s both ways in four
+      rounds of turns (median and every frame), and the soup pallas
+      frame's peak device memory both ways (the process's, and over what
+      earlier phases hold).
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -290,7 +322,9 @@ it must move over PEAK_BYTES_S; a probe's numbers are those of one
 configuration at PROBE_DEFAULT, replayed from a CUDA graph, see
 _PROBE_ROW; the culling kernels' are phase 19d's on the cat's depth-1
 closest cast, full width, replayed from a CUDA graph, with their launches
-in phase 4's frame); the last line is the JSON result.
+in phase 4's frame, and tile_lists' phase 20c's on the pallas headline's
+depth-1 closest cast with its launches in phase 9b's frame); the last
+line is the JSON result.
 Without a CUDA device the script exits nonzero at once and prints no
 result.
 """
@@ -386,8 +420,9 @@ _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pair_slope_kernelILi8E": "probe_pair_slope (subgroup 4)",
           "pair_slope_kernelILi16E": "probe_pair_slope (subgroup 2)",
           "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)",
-          "pair_bits_kernel": "pair_bits",
-          "compact_key_kernel": "compact_key"}
+          "pair_bits_kernel": "pair_bits (and tile_lists' words)",
+          "compact_key_kernel": "compact_key",
+          "tile_lists_kernel": "tile_lists (rows)"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
@@ -408,6 +443,8 @@ _ORIGIN = {
                   "_pair_bits with members (XLA-side, no Pallas kernel)"),
     "compact_key": (_CULL, "raytracinggpu_tpu/ops/pairs_trace.py:928 "
                     "_compact_key (XLA-side, no Pallas kernel)"),
+    "tile_lists": (_CULL, "raytracinggpu_tpu/ops/pallas_trace.py:475 "
+                   "_block_active_tiles (XLA-side, no Pallas kernel)"),
     "probe_tile_slope": (_MICRO, "raytracinggpu_tpu/bench/micro_kernel.py:75"),
     "probe_block_mask": (_MICRO,
                          "raytracinggpu_tpu/bench/micro_kernel.py:128"),
@@ -454,15 +491,19 @@ def _launched(culling: dict | None = None) -> dict:
     """The launches since the last ``reset_launches()``, by kernel, without
     the culling kernels of csrc/cull.cu, which are held here: every pairs
     cast culls once, so pair_bits launched as often as B0-B3 together,
-    and the ladder keys at most every cast (compact_key).  ``culling``
-    receives their counts."""
+    and the ladder keys at most every cast (compact_key); every tiled
+    cast culls once, so tile_lists launched as often as B5 and B6
+    together.  ``culling`` receives their counts."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
     out = dict(_kernels.LAUNCHES)
     cull = {k: out.pop(k) for k in _kernels.CULLING}
     casts = sum(out[k] for k in _PAIRS_KERNELS)
-    if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts:
-        _fail(f"culling launches {cull} for {casts} pairs casts")
+    tiled = out["pallas_closest"] + out["pallas_shadow"]
+    if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts \
+            or cull["tile_lists"] != tiled:
+        _fail(f"culling launches {cull} for {casts} pairs casts and "
+              f"{tiled} tiled casts")
     if culling is not None:
         culling.update(cull)
     return out
@@ -946,7 +987,8 @@ def _pallas(device, card, err, timing, pairs_mrays):
     t0 = time.perf_counter()
     img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
     torch.cuda.synchronize()
-    launches = _launched()
+    culling = {}
+    launches = _launched(culling)
     n_rays = cfg.width * cfg.height * cfg.spp
     hit = stats.hit.tolist()
     print(f"pallas headline frame: {time.perf_counter() - t0:.3f} s, "
@@ -963,8 +1005,11 @@ def _pallas(device, card, err, timing, pairs_mrays):
         _fail("pallas: no shadow ray was occluded")
     expected = _none()
     expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
-    if launches != expected:
-        _fail(f"pallas launches in the frame {launches}, expected {expected}")
+    if launches != expected or culling["tile_lists"] != 2 * n_casts:
+        _fail(f"pallas launches in the frame {launches}, of the culling "
+              f"{culling}, expected {expected} and tile_lists "
+              f"{2 * n_casts}")
+    launches["tile_lists"] = culling["tile_lists"]
     times = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -2557,7 +2602,8 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
 
     # e. the kernels' index math (bench/cull.index_cases), through the
     # wrappers and at every rays-a-thread the kernels take, bitwise
-    held = hold_index_cases(index_cases(device, n_sg=1037))
+    held = hold_index_cases([c for c in index_cases(device, n_sg=1037)
+                             if c[1] != "tile_lists"])  # phase 20's
     bad = [(label, k) for label, k, ok in held if not ok]
     if bad:
         _fail(f"culling index cases differ from the plain versions: {bad}")
@@ -2589,6 +2635,241 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
         _fail("compact_key is not one launch a call, or its n_act is wrong "
               "across calls or graph replays")
     return timing
+
+
+def _plain_tile_lists(fn):
+    """fn() with ops/pallas_trace's plain tiled culling patched in for
+    ``_block_active_tiles`` (the parent's path: torch ops), put back
+    afterwards."""
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+
+    saved = pat._block_active_tiles
+    pat._block_active_tiles = pat.block_active_tiles_plain
+    try:
+        return fn()
+    finally:
+        pat._block_active_tiles = saved
+
+
+def _hold_tile_lists(kept, where, err, quiet=False):
+    """20a: each kept call's kernel bitwise its plain version; ``quiet``
+    prints one line for all of them."""
+    import torch
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+
+    listed = 0
+    for label, args in kept:
+        O, _, aabb, nt, cap, subg = args
+        got = _kernels.tile_lists(*args)
+        want = pat.block_active_tiles_plain(*args)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got, want)
+        err["tile_lists"] = max(err["tile_lists"], e)
+        if not torch.equal(got, want):
+            _fail(f"tile_lists differs from its plain version on {where} "
+                  f"{label} (subgroup {subg}, cap {cap is not None}, max "
+                  f"abs {e})")
+        listed += int(want[:, 0].sum())
+        if quiet:
+            continue
+        valid = int((aabb[:nt, 0] <= aabb[:nt, 3]).sum())
+        print(f"tile culling {where} {label}: tile_lists on {O.x.shape[0]} "
+              f"rays, subgroup {subg}, {nt} tiles ({valid} valid), cap "
+              f"{cap is not None}, rows {tuple(want.shape)}, "
+              f"{int(want[:, 0].sum())} (subgroup, tile) pairs listed: "
+              "bitwise equal")
+    if quiet:
+        print(f"tile culling {where} {kept[0][0]}: {len(kept)} calls, "
+              f"{listed} (subgroup, tile) pairs listed: each bitwise equal")
+
+
+def _tile_culling_phase(device, card, err, soup):
+    """Phase 20 (module docstring).  ``soup`` phase 10's (config, tables).
+    Returns ({"tile_lists": (ms, plain_ms, bound_ms, bound_by)} on the
+    pallas headline's depth-1 closest cast, the launches of a pallas
+    headline frame)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.bench.cull import (
+        TILE_SUBGROUPS, adversarial_tiles, call_bound, index_cases)
+    from raytracinggpu_tpu_torch.bench.cull_design import (
+        capture, hold_index_cases)
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.core.vec import Vec3
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, rays_per_frame, render_frame, render_preset_frame)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels
+
+    hcfg, htab = build_preset("array_bvh", device, width=512, height=512,
+                              spp=32, max_depth=5, traversal="pallas")
+    cam = Camera.default(hcfg, device)
+    head_frame = lambda seed=0: render_frame(htab, hcfg, cam,
+                                             PRNGKey(seed, device))
+    scfg, stab = soup
+    scfg = dataclasses.replace(scfg, traversal="pallas")
+    soup_frame = lambda seed=0: render_preset_frame(stab, scfg, seed=seed)
+    acfg, atab = build_preset("realtime", device, animate_mesh=True,
+                              traversal="pallas")
+    posed = lambda: rt.step(atab, acfg, rt.init_state(acfg, atab, seed=0),
+                            mesh_speed=ANIM_MESH_SPEED)
+
+    # a. bitwise on the frames' own calls
+    captured = {}
+    for where, render, n in (
+            ("pallas headline", head_frame, 4),
+            ("soup pallas", soup_frame, 8),
+            ("animated pallas frame 1 (posed)", posed, 1)):
+        kept, _ = capture(render, 0, 0, n)
+        torch.cuda.synchronize()
+        if len(kept["tile_lists"]) != n:
+            _fail(f"tile culling {where}: kept {len(kept['tile_lists'])} "
+                  f"calls, expected {n}")
+        _hold_tile_lists(kept["tile_lists"], where, err)
+        captured[where] = kept["tile_lists"]
+    soup_nt = {a[3] for _, a in captured["soup pallas"]}
+    print(f"tile culling soup: tiles {soup_nt}, subgroup {scfg.pallas_subgroup}")
+
+    # bench/cull.py's adversarial tables, and the tiled index cases (word
+    # passes, a table past 131,072 tiles, every subgroup, every
+    # rays-a-thread)
+    R = 65536
+    for nt in (4, 31, 32, 33, 126, 127, 300):
+        O, d, aabb, cap = (torch.from_numpy(np.ascontiguousarray(a)).to(
+            device) for a in adversarial_tiles(nt, R, nt))
+        O, u = Vec3(*O), Vec3(*d)
+        _hold_tile_lists([(f"{nt} tiles ({int((aabb[:, 0] <= aabb[:, 3])
+                                              .sum())} valid), {R} rays, "
+                           "subgroups 1-128 with and without cap",
+                           (O, u, aabb, nt, c, subg))
+                          for subg in TILE_SUBGROUPS for c in (None, cap)],
+                         "adversarial", err, quiet=True)
+    held = hold_index_cases([c for c in index_cases(device, n_sg=1037)
+                             if c[1] == "tile_lists"])
+    bad = [(label, k) for label, k, ok in held if not ok]
+    if bad:
+        _fail(f"tile culling index cases differ from the plain version: "
+              f"{bad}")
+    print(f"tile culling index cases: {len(held)} calls on "
+          f"{len({label for label, _, _ in held})} cases (subgroups 1-128 "
+          "over 1,037 subgroups, 5,000 tiles in passes, 140,000 tiles, "
+          "every rays-a-thread), each bitwise the plain version")
+
+    # b. whole frames, bitwise the frames with the plain culling patched in
+    def counted(fn):
+        _kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES)
+
+    t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    n_eq = lambda a, b: np.array_equal(a[0], b[0]) and all(
+        np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    frame_launches = None
+    for name, fn, same in (("pallas headline", head_frame, t_eq),
+                           ("soup pallas", soup_frame, n_eq)):
+        kern_out, l_kern = counted(fn)
+        plain_out, l_plain = counted(lambda: _plain_tile_lists(fn))
+        tiled = l_kern["pallas_closest"] + l_kern["pallas_shadow"]
+        other = lambda d: {k: v for k, v in d.items() if k != "tile_lists"}
+        if l_plain["tile_lists"] or l_kern["tile_lists"] != tiled \
+                or not tiled or other(l_kern) != other(l_plain):
+            _fail(f"tile culling frames {name}: launches {l_kern} through "
+                  f"the kernel, {l_plain} with the plain culling")
+        if not same(kern_out, plain_out):
+            _fail(f"tile culling frames {name}: the frame through the "
+                  "kernel differs from the frame with the plain culling")
+        print(f"tile culling frames {name}: bitwise the frame with the "
+              f"plain culling patched in (image and TraceStats); launches "
+              f"{ {k: v for k, v in l_kern.items() if v} } through the "
+              f"kernel, tile_lists {l_plain['tile_lists']} with the plain "
+              "culling")
+        if frame_launches is None:
+            frame_launches = l_kern
+
+    # c. timings: the kernel replayed from a CUDA graph and eager, its
+    # plain version eager, the bound and the no-FMA floor
+    first = lambda where, label: next(a for lab, a in captured[where]
+                                      if lab == label)
+    timing = {}
+    for row, where, label in (
+            ("cat pallas depth-1 closest", "pallas headline",
+             "depth 1 closest"),
+            ("cat pallas depth-1 shadow", "pallas headline",
+             "depth 1 shadow"),
+            ("soup pallas depth-1 closest", "soup pallas",
+             "depth 1 closest")):
+        args = first(where, label)
+        kern = lambda: _kernels.tile_lists(*args)
+        plain = lambda: pat.block_active_tiles_plain(*args)
+        ms = _time_ms(kern, 50, graph=True)
+        eager_ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        bound, by, floor = call_bound("tile_lists", args, kern())
+        if row == "cat pallas depth-1 closest":
+            timing["tile_lists"] = (ms, plain_ms, bound, by)
+        nt = args[3]
+        valid = int((args[2][:nt, 0] <= args[2][:nt, 3]).sum())
+        print(f"timing tile_lists on the {row} cast ({args[0].x.shape[0]} "
+              f"rays, {valid} valid of {nt} tiles, subgroup {args[5]}): "
+              f"kernel {ms:.4f} ms (graph replay; eager {eager_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"roofline share {bound / ms:.1%}), no-FMA floor "
+              f"{floor:.4f} ms ({floor / ms:.1%}) on {card}")
+
+    # the kernels a pallas headline frame launches both ways, the two
+    # frames' host-clock rate in turns, the soup frame's peak memory
+    for label, fn in (("the kernel", lambda: head_frame(1)),
+                      ("plain culling",
+                       lambda: _plain_tile_lists(lambda: head_frame(1)))):
+        k = device_kernels(fn, top=6)
+        print(f"tile culling pallas headline kernels ({label}): "
+              f"{k['kernels']} kernels, {k['kernel_ms']:.1f} ms of device "
+              f"time a frame on {card}")
+        for e in k["by_name"]:
+            print(f"  {e['ms']:9.1f} ms {e['count']:7d}x  {e['name']}")
+    for name, fn, cfg in (("pallas headline", head_frame, hcfg),
+                          ("soup pallas", soup_frame, scfg)):
+        walls = {"kernel": [], "plain": []}
+        for way in ("kernel", "plain", "plain", "kernel") * 2:
+            call = (lambda: fn(2)) if way == "kernel" else (
+                lambda: _plain_tile_lists(lambda: fn(2)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls[way].append(time.perf_counter() - t0)
+        rate = {w: [round(rays_per_frame(cfg) / t / 1e6, 3) for t in ts]
+                for w, ts in walls.items()}
+        med = {w: sorted(r)[len(r) // 2] for w, r in rate.items()}
+        print(f"tile culling {name} frame (host clock, in turns): through "
+              f"the kernel {[round(t, 4) for t in walls['kernel']]} s "
+              f"({rate['kernel']} Mray/s, median {med['kernel']}), with the "
+              f"plain culling {[round(t, 4) for t in walls['plain']]} s "
+              f"({rate['plain']} Mray/s, median {med['plain']}) on {card}")
+    # the process's peak, and the frame's own: the peak over what earlier
+    # phases still hold
+    for way, fn in (("the kernel", soup_frame), ("the plain culling",
+                    lambda: _plain_tile_lists(soup_frame))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"tile culling soup pallas frame peak memory through {way}: "
+              f"{peak / 2**20:.1f} MiB (max_memory_allocated), "
+              f"{(peak - held) / 2**20:.1f} MiB over the {held / 2**20:.1f} "
+              f"MiB held before the frame, on {card}")
+    return timing, frame_launches
 
 
 def main() -> int:
@@ -2704,9 +2985,11 @@ def main() -> int:
     if launches != expected or cap_launches != expected:
         _fail(f"launches in the frame {launches}, with the ladder off "
               f"{cap_launches}, expected {expected}")
-    if culling != {"pair_bits": 2 * n_casts, "compact_key": 2 * keyed}:
+    if culling != {"pair_bits": 2 * n_casts, "compact_key": 2 * keyed,
+                   "tile_lists": 0}:
         _fail(f"culling launches in the frame {culling}, expected "
-              f"pair_bits {2 * n_casts} and compact_key {2 * keyed}")
+              f"pair_bits {2 * n_casts}, compact_key {2 * keyed} and "
+              f"tile_lists 0")
     print("headline frame (the ladder on, the default) bitwise the capture "
           "frame (the ladder off), TraceStats equal")
     times = []
@@ -2818,6 +3101,10 @@ def main() -> int:
                                  (head_img, head_stats), (rcfg, rtab), soup)
     lap("19 culling kernels")
 
+    # ---- 20. the tiled culling kernel --------------------------------------
+    timing_tiles, _ = _tile_culling_phase(device, card, err, soup)
+    lap("20 tiled culling kernel")
+
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:
     # torch.mul) and the row gather (torch.index_select)
@@ -2837,6 +3124,7 @@ def main() -> int:
             ("pairs_b4", soup_launches, timing_b4),
             ("pair_bits", culling, timing_cull),
             ("compact_key", culling, timing_cull),
+            ("tile_lists", pallas_launches, timing_tiles),
             *((k, probe_launches, timing_probes) for k in _PROBE_ROW))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -1,14 +1,18 @@
-"""Hard inputs and the bound of the pairs culling kernels (``csrc/cull.cu``:
-``pair_bits`` and ``compact_key``, ``ops/_kernels.py``).
+"""Hard inputs and the bound of the culling kernels (``csrc/cull.cu``:
+``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
+of the tiled one; ``ops/_kernels.py``).
 
 ``adversarial`` makes seeded rays and boxes on which a slab test is easy
 to get wrong: direction components of exactly +0.0 and -0.0 (``1/u`` is
 +-inf, and ``(lo - O) * inf`` is NaN where the origin lies in the box's
 plane), origins on box faces and corners, boxes of zero thickness on one
 axis or all three, inverted boxes, and caps at exactly a box's enter
-distance.  tests/test_torch_cull.py holds the plain versions to the JAX
-package's on them, tests/test_torch_kernels.py and chip_smoke.py the
-kernels to the plain versions.
+distance; ``adversarial_tiles`` makes a tiled table of such boxes with
+the padding tiles' inverted boxes and NaN in lo.x, hi.x and another
+coordinate.  tests/test_torch_cull.py and tests/test_torch_tile_cull.py
+hold the plain versions to the JAX package's on them,
+tests/test_torch_kernels.py and chip_smoke.py the kernels to the plain
+versions.
 
 ``bound_ms`` is the least time the card could take for one call (see
 the on-chip bound of chip_smoke.py): every slab test's operations at the
@@ -97,6 +101,33 @@ def adversarial(seed: int, R: int, n_boxes: int, n_tiles: int):
     return O, d, boxes, tiles, cap, active
 
 
+def adversarial_tiles(seed: int, R: int, n_tiles: int):
+    """(O (3, R), u (3, R), aabb (n_tiles, 8), cap (R,)) as numpy: the rays
+    and boxes of ``adversarial`` as a tiled table (box t is tile t), with
+    what a tiled table adds: padding tiles' inverted box (lo = +INF, hi =
+    -INF, INF = 1e9 + 9, as ``ops/pallas_trace.build_pallas_tables`` writes
+    it) on the last eighth of the tiles and the middle one (from 4 tiles),
+    and, where a quarter of the other tiles is at least 4, a NaN in lo.x,
+    a NaN in hi.x (both invalid boxes), a NaN in another coordinate (a box
+    no ray hits) and a box from -inf to +inf (one every ray hits)."""
+    O, d, boxes, _, cap, _ = adversarial(seed, R, n_tiles, n_tiles)
+    rng = np.random.default_rng(seed + 1000)
+    pad = set(range(n_tiles - n_tiles // 8, n_tiles))
+    if n_tiles >= 4:
+        pad.add(n_tiles // 2)
+    pad = sorted(pad)
+    boxes[pad, 0:3] = np.float32(1e9 + 9)
+    boxes[pad, 3:6] = -np.float32(1e9 + 9)
+    rest = np.setdiff1d(np.arange(n_tiles), pad)
+    if rest.size // 4 >= 4:
+        a, b, c, e = rng.choice(rest, 4, replace=False)
+        boxes[a, 0] = np.nan
+        boxes[b, 3] = np.nan
+        boxes[c, rng.choice([1, 2, 4, 5])] = np.nan
+        boxes[e, 0:3], boxes[e, 3:6] = -np.inf, np.inf
+    return O, d, boxes, cap
+
+
 def enter_of(O, u, boxes):
     """Each ray's slab enter distance into its own box (column i of O and
     u against row i of boxes), in f32 with NaN propagated as the slab test
@@ -128,13 +159,22 @@ def bound_ms(R: int, n_boxes: int, extra_in: int, out_bytes: int):
 def call_bound(name: str, args, out):
     """``bound_ms`` of one call of ``ops/pairs_trace._pair_bits`` (name
     "pair_bits", args (O, u, nc, subg, (boxes, tiles), cap, active), out
-    the bits) or ``_compact_key`` ("compact_key", args (O, u, boxes, nc,
-    cap, active, valid_n), out (skey, n_act, ...)): its slab tests, and its
-    inputs read and outputs written once."""
+    the bits), ``_compact_key`` ("compact_key", args (O, u, boxes, nc,
+    cap, active, valid_n), out (skey, n_act, ...)) or
+    ``ops/pallas_trace._block_active_tiles`` ("tile_lists", args (O, u,
+    aabb, n_tiles, cap, subg), out the list rows): its slab tests (for the
+    lists, against the valid tiles' boxes only, the work these boxes
+    need), and its inputs read and outputs written once."""
+    active = None
     if name == "pair_bits":
         O, _, _, _, (boxes, _), cap, active = args
         nb, out_bytes = boxes.shape[0], out.numel() * 4
         extra = nb * (6 + 1) * 4
+    elif name == "tile_lists":
+        O, _, aabb, nt, cap, _ = args
+        nb = int((aabb[:nt, 0] <= aabb[:nt, 3]).sum())
+        out_bytes = out.numel() * 4
+        extra = nt * 6 * 4
     else:
         O, _, _, nb, cap, active, _ = args
         out_bytes = out[0].numel() * 4 + 8
@@ -147,6 +187,10 @@ def call_bound(name: str, args, out):
 # subgroups of index_cases: a warp, part of one, several, and a subgroup
 # wider than the kernel's block
 SUBGROUPS = (8, 16, 32, 64, 128, 512)
+# the tiled traversal's subgroups (ops/pallas_trace._check_subg admits
+# these) and a table past a block's 131,072 tiles of shared words
+TILE_SUBGROUPS = (1, 2, 4, 8, 16, 32, 64, 128)
+BIG_TABLE = 140_000
 OUTSIDE = (-1, -2**31, 2**30)  # member tiles outside [0, nc) (+ nc itself)
 
 
@@ -169,7 +213,15 @@ def index_cases(device, n_sg: int = 37, seed: int = 2) -> list:
       a block's words) at subgroups 2 and 8, 2,075 subgroups;
     - compact_key on 5,000 rays (no multiple of a block's), valid_n 4,993,
       over 40 boxes (mode 2), 129 (one past a staging chunk) and 1,100
-      (mode 1)."""
+      (mode 1);
+    - tile_lists ("tile_lists", args (O, u, aabb, n_tiles, cap, subg) of
+      ops/pallas_trace's ``_block_active_tiles``) on ``adversarial_tiles``
+      tables: at each of TILE_SUBGROUPS over n_sg subgroups and 300
+      tiles, with cap (and at subgroups 1 and 64 without); at subgroups
+      1 and 8 over a 5,000-box table (157 words a subgroup, several
+      passes of a block's words); at subgroups 1 and 64 over a
+      BIG_TABLE-box table (past 131,072 tiles: 4,375 words, rows of
+      140,001 ints), 7 and 449 subgroups."""
     import torch
 
     from raytracinggpu_tpu_torch.core.vec import Vec3
@@ -210,4 +262,23 @@ def index_cases(device, n_sg: int = 37, seed: int = 2) -> list:
         args = (O, u, boxes[:n].contiguous(), n, cap, act, 4993)
         cases.append((f"5,000 rays, valid 4,993, {n} key boxes",
                       "compact_key", args, args))
+
+    def tiled(subg, n_sub, n_tiles, s, caps=(True,)):
+        O, d, aabb, cap = adversarial_tiles(s, subg * n_sub, n_tiles)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        O, u, aabb, cap = Vec3(*map(t, O)), Vec3(*map(t, d)), t(aabb), t(cap)
+        for c in caps:
+            args = (O, u, aabb, n_tiles, cap if c else None, subg)
+            cases.append((f"tile lists, subgroup {subg}, {subg * n_sub} "
+                          f"rays, a {n_tiles:,}-box table, "
+                          f"{'with' if c else 'without'} cap", "tile_lists",
+                          args, args))
+
+    for i, subg in enumerate(TILE_SUBGROUPS):
+        tiled(subg, n_sg, 300, seed + 30 + i,
+              (True, False) if subg in (1, 64) else (True,))
+    for subg in (1, 8):
+        tiled(subg, n_sg, 5000, seed + 40 + subg)
+    tiled(64, 7, BIG_TABLE, seed + 50)
+    tiled(1, 449, BIG_TABLE, seed + 51)
     return cases

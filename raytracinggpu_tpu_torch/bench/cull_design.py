@@ -9,15 +9,22 @@ when none is; another tree's from ``git archive``, say) with the flags of
 ``rt_pair_bits`` and ``rt_compact_key`` with the C interface of
 ``ops/_kernels.load``, and a source that also exports ``rt_pair_bits_k``
 and ``rt_compact_key_k`` (rays a thread forced: 1, 2 or 4) is timed at
-each of those too.  Then keeps the culling calls that the main-path frames
+each of those too; a source that exports ``rt_tile_lists`` and
+``rt_tile_lists_k`` (the tiled culling) is timed on the tiled casts of
+TILE_ROWS too.  Then keeps the culling calls that the main-path frames
 make (``capture``: the headline frame, ``array_bvh`` 512x512 spp 32 depth
 5, with the ladder off for its depth-1 full-width casts and on for a
 compacted one and the key; the 200,000-triangle soup of
 ``bench/big_mesh.py``, 512x512 spp 4 depth 2, its depth-1 cast and key)
-and, on each, checks every library's kernel bitwise against the plain
-version and times it with CUDA events, replayed from a CUDA graph and
-eager, the trees in turns (each row twice: the trees in order, then
-reversed), beside ``bench/cull.call_bound``'s bound and no-FMA floor.
+and the tiled culling's calls of the same two frames through
+``traversal="pallas"`` (their depth-1 closest casts), and, on each,
+checks every library's kernel bitwise against the plain version and
+times it with CUDA events, replayed from a CUDA graph and eager, the
+trees in turns (each row twice: the trees in order, then reversed),
+beside ``bench/cull.call_bound``'s bound and no-FMA floor.  On the tiled
+casts it also times this tree's ``rt_pair_bits`` over the valid tile
+boxes as members (the words of ``rt_tile_lists`` alone, with no rows):
+the rows kernel's and its launch's share is the difference.
 Last, the SASS instructions a slab test of each kernel (``cuobjdump
 -sass``: the innermost loop that holds the slab tests, over its FMUL / 6,
 a slab test having six products).  Every line carries the card's name and
@@ -48,21 +55,26 @@ ROWS = (("cat depth-1 closest, full width", "headline, the ladder off",
         ("cat depth-1 closest", "headline", "compact_key", "depth 1 closest"),
         ("soup depth-1 closest", "soup", "pair_bits", "depth 1 closest"),
         ("soup depth-1 closest", "soup", "compact_key", "depth 1 closest"))
+# (row, frame) of the tiled culling's timed depth-1 closest casts
+TILE_ROWS = (("cat pallas depth-1 closest", "headline, pallas"),
+             ("soup pallas depth-1 closest", "soup, pallas"))
 
 
-def capture(render, n_bits: int, n_keys: int):
+def capture(render, n_bits: int, n_keys: int, n_lists: int = 0):
     """Run render() with ops/pairs_trace's ``_pair_bits`` and
-    ``_compact_key`` wrapped so that the inputs of their first ``n_bits``
-    and ``n_keys`` calls are kept (cloned), each labelled with its depth
-    and query as bench/ladder.TierLog tracks them; the wrapped functions
-    are the real ones, which launch and count as always, and are put back
+    ``_compact_key`` and ops/pallas_trace's ``_block_active_tiles``
+    wrapped so that the inputs of their first ``n_bits``, ``n_keys`` and
+    ``n_lists`` calls are kept (cloned), each labelled with its depth and
+    query as bench/ladder.TierLog tracks them; the wrapped functions are
+    the real ones, which launch and count as always, and are put back
     afterwards.  Returns ({"pair_bits": [(label, args)], "compact_key":
-    [...]}, render's result)."""
+    [...], "tile_lists": [...]}, render's result)."""
     from raytracinggpu_tpu_torch.bench.ladder import TierLog
     from raytracinggpu_tpu_torch.core.vec import Vec3
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
 
-    kept = {"pair_bits": [], "compact_key": []}
+    kept = {"pair_bits": [], "compact_key": [], "tile_lists": []}
 
     def clone(x):
         if isinstance(x, torch.Tensor):
@@ -81,15 +93,18 @@ def capture(render, n_bits: int, n_keys: int):
                 return fn(*args)
             return call
 
-        saved = pt._pair_bits, pt._compact_key
+        saved = pt._pair_bits, pt._compact_key, pat._block_active_tiles
         bits = keeping("pair_bits", n_bits, saved[0])
         pt._pair_bits = lambda O, u, nc, subg, members, cap=None, \
             active=None: bits(O, u, nc, subg, members, cap, active)
         pt._compact_key = keeping("compact_key", n_keys, saved[1])
+        lists = keeping("tile_lists", n_lists, saved[2])
+        pat._block_active_tiles = lambda O, u, aabb, n_tiles, cap=None, \
+            subg=pat.SUBG: lists(O, u, aabb, n_tiles, cap, subg)
         try:
             out = render()
         finally:
-            pt._pair_bits, pt._compact_key = saved
+            pt._pair_bits, pt._compact_key, pat._block_active_tiles = saved
     return kept, out
 
 
@@ -101,9 +116,11 @@ def _bind(path):
     sigs = {"rt_pair_bits": [p] * 7 + [i, p, i, p, p, i, i, i, p],
             "rt_compact_key": [p] * 7 + [i] * 4 + [p, p, i, i, p, p]}
     has_k = all(hasattr(lib, f"{n}_k") for n in sigs)
-    if has_k:
-        sigs["rt_pair_bits_k"] = sigs["rt_pair_bits"] + [i]
-        sigs["rt_compact_key_k"] = sigs["rt_compact_key"] + [i]
+    if hasattr(lib, "rt_tile_lists_k"):
+        sigs["rt_tile_lists"] = [p] * 7 + [i, p, i, i, i, p, p]
+    for name in list(sigs):
+        if has_k or name == "rt_tile_lists":
+            sigs[f"{name}_k"] = sigs[name] + [i]
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args + [p]
@@ -112,10 +129,12 @@ def _bind(path):
 
 
 def launch(lib, name, args, k=None):
-    """One call of kernel ``name`` ("pair_bits" or "compact_key") from
-    ``lib`` on the arguments of ``ops/pairs_trace._pair_bits`` or
-    ``_compact_key``, with ``k`` rays a thread forced when given (not
-    counted in ``_kernels.LAUNCHES``); returns bits, or (skey, n_act)."""
+    """One call of kernel ``name`` ("pair_bits", "compact_key" or
+    "tile_lists") from ``lib`` on the arguments of
+    ``ops/pairs_trace._pair_bits`` or ``_compact_key`` or
+    ``ops/pallas_trace._block_active_tiles``, with ``k`` rays a thread
+    forced when given (not counted in ``_kernels.LAUNCHES``); returns bits,
+    (skey, n_act) or the list rows."""
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -130,6 +149,17 @@ def launch(lib, name, args, k=None):
         err = fn(*(x.data_ptr() for x in rows), boxes.data_ptr(),
                  boxes.shape[1], tiles.data_ptr(), boxes.shape[0], ptr(cap),
                  ptr(active), R, subg, nc, out.data_ptr(), *kk, st)
+    elif name == "tile_lists":
+        O, u, aabb, nt, cap, subg = args
+        rows, cap, _, R = _kernels._ray_rows(O, u, cap, None)
+        out = torch.empty((R // subg, 1 + nt), dtype=torch.int32,
+                          device=aabb.device)
+        bits = torch.empty((-(-nt // 32), R // subg), dtype=torch.int32,
+                           device=aabb.device)
+        fn = lib.rt_tile_lists_k if k else lib.rt_tile_lists
+        err = fn(*(x.data_ptr() for x in rows), aabb.data_ptr(),
+                 aabb.shape[1], ptr(cap), R, subg, nt, bits.data_ptr(),
+                 out.data_ptr(), *kk, st)
     else:
         O, u, boxes, nc, cap, active, valid_n = args
         rows, cap, active, R = _kernels._ray_rows(O, u, cap, active)
@@ -147,41 +177,53 @@ def launch(lib, name, args, k=None):
     return out
 
 
+def dispatching(name):
+    """The function of the port that launches kernel ``name`` on CUDA
+    tensors (its plain version on CPU tensors)."""
+    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
+
+    return {"pair_bits": pt._pair_bits, "compact_key": pt._compact_key,
+            "tile_lists": pat._block_active_tiles}[name]
+
+
 def plain(name, args):
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+    from raytracinggpu_tpu_torch.ops import pallas_trace as pat
 
     if name == "pair_bits":
         return pt.pair_bits_plain(*args)
+    if name == "tile_lists":
+        return pat.block_active_tiles_plain(*args)
     return pt.compact_key_plain(*args)[:2]
 
 
 def same(name, got, want) -> bool:
-    if name == "pair_bits":
+    if name != "compact_key":
         return torch.equal(got, want)
     return torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
 
 
 def forced(name, args):
     """The rays a thread (FORCED) that a call can be forced to: for
-    pair_bits those dividing its subgroup."""
-    return [k for k in FORCED if name == "compact_key" or args[3] % k == 0]
+    pair_bits and tile_lists those dividing its subgroup."""
+    subg = {"pair_bits": 3, "tile_lists": 5}.get(name)
+    return [k for k in FORCED if subg is None or args[subg] % k == 0]
 
 
 def hold_index_cases(cases) -> list:
     """Each case of ``bench/cull.index_cases`` through the dispatching
-    function of ops/pairs_trace (the wrapper, rays a thread by default,
-    counted in LAUNCHES) and through this package's *_k entry points at
-    each of ``forced``: [(label, k or None, bitwise the plain version)]."""
-    from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-
+    function of ops/pairs_trace or ops/pallas_trace (the wrapper, rays a
+    thread by default, counted in LAUNCHES) and through this package's *_k
+    entry points at each of ``forced``: [(label, k or None, bitwise the
+    plain version)]."""
     lib = _kernels.load()
     out = []
     for label, name, args, plain_args in cases:
         want = plain(name, plain_args)
-        fn = pt._pair_bits if name == "pair_bits" else pt._compact_key
-        got = fn(*args)
+        got = dispatching(name)(*args)
         torch.cuda.synchronize()
-        out.append((label, None, same(name, got if name == "pair_bits"
+        out.append((label, None, same(name, got if name != "compact_key"
                                       else got[:2], want)))
         for k in forced(name, args):
             got = launch(lib, name, args, k)
@@ -216,19 +258,25 @@ def graph_nodes(fn) -> list:
 
 def frames_calls(device):
     """{frame: kept calls (``capture``)} of the headline frame with the
-    ladder off and on, and of the soup frame."""
+    ladder off and on, of the soup frame, and of both through the tiled
+    traversal."""
+    import dataclasses
+
     from raytracinggpu_tpu_torch.bench.ladder import build_scenes, ladder_off
 
     scenes = build_scenes(device, ["frames"])
     hcfg, _, head = scenes["headline"]
     scfg, _, soup = scenes["soup"]
+    tiled = lambda c: dataclasses.replace(c, traversal="pallas")
     out = {}
-    for where, render, n_bits, n_keys in (
+    for where, render, n_bits, n_keys, n_lists in (
             ("headline, the ladder off", lambda: head(ladder_off(hcfg), 0),
-             4, 0),
-            ("headline", lambda: head(hcfg, 0), 6, 4),
-            ("soup", lambda: soup(scfg, 0), 4, 2)):
-        out[where] = capture(render, n_bits, n_keys)[0]
+             4, 0, 0),
+            ("headline", lambda: head(hcfg, 0), 6, 4, 0),
+            ("soup", lambda: soup(scfg, 0), 4, 2, 0),
+            ("headline, pallas", lambda: head(tiled(hcfg), 0), 0, 0, 4),
+            ("soup, pallas", lambda: soup(tiled(scfg), 0), 0, 0, 4)):
+        out[where] = capture(render, n_bits, n_keys, n_lists)[0]
         torch.cuda.synchronize()
     return out
 
@@ -355,8 +403,62 @@ def run(sources, card: str, device="cuda") -> dict:
                   f"{bound:.4f} ({by}, {bound / min(g):.1%}), no-FMA floor "
                   f"{floor:.4f} ({floor / min(g):.1%}); bitwise the plain "
                   f"version; on {card}", flush=True)
+    for row, where in TILE_ROWS:
+        args = next(a for la, a in calls[where]["tile_lists"]
+                    if la == "depth 1 closest")
+        time_tile_row(row, args, bound_libs, label, results, card)
     sass_report(libs, label)
     return results
+
+
+def time_tile_row(row, args, bound_libs, label, results, card) -> None:
+    """The tiled culling on one kept cast: each library that has
+    ``rt_tile_lists`` (and each rays-a-thread), bitwise the plain version,
+    timed in turns as ``run``'s rows are, and this tree's ``rt_pair_bits``
+    over the valid tile boxes as members (the words alone)."""
+    from raytracinggpu_tpu_torch.bench._timing import timed
+    from raytracinggpu_tpu_torch.bench.cull import call_bound
+
+    name = "tile_lists"
+    O, u, aabb, nt, cap, subg = args
+    want = plain(name, args)
+    torch.cuda.synchronize()
+    bound, by, floor = call_bound(name, args, want)
+    valid = aabb[:nt, 0] <= aabb[:nt, 3]
+    tiles = torch.where(valid, torch.arange(nt, device=aabb.device),
+                        -1).to(torch.int32)
+    words = (O, u, nt, subg, (aabb[:nt].contiguous(), tiles), cap, None)
+    this = _kernels.load()
+    variants = [("words alone (rt_pair_bits)", this, "pair_bits", None)]
+    for v, (lib, _) in bound_libs.items():
+        if not hasattr(lib, "rt_tile_lists_k"):
+            continue
+        for k in (None, *forced(name, args)):
+            got = launch(lib, name, args, k)
+            torch.cuda.synchronize()
+            if not same(name, got, want):
+                raise SystemExit(f"cull_design: {label(v)}'s tile_lists (k "
+                                 f"{k}) differs from the plain version on "
+                                 f"the {row} cast")
+            variants.append((label(v), lib, name, k))
+    res = results[row, name] = {}
+    for order in (variants, variants[::-1]):
+        for v, lib, kern, k in order:
+            a = words if kern == "pair_bits" else args
+            fn = lambda: launch(lib, kern, a, k)
+            g = timed(fn, GRAPH_ITERS, graph=True) * 1e3
+            e = timed(fn, EAGER_ITERS) * 1e3
+            res.setdefault((v, k), []).append((g, e))
+    for (v, k), ms in res.items():
+        g = [x for x, _ in ms]
+        print(f"tile_lists on the {row} cast ({O.x.shape[0]} rays, "
+              f"{int(valid.sum())} valid of {nt} tiles, subgroup {subg}), "
+              f"{v}, k {k or 'auto'}: graph "
+              f"{', '.join(f'{x:.4f}' for x in g)} ms, eager "
+              f"{', '.join(f'{y:.4f}' for _, y in ms)} ms; bound "
+              f"{bound:.4f} ({by}, {bound / min(g):.1%}), no-FMA floor "
+              f"{floor:.4f} ({floor / min(g):.1%}); bitwise the plain "
+              f"version; on {card}", flush=True)
 
 
 def main(argv=None) -> int:

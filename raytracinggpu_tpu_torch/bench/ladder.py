@@ -91,6 +91,7 @@ class TierLog:
         self._saved = [(m, a, getattr(m, a)) for m, a in (
             (wf, "depth_configs"), (wf, "_depth_step"),
             (wf, "intersect_tris_pairs"), (wf, "intersect_tris_pairs_shadow"),
+            (wf, "intersect_tris_pallas"), (wf, "intersect_tris_shadow"),
             (pt, "_compact_key"), (pt, "_tier"))]
         f = {a: fn for _, a, fn in self._saved}
 
@@ -125,6 +126,10 @@ class TierLog:
         wf.intersect_tris_pairs = query("closest", f["intersect_tris_pairs"])
         wf.intersect_tris_pairs_shadow = query(
             "shadow", f["intersect_tris_pairs_shadow"])
+        # the tiled traversal's casts, labelled alike (no ladder)
+        wf.intersect_tris_pallas = query("closest",
+                                         f["intersect_tris_pallas"])
+        wf.intersect_tris_shadow = query("shadow", f["intersect_tris_shadow"])
         pt._compact_key, pt._tier = key, tier
         return self
 

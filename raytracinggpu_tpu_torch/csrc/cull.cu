@@ -1,14 +1,18 @@
-// Culling kernels of the pairs traversal for Hopper (sm_90a).
+// Culling kernels of the pairs and tiled traversals for Hopper (sm_90a).
 //
 // Replace XLA-side work of the JAX package (it has no Pallas kernel for
-// either; ops/pairs_trace.py's plain versions are their contracts):
+// any; the port's plain versions are their contracts):
 //   rt_pair_bits    raytracinggpu_tpu/ops/pairs_trace.py::_pair_bits with
 //                   members: the per-subgroup active-tile bitmask
-//                   (port: pair_bits_plain);
+//                   (port: ops/pairs_trace.py::pair_bits_plain);
 //   rt_compact_key  raytracinggpu_tpu/ops/pairs_trace.py::_compact_key: the
 //                   compaction ladder's sort key and active count
-//                   (port: compact_key_plain).
-// Both run the slab test of ops/pallas_trace.py::slab_enter_exit.
+//                   (port: ops/pairs_trace.py::compact_key_plain);
+//   rt_tile_lists   raytracinggpu_tpu/ops/pallas_trace.py::
+//                   _block_active_tiles: the tiled traversal's
+//                   per-subgroup list rows for B5 and B6
+//                   (port: ops/pallas_trace.py::block_active_tiles_plain).
+// All run the slab test of ops/pallas_trace.py::slab_enter_exit.
 //
 // Contract:
 //   O, u   six (R,) f32 rows (origin, direction); cap (R,) f32 or null;
@@ -26,6 +30,13 @@
 //     (w, sg) is set iff some ray of subgroup sg hits some member box whose
 //     tile (member_tile) is 32w + j.  Members naming a tile outside [0, nc)
 //     are ignored.
+//   rt_tile_lists: lists (R / subg, 1 + nc) i32, a row per subgroup:
+//     [count, the active tiles ascending, the inactive tiles ascending],
+//     tile t (box t of the nc) active for the subgroup iff some ray of it
+//     hits the box and the box is valid, lo.x <= hi.x (false on NaN: the
+//     inverted box of a padding tile, which the slab test would hit, is
+//     culled so); bits (W, R / subg) i32 is its scratch, rt_pair_bits'
+//     words with every valid tile its own member.
 //   rt_compact_key: per ray the first and last of the nc key boxes it hits;
 //     the lane is active when it hits one and lane < valid_n; key mode 2
 //     first * (nc + 1) + last, else first; an inactive lane gets (nc + 1)^2
@@ -53,7 +64,8 @@
 // as the plain version counts them, none of which can fuse into an FMA,
 // so the floor is their issue at one a lane and cycle; the cat's depth-1
 // cast is 524,288 rays x 62 member boxes, and the rays' 28 bytes each are
-// read once).  The design:
+// read once; rt_tile_lists' pallas cast 524,288 rays x 31 valid tiles,
+// its rows 4 (1 + nc) bytes a subgroup written once).  The design:
 //   - K rays a thread (rt_pair_bits 4, 2 or 1: a divisor of the subgroup;
 //     rt_compact_key 2 or 1; halved while the grid would give the card
 //     fewer than kMinBlocksPerSm blocks an SM), their origin, reciprocal
@@ -75,6 +87,15 @@
 //     a block owns whole subgroups, in passes of kThreads * K rays when a
 //     subgroup is wider); the words are stored once at the end, in passes
 //     of kWordSlots words when the table has more tiles;
+//   - rt_tile_lists runs rt_pair_bits' kernel with no member array: member
+//     m is tile m, staged when its box is valid, and each pass of words
+//     stages only its own tiles' boxes; then one warp a subgroup expands
+//     its words into its row: the count a popc sum, then for each word
+//     the warp's lanes take its 32 tiles, an active tile's slot 1 + the
+//     active tiles before it (a popc prefix), an inactive one's 1 + count
+//     + the inactive tiles before it; no sort, and a row's writes are two
+//     coalesced runs a word.  A row (up to 1 + nc ints) never sits in
+//     shared memory, so any tile count works;
 //   - rt_compact_key ORs a ray's hits over 32 boxes into a mask, one
 //     predicated or a test, and takes first and last from it; it counts its
 //     active lanes in the same launch: each block adds its count to a
@@ -252,10 +273,12 @@ int rays_per_thread(int subg, int forced, Blocks blocks) {
   return k;
 }
 
-// Stage the members [m0, m0 + kBoxChunk) whose tile lies in [0, nc) and in
-// [t0, t0 + nt), compacted to the front of sbox (lo.w 4 x the tile's word
-// slot, (t - t0) / 32 x n_sg, hi.w its bit); returns how many.  The block
-// waits before and after.
+// Stage the members [m0, min(m0 + kBoxChunk, nm)) whose tile lies in
+// [0, nc) and in [t0, t0 + nt), compacted to the front of sbox (lo.w 4 x
+// the tile's word slot, (t - t0) / 32 x n_sg, hi.w its bit); returns how
+// many.  With no member array (tiles null) member m is tile m, staged only
+// when its box is valid (lo.x <= hi.x, false on NaN).  The block waits
+// before and after.
 __device__ __forceinline__ int stage_members(Box* sbox, int* warp_n,
                                              const float* boxes, int ld,
                                              const int* tiles, int m0, int nm,
@@ -267,9 +290,13 @@ __device__ __forceinline__ int stage_members(Box* sbox, int* warp_n,
   int t = 0;
   bool keep = false;
   if (m < nm) {
-    const int tile = tiles[m];
+    const int tile = tiles ? tiles[m] : m;
     t = tile - t0;
     keep = tile >= 0 && tile < nc && t >= 0 && t < nt;
+    if (!tiles && keep) {
+      const float* b = boxes + static_cast<long long>(m) * ld;
+      keep = b[0] <= b[3];
+    }
   }
   const unsigned mask = __ballot_sync(kFull, keep);
   if (lane == 0) warp_n[warp] = __popc(mask);
@@ -296,6 +323,8 @@ __device__ __forceinline__ int stage_members(Box* sbox, int* warp_n,
 // passes of kThreads * K when a subgroup is wider than that) and builds
 // their words in shared memory, Wc words a subgroup at a time.  Thread t
 // of a pass holds rays K t .. K t + K - 1, of one subgroup (K | subg).
+// With member_tile null (rt_tile_lists) member m is tile m and a pass of
+// words stages only the members of its own tiles.
 template <int K>
 __global__ void __launch_bounds__(kThreads, kMinResident)
 pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
@@ -334,9 +363,11 @@ pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
       // this thread's subgroup's word slot 0 (a shared-memory address)
       const unsigned sg_addr = static_cast<unsigned>(
           __cvta_generic_to_shared(&words[live ? sg : 0]));
-      for (int m0 = 0; m0 < nm; m0 += kBoxChunk) {
+      const int m_lo = member_tile ? 0 : 32 * w0;
+      const int m_hi = member_tile ? nm : min(nm, 32 * (w0 + nw));
+      for (int m0 = m_lo; m0 < m_hi; m0 += kBoxChunk) {
         const int n = stage_members(sbox, warp_n, boxes, ld, member_tile, m0,
-                                    nm, nc, 32 * w0, 32 * nw, n_sg);
+                                    m_hi, nc, 32 * w0, 32 * nw, n_sg);
 #pragma unroll 2
         for (int j = 0; j < n; ++j) {
           const float4 lo = sbox[j].lo, hi = sbox[j].hi;
@@ -357,6 +388,41 @@ pair_bits_kernel(RayRows in, const float* __restrict__ boxes, int ld,
       bits[static_cast<long long>(w0 + i / n_sg) * S + sg0 + i % n_sg] =
           static_cast<int>(words[i]);
     __syncthreads();  // the words are free for the next pass
+  }
+}
+
+// Warp s of the grid writes subgroup s's row of lists from its words
+// bits[w * S + s]: the count, then each word's 32 tiles, one a lane, an
+// active tile at 1 + (active tiles before it), an inactive one at 1 +
+// count + (inactive tiles before it).  A word has no bit at or past nc.
+__global__ void __launch_bounds__(kThreads)
+tile_lists_kernel(const unsigned* __restrict__ bits, int S, int W, int nc,
+                  int* __restrict__ lists) {
+  const long long s =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (s >= S) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int w = lane; w < W; w += 32)
+    count += __popc(bits[static_cast<long long>(w) * S + s]);
+  count = __reduce_add_sync(kFull, count);
+  int* row = lists + s * (static_cast<long long>(nc) + 1);
+  if (lane == 0) row[0] = count;
+  const unsigned below = (1u << lane) - 1u;
+  int before = 0;  // active tiles in the words before this one
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const unsigned mine =
+        w0 + lane < W ? bits[static_cast<long long>(w0 + lane) * S + s] : 0u;
+    const int nw = min(32, W - w0);
+    for (int j = 0; j < nw; ++j) {
+      const unsigned word = __shfl_sync(kFull, mine, j);
+      const int tile = 32 * (w0 + j) + lane;
+      const int on_before = before + __popc(word & below);
+      if (tile < nc)
+        row[1 + ((word >> lane) & 1u ? on_before
+                                     : count + tile - on_before)] = tile;
+      before += __popc(word);
+    }
   }
 }
 
@@ -461,6 +527,24 @@ cudaError_t launch_pair_bits(const RayRows& in, const float* boxes, int ld,
   return cudaGetLastError();
 }
 
+// rt_tile_lists' two launches: the words of every valid tile (no member
+// array), then the rows.
+template <int K>
+cudaError_t launch_tile_lists(const RayRows& in, const float* boxes, int ld,
+                              int R, int subg, int nc, int* bits, int* lists,
+                              cudaStream_t st) {
+  cudaError_t err = launch_pair_bits<K>(in, boxes, ld, nullptr, nc, R, subg,
+                                        nc, bits, st);
+  if (err != cudaSuccess) return err;
+  const long long S = R / subg;
+  const long long threads = S * 32;
+  tile_lists_kernel<<<static_cast<int>((threads + kThreads - 1) / kThreads),
+                      kThreads, 0, st>>>(
+      reinterpret_cast<const unsigned*>(bits), static_cast<int>(S),
+      (nc + 31) / 32, nc, lists);
+  return cudaGetLastError();
+}
+
 template <int K>
 cudaError_t launch_compact_key(const RayRows& in, const float* boxes, int ld,
                                int nc, int mode, int shift, int R,
@@ -515,6 +599,41 @@ int rt_pair_bits(const float* ox, const float* oy, const float* oz,
                  int subg, int nc, int* bits, void* stream) {
   return rt_pair_bits_k(ox, oy, oz, ux, uy, uz, boxes, ld, member_tile, nm,
                         cap, active, R, subg, nc, bits, 0, stream);
+}
+
+// rt_tile_lists with k rays a thread (1, 2 or 4 dividing subg) or 0 for
+// the default (rays_per_thread, as rt_pair_bits).
+int rt_tile_lists_k(const float* ox, const float* oy, const float* oz,
+                    const float* ux, const float* uy, const float* uz,
+                    const float* boxes, int ld, const float* cap, int R,
+                    int subg, int nc, int* bits, int* lists, int k,
+                    void* stream) {
+  if (R <= 0 || subg <= 0 || R % subg || nc <= 0 || ld < 6 ||
+      (k && (k != 1 && k != 2 && k != 4)) || (k && subg % k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long S = R / subg;
+  k = rays_per_thread(subg, k, [&](int kk) {
+    const long long G = subg >= kThreads * kk ? 1 : kThreads * kk / subg;
+    return (S + G - 1) / G;
+  });
+  const RayRows in{ox, oy, oz, ux, uy, uz, cap, nullptr};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (k == 4)
+    err = launch_tile_lists<4>(in, boxes, ld, R, subg, nc, bits, lists, st);
+  else if (k == 2)
+    err = launch_tile_lists<2>(in, boxes, ld, R, subg, nc, bits, lists, st);
+  else
+    err = launch_tile_lists<1>(in, boxes, ld, R, subg, nc, bits, lists, st);
+  return static_cast<int>(err);
+}
+
+int rt_tile_lists(const float* ox, const float* oy, const float* oz,
+                  const float* ux, const float* uy, const float* uz,
+                  const float* boxes, int ld, const float* cap, int R,
+                  int subg, int nc, int* bits, int* lists, void* stream) {
+  return rt_tile_lists_k(ox, oy, oz, ux, uy, uz, boxes, ld, cap, R, subg, nc,
+                         bits, lists, 0, stream);
 }
 
 int rt_compact_key_k(const float* ox, const float* oy, const float* oz,

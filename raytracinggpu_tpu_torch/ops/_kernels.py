@@ -3,8 +3,9 @@
 ``csrc/pairs_trace.cu`` (B0-B3), ``csrc/pallas_trace.cu`` (B5, B6) and
 ``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
 Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
-staging of ``csrc/stage.cuh``), and ``csrc/cull.cu`` (the pairs
-culling: ``pair_bits`` and ``compact_key``), are compiled by ``nvcc`` for
+staging of ``csrc/stage.cuh``), and ``csrc/cull.cu`` (the culling:
+``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
+of the tiled one), are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
@@ -70,8 +71,9 @@ PROBE_BLK = 1024  # rays per block of B7b and B7e
 PROBE_SUBG = 64   # rays per subgroup of B7a and B7c
 PROBE_FIXED = 8   # tiles of B7c
 
-# The culling kernels of csrc/cull.cu (see pair_bits and compact_key).
-CULLING = ("pair_bits", "compact_key")
+# The culling kernels of csrc/cull.cu (see pair_bits, compact_key and
+# tile_lists).
+CULLING = ("pair_bits", "compact_key", "tile_lists")
 
 # Kernel launches since the last reset_launches(), by wrapper.
 LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING)}
@@ -174,7 +176,9 @@ def load():
                 ("rt_pair_bits_k", [p] * 7 + [i, p, i, p, p, i, i, i, p, i,
                                               p]),
                 ("rt_compact_key_k", [p] * 7 + [i] * 4 + [p, p, i, i, p, p,
-                                                           i, p])):
+                                                           i, p]),
+                ("rt_tile_lists", [p] * 7 + [i, p, i, i, i, p, p, p]),
+                ("rt_tile_lists_k", [p] * 7 + [i, p, i, i, i, p, p, i, p])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i
@@ -302,8 +306,8 @@ def _need(name, x, dtype, cols=None):
 
 def _on_card(*tensors):
     """The probe and culling kernels take tensors of one CUDA device (a
-    CPU tensor's place is the plain version in bench/micro_kernel.py or
-    ops/pairs_trace.py)."""
+    CPU tensor's place is the plain version in bench/micro_kernel.py,
+    ops/pairs_trace.py or ops/pallas_trace.py)."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("these kernels need their tensors on one CUDA "
@@ -424,7 +428,7 @@ def probe_pair_slope(pairs, rf, tri, subg):
     return t
 
 
-# ------------------------------------------ the pairs culling (cull.cu)
+# ------------------------------------------------ the culling (cull.cu)
 
 def _ray_rows(O, u, cap, active):
     """The culling kernels' per-ray inputs, each (R,) and contiguous (the
@@ -509,3 +513,30 @@ def compact_key(O, u, aabb, nc, mode, shift, cap, active, valid_n):
         mode, shift, _ptr(cap), _ptr(active), R,
         max(min(int(valid_n), R), 0), skey.data_ptr(), n_act.data_ptr(), st))
     return skey, n_act
+
+
+def tile_lists(O, u, aabb, n_tiles, cap, subg):
+    """Culling kernel (rt_tile_lists): the (R/subg, 1 + n_tiles) int32 list
+    rows of ``ops/pallas_trace.block_active_tiles_plain`` over the first
+    n_tiles boxes of ``aabb`` (n, >= 6) f32; a (W, R/subg) int32 bitmask
+    is its scratch, W = ceil(n_tiles / 32)."""
+    rows, cap, _, R = _ray_rows(O, u, cap, None)
+    _boxes("tile boxes", aabb)
+    if n_tiles < 1 or aabb.shape[0] < n_tiles:
+        raise ValueError(f"need 1 <= n_tiles ({n_tiles}) <= the "
+                         f"{aabb.shape[0]} tile boxes")
+    if subg <= 0 or R % subg:
+        raise ValueError(f"subgroup {subg} does not divide the {R} rays")
+    _on_card(*rows, aabb, *(x for x in (cap,) if x is not None))
+    W, S = -(-n_tiles // 32), R // subg
+    if max(W * S, S * (1 + n_tiles)) >= 2**31:
+        raise ValueError("kernel indices are 32-bit: lists too large")
+    dev = rows[0].device
+    lists = torch.empty((S, 1 + n_tiles), dtype=torch.int32, device=dev)
+    if S:
+        bits = torch.empty((W, S), dtype=torch.int32, device=dev)
+        _run("tile_lists", dev, lambda lib, st: lib.rt_tile_lists(
+            *(x.data_ptr() for x in rows), aabb.data_ptr(), aabb.shape[1],
+            _ptr(cap), R, subg, n_tiles, bits.data_ptr(), lists.data_ptr(),
+            st))
+    return lists

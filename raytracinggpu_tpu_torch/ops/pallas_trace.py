@@ -11,7 +11,9 @@ The triangles stay in BVH (preorder leaf) order, cut into consecutive
 - culls: a slab test of every ray against every tile box (and
   ``enter <= cap`` when a cap is given), ORed over each subgroup of
   ``subg`` consecutive rays into one row [count, active ids ascending,
-  then the inactive ids] per subgroup (``_block_active_tiles``);
+  then the inactive ids] per subgroup (``_block_active_tiles``: the
+  kernel ``rt_tile_lists`` of ``csrc/cull.cu`` on CUDA tensors,
+  ``block_active_tiles_plain`` on CPU tensors);
 - runs Moller-Trumbore for every ray over the 128 triangles of each tile
   in its subgroup's list: B5 (``pallas_closest``) keeps the nearest valid
   t with the lowest index on exact-t ties, B6 (``pallas_shadow``) the
@@ -204,10 +206,10 @@ def slab_enter_exit(O: Vec3, u: Vec3, aabb):
     return enter, exit_, hit
 
 
-def _block_active_tiles(O: Vec3, u: Vec3, aabb, n_tiles: int, cap=None,
-                        subg: int = SUBG):
-    """Per-subgroup tile culling to (R/subg, 1 + n_tiles) int32 rows
-    [count, active tile ids ascending, inactive ids ascending].
+def block_active_tiles_plain(O: Vec3, u: Vec3, aabb, n_tiles: int, cap=None,
+                             subg: int = SUBG):
+    """Plain PyTorch per-subgroup tile culling to (R/subg, 1 + n_tiles)
+    int32 rows [count, active tile ids ascending, inactive ids ascending].
 
     A tile is active for a ray when the ray's slab interval hits its box
     (and enters it no later than ``cap``); for a subgroup when it is
@@ -228,6 +230,18 @@ def _block_active_tiles(O: Vec3, u: Vec3, aabb, n_tiles: int, cap=None,
     order = torch.argsort((~blk).to(torch.uint8), dim=1, stable=True)
     count = blk.sum(dim=1, keepdim=True)
     return torch.cat([count, order], dim=1).to(torch.int32).contiguous()
+
+
+def _block_active_tiles(O: Vec3, u: Vec3, aabb, n_tiles: int, cap=None,
+                        subg: int = SUBG):
+    """The list rows of ``block_active_tiles_plain`` on the rays' device:
+    the kernel of ``csrc/cull.cu`` (``_kernels.tile_lists``) for CUDA
+    tensors, the plain version for CPU tensors."""
+    if _on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.tile_lists(O, u, aabb, n_tiles, cap, subg)
+    return block_active_tiles_plain(O, u, aabb, n_tiles, cap, subg)
 
 
 # ------------------------------------------- plain versions of B5 and B6

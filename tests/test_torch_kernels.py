@@ -187,7 +187,8 @@ def test_kernel_wrappers_check_their_inputs(bad):
                                       "pairs_closest_smooth",
                                       "pairs_closest_idx", "pallas_closest",
                                       "pallas_shadow", *_kernels.PROBES,
-                                      "pair_bits", "compact_key"}
+                                      "pair_bits", "compact_key",
+                                      "tile_lists"}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -1514,8 +1515,8 @@ def test_tiled_kernels_refuse_other_tile_widths(tile_t):
 def test_small_pallas_frame_on_cuda_matches_cpu():
     """The 48x48 spp2 d2 frame through the tiled traversal: one 5120-ray
     cast per depth (4608 rays and 512 zero-direction padding rays), B5 and
-    B6 once each per cast; the bound of test_small_frame_on_cuda_matches_cpu
-    against the CPU frame."""
+    B6 once each per cast, each cast culled once (tile_lists); the bound of
+    test_small_frame_on_cuda_matches_cpu against the CPU frame."""
     _need_cuda()
     from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
 
@@ -1525,7 +1526,8 @@ def test_small_pallas_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    assert _launched() == {"pallas_closest": 2, "pallas_shadow": 2}
+    assert _launched() == {"pallas_closest": 2, "pallas_shadow": 2,
+                           "tile_lists": 4}
     (img_c, _), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -1936,16 +1938,19 @@ def test_culling_kernels_on_a_wide_table_and_the_compacted_rows():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("part", ["subgroups", "wide table", "keys"])
+@pytest.mark.parametrize("part", ["subgroups", "wide table", "keys",
+                                  "tiles"])
 def test_culling_kernels_bitwise_on_the_index_cases(part):
     """bench/cull.index_cases: pair_bits at subgroups 8, 16, 32, 64, 128
     and 512 (wider than a block) over 37 subgroups (rays no multiple of
     the rays a block holds), 1,100 member boxes (several staging chunks)
     and members naming tiles outside [0, nc); over 5,000 tiles (several
     passes of a block's words) at subgroups 2 and 8; the key on 5,000 rays
-    over 40, 129 (one past a staging chunk) and 1,100 boxes: each through
-    the wrapper (counted) and at every rays-a-thread the kernels take
-    (1, 2, 4 where it divides the subgroup), bitwise the plain version."""
+    over 40, 129 (one past a staging chunk) and 1,100 boxes; tile_lists at
+    subgroups 1-128 over 300 tiles, 5,000 (passes) and 140,000 (past
+    131,072): each through the wrapper (counted) and at every
+    rays-a-thread the kernels take (1, 2, 4 where it divides the
+    subgroup), bitwise the plain version."""
     _need_cuda()
     from raytracinggpu_tpu_torch.bench.cull import SUBGROUPS, index_cases
     from raytracinggpu_tpu_torch.bench.cull_design import hold_index_cases
@@ -1953,11 +1958,13 @@ def test_culling_kernels_bitwise_on_the_index_cases(part):
     cases = [c for c in index_cases("cuda")
              if {"subgroups": c[1] == "pair_bits" and "5,000" not in c[0],
                  "wide table": "5,000 tiles" in c[0],
-                 "keys": c[1] == "compact_key"}[part]]
+                 "keys": c[1] == "compact_key",
+                 "tiles": c[1] == "tile_lists"}[part]]
     n0 = dict(_kernels.LAUNCHES)
     held = hold_index_cases(cases)
     assert [(label, k) for label, k, ok in held if not ok] == []
-    name = "compact_key" if part == "keys" else "pair_bits"
+    name = {"keys": "compact_key", "tiles": "tile_lists"}.get(part,
+                                                               "pair_bits")
     assert _kernels.LAUNCHES[name] == n0[name] + len(cases)
     assert {k for _, k, _ in held} == {None, 1, 2, 4}
     if part == "subgroups":
@@ -1992,3 +1999,136 @@ def test_compact_key_is_one_launch_and_its_count_resets():
         torch.cuda.synchronize()
         assert torch.equal(captured[0], want[0])
         assert int(captured[1]) == int(want[1]) > 0
+
+
+# -------------------------- the tiled culling (csrc/cull.cu rt_tile_lists)
+
+@pytest.mark.parametrize("bad,why", [
+    ("dtype", "float32"), ("cap", "float32"), ("columns", "6 columns"),
+    ("no tiles", "n_tiles"), ("short table", "n_tiles"),
+    ("subgroup", "does not divide"), ("device", "CUDA")])
+def test_tile_lists_wrapper_checks_its_inputs(bad, why):
+    """The tiled culling's wrapper takes CUDA tensors only (a CPU tensor's
+    place is ops/pallas_trace.block_active_tiles_plain) and refuses a
+    wrong dtype, shape or device before anything is built or launched."""
+    R, nt = 256, 40
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    O = Vec3(*(meta(R) for _ in range(3)))
+    aabb = meta(nt, 8)
+    cpu = Vec3(*(torch.zeros(R) for _ in range(3)))
+    lists = _kernels.tile_lists
+    calls = {
+        "dtype": lambda: lists(Vec3(O.x, O.y.double(), O.z), O, aabb, nt,
+                               None, 64),
+        "cap": lambda: lists(O, O, aabb, nt, meta(R, dt=torch.float64), 64),
+        "columns": lambda: lists(O, O, meta(nt, 5), nt, None, 64),
+        "no tiles": lambda: lists(O, O, aabb, 0, None, 64),
+        "short table": lambda: lists(O, O, aabb, nt + 1, None, 64),
+        "subgroup": lambda: lists(O, O, aabb, nt, None, 48),
+        "device": lambda: lists(cpu, cpu, torch.zeros(nt, 8), nt, None, 64),
+    }
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=why):
+        calls[bad]()
+    assert _kernels.LAUNCHES == before
+
+
+def _check_tile_lists(O, u, aabb, n_tiles, cap, subg):
+    """rt_tile_lists on CUDA tensors against the plain version, bitwise,
+    one launch counted; returns the rows."""
+    n0 = _kernels.LAUNCHES["tile_lists"]
+    got = pat._block_active_tiles(O, u, aabb, n_tiles, cap=cap, subg=subg)
+    torch.cuda.synchronize()
+    want = pat.block_active_tiles_plain(O, u, aabb, n_tiles, cap=cap,
+                                        subg=subg)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert got.shape == (O.x.shape[0] // subg, 1 + n_tiles)
+    assert torch.equal(got, want)
+    assert _kernels.LAUNCHES["tile_lists"] == n0 + 1
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capped", [True, False])
+@pytest.mark.parametrize("subg", (1, 4) + TILED_SUBGS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_tile_lists_bitwise_equal_plain(scene, kind, subg, capped):
+    """rt_tile_lists over the cat's 32 tile boxes (one of them the padding
+    tile's inverted box) on 8,192 rays of each kind, at every subgroup the
+    tiled traversal admits, capped by the spheres or not: bitwise the plain
+    version; the padding tile is never active."""
+    _need_cuda()
+    tab, O, u, cap, _, _ = _tiled_cast(scene, kind, 8192, "cuda",
+                                       capped=capped, subg=subg)
+    rows = _check_tile_lists(O, u, tab.tile_aabb, tab.n_tiles, cap, subg)
+    assert (rows[:, 0] < tab.n_tiles).all() and rows[:, 0].max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [4, 31, 32, 33, 126, 127, 300])
+@pytest.mark.parametrize("subg", [1, 4, 16, 64, 128])
+def test_tile_lists_bitwise_on_adversarial_tables(subg, n_tiles):
+    """bench/cull.adversarial_tiles (signed-zero directions, origins on
+    faces, padding tiles' inverted boxes, NaN in lo.x, hi.x and another
+    coordinate, a box of infinite extent, caps at an enter distance) on
+    4,096 rays: bitwise the plain version with and without cap."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench.cull import adversarial_tiles
+
+    O, d, aabb, cap = adversarial_tiles(n_tiles + subg, 4096, n_tiles)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+    O, u, aabb, cap = Vec3(*map(t, O)), Vec3(*map(t, d)), t(aabb), t(cap)
+    for c in (None, cap):
+        _check_tile_lists(O, u, aabb, n_tiles, c, subg)
+
+
+@pytest.mark.cuda
+def test_tile_lists_read_a_posed_table_on_every_call():
+    """The tiled culling reads its boxes (and their validity) on every
+    call: the animated realtime scene posed at two angles gives other
+    tile boxes, and the kernel's rows equal the plain version's on each,
+    as on the unposed table."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.scene.transform import pose_mesh
+
+    cfg, tables = build_preset("realtime", "cuda", animate_mesh=True,
+                               traversal="pallas")
+    O, u = _rays("scattered", cfg, tables, 8192)
+    O = Vec3(*(c.to("cuda") for c in O))
+    u = Vec3(*(c.to("cuda") for c in u))
+    seen = []
+    for angle in (0.0, 0.9, 2.1):
+        c, s = math.cos(angle), math.sin(angle)
+        posed = pose_mesh(tables, [[c, 0.0, s], [0.0, 1.0, 0.0],
+                                   [-s, 0.0, c]])
+        tab = posed.pallas_mesh
+        rows = _check_tile_lists(O, u, tab.tile_aabb, tab.n_tiles, None, 64)
+        seen.append(rows)
+    assert not torch.equal(seen[1], seen[2])
+
+
+@pytest.mark.cuda
+def test_tile_lists_replay_from_a_cuda_graph():
+    """One call is two kernels (the words, then the rows) and no memset:
+    a CUDA graph capturing it holds two kernel nodes, and its replays give
+    the plain rows again."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench.cull import adversarial_tiles
+    from raytracinggpu_tpu_torch.bench.cull_design import graph_nodes
+
+    O, d, aabb, cap = adversarial_tiles(3, 70000 // 64 * 64, 300)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+    O, u, aabb, cap = Vec3(*map(t, O)), Vec3(*map(t, d)), t(aabb), t(cap)
+    args = (O, u, aabb, 300, cap, 64)
+    want = pat.block_active_tiles_plain(*args)
+    assert graph_nodes(lambda: pat._block_active_tiles(*args)) == [0, 0]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pat._block_active_tiles(*args)
+    for _ in range(2):
+        captured.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
