@@ -8,8 +8,10 @@ Phases, in order; any failed check exits nonzero:
    CUDA and nvcc versions;
 2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
    csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e,
-   csrc/cull.cu: the culling, pair_bits, compact_key and tile_lists) with
-   nvcc for sm_90a, one process per source, and load them;
+   csrc/cull.cu: the culling, pair_bits, compact_key and tile_lists,
+   csrc/wavefront.cu: the depth step's sphere_hit, shade and bounce and
+   the primary rays' primary_rays) with nvcc for sm_90a, one process per
+   source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once with the compaction ladder off (every cast at
    full width, as in earlier versions of this script) while keeping the
@@ -312,6 +314,36 @@ Phases, in order; any failed check exits nonzero:
       rounds of turns (median and every frame), and the soup pallas
       frame's peak device memory both ways (the process's, and over what
       earlier phases hold).
+21. the depth step's kernels (csrc/wavefront.cu: ``sphere_hit``, the
+    nearest sphere of the closest and of the shadow rays; ``shade``, the
+    merge with the mesh's hit, the materials and the shadow ray;
+    ``bounce``, the occlusion, the direct term and the diffuse bounce;
+    ``primary_rays``, a sample's uniforms and primary rays;
+    bench/depth_step.py's tools), every launch counted in _launched:
+   a. the inputs of each stage's calls at depths 0 and 1 of the first cast
+      (samples 0 and 1) of the headline frame, the realtime frame 1, the
+      animated frame 1, a ``showcase`` 512x512 spp 8 depth 5 frame, the
+      pallas headline and the soup frame are kept; on each the kernel must
+      equal its plain version bit for bit (NaNs as one value: a NaN's
+      payload follows the instruction that carried it), and so must it on
+      bench/depth_step.adversarial_calls' hard lanes (65,536 rays, seeds 0
+      and 1, on the headline's, the showcase's and the realtime scene);
+   b. the headline, the realtime frame 1, the showcase frame and the
+      pallas headline must be bitwise (image and TraceStats) the frames
+      with the four plain stages patched in, which launch none of them;
+   c. a headline frame's device operations (utils/profiling.device_kernels)
+      in all, with its mesh casts replayed from a recording (what is left:
+      the four kernels and the glue between them) and with its traces
+      replayed (what is left: the primary rays and the per-sample glue),
+      each replayed frame bitwise the recorded one; by wrapper and in
+      total beside the parent's (PARENT_LAUNCHES); the glue at most
+      DEPTH_STEP_GLUE a depth step and SAMPLE_GLUE a sample;
+   d. each kernel on the headline's depth-1 calls (sample 1 for the
+      primary rays): its time replayed from a CUDA graph and eager, its
+      plain version's, its bound (bench/depth_step.call_bound) and what
+      bounds it;
+   e. the headline frame's and the realtime loop's wall times beside their
+      device time (the union of the kernels' intervals) and busy share.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -323,10 +355,14 @@ configuration at PROBE_DEFAULT, replayed from a CUDA graph, see
 _PROBE_ROW; the culling kernels' are phase 19d's on the cat's depth-1
 closest cast, full width, replayed from a CUDA graph, with their launches
 in phase 4's frame, and tile_lists' phase 20c's on the pallas headline's
-depth-1 closest cast with its launches in phase 9b's frame); the last
-line is the JSON result.
-Without a CUDA device the script exits nonzero at once and prints no
+depth-1 closest cast with its launches in phase 9b's frame; the depth
+step's are phase 21d's on the headline's depth-1 calls, with their
+launches in phase 21c's headline frame); the last line is the JSON
 result.
+Without a CUDA device the script exits nonzero at once and prints no
+result.  On its way out, passed or failed, it stops every process it
+started that still runs, however deep (see _stop_leftovers), and fails
+if one will not stop.
 """
 from __future__ import annotations
 
@@ -422,12 +458,17 @@ _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)",
           "pair_bits_kernel": "pair_bits (and tile_lists' words)",
           "compact_key_kernel": "compact_key",
-          "tile_lists_kernel": "tile_lists (rows)"}
+          "tile_lists_kernel": "tile_lists (rows)",
+          "sphere_kernelILb1E": "sphere_hit (closest)",
+          "sphere_kernelILb0E": "sphere_hit (shadow)",
+          "shade_kernel": "shade", "bounce_kernel": "bounce",
+          "primary_kernel": "primary_rays"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
 _MICRO = "raytracinggpu_tpu_torch/csrc/micro_kernel.cu"
 _CULL = "raytracinggpu_tpu_torch/csrc/cull.cu"
+_WAVEFRONT = "raytracinggpu_tpu_torch/csrc/wavefront.cu"
 _ORIGIN = {
     "pairs_closest": _PAIRS, "pairs_shadow": _PAIRS,
     "pairs_closest_smooth": _PAIRS, "pairs_closest_idx": _PAIRS,
@@ -445,6 +486,18 @@ _ORIGIN = {
                     "_compact_key (XLA-side, no Pallas kernel)"),
     "tile_lists": (_CULL, "raytracinggpu_tpu/ops/pallas_trace.py:475 "
                    "_block_active_tiles (XLA-side, no Pallas kernel)"),
+    # the depth step's and the primary rays' math, XLA-side too
+    "sphere_hit": (_WAVEFRONT, "raytracinggpu_tpu/ops/sphere.py:44 "
+                   "intersect_spheres (XLA-side, no Pallas kernel)"),
+    "shade": (_WAVEFRONT, "raytracinggpu_tpu/integrator/wavefront.py:103 "
+              "intersect_all's merge and :276 _depth_step's shading "
+              "(XLA-side, no Pallas kernel)"),
+    "bounce": (_WAVEFRONT, "raytracinggpu_tpu/integrator/wavefront.py:276 "
+               "_depth_step's occlusion and bounce, core/rng.py:66 "
+               "cosine_hemisphere (XLA-side, no Pallas kernel)"),
+    "primary_rays": (_WAVEFRONT, "raytracinggpu_tpu/render/pipeline.py:110 "
+                     "row_uniforms and :128 raygen (XLA-side, no Pallas "
+                     "kernel)"),
     "probe_tile_slope": (_MICRO, "raytracinggpu_tpu/bench/micro_kernel.py:75"),
     "probe_block_mask": (_MICRO,
                          "raytracinggpu_tpu/bench/micro_kernel.py:128"),
@@ -482,38 +535,131 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+def _adopt_orphans() -> None:
+    """Make this process the parent of every process it starts, however
+    deep, once that process's own parent has exited (Linux
+    PR_SET_CHILD_SUBREAPER), so that ``_stop_leftovers`` finds them."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _descendants() -> dict:
+    """pid -> command line of every live (not zombie) process below this
+    one, from /proc."""
+    parent, cmd = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", "rb") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                line = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # exited while being read
+            continue
+        state, ppid = stat[stat.rfind(b")") + 2:].split()[:2]
+        if state != b"Z":
+            parent[int(d)], cmd[int(d)] = int(ppid), line.strip()
+    found, frontier = set(), {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parent.items() if pp in frontier} - found
+        found |= frontier
+    return {p: cmd[p] for p in sorted(found)}
+
+
+def _reap() -> None:
+    """Collect the exit status of every child that has exited."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def _stop_leftovers() -> None:
+    """Stop every process this one started that still runs: the
+    multiprocessing resource tracker that spawned ranks leave behind (it
+    exits when this process closes its pipe), then anything else, with
+    SIGTERM and after 5 s SIGKILL, each named on stderr.  Raises
+    SystemExit if one is still running after that."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_fd", None) is not None:
+        os.close(tracker._fd)
+        tracker._fd = None
+    for sig in (signal.SIGTERM, signal.SIGKILL, None):
+        deadline = time.monotonic() + 5.0
+        while True:
+            _reap()
+            left = _descendants()
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if not left:
+            return
+        if sig is None:
+            raise SystemExit("chip_smoke: FAIL: processes still running: "
+                             f"{left}")
+        for pid, line in left.items():
+            print(f"chip_smoke: {sig.name} to leftover process {pid}: "
+                  f"{line}", file=sys.stderr)
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+
+
 # B0-B3: each launch is one pairs cast, which culls once (pair_bits)
 _PAIRS_KERNELS = ("pairs_closest", "pairs_shadow", "pairs_closest_smooth",
                   "pairs_closest_idx")
 
 
-def _launched(culling: dict | None = None) -> dict:
+def _launched(culling: dict | None = None, depth: dict | None = None
+              ) -> dict:
     """The launches since the last ``reset_launches()``, by kernel, without
-    the culling kernels of csrc/cull.cu, which are held here: every pairs
-    cast culls once, so pair_bits launched as often as B0-B3 together,
-    and the ladder keys at most every cast (compact_key); every tiled
-    cast culls once, so tile_lists launched as often as B5 and B6
-    together.  ``culling`` receives their counts."""
+    the culling kernels of csrc/cull.cu and the depth step's of
+    csrc/wavefront.cu, which are held here: every pairs cast culls once,
+    so pair_bits launched as often as B0-B3 together, and the ladder keys
+    at most every cast (compact_key); every tiled cast culls once, so
+    tile_lists launched as often as B5 and B6 together; every depth step
+    runs the sphere pass twice, the shading and the bounce once.
+    ``culling`` and ``depth`` receive their counts."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
     out = dict(_kernels.LAUNCHES)
     cull = {k: out.pop(k) for k in _kernels.CULLING}
+    step = {k: out.pop(k) for k in _kernels.DEPTH_STEP}
     casts = sum(out[k] for k in _PAIRS_KERNELS)
     tiled = out["pallas_closest"] + out["pallas_shadow"]
     if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts \
             or cull["tile_lists"] != tiled:
         _fail(f"culling launches {cull} for {casts} pairs casts and "
               f"{tiled} tiled casts")
+    if step["sphere_hit"] != 2 * step["shade"] \
+            or step["bounce"] != step["shade"]:
+        _fail(f"depth-step launches {step}: the sphere pass not twice, or "
+              "the bounce not once, a shading")
     if culling is not None:
         culling.update(cull)
+    if depth is not None:
+        depth.update(step)
     return out
 
 
 def _none() -> dict:
-    """No launch of any kernel but the culling ones (see _launched)."""
+    """No launch of any kernel but the culling and depth-step ones (see
+    _launched)."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
-    return {k: 0 for k in _kernels.LAUNCHES if k not in _kernels.CULLING}
+    return {k: 0 for k in _kernels.LAUNCHES
+            if k not in _kernels.CULLING + _kernels.DEPTH_STEP}
 
 
 def _ladder_off(cfg):
@@ -546,14 +692,15 @@ def _card_line() -> str:
         _fail(str(e))
 
 
-def _time_ms(fn, iters: int, graph: bool = False) -> float:
+def _time_ms(fn, iters: int, graph: bool = False,
+             flush_l2: bool = False) -> float:
     """Mean device time of fn over iters launches (CUDA events), after one
     warm-up call; ``graph``: the launches replayed from one CUDA graph
     (see bench/_timing.timed), the kernels without the host's launch
-    cost."""
+    cost; ``flush_l2``: the L2 emptied of fn's inputs before each call."""
     from raytracinggpu_tpu_torch.bench._timing import timed
 
-    return timed(fn, iters, graph=graph) * 1e3
+    return timed(fn, iters, graph=graph, flush_l2=flush_l2) * 1e3
 
 
 def _max_abs_err(a, b) -> float:
@@ -2058,7 +2205,8 @@ def _oracle(device, card):
         case = make()
         _kernels.reset_launches()
         got, ref = cases.run(case)
-        launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        launched = {k: v for k, v in _kernels.LAUNCHES.items()
+                    if v and k not in _kernels.DEPTH_STEP}
         share = cases.disagree(got, ref)
         print(f"oracle {label}: {share:.4%} of {len(got)} rays disagree "
               f"(bound {bound:.0%}), launches {launched}, "
@@ -2563,6 +2711,7 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
             plain = lambda: pt.compact_key_plain(*args)
             n_boxes = args[3]
         ms = _time_ms(kern, 50, graph=True)
+        cold_ms = _time_ms(kern, 50, graph=True, flush_l2=True)
         eager_ms = _time_ms(kern, 20)
         plain_ms = _time_ms(plain, 3)
         bound, by, floor = call_bound(name, args, kern())
@@ -2810,6 +2959,7 @@ def _tile_culling_phase(device, card, err, soup):
         kern = lambda: _kernels.tile_lists(*args)
         plain = lambda: pat.block_active_tiles_plain(*args)
         ms = _time_ms(kern, 50, graph=True)
+        cold_ms = _time_ms(kern, 50, graph=True, flush_l2=True)
         eager_ms = _time_ms(kern, 20)
         plain_ms = _time_ms(plain, 3)
         bound, by, floor = call_bound("tile_lists", args, kern())
@@ -2869,7 +3019,203 @@ def _tile_culling_phase(device, card, err, soup):
               f"{peak / 2**20:.1f} MiB (max_memory_allocated), "
               f"{(peak - held) / 2**20:.1f} MiB over the {held / 2**20:.1f} "
               f"MiB held before the frame, on {card}")
-    return timing, frame_launches
+    return timing, frame_launches, (hcfg, htab)
+
+
+# Phase 21: the glue left between the kernels (outside the mesh casts and
+# the kernels of csrc/wavefront.cu) of the headline frame, at most
+DEPTH_STEP_GLUE = 20   # launches a depth step
+SAMPLE_GLUE = 10       # launches a sample, outside rt_primary_rays
+PARENT_LAUNCHES = (93_579, 93_930)  # the headline frame before (PERF.md)
+
+
+def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
+                      soup):
+    """Phase 21 (module docstring).  ``head`` phase 4's (config, tables,
+    camera, depth steps a frame), ``rt_scene`` phase 7's (config, tables), ``pallas_head`` phase
+    20's (config, tables), ``soup`` phase 10's (config, tables).  Returns
+    ({kernel: (ms, plain_ms, bound_ms, bound_by)}, the headline frame's
+    launches of the four kernels)."""
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.bench import depth_step as ds
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        rays_per_frame, render_frame, render_preset_frame)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels
+
+    hcfg, htab, cam, n_steps = head
+    rcfg, rtab = rt_scene
+    pcfg, ptab = pallas_head
+    scfg, stab = soup
+    acfg, atab = build_preset("realtime", device, animate_mesh=True)
+    ccfg, ctab = build_preset("showcase", device, width=512, height=512,
+                              spp=8, max_depth=5)
+    head_frame = lambda seed=0: render_frame(htab, hcfg, cam,
+                                             PRNGKey(seed, device))
+    frames = {
+        "headline": head_frame,
+        "realtime frame 1": lambda: rt.step(
+            rtab, rcfg, rt.init_state(rcfg, rtab, seed=0)),
+        "animated frame 1": lambda: rt.step(
+            atab, acfg, rt.init_state(acfg, atab, seed=0),
+            mesh_speed=ANIM_MESH_SPEED),
+        "showcase 512x512 spp8 d5": lambda: render_preset_frame(ctab, ccfg,
+                                                                 0),
+        "pallas headline": lambda: render_frame(
+            ptab, pcfg, cam, PRNGKey(0, device)),
+        "soup": lambda: render_preset_frame(stab, scfg, seed=0),
+    }
+
+    # a. bitwise on the calls the frames make (depths 0 and 1 of the first
+    # cast, samples 0 and 1), then on the hard lanes
+    outs = {}
+    for where, fn in frames.items():
+        kept, outs[where] = ds.capture(fn)
+        torch.cuda.synchronize()
+        held = ds.hold(kept, where, err)
+        if not all(r[-1] for r in held):
+            _fail(f"depth step {where}: a kernel differs from its plain "
+                  "version")
+    for where, (tab, cfg) in (("headline scene", (htab, hcfg)),
+                              ("showcase scene", (ctab, ccfg)),
+                              ("realtime scene", (rtab, rcfg))):
+        for seed in (0, 1):
+            if not ds.hold_calls(ds.adversarial_calls(tab, cfg, R=65536,
+                                                      seed=seed),
+                                 f"{where} seed {seed}", err):
+                _fail(f"depth step {where}: a kernel differs from its "
+                      "plain version on the hard lanes")
+
+    # b. whole frames, bitwise the frames with the plain stages patched in
+    t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    n_eq = lambda a, b: np.array_equal(a[0], b[0]) and all(
+        np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    st_eq = lambda a, b: torch.equal(a[0].accum, b[0].accum) and \
+        torch.equal(a[1], b[1])
+    for where, same in (("headline", t_eq), ("realtime frame 1", st_eq),
+                        ("showcase 512x512 spp8 d5", n_eq),
+                        ("pallas headline", t_eq)):
+        with ds.plain_stages():
+            _kernels.reset_launches()
+            plain = frames[where]()
+            torch.cuda.synchronize()
+            launched = {k: _kernels.LAUNCHES[k] for k in _kernels.DEPTH_STEP}
+        if any(launched.values()) or not same(outs[where], plain):
+            _fail(f"depth step frames {where}: differs from the frame with "
+                  f"the plain stages, or that launched {launched}")
+        print(f"depth step frames {where}: bitwise the frame with the plain "
+              "stages patched in (image and TraceStats)")
+
+    # c. launches of a headline frame: in all, with the mesh casts replayed
+    # (what is left: the four kernels and the glue) and with the traces
+    # replayed (what is left: the primary rays and the per-sample glue)
+    n_samples = hcfg.spp
+    counted = {}
+    for label, targets in (("all", ()), ("mesh casts replayed",
+                                         ds.MESH_CASTS),
+                           ("traces replayed", ds.TRACES)):
+        record, replay = ds.record_replay(targets)
+        with record():
+            want = head_frame(1)
+        with replay():
+            _kernels.reset_launches()
+            box = {}
+            k = device_kernels(lambda: box.update(out=head_frame(1)), top=6)
+            torch.cuda.synchronize()
+            depth = {}
+            launched = _launched(depth=depth)
+        if not (torch.equal(box["out"][0], want[0])
+                and all(torch.equal(x, y)
+                        for x, y in zip(box["out"][1], want[1]))):
+            _fail(f"depth step launches ({label}): the replayed frame "
+                  "differs")
+        counted[label] = (k, depth, launched)
+        print(f"depth step headline launches ({label}): {k['kernels']} "
+              f"device operations, {k['kernel_ms']:.1f} ms of device time; "
+              f"by wrapper {depth} and {launched}")
+        for e in k["by_name"]:
+            print(f"  {e['ms']:9.1f} ms {e['count']:7d}x  {e['name']}")
+    (k_all, d_all, _), (k_mesh, d_mesh, _), (k_tr, d_tr, _) = (
+        counted[x] for x in counted)
+    step_glue = (k_mesh["kernels"] - k_tr["kernels"] - d_mesh["sphere_hit"]
+                 - d_mesh["shade"] - d_mesh["bounce"]) / n_steps
+    sample_glue = (k_tr["kernels"] - d_tr["primary_rays"]) / n_samples
+    mesh_ops = k_all["kernels"] - k_mesh["kernels"]
+    print(f"depth step headline launches: {k_all['kernels']} in all (the "
+          f"parent's {PARENT_LAUNCHES[0]:,}-{PARENT_LAUNCHES[1]:,}); the "
+          f"mesh casts {mesh_ops}; the four kernels "
+          f"{sum(d_all.values())} ({d_all}); glue {step_glue:.2f} a depth "
+          f"step over {n_steps} steps (bound {DEPTH_STEP_GLUE}) and "
+          f"{sample_glue:.2f} a sample over {n_samples} samples (bound "
+          f"{SAMPLE_GLUE}); on {card}")
+    once = {"sphere_hit": 2 * n_steps, "shade": n_steps, "bounce": n_steps,
+            "primary_rays": n_samples}
+    if d_all != once or step_glue > DEPTH_STEP_GLUE \
+            or sample_glue > SAMPLE_GLUE:
+        _fail(f"depth step: the glue passes its bound, or the four kernels "
+              f"launched {d_all}, not {once} (each once a depth step, the "
+              "sphere pass twice, the primary rays once a sample)")
+
+    # d. times on the headline's depth-1 calls (sample 1 for the primary
+    # rays): the kernel replayed from a CUDA graph (back to back, so that
+    # the L2 may hold its inputs; and with the L2 emptied before each call)
+    # and eager, the plain version eager, the bound
+    kept, _ = ds.capture(head_frame)
+    timing = {}
+    for kernel, kind, label in (("sphere_hit", "closest", "depth 1"),
+                                ("sphere_hit", "shadow", "depth 1"),
+                                ("shade", "shade", "depth 1"),
+                                ("bounce", "bounce", "depth 1"),
+                                ("primary_rays", "primary_rays",
+                                 "sample 1")):
+        args = next(a for lab, kd, a in kept[kernel]
+                    if lab == label and kd == kind)
+        counts = torch.zeros(6, dtype=torch.int64, device=device)
+        kern = lambda: ds.call(kernel, kind, args, False, counts)
+        plain = lambda: ds.call(kernel, kind, args, True, counts)
+        ms = _time_ms(kern, 50, graph=True)
+        cold_ms = _time_ms(kern, 50, graph=True, flush_l2=True)
+        eager_ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        bound, by = ds.call_bound(kernel, kind, args, kern())
+        if kind != "shadow":
+            timing[kernel] = (ms, plain_ms, bound, by)
+        lanes = kern()[0].shape[-1]
+        print(f"timing {kernel} ({kind}) on the headline's {label} call "
+              f"({lanes} lanes): kernel {ms:.4f} ms (graph replay; L2 "
+              f"emptied before each call {cold_ms:.4f} ms; eager "
+              f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}, L2 "
+              f"emptied {bound / cold_ms:.1%}) on {card}")
+
+    # e. the headline's and the realtime loop's wall times beside their
+    # device time
+    for name, fn, rays in (
+            ("headline frame", lambda: head_frame(2),
+             rays_per_frame(hcfg)),
+            (f"realtime loop ({LOOP_FRAMES} frames)", lambda: rt.run_loop(
+                rtab, rcfg, LOOP_FRAMES, seed=0, print_every=0),
+             rays_per_frame(rcfg) * LOOP_FRAMES)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        k = device_kernels(fn, top=4)
+        wall = sorted(walls)[1]
+        print(f"depth step {name}: wall {[round(t, 4) for t in walls]} s "
+              f"(median {wall:.4f} s, {rays / wall / 1e6:.3f} Mray/s), "
+              f"{k['kernels']} device operations, {k['kernel_ms']:.1f} ms "
+              f"of device time (union), busy {k['kernel_ms'] / 1e3 / wall:.3f}"
+              f" on {card}")
+    return timing, d_all
 
 
 def main() -> int:
@@ -2879,6 +3225,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 1
+    _adopt_orphans()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.render.pipeline import (
@@ -2959,8 +3306,8 @@ def main() -> int:
     img, stats = render_frame(tables, cfg, cam, PRNGKey(0, device))
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    culling = {}
-    launches = _launched(culling)
+    culling, depth = {}, {}
+    launches = _launched(culling, depth)
     n_rays = cfg.width * cfg.height * cfg.spp
     hit = stats.hit.tolist()
     # every cast culls once; the ladder keys each cast at depth >= 1
@@ -2990,6 +3337,11 @@ def main() -> int:
         _fail(f"culling launches in the frame {culling}, expected "
               f"pair_bits {2 * n_casts}, compact_key {2 * keyed} and "
               f"tile_lists 0")
+    # a depth step is one closest and one shadow cast
+    once = {"sphere_hit": 2 * n_casts, "shade": n_casts, "bounce": n_casts,
+            "primary_rays": cfg.spp}
+    if depth != once:
+        _fail(f"depth-step launches in the frame {depth}, expected {once}")
     print("headline frame (the ladder on, the default) bitwise the capture "
           "frame (the ladder off), TraceStats equal")
     times = []
@@ -3102,8 +3454,15 @@ def main() -> int:
     lap("19 culling kernels")
 
     # ---- 20. the tiled culling kernel --------------------------------------
-    timing_tiles, _ = _tile_culling_phase(device, card, err, soup)
+    timing_tiles, _, pallas_head = _tile_culling_phase(device, card, err,
+                                                       soup)
     lap("20 tiled culling kernel")
+
+    # ---- 21. the depth step's kernels --------------------------------------
+    timing_depth, depth_launches = _depth_step_phase(
+        device, card, err, (cfg, tables, cam, n_casts), (rcfg, rtab),
+        pallas_head, soup)
+    lap("21 depth-step kernels")
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:
@@ -3125,11 +3484,18 @@ def main() -> int:
             ("pair_bits", culling, timing_cull),
             ("compact_key", culling, timing_cull),
             ("tile_lists", pallas_launches, timing_tiles),
-            *((k, probe_launches, timing_probes) for k in _PROBE_ROW))]}))
+            *((k, probe_launches, timing_probes) for k in _PROBE_ROW),
+            *((k, depth_launches, timing_depth)
+              for k in _kernels.DEPTH_STEP))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if sys.platform == "linux":
+            _stop_leftovers()
+    sys.exit(rc)

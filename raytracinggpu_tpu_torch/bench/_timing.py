@@ -27,8 +27,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# bytes read between the calls of a cold-L2 timing: over twice the
+# H100's 50 MB L2, so that none of the timed call's inputs is left there
+FLUSH_BYTES = 256 << 20
+
+
 def timed(fn, iters: int = 30, warm: int = 1, device="cuda",
-          graph: bool = False) -> float:
+          graph: bool = False, flush_l2: bool = False) -> float:
     """Mean seconds of one ``fn()`` over ``iters`` calls after ``warm``
     warm-up calls: on a CUDA device the time between two events on the
     current stream around the calls, on ``cpu`` the host clock.
@@ -38,7 +43,12 @@ def timed(fn, iters: int = 30, warm: int = 1, device="cuda",
     a loop of kernels shorter than that is a measurement of the host;
     replayed from a graph the kernels run back to back.  ``fn`` must then
     only enqueue work on the current stream (no synchronisation, no copy
-    to the host)."""
+    to the host).
+
+    flush_l2: read ``FLUSH_BYTES`` of scratch before each call, so that
+    the call finds its inputs in the card's memory and not in its L2 (a
+    read leaves no dirty line to write back during the call), and return
+    the loop's time less that of the same loop of reads alone."""
     dev = torch.device(device)
     for _ in range(warm):
         fn()
@@ -48,24 +58,41 @@ def timed(fn, iters: int = 30, warm: int = 1, device="cuda",
             fn()
         return (time.perf_counter() - t0) / iters
 
+    with torch.cuda.device(dev):
+        if not flush_l2:
+            return _loop_s(fn, iters, graph)
+        scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                              device=dev)
+        total = torch.empty((), dtype=torch.float32, device=dev)
+        flush = lambda: torch.sum(scratch, dim=0, out=total)
+
+        def flushed():
+            flush()
+            fn()
+        return _loop_s(flushed, iters, graph) - _loop_s(flush, iters, graph)
+
+
+def _loop_s(fn, iters: int, graph: bool) -> float:
+    """Mean seconds of ``fn()`` over a loop of ``iters`` calls on the
+    current CUDA device, eager or replayed from a graph (see ``timed``)."""
+
     def loop():
         for _ in range(iters):
             fn()
 
-    with torch.cuda.device(dev):
-        run = loop
-        if graph:
-            torch.cuda.synchronize()
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                loop()
-            run = g.replay
-            run()  # the first replay uploads the graph
+    run = loop
+    if graph:
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            loop()
+        run = g.replay
+        run()  # the first replay uploads the graph
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
     return start.elapsed_time(end) / 1e3 / iters

@@ -13,3 +13,15 @@ def render_device(device=None) -> torch.device:
             "no CUDA device: the port renders on the card; pass "
             "device='cpu' to run the kernels' plain PyTorch versions")
     return dev
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """Whether a kernel's wrapper takes ``x``: True for a CUDA tensor (the
+    kernel launches or raises), False for a CPU tensor (its plain PyTorch
+    version runs); any other device raises ValueError."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"the kernels run on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return False

@@ -3,9 +3,11 @@
 ``csrc/pairs_trace.cu`` (B0-B3), ``csrc/pallas_trace.cu`` (B5, B6) and
 ``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
 Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
-staging of ``csrc/stage.cuh``), and ``csrc/cull.cu`` (the culling:
+staging of ``csrc/stage.cuh``), ``csrc/cull.cu`` (the culling:
 ``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
-of the tiled one), are compiled by ``nvcc`` for
+of the tiled one) and ``csrc/wavefront.cu`` (the depth step's per-lane
+math: ``sphere_hit``, ``shade``, ``bounce``, and the primary rays,
+``primary_rays``) are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
@@ -14,8 +16,9 @@ Nothing is compiled or loaded when this module is imported.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into an FMA, so the
 kernels round every product and sum as PyTorch's eager ops do and match
-the plain versions in ``ops/pairs_trace.py``, ``ops/pallas_trace.py`` and
-``bench/micro_kernel.py`` bit for bit.
+the plain versions in ``ops/pairs_trace.py``, ``ops/pallas_trace.py``,
+``bench/micro_kernel.py``, ``ops/sphere.py``, ``integrator/wavefront.py``
+and ``render/pipeline.py`` bit for bit.
 
 Each launch wrapper checks its tensors, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
@@ -36,7 +39,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
                 for f in ("pairs_trace.cu", "pallas_trace.cu",
-                          "micro_kernel.cu", "cull.cu"))
+                          "micro_kernel.cu", "cull.cu", "wavefront.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
@@ -75,8 +78,12 @@ PROBE_FIXED = 8   # tiles of B7c
 # tile_lists).
 CULLING = ("pair_bits", "compact_key", "tile_lists")
 
+# The depth step's kernels and the primary rays' of csrc/wavefront.cu (see
+# sphere_hit, shade, bounce and primary_rays).
+DEPTH_STEP = ("sphere_hit", "shade", "bounce", "primary_rays")
+
 # Kernel launches since the last reset_launches(), by wrapper.
-LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING)}
+LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING, *DEPTH_STEP)}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -178,7 +185,13 @@ def load():
                 ("rt_compact_key_k", [p] * 7 + [i] * 4 + [p, p, i, i, p, p,
                                                            i, p]),
                 ("rt_tile_lists", [p] * 7 + [i, p, i, i, i, p, p, p]),
-                ("rt_tile_lists_k", [p] * 7 + [i, p, i, i, i, p, p, i, p])):
+                ("rt_tile_lists_k", [p] * 7 + [i, p, i, i, i, p, p, i, p]),
+                # csrc/wavefront.cu: an array of pointers, then scalars
+                ("rt_sphere_hit", [p, i, i, i, p]),
+                ("rt_shade", [p, i, i, fl, p]),
+                ("rt_bounce", [p, i, p]),
+                ("rt_primary_rays", [p, i, ctypes.c_uint, i, i, i,
+                                     ctypes.c_longlong, fl, fl, fl, fl, p])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i
@@ -305,9 +318,9 @@ def _need(name, x, dtype, cols=None):
 
 
 def _on_card(*tensors):
-    """The probe and culling kernels take tensors of one CUDA device (a
-    CPU tensor's place is the plain version in bench/micro_kernel.py,
-    ops/pairs_trace.py or ops/pallas_trace.py)."""
+    """The probe, culling and depth-step kernels take tensors of one CUDA
+    device (a CPU tensor's place is the plain version beside the
+    dispatching function)."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("these kernels need their tensors on one CUDA "
@@ -540,3 +553,193 @@ def tile_lists(O, u, aabb, n_tiles, cap, subg):
             _ptr(cap), R, subg, n_tiles, bits.data_ptr(), lists.data_ptr(),
             st))
     return lists
+
+
+# ------------------------------- the depth step and the primary rays
+# (csrc/wavefront.cu; each C function takes an array of device pointers)
+
+def _lanes(R, dev, *named):
+    """Per-lane tensors of one launch: each (name, tensor, dtype) a
+    contiguous (R,) tensor on ``dev``; a None tensor is passed as null."""
+    if R >= 2**31:
+        raise ValueError("kernel indices are 32-bit: cast too large")
+    for name, x, dt in named:
+        if x is not None and (x.dtype != dt or x.shape != (R,)
+                              or not x.is_contiguous() or x.device != dev):
+            raise ValueError(f"{name}: need a contiguous ({R},) {dt} tensor "
+                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+
+
+def _table(dev, *named):
+    """Scene constants: each (name, tensor, dtype, shape) a contiguous
+    tensor of that shape on ``dev`` (() a 0-d tensor; None: any non-empty
+    1-D tensor)."""
+    for name, x, dt, shape in named:
+        if x.dtype != dt or x.device != dev or not x.is_contiguous() or (
+                x.dim() != 1 or not x.numel() if shape is None
+                else x.shape != shape):
+            want = "(n,)" if shape is None else shape
+            raise ValueError(f"{name}: need a contiguous {dt} tensor of "
+                             f"shape {want} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def _rows3(name, x, R, dev):
+    """A (3, R) f32 tensor whose rows the kernel reads or writes."""
+    if x.dtype != torch.float32 or x.shape != (3, R) \
+            or not x.is_contiguous() or x.device != dev:
+        raise ValueError(f"{name}: need a contiguous (3, {R}) float32 tensor "
+                         f"on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return tuple(x[c] for c in range(3))
+
+
+def _counts(counts, dev):
+    if counts.dtype != torch.int64 or counts.shape != (6,) \
+            or not counts.is_contiguous() or counts.device != dev:
+        raise ValueError(f"counts: need a contiguous (6,) int64 tensor on "
+                         f"{dev}, got {counts.dtype} {tuple(counts.shape)} on "
+                         f"{counts.device}")
+
+
+def _pointers(*xs):
+    return (ctypes.c_void_p * len(xs))(*(_ptr(x) for x in xs))
+
+
+def sphere_hit(O, u, spheres, full=True, active=None, lv2=None):
+    """Kernel rt_sphere_hit: the nearest sphere of each ray of
+    ``ops/sphere.sphere_hit_plain``.  full: (t, obj, (Nx, Ny, Nz)); else
+    (t, active & ~(t * t <= lv2)) of ``sphere_shadow_plain``, the second
+    None without ``active``.  spheres = (cx, cy, cz, radius), (S,) f32."""
+    dev, R = O[0].device, O[0].shape[0]
+    _lanes(R, dev, *zip(("O.x", "O.y", "O.z", "u.x", "u.y", "u.z"), (*O, *u),
+                        (torch.float32,) * 6))
+    S = spheres[0].shape[0] if spheres[0].dim() == 1 else 0
+    _table(dev, *((n, x, torch.float32, (S,)) for n, x in zip(
+        ("cx", "cy", "cz", "radius"), spheres)))
+    if S < 1 or full and active is not None or (active is None) != (
+            lv2 is None):
+        raise ValueError(f"need at least one sphere (got {S}), and active "
+                         "with lv2 in the shadow mode only")
+    _lanes(R, dev, ("active", active, torch.bool),
+           ("lv2", lv2, torch.float32))
+    _on_card(O[0])
+    new = lambda dt=torch.float32: torch.empty(R, dtype=dt, device=dev)
+    t = new()
+    obj = new(torch.int32) if full else None
+    N = (new(), new(), new()) if full else (None,) * 3
+    act = None if active is None else new(torch.bool)
+    if R:
+        ptrs = _pointers(*O, *u, *spheres, active, lv2, t, obj, *N, act)
+        _run("sphere_hit", dev, lambda lib, st: lib.rt_sphere_hit(
+            ptrs, R, S, int(full), st))
+    return (t, obj, N) if full else (t, act)
+
+
+def shade(O, u, ri, sph, mesh, mats, L, intensity, eps, mesh_id, counts):
+    """Kernel rt_shade: the outputs of ``integrator/wavefront.shade_plain``
+    in the order of its ``Shade`` (the albedo a (3, R) tensor), adding the
+    hit, mirror, refract, tir and diffuse lanes into counts[:5].
+    sph = (t, obj, N) of sphere_hit on these rays; mesh = (t, N
+    unnormalised) of the mesh's closest cast, or None; mats = (albedo
+    (3 x (M,)), mirror, in_ri, out_ri); L three 0-d f32 tensors and
+    intensity one."""
+    dev, R = O[0].device, O[0].shape[0]
+    t_s, obj_s, N_s = sph
+    t_m, N_m = mesh if mesh is not None else (None, (None,) * 3)
+    f32 = torch.float32
+    _lanes(R, dev, *zip(("O.x", "O.y", "O.z", "u.x", "u.y", "u.z", "ri",
+                         "t_s", "N_s.x", "N_s.y", "N_s.z", "t_m", "N_m.x",
+                         "N_m.y", "N_m.z"),
+                        (*O, *u, ri, t_s, *N_s, t_m, *N_m), (f32,) * 15),
+           ("obj", obj_s, torch.int32))
+    albedo, mirror, in_ri, out_ri = mats
+    M = mirror.shape[0] if mirror.dim() == 1 else 0
+    _table(dev, *((f"albedo.{c}", x, f32, (M,))
+                  for c, x in zip("xyz", albedo)),
+           ("mirror", mirror, torch.bool, (M,)), ("in_ri", in_ri, f32, (M,)),
+           ("out_ri", out_ri, f32, (M,)),
+           *((f"L.{c}", x, f32, ()) for c, x in zip("xyz", L)),
+           ("intensity", intensity, f32, ()))
+    _counts(counts, dev)
+    if M < 1 or (mesh is not None and not 0 <= mesh_id < M):
+        raise ValueError(f"{M} materials and mesh id {mesh_id}: need at "
+                         "least one, and the mesh's among them")
+    _on_card(O[0])
+    new = lambda dt=f32: torch.empty(R, dtype=dt, device=dev)
+    v3 = lambda: tuple(new() for _ in range(3))
+    O2, u2, ri2, S, d = v3(), v3(), new(), v3(), v3()
+    cap, lv2, N = new(), new(), v3()
+    alb = torch.empty((3, R), dtype=f32, device=dev)
+    lum, is_diff, sh_active = new(), new(torch.bool), new(torch.bool)
+    if R:
+        ptrs = _pointers(*O, *u, ri, t_s, obj_s, *N_s, t_m, *N_m, *albedo,
+                         mirror, in_ri, out_ri, *L, intensity, *O2, *u2, ri2,
+                         *S, *d, cap, lv2, *N, *_rows3("alb", alb, R, dev),
+                         lum, is_diff, sh_active, counts)
+        _run("shade", dev, lambda lib, st: lib.rt_shade(
+            ptrs, R, int(mesh_id), float(eps), st))
+    return O2, u2, ri2, S, d, cap, lv2, N, alb, lum, is_diff, sh_active
+
+
+def bounce(u2, N, alb, lum, lv2, is_diff, sh_active, t_sph, t_mesh, r1, r2,
+           counts):
+    """Kernel rt_bounce: (u3, direct (3, R)) of
+    ``integrator/wavefront.bounce_plain``, adding the shadowed lanes into
+    counts[5].  t_mesh None: the shadow distance is t_sph alone."""
+    dev, R = u2[0].device, u2[0].shape[0]
+    f32 = torch.float32
+    _lanes(R, dev, *zip(("u2.x", "u2.y", "u2.z", "N.x", "N.y", "N.z", "lum",
+                         "lv2", "t_sph", "t_mesh", "r1", "r2"),
+                        (*u2, *N, lum, lv2, t_sph, t_mesh, r1, r2),
+                        (f32,) * 12),
+           ("is_diff", is_diff, torch.bool),
+           ("sh_active", sh_active, torch.bool))
+    alb_rows = _rows3("alb", alb, R, dev)
+    _counts(counts, dev)
+    _on_card(u2[0])
+    u3 = tuple(torch.empty(R, dtype=f32, device=dev) for _ in range(3))
+    direct = torch.empty((3, R), dtype=f32, device=dev)
+    if R:
+        ptrs = _pointers(*u2, *N, *alb_rows, lum, lv2, is_diff, sh_active,
+                         t_sph, t_mesh, r1, r2, *u3,
+                         *_rows3("direct", direct, R, dev), counts)
+        _run("bounce", dev, lambda lib, st: lib.rt_bounce(ptrs, R, st))
+    return u3, direct
+
+
+def primary_rays(key, sample, rows, cam, W, D, quirk, sigma, half_w, half_h,
+                 z, O, u, un):
+    """Kernel rt_primary_rays: one sample's primary rays and uniforms of
+    ``render/pipeline.primary_rays_plain``, written into O and u (three
+    contiguous (nr * W,) f32 views each) and un, a (D, 2, nr * W) f32 view
+    with unit stride along its last dimension (depths 1..D of
+    row_uniforms).  key = (k0, k1) 0-d int64, rows (nr,) int64, cam the
+    camera's 12 0-d f32 components (C, bx, by, bz); sigma, half_w, half_h
+    and z are f32 values (Python floats)."""
+    dev = rows.device
+    R = rows.shape[0] * W if rows.dim() == 1 else -1
+    f32 = torch.float32
+    _table(dev, ("k0", key[0], torch.int64, ()),
+           ("k1", key[1], torch.int64, ()), ("rows", rows, torch.int64, None),
+           *((f"camera[{i}]", x, f32, ()) for i, x in enumerate(cam)))
+    _lanes(R, dev, *zip(("O.x", "O.y", "O.z", "u.x", "u.y", "u.z"),
+                        (*O, *u), (f32,) * 6))
+    if W < 1 or D < 0 or not 0 <= sample < 2**32 or len(cam) != 12 \
+            or un.dtype != f32 or un.device != dev \
+            or un.shape != (D, 2, R) or (D and (
+                un.stride(2) != 1 or un.stride(0) != 2 * un.stride(1))):
+        raise ValueError(f"need W >= 1, D >= 0, a sample id in [0, 2^32), "
+                         f"12 camera components and un a ({D}, 2, {R}) f32 "
+                         f"view of unit last stride on {dev}; got W {W}, D "
+                         f"{D}, sample {sample}, {len(cam)} components, un "
+                         f"{un.dtype} {tuple(un.shape)} {un.stride()} on "
+                         f"{un.device}")
+    _on_card(rows)
+    if R:
+        ptrs = _pointers(*key, rows, *cam, *O, *u, un if D else None)
+        _run("primary_rays", dev, lambda lib, st: lib.rt_primary_rays(
+            ptrs, R, int(sample), int(W), int(D), int(bool(quirk)),
+            un.stride(1) if D else 0, float(sigma), float(half_w),
+            float(half_h), float(z), st))

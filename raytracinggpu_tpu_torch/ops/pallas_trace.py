@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raytracinggpu_tpu_torch.core.device import on_cuda as _on_cuda
 from raytracinggpu_tpu_torch.core.vec import Vec3
 from raytracinggpu_tpu_torch.ops.triangle import TriHit
 
@@ -328,15 +329,6 @@ def pallas_shadow_plain(rfT, fields, lists, eps_leaf, subg):
 
 
 # --------------------------------------------------------- device dispatch
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.is_cuda:
-        return True
-    if x.device.type != "cpu":
-        raise ValueError(f"mesh kernels run on CUDA or CPU tensors, got "
-                         f"{x.device}")
-    return False
-
 
 def dispatch(name, plain, *args):
     """Kernel ``name`` of ``ops/_kernels`` for a CUDA tensor, ``plain`` for

@@ -8,6 +8,11 @@
 The reference scans objects in ascending id with a strict `<`, so the
 lowest id wins ties; ``torch.argmin`` returns the first occurrence, as
 ``jnp.argmin`` does.
+
+``intersect_spheres`` (the closest rays) and ``sphere_shadow`` (the
+shadow rays) launch the kernel ``rt_sphere_hit`` of ``csrc/wavefront.cu``
+for CUDA tensors and run the plain versions, ``sphere_hit_plain`` and
+``sphere_shadow_plain``, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raytracinggpu_tpu_torch.core.device import on_cuda
 from raytracinggpu_tpu_torch.core.vec import Vec3, fma, sqrt
 
 INF = 1e9 + 9  # reference INF; 1e9 once rounded to float32
@@ -38,8 +44,9 @@ class SphereTable(NamedTuple):
         return SphereTable(t(c[:, 0]), t(c[:, 1]), t(c[:, 2]), t(r))
 
 
-def intersect_spheres(O: Vec3, u: Vec3, tab: SphereTable):
-    """Nearest sphere hit over the batch.
+def sphere_hit_plain(O: Vec3, u: Vec3, tab: SphereTable):
+    """Nearest sphere hit over the batch, in PyTorch ops (the contract of
+    the kernel ``rt_sphere_hit``).
 
     Returns (t, obj_id, N): t (R,) = INF on miss; obj_id (R,) int32 = -1 on
     miss; N the unit outward normal at the hit point (miss lanes arbitrary).
@@ -71,3 +78,38 @@ def intersect_spheres(O: Vec3, u: Vec3, tab: SphereTable):
     n = p - cwin
     nn = torch.where(hit, n.norm(), 1.0)
     return tmin, obj, n / nn
+
+
+def sphere_shadow_plain(O: Vec3, u: Vec3, tab: SphereTable, active=None,
+                        lv2=None):
+    """The shadow rays' nearest sphere distance t, and with ``active`` (R,)
+    bool the pairs shadow cast's active lanes, ``active & ~(t * t <=
+    lv2)``: a lane a sphere already occludes needs no mesh work (its
+    occlusion cannot change).  Returns (t, active or None)."""
+    t = sphere_hit_plain(O, u, tab)[0]
+    if active is not None:
+        active = active & ~(t * t <= lv2)
+    return t, active
+
+
+def intersect_spheres(O: Vec3, u: Vec3, tab: SphereTable):
+    """``sphere_hit_plain`` on the rays' device: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        t, obj, N = _kernels.sphere_hit(O, u, tuple(tab))
+        return t, obj, Vec3(*N)
+    return sphere_hit_plain(O, u, tab)
+
+
+def sphere_shadow(O: Vec3, u: Vec3, tab: SphereTable, active=None,
+                  lv2=None):
+    """``sphere_shadow_plain`` on the rays' device (the kernel in its
+    shadow mode for CUDA tensors)."""
+    if on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.sphere_hit(O, u, tuple(tab), full=False,
+                                   active=active, lv2=lv2)
+    return sphere_shadow_plain(O, u, tab, active, lv2)

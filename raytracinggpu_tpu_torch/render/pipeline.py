@@ -12,6 +12,9 @@ accumulator in sample order, so the frame is bitwise independent of the
 group size.  ``sample_colors`` gives the samples unsummed and
 ``sum_samples`` adds them in that order: the sharded frame
 (``parallel/sharding.py``) is built from them, and is bitwise this one.
+A sample's primary rays and uniforms (``primary_rays``) come from the
+kernel ``rt_primary_rays`` of ``csrc/wavefront.cu`` on the card, written
+into its wavefront's buffers, and from ``primary_rays_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raytracinggpu_tpu_torch.core.device import on_cuda
 from raytracinggpu_tpu_torch.core.rng import (
     Key,
     PRNGKey,
@@ -89,6 +93,11 @@ class Camera(NamedTuple):
                       bz=bz.normalized())
 
 
+def _focal_z(cfg: RenderConfig) -> float:
+    """z = -W / (2 tan(fov/2)), rounded to f32."""
+    return float(np.float32(-cfg.width / (2.0 * np.tan(cfg.fov / 2.0))))
+
+
 def pixel_centers(cfg: RenderConfig, rows: np.ndarray, device):
     """Per-pixel screen offsets (ux, uy) for the given rows and the focal
     z: ux = x - W/2 + 0.5, uy = H/2 - y - 0.5, z = -W / (2 tan(fov/2))."""
@@ -98,7 +107,7 @@ def pixel_centers(cfg: RenderConfig, rows: np.ndarray, device):
     nr = y.shape[0]
     ux = np.broadcast_to((x - W / 2.0 + 0.5)[None, :], (nr, W)).reshape(-1)
     uy = np.broadcast_to((H / 2.0 - y - 0.5)[:, None], (nr, W)).reshape(-1)
-    z = float(np.float32(-W / (2.0 * np.tan(cfg.fov / 2.0))))
+    z = _focal_z(cfg)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return t(ux), t(uy), z
 
@@ -126,6 +135,45 @@ def raygen(cfg: RenderConfig, cam: Camera, jitter, rows) -> tuple[Vec3, Vec3]:
         d = (cam.bx * fma(mag, c, ux) + cam.by * fma(mag, s, uy)
              + cam.bz * z)
     return O, d.normalized()
+
+
+def primary_rays_plain(cfg: RenderConfig, cam: Camera, key: Key, s: int,
+                       rows_t, rows):
+    """Sample ``s``'s primary rays over the global rows ``rows`` (numpy;
+    ``rows_t`` the same as an int64 tensor on the device), in PyTorch ops
+    (the contract of the kernel ``rt_primary_rays``): (O, u, the
+    (max_depth, 2, nr*W) uniforms of the bounces), from the uniforms that
+    ``row_uniforms`` keys by ``fold_in(key, s)`` and the rows."""
+    un = row_uniforms(fold_in(key, s), rows_t, cfg.width, cfg.max_depth)
+    jitter = box_muller_terms(un[0, 0], un[0, 1], cfg.sigma)
+    O, u = raygen(cfg, cam, jitter, rows)
+    return O, u, un[1:]
+
+
+def primary_rays_into(cfg: RenderConfig, cam: Camera, key: Key, s: int,
+                      rows_t, rows, O: Vec3, u: Vec3, un) -> None:
+    """``primary_rays_plain`` copied into the buffers of ``primary_rays``."""
+    O_p, u_p, un_p = primary_rays_plain(cfg, cam, key, s, rows_t, rows)
+    for dst, src in zip((*O, *u, un), (*O_p, *u_p, un_p)):
+        dst.copy_(src)
+
+
+def primary_rays(cfg: RenderConfig, cam: Camera, key: Key, s: int, rows_t,
+                 rows, O: Vec3, u: Vec3, un) -> None:
+    """``primary_rays_plain`` written into O and u (contiguous (nr*W,)
+    rows) and un ((max_depth, 2, nr*W), unit stride along the rays): the
+    kernel ``rt_primary_rays`` for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not on_cuda(rows_t):
+        primary_rays_into(cfg, cam, key, s, rows_t, rows, O, u, un)
+        return
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    f32 = lambda v: float(np.float32(v))
+    _kernels.primary_rays(
+        key, s, rows_t, (*cam.C, *cam.bx, *cam.by, *cam.bz), cfg.width,
+        cfg.max_depth, cfg.camera_point_quirk, f32(cfg.sigma),
+        f32(cfg.width / 2.0), f32(cfg.height / 2.0), _focal_z(cfg), O, u, un)
 
 
 def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs",
@@ -170,10 +218,11 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     chunk = chunk_size(cfg, R, traversal,
                        n_tiles=0 if tiled is None else tiled.n_tiles)
     pad = (-R) % chunk
-    padv = lambda c: F.pad(c, (0, pad))
-    O = Vec3(*map(padv, O))
-    u = Vec3(*map(padv, u))
-    uniforms = padv(uniforms)
+    if pad:
+        padv = lambda c: F.pad(c, (0, pad))
+        O = Vec3(*map(padv, O))
+        u = Vec3(*map(padv, u))
+        uniforms = padv(uniforms)
     cols, stats = [], None
     for lo in range(0, R + pad, chunk):
         sl = lambda c: c[..., lo:lo + chunk]
@@ -210,20 +259,18 @@ def _wavefronts(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
     sample_ids = [int(s) for s in sample_ids]
     n_s = len(sample_ids)
     g = group_size(cfg, n_s)
-    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64,
-                             device=scene.device)
+    dev = scene.device
+    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=dev)
+    R = len(rows) * W
     for g0 in range(0, n_s, g):
-        Os, us, uns = [], [], []
-        for s in sample_ids[g0:g0 + g]:
-            un = row_uniforms(fold_in(key, s), rows_t, W, D)  # (D+1, 2, R)
-            jitter = box_muller_terms(un[0, 0], un[0, 1], cfg.sigma)
-            O, u = raygen(cfg, cam, jitter, rows)
-            Os.append(O)
-            us.append(u)
-            uns.append(un[1:])
-        O = Vec3(*(torch.cat(c) for c in zip(*Os)))
-        u = Vec3(*(torch.cat(c) for c in zip(*us)))
-        col, st = trace_chunked(scene, cfg, O, u, torch.cat(uns, dim=-1))
+        O, u = (torch.empty((3, g * R), dtype=torch.float32, device=dev)
+                for _ in range(2))
+        un = torch.empty((D, 2, g * R), dtype=torch.float32, device=dev)
+        for k, s in enumerate(sample_ids[g0:g0 + g]):
+            lanes = slice(k * R, (k + 1) * R)
+            primary_rays(cfg, cam, key, s, rows_t, rows, Vec3(*O[:, lanes]),
+                         Vec3(*u[:, lanes]), un[..., lanes])
+        col, st = trace_chunked(scene, cfg, Vec3(*O), Vec3(*u), un)
         yield col, g, st
 
 

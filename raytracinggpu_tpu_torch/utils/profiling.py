@@ -49,15 +49,17 @@ import torch
 # (module, function) of each stage, looked up where the caller finds it
 STAGES = (
     ("raytracinggpu_tpu_torch.render.pipeline", "trace"),
-    ("raytracinggpu_tpu_torch.integrator.wavefront", "intersect_all"),
-    ("raytracinggpu_tpu_torch.integrator.wavefront", "occlusion_distance"),
-    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_pair_bits"),
+    ("raytracinggpu_tpu_torch.render.pipeline", "primary_rays"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "_mesh_closest"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "_mesh_shadow"),
     ("raytracinggpu_tpu_torch.integrator.wavefront", "intersect_spheres"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "shade"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "sphere_shadow"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "bounce"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_pair_bits"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_shadow"),
-    ("raytracinggpu_tpu_torch.render.pipeline", "row_uniforms"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_closest"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_closest_smooth"),
-    ("raytracinggpu_tpu_torch.integrator.wavefront", "cosine_hemisphere"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_ray_feature_rows"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_key"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_tier"),

@@ -112,7 +112,8 @@ def test_intersect_all_matches_jax(scene):
 
 def test_occlusion_distance_matches_jax(scene):
     """Shadow rays from the primary hits toward the light: the occlusion
-    predicate t^2 <= |L-P|^2 agrees on >= 99.9% of the active lanes, and
+    predicate t^2 <= |L-P|^2 (t the nearer of the port's two shadow
+    distances) agrees on >= 99.9% of the active lanes, and
     a lane a sphere occludes stays occluded though it leaves the mesh
     query's active set."""
     jcfg, jtab, pcfg, ptab = scene
@@ -122,7 +123,9 @@ def test_occlusion_distance_matches_jax(scene):
     Lv = ptab.L - P
     d = Lv.normalized()
     active = hp.obj >= 0
-    tp = pwf.occlusion_distance(ptab, pcfg, P, d, Lv, active=active)
+    t_sph, t_mesh = pwf._shadow_distances(ptab, pcfg, P, d, Lv.norm(),
+                                          Lv.norm2(), active)
+    tp = t_sph if t_mesh is None else torch.minimum(t_sph, t_mesh)
     tj = jax.jit(jwf.occlusion_distance, static_argnums=1)(
         jtab, jcfg, _jv([c.numpy() for c in P]), _jv([c.numpy() for c in d]),
         _jv([c.numpy() for c in Lv]), active=jnp.asarray(active.numpy()))

@@ -188,7 +188,7 @@ def test_kernel_wrappers_check_their_inputs(bad):
                                       "pairs_closest_idx", "pallas_closest",
                                       "pallas_shadow", *_kernels.PROBES,
                                       "pair_bits", "compact_key",
-                                      "tile_lists"}
+                                      "tile_lists", *_kernels.DEPTH_STEP}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -1285,9 +1285,13 @@ def test_small_frame_on_cuda_matches_cpu():
         cfg, tables = build_preset("array_bvh", dev, **size)
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
-    # the culling of every cast and the ladder's key of the depth-1 casts
+    # the culling of every cast and the ladder's key of the depth-1 casts;
+    # a sphere pass on the closest and on the shadow rays, the shading and
+    # the bounce at each depth, the primary rays of each sample
     assert _launched() == {"pairs_closest": 2, "pairs_shadow": 2,
-                           "pair_bits": 4, "compact_key": 2}
+                           "pair_bits": 4, "compact_key": 2,
+                           "sphere_hit": 4, "shade": 2, "bounce": 2,
+                           "primary_rays": 2}
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -1319,7 +1323,8 @@ def test_compaction_ladder_on_cuda_is_the_full_width_frame():
         _kernels.reset_launches()
         frames.append((render_preset_frame(tables, c, seed=0), _launched()))
     ((img, st), on_launches), ((img0, st0), off_launches) = frames
-    off_want = {"pairs_closest": 3, "pairs_shadow": 3, "pair_bits": 6}
+    off_want = {"pairs_closest": 3, "pairs_shadow": 3, "pair_bits": 6,
+                "sphere_hit": 6, "shade": 3, "bounce": 3, "primary_rays": 2}
     assert off_launches == off_want
     assert on_launches == {**off_want, "compact_key": 4}
     np.testing.assert_array_equal(img, img0)
@@ -1527,7 +1532,8 @@ def test_small_pallas_frame_on_cuda_matches_cpu():
         _kernels.reset_launches()
         frames.append(render_preset_frame(tables, cfg, seed=0))
     assert _launched() == {"pallas_closest": 2, "pallas_shadow": 2,
-                           "tile_lists": 4}
+                           "tile_lists": 4, "sphere_hit": 4, "shade": 2,
+                           "bounce": 2, "primary_rays": 2}
     (img_c, _), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -2132,3 +2138,135 @@ def test_tile_lists_replay_from_a_cuda_graph():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, want)
+
+
+# -------------- the depth step and the primary rays (csrc/wavefront.cu)
+
+def _depth_step_calls(bad):
+    """One call of each depth-step wrapper on meta tensors, with ``bad``
+    applied to one input of the wrapper it names (see the test below)."""
+    R, S, M = 256, 6, 7
+    f32 = torch.float32
+    meta = lambda *shape, dt=f32: torch.empty(shape, dtype=dt,
+                                              device="meta")
+    v3 = lambda: Vec3(*(meta(R) for _ in range(3)))
+    O, u = v3(), v3()
+    spheres = tuple(meta(S) for _ in range(4))
+    mats = ((meta(M), meta(M), meta(M)), meta(M, dt=torch.bool), meta(M),
+            meta(M))
+    L = tuple(meta() for _ in range(3))
+    counts = meta(6, dt=torch.int64)
+    sph = (meta(R), meta(R, dt=torch.int32), v3())
+    mesh = (meta(R), v3())
+    cam = tuple(meta() for _ in range(12))
+    key = (meta(dt=torch.int64), meta(dt=torch.int64))
+    rows = meta(2, dt=torch.int64)
+    W = R // 2
+    if bad == "sphere_hit dtype":
+        O = Vec3(O.x.double(), O.y, O.z)
+    elif bad == "sphere_hit table":
+        spheres = spheres[:3] + (meta(S + 1),)
+    elif bad == "sphere_hit shadow mode":
+        return lambda: _kernels.sphere_hit(O, u, spheres, full=True,
+                                           active=meta(R, dt=torch.bool),
+                                           lv2=meta(R))
+    elif bad == "shade shape":
+        sph = (meta(R + 1),) + sph[1:]
+    elif bad == "shade obj dtype":
+        sph = (sph[0], meta(R, dt=torch.int64), sph[2])
+    elif bad == "shade contiguity":
+        mesh = (torch.empty(2 * R, device="meta")[::2], mesh[1])
+    elif bad == "shade counts":
+        counts = meta(5, dt=torch.int64)
+    elif bad == "shade light":
+        L = (meta(1),) + L[1:]
+    elif bad == "bounce albedo":
+        alb = meta(R, 3)
+        return lambda: _kernels.bounce(u, O, alb, meta(R), meta(R),
+                                       meta(R, dt=torch.bool),
+                                       meta(R, dt=torch.bool), meta(R), None,
+                                       meta(R), meta(R), counts)
+    elif bad == "primary_rays buffer":
+        return lambda: _kernels.primary_rays(
+            key, 0, rows, cam, W, 3, False, 0.2, 64.0, 64.0, -110.0, O, u,
+            meta(3, R, 2).transpose(1, 2))
+    elif bad == "primary_rays key":
+        key = (meta(1, dt=torch.int64), key[1])
+    kernel = bad.split()[0]
+    if kernel == "sphere_hit":
+        return lambda: _kernels.sphere_hit(O, u, spheres)
+    if kernel == "shade":
+        return lambda: _kernels.shade(O, u, meta(R), sph, mesh, mats, L,
+                                      meta(), 1e-4, 6, counts)
+    if kernel == "bounce":
+        return lambda: _kernels.bounce(u, O, meta(3, R), meta(R), meta(R),
+                                       meta(R, dt=torch.bool),
+                                       meta(R, dt=torch.bool), meta(R),
+                                       meta(R), meta(R), meta(R), counts)
+    return lambda: _kernels.primary_rays(key, 0, rows, cam, W, 3, False, 0.2,
+                                         64.0, 64.0, -110.0, O, u,
+                                         meta(3, 2, R))
+
+
+@pytest.mark.parametrize("bad,why", [
+    ("sphere_hit dtype", "O.x: need a contiguous"),
+    ("sphere_hit table", "radius: need a contiguous"),
+    ("sphere_hit shadow mode", "shadow mode"),
+    ("shade shape", "t_s: need a contiguous"),
+    ("shade obj dtype", "obj: need a contiguous"),
+    ("shade contiguity", "t_m: need a contiguous"),
+    ("shade counts", "counts: need a contiguous"),
+    ("shade light", r"L.x: need a contiguous .* shape \(\)"),
+    ("bounce albedo", r"alb: need a contiguous \(3, 256\)"),
+    ("primary_rays buffer", "un a"),
+    ("primary_rays key", "k0: need a contiguous"),
+    ("sphere_hit device", "one CUDA device"),
+    ("shade device", "one CUDA device"),
+    ("bounce device", "one CUDA device"),
+    ("primary_rays device", "one CUDA device")])
+def test_depth_step_wrappers_check_their_inputs(bad, why):
+    """The depth-step wrappers refuse a wrong dtype, shape, contiguity or
+    device before anything is built or launched; well-formed tensors that
+    are not on a CUDA device (here meta tensors) are refused last."""
+    assert set(_kernels.DEPTH_STEP) <= set(_kernels.LAUNCHES)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=why):
+        _depth_step_calls(bad)()
+    assert _kernels.LAUNCHES == before
+
+
+DEPTH_FRAMES = {"array_bvh pairs": ("array_bvh", {}),
+                "array_bvh pallas": ("array_bvh", dict(traversal="pallas")),
+                "realtime": ("realtime", {}), "showcase": ("showcase", {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", list(DEPTH_FRAMES))
+def test_depth_step_kernels_bitwise_equal_plain(frame):
+    """On the calls of a 64x64 spp4 d3 frame (depths 0 and 1, samples 0
+    and 1) and on bench/depth_step.py's hard inputs, each kernel of
+    csrc/wavefront.cu equals its plain version bit for bit; the frame
+    equals the frame with the plain stages patched in, which launches
+    none of them."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench import depth_step as ds
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+
+    name, kw = DEPTH_FRAMES[frame]
+    cfg, tables = build_preset(name, "cuda", width=64, height=64, spp=4,
+                               max_depth=3, **kw)
+    _kernels.reset_launches()
+    kept, (img, st) = ds.capture(lambda: render_preset_frame(tables, cfg, 0))
+    depth = {k: _kernels.LAUNCHES[k] for k in _kernels.DEPTH_STEP}
+    assert depth == {"sphere_hit": 6, "shade": 3, "bounce": 3,
+                     "primary_rays": 4}
+    err = {}
+    assert all(r[-1] for r in ds.hold(kept, frame, err, quiet=True))
+    assert ds.hold_calls(ds.adversarial_calls(tables, cfg), frame, err)
+    with ds.plain_stages():
+        _kernels.reset_launches()
+        img_p, st_p = render_preset_frame(tables, cfg, 0)
+    assert not any(_kernels.LAUNCHES[k] for k in _kernels.DEPTH_STEP)
+    np.testing.assert_array_equal(img, img_p)
+    for a, b in zip(st, st_p):
+        np.testing.assert_array_equal(a, b)
