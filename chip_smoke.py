@@ -10,8 +10,9 @@ Phases, in order; any failed check exits nonzero:
    csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e,
    csrc/cull.cu: the culling, pair_bits, compact_key and tile_lists,
    csrc/wavefront.cu: the depth step's sphere_hit, shade and bounce and
-   the primary rays' primary_rays) with nvcc for sm_90a, one process per
-   source, and load them;
+   the primary rays' primary_rays, csrc/glue.cu: the mesh casts'
+   ray_rows, compact_rows and scatter and the trace's composite) with
+   nvcc for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once with the compaction ladder off (every cast at
    full width, as in earlier versions of this script) while keeping the
@@ -344,6 +345,44 @@ Phases, in order; any failed check exits nonzero:
       bounds it;
    e. the headline frame's and the realtime loop's wall times beside their
       device time (the union of the kernels' intervals) and busy share.
+22. the mesh casts' glue and the trace's composite (csrc/glue.cu:
+    ``ray_rows``, a full-width cast's ray-feature rows in the pairs, live
+    and pallas layouts; ``compact_rows``, a compacted cast's source lanes
+    and rows from its sorted keys; ``scatter``, its outputs at full width
+    in one launch; ``composite``, the backward composite; bench/
+    cast_glue.py's tools), every launch counted in _launched:
+   a. the glue calls of the first trace's depths 0-2 and its composite in
+      the headline, the realtime frame 1, the animated frame 1, the pallas
+      headline, the soup (whose depth-1 casts overflow every tier) and
+      the soup with a tier of GLUE_SOUP_TIER (key mode 1) are kept; on
+      each the kernel must equal its plain version bit for bit (NaNs as
+      one value), and so must it on bench/cast_glue.adversarial_calls
+      (65,536 lanes of NaN, infinite, huge, zero, -0.0 and denormal rays
+      in every layout, widths C = 0 to Rp, random bits scattered,
+      composites of 1 to 17 depths), seeds 0 and 1;
+   b. the headline, the realtime frame 1, the animated frame 1, the pallas
+      headline, the soup and the headline with the ladder off must be
+      bitwise (image and TraceStats) the frames with the four plain
+      versions patched in, which launch none of them;
+   c. a headline frame's device operations (utils/profiling.device_kernels)
+      in all and with its mesh casts replayed, a pairs cast's (their
+      difference over the 160 casts) beside the parent's (PARENT_OPS,
+      PARENT_CAST_OPS), by wrapper; ray_rows + compact_rows one a pairs
+      cast, scatter as often as compact_rows, composite one a trace, and
+      the frame under half of the parent's operations; every operation's
+      name and count in both frames (what a cast launches is the
+      difference);
+   d. each kernel on the headline's casts (ray_rows on the depth-0
+      closest cast, and in the live layout on the depth-1 closest cast's
+      rays; compact_rows and scatter on the depth-1 closest and shadow
+      casts; the first trace's composite): its time replayed from a CUDA
+      graph, with the L2 emptied before each call and eager, its plain
+      version's, its bound (bench/cast_glue.call_bound) and what bounds
+      it, and for compact_rows torch.index_select of the live rows;
+   e. the headline, pallas headline and soup frames' and the realtime
+      loop's wall times beside their device time and busy share, and
+      bench/ladder.py's frames part (3 frames each way): the ladder's on /
+      off ratio and the host's wait for the counts.
 
 Each phase prints its wall time.  The next-to-last line is a JSON object
 with one entry per kernel (its launches on the main path of its phase,
@@ -357,8 +396,10 @@ closest cast, full width, replayed from a CUDA graph, with their launches
 in phase 4's frame, and tile_lists' phase 20c's on the pallas headline's
 depth-1 closest cast with its launches in phase 9b's frame; the depth
 step's are phase 21d's on the headline's depth-1 calls, with their
-launches in phase 21c's headline frame); the last line is the JSON
-result.
+launches in phase 21c's headline frame; the glue's phase 22d's, ray_rows
+on the depth-0 closest cast, compact_rows and scatter on the depth-1
+closest cast, the composite on the first trace, with their launches in
+phase 22c's headline frame); the last line is the JSON result.
 Without a CUDA device the script exits nonzero at once and prints no
 result.  On its way out, passed or failed, it stops every process it
 started that still runs, however deep (see _stop_leftovers), and fails
@@ -462,13 +503,16 @@ _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "sphere_kernelILb1E": "sphere_hit (closest)",
           "sphere_kernelILb0E": "sphere_hit (shadow)",
           "shade_kernel": "shade", "bounce_kernel": "bounce",
-          "primary_kernel": "primary_rays"}
+          "primary_kernel": "primary_rays",
+          "rows_kernelILb0E": "ray_rows", "rows_kernelILb1E": "compact_rows",
+          "scatter_kernel": "scatter", "composite_kernel": "composite"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
           "raytracinggpu_tpu/ops/pairs_trace.py:513")
 _MICRO = "raytracinggpu_tpu_torch/csrc/micro_kernel.cu"
 _CULL = "raytracinggpu_tpu_torch/csrc/cull.cu"
 _WAVEFRONT = "raytracinggpu_tpu_torch/csrc/wavefront.cu"
+_GLUE = "raytracinggpu_tpu_torch/csrc/glue.cu"
 _ORIGIN = {
     "pairs_closest": _PAIRS, "pairs_shadow": _PAIRS,
     "pairs_closest_smooth": _PAIRS, "pairs_closest_idx": _PAIRS,
@@ -498,6 +542,18 @@ _ORIGIN = {
     "primary_rays": (_WAVEFRONT, "raytracinggpu_tpu/render/pipeline.py:110 "
                      "row_uniforms and :128 raygen (XLA-side, no Pallas "
                      "kernel)"),
+    # the mesh casts' glue and the backward composite, XLA-side too
+    "ray_rows": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:386 "
+                 "_ray_feature_rows and ops/pallas_trace.py:202 "
+                 "_ray_features16 (XLA-side, no Pallas kernel)"),
+    "compact_rows": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:994 "
+                     "_compact_sort's lanes and the jnp.take of :1213, "
+                     ":1327 (XLA-side, no Pallas kernel)"),
+    "scatter": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:1228, :1334 "
+                ".at[src].set (XLA-side, no Pallas kernel)"),
+    "composite": (_GLUE, "raytracinggpu_tpu/integrator/wavefront.py:413 "
+                  "the backward composite's jax.lax.scan (XLA-side, no "
+                  "Pallas kernel)"),
     "probe_tile_slope": (_MICRO, "raytracinggpu_tpu/bench/micro_kernel.py:75"),
     "probe_block_mask": (_MICRO,
                          "raytracinggpu_tpu/bench/micro_kernel.py:128"),
@@ -621,21 +677,25 @@ _PAIRS_KERNELS = ("pairs_closest", "pairs_shadow", "pairs_closest_smooth",
                   "pairs_closest_idx")
 
 
-def _launched(culling: dict | None = None, depth: dict | None = None
-              ) -> dict:
+def _launched(culling: dict | None = None, depth: dict | None = None,
+              glue: dict | None = None) -> dict:
     """The launches since the last ``reset_launches()``, by kernel, without
-    the culling kernels of csrc/cull.cu and the depth step's of
-    csrc/wavefront.cu, which are held here: every pairs cast culls once,
-    so pair_bits launched as often as B0-B3 together, and the ladder keys
-    at most every cast (compact_key); every tiled cast culls once, so
-    tile_lists launched as often as B5 and B6 together; every depth step
-    runs the sphere pass twice, the shading and the bounce once.
-    ``culling`` and ``depth`` receive their counts."""
+    the culling kernels of csrc/cull.cu, the depth step's of
+    csrc/wavefront.cu and the glue's of csrc/glue.cu, which are held here:
+    every pairs cast culls once, so pair_bits launched as often as B0-B3
+    together, and the ladder keys at most every cast (compact_key); every
+    tiled cast culls once, so tile_lists launched as often as B5 and B6
+    together; every depth step runs the sphere pass twice, the shading and
+    the bounce once; every cast builds its rows once, at full width
+    (ray_rows) or compacted (compact_rows, then scatter), and every trace
+    composes once (at most one composite a shading, one for some).
+    ``culling``, ``depth`` and ``glue`` receive their counts."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
     out = dict(_kernels.LAUNCHES)
     cull = {k: out.pop(k) for k in _kernels.CULLING}
     step = {k: out.pop(k) for k in _kernels.DEPTH_STEP}
+    rows = {k: out.pop(k) for k in _kernels.GLUE}
     casts = sum(out[k] for k in _PAIRS_KERNELS)
     tiled = out["pallas_closest"] + out["pallas_shadow"]
     if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts \
@@ -646,20 +706,31 @@ def _launched(culling: dict | None = None, depth: dict | None = None
             or step["bounce"] != step["shade"]:
         _fail(f"depth-step launches {step}: the sphere pass not twice, or "
               "the bounce not once, a shading")
+    composed = (0 < rows["composite"] <= step["shade"] if step["shade"]
+                else not rows["composite"])
+    if rows["ray_rows"] + rows["compact_rows"] != casts + tiled \
+            or rows["scatter"] != rows["compact_rows"] or not composed:
+        _fail(f"glue launches {rows} for {casts} pairs casts, {tiled} tiled "
+              f"casts and {step['shade']} shadings: the rows not once a "
+              "cast, a compacted cast not scattered once, or no composite "
+              "for the traces")
     if culling is not None:
         culling.update(cull)
     if depth is not None:
         depth.update(step)
+    if glue is not None:
+        glue.update(rows)
     return out
 
 
 def _none() -> dict:
-    """No launch of any kernel but the culling and depth-step ones (see
-    _launched)."""
+    """No launch of any kernel but the culling, depth-step and glue ones
+    (see _launched)."""
     from raytracinggpu_tpu_torch.ops import _kernels
 
     return {k: 0 for k in _kernels.LAUNCHES
-            if k not in _kernels.CULLING + _kernels.DEPTH_STEP}
+            if k not in _kernels.CULLING + _kernels.DEPTH_STEP
+            + _kernels.GLUE}
 
 
 def _ladder_off(cfg):
@@ -1430,8 +1501,8 @@ def _big_mesh(device, card, err):
     for i in flips:
         tid = int((b1.idx if hit1[i] else dense.idx)[i])
         slot = int((tab.fields[16] == tid).nonzero()[0])
-        rf = pt._ray_feature_rows(Vec3(*(c[i:i + 1] for c in O)),
-                                  Vec3(*(c[i:i + 1] for c in u)))
+        rf = pat.ray_rows_plain(Vec3(*(c[i:i + 1] for c in O)),
+                                Vec3(*(c[i:i + 1] for c in u)))
         _, beta, gamma, ok = pat.mt_slots(rf, tab.fields[:, slot:slot + 1],
                                           cfg.eps_leaf, 0, 1)
         m = float(torch.minimum(torch.minimum(beta, gamma),
@@ -2206,7 +2277,7 @@ def _oracle(device, card):
         _kernels.reset_launches()
         got, ref = cases.run(case)
         launched = {k: v for k, v in _kernels.LAUNCHES.items()
-                    if v and k not in _kernels.DEPTH_STEP}
+                    if v and k not in _kernels.DEPTH_STEP + _kernels.GLUE}
         share = cases.disagree(got, ref)
         print(f"oracle {label}: {share:.4%} of {len(got)} rays disagree "
               f"(bound {bound:.0%}), launches {launched}, "
@@ -3218,6 +3289,230 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
     return timing, d_all
 
 
+# Phase 22: a headline frame's device operations before csrc/glue.cu
+# (PERF.md: 8,844-8,858), and a pairs cast's then (its mesh casts'
+# 7,680 operations over 160 casts)
+PARENT_OPS = (8_844, 8_858)
+PARENT_CAST_OPS = 48
+GLUE_DEPTHS = 3  # the first trace's depths whose glue calls are held
+GLUE_SOUP_TIER = 0.875  # a tier that the soup's depth-1 casts fit
+
+
+def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
+    """Phase 22 (module docstring).  ``head`` phase 4's (config, tables,
+    camera, closest casts a frame), ``rt_scene`` phase 7's (config,
+    tables), ``pallas_head`` phase 20's (config, tables), ``soup`` phase
+    10's (config, tables).  Returns ({kernel: (ms, plain_ms, bound_ms,
+    bound_by)}, {kernel: library_ms}, the headline frame's launches of the
+    four kernels)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from raytracinggpu_tpu_torch.bench import cast_glue as cg
+    from raytracinggpu_tpu_torch.bench import depth_step as ds
+    from raytracinggpu_tpu_torch.bench.ladder import frames_part
+    from raytracinggpu_tpu_torch.core.rng import PRNGKey
+    from raytracinggpu_tpu_torch.ops import _kernels
+    from raytracinggpu_tpu_torch.render import realtime as rt
+    from raytracinggpu_tpu_torch.render.pipeline import (
+        Camera, rays_per_frame, render_frame, render_preset_frame)
+    from raytracinggpu_tpu_torch.scene.presets import build_preset
+    from raytracinggpu_tpu_torch.utils.profiling import device_kernels
+
+    hcfg, htab, cam, n_casts = head
+    rcfg, rtab = rt_scene
+    pcfg, ptab = pallas_head
+    scfg, stab = soup
+    acfg, atab = build_preset("realtime", device, animate_mesh=True)
+    soup_tier = dataclasses.replace(scfg, pairs_compact3=GLUE_SOUP_TIER)
+    head_frame = lambda seed=0, cfg=hcfg: render_frame(
+        htab, cfg, cam, PRNGKey(seed, device))
+    frames = {
+        "headline": head_frame,
+        "realtime frame 1": lambda: rt.step(
+            rtab, rcfg, rt.init_state(rcfg, rtab, seed=0)),
+        "animated frame 1": lambda: rt.step(
+            atab, acfg, rt.init_state(acfg, atab, seed=0),
+            mesh_speed=ANIM_MESH_SPEED),
+        "pallas headline": lambda: render_frame(
+            ptab, pcfg, cam, PRNGKey(0, device)),
+        "soup": lambda: render_preset_frame(stab, scfg, seed=0),
+        f"soup, a tier of {GLUE_SOUP_TIER}": lambda: render_preset_frame(
+            stab, soup_tier, seed=0),
+        "headline, ladder off": lambda: head_frame(0, _ladder_off(hcfg)),
+    }
+
+    # a. bitwise on the glue calls of each frame's first trace (depths 0-2
+    # and its composite), then on the hard lanes
+    outs, tiers, modes, layouts = {}, set(), set(), set()
+    for where, fn in frames.items():
+        if where == "headline, ladder off":
+            continue
+        kept, outs[where] = cg.capture(fn, depths=GLUE_DEPTHS)
+        torch.cuda.synchronize()
+        held = cg.hold(kept, where, err)
+        if not all(r[-1] for r in held):
+            _fail(f"cast glue {where}: a kernel differs from its plain "
+                  "version")
+        for label, _, args in kept["compact_rows"]:
+            tiers.add((where, args[1]))
+            modes.add(int(label.rsplit(" ", 1)[1]))
+        layouts |= {kind for _, kind, _ in kept["ray_rows"]}
+    print(f"cast glue: compacted casts held at key modes {sorted(modes)}, "
+          f"the tiers {sorted(tiers)}; full-width rows in the layouts "
+          f"{sorted(layouts)} (live: a cast that overflows every tier)")
+    if modes != {1, 2} or layouts != {"pairs", "live", "pallas"}:
+        _fail("cast glue: the frames' calls do not cover key modes 1 and 2, "
+              "an overflowing cast and every layout")
+    for seed in (0, 1):
+        if not cg.hold_calls(cg.adversarial_calls(device, seed=seed),
+                             f"hard lanes seed {seed}", err):
+            _fail("cast glue: a kernel differs from its plain version on "
+                  "the hard lanes")
+
+    # b. whole frames, bitwise the frames with the plain glue patched in
+    t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    n_eq = lambda a, b: np.array_equal(a[0], b[0]) and all(
+        np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    st_eq = lambda a, b: torch.equal(a[0].accum, b[0].accum) and \
+        torch.equal(a[1], b[1])
+    outs["headline, ladder off"] = frames["headline, ladder off"]()
+    for where, same in (("headline", t_eq), ("realtime frame 1", st_eq),
+                        ("animated frame 1", st_eq),
+                        ("pallas headline", t_eq), ("soup", n_eq),
+                        ("headline, ladder off", t_eq)):
+        with cg.plain_glue():
+            _kernels.reset_launches()
+            plain = frames[where]()
+            torch.cuda.synchronize()
+            launched = {k: _kernels.LAUNCHES[k] for k in _kernels.GLUE}
+        if any(launched.values()) or not same(outs[where], plain):
+            _fail(f"cast glue frames {where}: differs from the frame with "
+                  f"the plain glue, or that launched {launched}")
+        print(f"cast glue frames {where}: bitwise the frame with the plain "
+              "glue patched in (image and TraceStats)")
+
+    # c. a headline frame's device operations: in all, by wrapper, and with
+    # its mesh casts replayed (what is left outside them)
+    counted = {}
+    for label, targets in (("all", ()), ("mesh casts replayed",
+                                         ds.MESH_CASTS)):
+        record, replay = ds.record_replay(targets)
+        with record():
+            want = head_frame(1)
+        with replay():
+            _kernels.reset_launches()
+            box = {}
+            k = device_kernels(lambda: box.update(out=head_frame(1)),
+                               top=40)
+            torch.cuda.synchronize()
+            cull, depth, glue = {}, {}, {}
+            launched = _launched(cull, depth, glue)
+        if not t_eq(box["out"], want):
+            _fail(f"cast glue launches ({label}): the replayed frame "
+                  "differs")
+        counted[label] = (k, glue, {**launched, **cull, **depth})
+        print(f"cast glue headline launches ({label}): {k['kernels']} "
+              f"device operations, {k['kernel_ms']:.1f} ms of device time; "
+              f"by wrapper {glue}, {launched}, {cull}, {depth}")
+        for e in k["by_name"]:
+            print(f"  {e['ms']:9.1f} ms {e['count']:7d}x  {e['name']}")
+    (k_all, g_all, _), (k_mesh, _, _) = counted.values()
+    casts, traces = 2 * n_casts, n_casts // hcfg.max_depth
+    cast_ops = (k_all["kernels"] - k_mesh["kernels"]) / casts
+    print(f"cast glue headline: {k_all['kernels']} device operations (the "
+          f"parent's {PARENT_OPS[0]:,}-{PARENT_OPS[1]:,}); a pairs cast "
+          f"{cast_ops:.2f} (the parent's {PARENT_CAST_OPS}) over {casts} "
+          f"casts; the glue kernels {g_all} ({traces} traces); on {card}")
+    if g_all["ray_rows"] + g_all["compact_rows"] != casts \
+            or g_all["scatter"] != g_all["compact_rows"] \
+            or g_all["composite"] != traces:
+        _fail(f"cast glue: launches {g_all}, expected ray_rows + "
+              f"compact_rows {casts} (one a pairs cast), scatter = "
+              f"compact_rows, composite {traces} (one a trace)")
+    if not 2 * k_all["kernels"] < PARENT_OPS[0]:
+        _fail(f"cast glue: {k_all['kernels']} device operations, not under "
+              f"half of the parent's {PARENT_OPS[0]}")
+
+    # d. times on the headline's casts (the depth-0 rows, the depth-1
+    # compacted casts, the first trace's composite): replayed from a CUDA
+    # graph (back to back; and with the L2 emptied before each call) and
+    # eager, the plain version eager, the bound; the gather's PyTorch call
+    kept, _ = cg.capture(head_frame, depths=2)
+    first = lambda kernel, start: next(
+        (lab, a) for lab, _, a in kept[kernel] if lab.startswith(start))
+    closest1 = first("compact_rows", "trace 0 depth 1 closest")[1]
+    cases = [("ray_rows", *first("ray_rows", "trace 0 depth 0 closest")),
+             # the depth-1 casts' rays at full width: what a cast that
+             # overflows every tier builds
+             ("ray_rows", "trace 0 depth 1 closest, at full width (live)",
+              closest1[3:] + ("live",)),
+             ("compact_rows", *first("compact_rows",
+                                     "trace 0 depth 1 closest")),
+             ("compact_rows", *first("compact_rows",
+                                     "trace 0 depth 1 shadow")),
+             ("scatter", *first("scatter", "trace 0 depth 1 closest")),
+             ("scatter", *first("scatter", "trace 0 depth 1 shadow")),
+             ("composite", *first("composite", "trace 0"))]
+    timing, library = {}, {}
+    for kernel, label, args in cases:
+        kern = lambda: cg.call(kernel, args, False)
+        plain = lambda: cg.call(kernel, args, True)
+        ms = _time_ms(kern, 50, graph=True)
+        cold_ms = _time_ms(kern, 50, graph=True, flush_l2=True)
+        eager_ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        bound, by = cg.call_bound(kernel, args, kern())
+        line = ""
+        if kernel == "compact_rows":
+            keys, C, shift, O, u, cap, active = args
+            full = cg.call("ray_rows", (O, u, cap, active, "live"), True)[0]
+            src = (keys[:C] & ((1 << shift) - 1)).long()
+            lib_ms = _time_ms(lambda: torch.index_select(full, 1, src), 50,
+                              graph=True)
+            library.setdefault(kernel, lib_ms)
+            line = f", torch.index_select of the live rows {lib_ms:.4f} ms"
+        timing.setdefault(kernel, (ms, plain_ms, bound, by))
+        print(f"timing {kernel} on the headline's {label} "
+              f"({cg.lanes(kernel, args)} lanes): kernel {ms:.4f} ms (graph "
+              f"replay; L2 emptied before each call {cold_ms:.4f} ms; eager "
+              f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}, L2 "
+              f"emptied {bound / cold_ms:.1%}){line} on {card}")
+
+    # e. the walls beside their device time and busy share, and the
+    # ladder on / off (bench/ladder.py's frames part, 3 frames each way)
+    for name, fn, rays in (
+            ("headline frame", lambda: head_frame(2), rays_per_frame(hcfg)),
+            ("pallas headline frame", frames["pallas headline"],
+             rays_per_frame(pcfg)),
+            ("soup frame", frames["soup"], rays_per_frame(scfg)),
+            (f"realtime loop ({LOOP_FRAMES} frames)", lambda: rt.run_loop(
+                rtab, rcfg, LOOP_FRAMES, seed=0, print_every=0),
+             rays_per_frame(rcfg) * LOOP_FRAMES)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        k = device_kernels(fn, top=4)
+        wall = sorted(walls)[1]
+        print(f"cast glue {name}: wall {[round(t, 4) for t in walls]} s "
+              f"(median {wall:.4f} s, {rays / wall / 1e6:.3f} Mray/s), "
+              f"{k['kernels']} device operations, {k['kernel_ms']:.1f} ms "
+              f"of device time (union), busy {k['kernel_ms'] / 1e3 / wall:.3f}"
+              f" on {card}")
+    ladder = lambda cfg, tab: (cfg, tab, lambda c, seed: render_frame(
+        tab, c, Camera.default(c, device), PRNGKey(seed, device)))
+    frames_part({"headline": ladder(hcfg, htab), "soup": ladder(scfg, stab)},
+                3, card)
+    return timing, library, g_all
+
+
 def main() -> int:
     import torch
 
@@ -3464,9 +3759,17 @@ def main() -> int:
         pallas_head, soup)
     lap("21 depth-step kernels")
 
+    # ---- 22. the mesh casts' glue and the composite ------------------------
+    timing_glue, library_glue, glue_launches = _glue_phase(
+        device, card, err, (cfg, tables, cam, n_casts), (rcfg, rtab),
+        pallas_head, soup)
+    library.update(library_glue)
+    lap("22 cast glue kernels")
+
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:
-    # torch.mul) and the row gather (torch.index_select)
+    # torch.mul), the row gather and compact_rows' gather
+    # (torch.index_select)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": _ORIGIN[k][0],
          "replaces": _ORIGIN[k][1], "launches": counts[k],
@@ -3486,7 +3789,8 @@ def main() -> int:
             ("tile_lists", pallas_launches, timing_tiles),
             *((k, probe_launches, timing_probes) for k in _PROBE_ROW),
             *((k, depth_launches, timing_depth)
-              for k in _kernels.DEPTH_STEP))]}))
+              for k in _kernels.DEPTH_STEP),
+            *((k, glue_launches, timing_glue) for k in _kernels.GLUE))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -23,9 +23,11 @@ PARTS, comma-separated (all by default):
 - ``stages``: the headline's and the realtime frame's depth-1 and depth-2
   casts and the soup's depth-1 casts, replayed through the public mesh
   queries with the arguments the frame gave them.  The functions of
-  ``ops/pairs_trace.py`` that the cast runs (STAGES: the key, the live
-  rows, the sort, the gather, the culling and the kernel on the C rays,
-  the scatter) are each timed alone between CUDA events
+  ``ops/pairs_trace.py`` that the cast runs (STAGES: the key, the sort,
+  the gather (``compact_rows``: the C rays' rows from the sorted keys),
+  the culling and the kernel on the C rays, the scatter; on a cast that
+  overflows every tier, the key, the live rows, the culling and the
+  kernel) are each timed alone between CUDA events
   (``utils/profiling.stage_timers``), beside the rows, the culling and
   the kernel of the same cast at full width; the host's wait for the
   count is read with the cast unsynchronised.
@@ -56,11 +58,13 @@ PARTS = ("frames", "profile", "loops", "stages")
 _PT = "raytracinggpu_tpu_torch.ops.pairs_trace"
 # the function of ops/pairs_trace.py that each stage of a cast times
 STAGES = {"_compact_key": "key", "_ray_feature_rows": "rows",
-          "_compact_sort": "sort", "_gather": "gather", "_bits": "culling",
+          "_live_rows": "rows", "_compact_sort": "sort",
+          "compact_rows": "gather", "_bits": "culling",
           "pairs_closest": "kernel", "pairs_closest_smooth": "kernel",
           "pairs_closest_idx": "kernel", "pairs_shadow": "kernel",
-          "_scatter": "scatter"}
-COMPACTED = ("key", "rows", "sort", "gather", "culling", "kernel", "scatter")
+          "scatter": "scatter"}
+# a compacted cast's rows are built at its C lanes by the gather
+COMPACTED = ("key", "sort", "gather", "culling", "kernel", "scatter")
 OVERFLOWED = ("key", "rows", "culling", "kernel")  # no tier holds the cast
 FULL_WIDTH = ("rows", "culling", "kernel")
 

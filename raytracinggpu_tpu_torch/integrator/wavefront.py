@@ -23,11 +23,13 @@ Material semantics (same formulas, same epsilons):
 A depth (``_depth_step``) runs the sphere pass, the mesh's closest cast,
 the shading (``shade``: the merge, the materials, the shadow ray), the
 shadow rays' sphere pass and mesh cast, and the bounce (``bounce``: the
-occlusion, the direct term, the diffuse direction).  For CUDA tensors the
-sphere passes, ``shade`` and ``bounce`` launch the kernels of
-``csrc/wavefront.cu``, for CPU tensors their plain versions
-(``ops/sphere.sphere_hit_plain``, ``shade_plain``, ``bounce_plain``); the
-mesh casts are the traversal's own.
+occlusion, the direct term, the diffuse direction); ``trace`` then runs
+the backward composite (``composite``).  For CUDA tensors the sphere
+passes, ``shade`` and ``bounce`` launch the kernels of
+``csrc/wavefront.cu`` and ``composite`` the kernel ``rt_composite`` of
+``csrc/glue.cu``; for CPU tensors their plain versions run
+(``ops/sphere.sphere_hit_plain``, ``shade_plain``, ``bounce_plain``,
+``composite_plain``).  The mesh casts are the traversal's own.
 
 The pairs traversal's casts run the compaction ladder of
 ``ops/pairs_trace.py`` as the config's ``pairs_compact*`` fields set it,
@@ -402,6 +404,30 @@ def _depth_step(scene: SceneTables, cfg: RenderConfig, ray: RayBatch, r1, r2,
     return RayBatch(sh.O2, u3, sh.ri2), sh.is_diff, direct, sh.alb
 
 
+def composite_plain(steps, R: int, device) -> torch.Tensor:
+    """The backward composite of the depth steps [(is_diff (R,), direct
+    (3, R), albedo (3, R)), ...], the three channels at once, in PyTorch
+    ops (the contract of the kernel ``rt_composite``): (3, R) f32, ans = 0,
+    then from the last depth to the first ans = fma(albedo, ans, direct)
+    where the lane was diffuse."""
+    ans = torch.zeros((3, R), dtype=torch.float32, device=device)
+    for is_diff, direct, alb in reversed(steps):
+        ans = torch.where(is_diff, fma(alb, ans, direct), ans)
+    return ans
+
+
+def composite(steps, R: int, device) -> torch.Tensor:
+    """``composite_plain`` on the steps' device: the kernel ``rt_composite``
+    of ``csrc/glue.cu`` for CUDA tensors, one launch for up to eight
+    depths, the plain version for CPU tensors.  A trace of no depth
+    composes nothing: its (zero) result is the plain version's."""
+    if not steps or not on_cuda(steps[0][0]):
+        return composite_plain(steps, R, device)
+    from raytracinggpu_tpu_torch.ops import _kernels
+
+    return _kernels.composite(steps)
+
+
 def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
           uniforms: torch.Tensor) -> tuple[Vec3, TraceStats]:
     """Path-trace a ray batch to its final color.
@@ -419,8 +445,5 @@ def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
                                 uniforms[d, 1], counts[d])
         steps.append(out)
 
-    # ---- backward composite, the three channels at once ----
-    ans = torch.zeros((3, O.x.shape[0]), dtype=torch.float32, device=dev)
-    for is_diff, direct, alb in reversed(steps):
-        ans = torch.where(is_diff, fma(alb, ans, direct), ans)
+    ans = composite(steps, O.x.shape[0], dev)
     return Vec3(*ans), TraceStats(*counts.T)

@@ -5,9 +5,11 @@
 Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
 staging of ``csrc/stage.cuh``), ``csrc/cull.cu`` (the culling:
 ``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
-of the tiled one) and ``csrc/wavefront.cu`` (the depth step's per-lane
+of the tiled one), ``csrc/wavefront.cu`` (the depth step's per-lane
 math: ``sphere_hit``, ``shade``, ``bounce``, and the primary rays,
-``primary_rays``) are compiled by ``nvcc`` for
+``primary_rays``) and ``csrc/glue.cu`` (the mesh casts' glue:
+``ray_rows``, ``compact_rows``, ``scatter``; the trace's backward
+``composite``) are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
@@ -39,7 +41,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
                 for f in ("pairs_trace.cu", "pallas_trace.cu",
-                          "micro_kernel.cu", "cull.cu", "wavefront.cu"))
+                          "micro_kernel.cu", "cull.cu", "wavefront.cu",
+                          "glue.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
@@ -82,8 +85,15 @@ CULLING = ("pair_bits", "compact_key", "tile_lists")
 # sphere_hit, shade, bounce and primary_rays).
 DEPTH_STEP = ("sphere_hit", "shade", "bounce", "primary_rays")
 
+# The mesh casts' glue and the trace's backward composite of csrc/glue.cu
+# (see ray_rows, compact_rows, scatter and composite).
+GLUE = ("ray_rows", "compact_rows", "scatter", "composite")
+COMPOSITE_DEPTHS = 8  # depths one rt_composite launch takes (kMaxDepths)
+SCATTER_OUTPUTS = 5   # outputs one rt_scatter launch takes (kMaxOut)
+
 # Kernel launches since the last reset_launches(), by wrapper.
-LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING, *DEPTH_STEP)}
+LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING, *DEPTH_STEP,
+                                 *GLUE)}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -191,12 +201,21 @@ def load():
                 ("rt_shade", [p, i, i, fl, p]),
                 ("rt_bounce", [p, i, p]),
                 ("rt_primary_rays", [p, i, ctypes.c_uint, i, i, i,
-                                     ctypes.c_longlong, fl, fl, fl, fl, p])):
+                                     ctypes.c_longlong, fl, fl, fl, fl, p]),
+                # csrc/glue.cu likewise
+                ("rt_ray_rows", [p, i, i, i, p]),
+                ("rt_compact_rows", [p, i, i, i, p]),
+                ("rt_scatter", [p, p, i, i, i, i, p]),
+                ("rt_composite", [p, i, i, i, p]),
+                ("rt_composite_max_depths", [])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i
         lib.rt_cuda_error_string.argtypes = [i]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
+        if lib.rt_composite_max_depths() != COMPOSITE_DEPTHS:
+            raise RuntimeError("csrc/glue.cu's kMaxDepths is not "
+                               f"COMPOSITE_DEPTHS ({COMPOSITE_DEPTHS})")
         _lib = lib
     return _lib
 
@@ -743,3 +762,138 @@ def primary_rays(key, sample, rows, cam, W, D, quirk, sigma, half_w, half_h,
             ptrs, R, int(sample), int(W), int(D), int(bool(quirk)),
             un.stride(1) if D else 0, float(sigma), float(half_w),
             float(half_h), float(z), st))
+
+
+# ------------------------------ the mesh casts' glue and the composite
+# (csrc/glue.cu; each C function takes an array of device pointers)
+
+RAY_ROW_LAYOUTS = ("pairs", "live", "pallas")
+
+
+def ray_row_count(cap, active, layout: str) -> int:
+    """Rows of a cast's ray-feature rows: 16 in the ``pairs`` and
+    ``pallas`` layouts, 9 and the extras (cap; with active, two) in the
+    ``live`` one; ``pallas`` takes no extras."""
+    if layout not in RAY_ROW_LAYOUTS:
+        raise ValueError(f"unknown ray-row layout {layout!r}; choose from "
+                         f"{RAY_ROW_LAYOUTS}")
+    extras = 2 if active is not None else int(cap is not None)
+    if layout == "pallas" and extras:
+        raise ValueError("the pallas layout takes no cap or active rows")
+    return 9 + extras if layout == "live" else 16
+
+
+def _glue_rays(O, u, cap, active, R, dev):
+    """The six (R,) f32 ray rows, cap (f32) and active (bool) or None."""
+    _lanes(R, dev, *zip(("O.x", "O.y", "O.z", "u.x", "u.y", "u.z"), (*O, *u),
+                        (torch.float32,) * 6),
+           ("cap", cap, torch.float32), ("active", active, torch.bool))
+
+
+def _plan(keys, C, shift, Rp, dev):
+    """The sorted keys of a compacted cast: a contiguous (Rp,) int32 tensor
+    on ``dev``, 0 <= C <= Rp and the lanes within the key's low ``shift``
+    bits (Rp <= 2^shift, shift 1 to 31); returns the lane mask."""
+    _lanes(Rp, dev, ("keys", keys, torch.int32))
+    if not (0 <= C <= Rp and 1 <= shift <= 31 and Rp <= 1 << shift):
+        raise ValueError(f"need 0 <= C <= Rp and Rp <= 2^shift with shift "
+                         f"in [1, 31]; got C {C}, Rp {Rp}, shift {shift}")
+    return (1 << shift) - 1
+
+
+def ray_rows(O, u, cap=None, active=None, layout="pairs"):
+    """Kernel rt_ray_rows: the (nrows, R) f32 ray-feature rows of
+    ``ops/pallas_trace.ray_rows_plain`` (``ray_row_count`` rows)."""
+    dev, R = O[0].device, O[0].shape[0]
+    nrows = ray_row_count(cap, active, layout)
+    _glue_rays(O, u, cap, active, R, dev)
+    if nrows * R >= 2**31:
+        raise ValueError("kernel indices are 32-bit: cast too large")
+    _on_card(O[0])
+    rows = torch.empty((nrows, R), dtype=torch.float32, device=dev)
+    if R:
+        ptrs = _pointers(*O, *u, cap, active, rows)
+        _run("ray_rows", dev, lambda lib, st: lib.rt_ray_rows(
+            ptrs, R, nrows, int(layout == "pallas"), st))
+    return rows
+
+
+def compact_rows(keys, C, shift, O, u, cap=None, active=None):
+    """Kernel rt_compact_rows: (rows (nrows, C) f32, src (C,) int32, active
+    (C,) bool or None) of ``ops/pairs_trace.compact_rows_plain``: the live
+    rows of the C source lanes ``keys[:C] & (2^shift - 1)`` of the sorted
+    keys (Rp,) int32 of Rp rays."""
+    dev, Rp = O[0].device, O[0].shape[0]
+    nrows = ray_row_count(cap, active, "live")
+    _glue_rays(O, u, cap, active, Rp, dev)
+    mask = _plan(keys, C, shift, Rp, dev)
+    _on_card(keys)
+    rows = torch.empty((nrows, C), dtype=torch.float32, device=dev)
+    src = torch.empty(C, dtype=torch.int32, device=dev)
+    act = None if active is None else torch.empty(C, dtype=torch.bool,
+                                                   device=dev)
+    if C:
+        ptrs = _pointers(*O, *u, cap, active, keys, rows, src, act)
+        _run("compact_rows", dev, lambda lib, st: lib.rt_compact_rows(
+            ptrs, C, nrows, mask, st))
+    return rows, src, act
+
+
+def _bits32(d, dtype) -> int:
+    """The 32 bits of ``d`` as a (1,) tensor of ``dtype`` holds it."""
+    return int(torch.tensor([d], dtype=dtype).view(torch.int32)) & 0xFFFFFFFF
+
+
+def scatter(keys, C, shift, outs, defaults):
+    """Kernel rt_scatter: the (Rp,) outputs of
+    ``ops/pairs_trace.scatter_plain``: each of the (C,) f32 or int32
+    ``outs`` at the source lanes of the sorted keys (Rp,) int32, its
+    default on every other lane; one to SCATTER_OUTPUTS outputs."""
+    dev, Rp = keys.device, keys.shape[0] if keys.dim() == 1 else -1
+    n = len(outs)
+    if not 1 <= n <= SCATTER_OUTPUTS or len(defaults) != n:
+        raise ValueError(f"need 1 to {SCATTER_OUTPUTS} outputs and a default "
+                         f"each, got {n} and {len(defaults)}")
+    mask = _plan(keys, C, shift, Rp, dev)
+    for k, o in enumerate(outs):
+        if o.dtype not in (torch.float32, torch.int32):
+            raise ValueError(f"outs[{k}]: need float32 or int32, got "
+                             f"{o.dtype}")
+        _lanes(C, dev, (f"outs[{k}]", o, o.dtype))
+    _on_card(keys)
+    res = [torch.empty(Rp, dtype=o.dtype, device=dev) for o in outs]
+    if Rp:
+        ptrs = _pointers(keys, *outs, *res)
+        dflt = (ctypes.c_uint32 * n)(*(_bits32(d, o.dtype)
+                                       for d, o in zip(defaults, outs)))
+        _run("scatter", dev, lambda lib, st: lib.rt_scatter(
+            ptrs, dflt, n, C, Rp, mask, st))
+    return res
+
+
+def composite(steps):
+    """Kernel rt_composite: the (3, R) f32 backward composite of
+    ``integrator/wavefront.composite_plain`` over the depth steps
+    [(is_diff (R,) bool, direct (3, R) f32, albedo (3, R) f32), ...], at
+    least one; COMPOSITE_DEPTHS depths a launch, the deepest first."""
+    D = len(steps)
+    if D < 1:
+        raise ValueError("the composite needs at least one depth step")
+    dev = steps[0][0].device
+    R = steps[0][0].shape[0] if steps[0][0].dim() == 1 else -1
+    for d, (is_diff, direct, alb) in enumerate(steps):
+        _lanes(R, dev, (f"is_diff[{d}]", is_diff, torch.bool))
+        _rows3(f"direct[{d}]", direct, R, dev)
+        _rows3(f"alb[{d}]", alb, R, dev)
+    if 3 * R >= 2**31:
+        raise ValueError("kernel indices are 32-bit: trace too large")
+    _on_card(steps[0][0])
+    ans = torch.empty((3, R), dtype=torch.float32, device=dev)
+    if R:
+        for hi in range(D, 0, -COMPOSITE_DEPTHS):
+            part = steps[max(hi - COMPOSITE_DEPTHS, 0):hi]
+            ptrs = _pointers(*(s[0] for s in part), *(s[1] for s in part),
+                             *(s[2] for s in part), ans)
+            _run("composite", dev, lambda lib, st: lib.rt_composite(
+                ptrs, len(part), int(hi < D), R, st))
+    return ans

@@ -33,9 +33,14 @@ the two agree bit for bit on the card.  The culling (``_pair_bits``) and
 the ladder's key (``_compact_key``), XLA-side work in the JAX package,
 dispatch the same way: the kernels of ``csrc/cull.cu`` for CUDA tensors,
 ``pair_bits_plain`` and ``compact_key_plain`` for CPU tensors, bit for
-bit the same on the card.  The slab test, the ray padding,
-the plain Moller-Trumbore core and the device dispatch are the tiled
-traversal's (``ops/pallas_trace.py``), as in the JAX package.
+bit the same on the card.  So do the casts' glue, XLA-side work too: a
+full-width cast's ray-feature rows (``_ray_feature_rows``, ``_live_rows``:
+``ray_rows``), a compacted cast's rows at its source lanes
+(``compact_rows``) and its outputs scattered to full width
+(``scatter``), the kernels of ``csrc/glue.cu`` for CUDA tensors, the
+plain versions for CPU tensors.  The slab test, the ray padding, the ray
+rows, the plain Moller-Trumbore core and the device dispatch are the
+tiled traversal's (``ops/pallas_trace.py``), as in the JAX package.
 
 Big meshes (the JAX package's B4, ``_pairs_kernel`` over streamed
 supertiles, ``n_st > 1``): the TPU kernel sweeps the field table in
@@ -54,7 +59,8 @@ keys each ray by the first and last tile box it hits (``_compact_key``),
 reads the count of rays that hit any, and when the tightest tier of
 ``_compact_tiers`` holds them, sorts the keys and runs the kernel on those
 C rays only (grouped by their tile span, so a subgroup's union stays
-tight), scattering the results into the no-hit defaults; a cast that
+tight; ``compact_rows`` builds their rows from the sorted keys), and
+``scatter`` writes each lane its result or the no-hit default; a cast that
 overflows every tier runs at full width and sorts nothing.  The compacted
 cast re-runs the exact member culling on its rays, so every ray's hit
 within its ``cap`` is the full-width cast's bit for bit.  XLA chooses the tier on the device
@@ -78,16 +84,21 @@ from raytracinggpu_tpu_torch.ops.pallas_trace import (
     mt_slots,
     pad_rays,
     plain_chunks,
+    ray_rows,
+    ray_rows_plain,
     slab_enter_exit,
 )
 from raytracinggpu_tpu_torch.ops.triangle import TriHit
 
 NUM_FIELDS = 32       # rows 0-15: MT constants; 16: original tri id;
                       # 17-25: vertex normals na/nb/nc; 26-31: pad
-NUM_RF_ROWS = 16      # ray-feature rows: [u, w=O x u, O, 0-pad]
 DEF_BLK = 4096        # ray padding granularity (RenderConfig.pairs_block)
 DEF_SUBG = 16         # rays per culling subgroup
 _IDX_BIG = np.int32(2**30)  # id of padding slots
+# the outputs of a cast's kernels on a lane that hits nothing: (t, idx,
+# N.x, N.y, N.z), the shadow cast's t the first; a compacted cast's
+# skipped lanes get them
+NO_HIT = (INF32, 0, 0.0, 0.0, 0.0)
 _BOX_BATCH = 512      # boxes a slab test holds at once
 # The kernels index the (NUM_FIELDS, Tc) field table with 32-bit ints
 # (ops/_kernels._check: Tc * NUM_FIELDS < 2**31), so a table holds at most
@@ -400,15 +411,11 @@ def _pair_bits(O, u, nc, subg, members, cap=None, active=None):
     return pair_bits_plain(O, u, nc, subg, members, cap, active)
 
 
-def _ray_feature_rows(O: Vec3, u: Vec3, extra=(), pad: bool = True
-                      ) -> torch.Tensor:
-    """(16, R) ray-feature rows: [u(3), w=O x u(3), O(3), extra..., 0-pad];
-    ``pad=False`` keeps the live rows only (9 + len(extra))."""
-    w = O.cross(u)
-    rows = [u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z, *extra]
-    if pad:
-        rows += [torch.zeros_like(u.x)] * (NUM_RF_ROWS - len(rows))
-    return torch.stack(rows, dim=0).contiguous()
+def _ray_feature_rows(O: Vec3, u: Vec3) -> torch.Tensor:
+    """(16, R) ray-feature rows of a full-width cast: [u(3), w=O x u(3),
+    O(3), 0-pad] (``ray_rows``: the kernel ``rt_ray_rows`` on CUDA
+    tensors)."""
+    return ray_rows(O, u)
 
 
 # ------------------------------------------------------ the compaction ladder
@@ -493,17 +500,29 @@ def _compact_key(O, u, aabb, nc, cap, active, valid_n):
     return compact_key_plain(O, u, aabb, nc, cap, active, valid_n)
 
 
-def _compact_sort(skey, C: int, shift: int) -> torch.Tensor:
-    """The C source lanes of the compacted cast, (C,) int32: the active
-    rays grouped by key, then inactive lanes.  The keys are distinct, so
-    an unstable sort gives the one order."""
-    return torch.sort(skey).values[:C] & ((1 << shift) - 1)
+class Compaction(NamedTuple):
+    """A compacted cast: its rays' keys sorted, (Rp,) int32; its width C
+    (the tier taken) and the key's ``shift``.  The first C keys' low
+    ``shift`` bits are the cast's source lanes: the active rays grouped by
+    key, then inactive lanes.  The keys are distinct and hold every lane
+    once, so the sorted keys are a permutation of the lanes."""
+
+    keys: torch.Tensor
+    C: int
+    shift: int
+
+
+def _compact_sort(skey, C: int, shift: int) -> Compaction:
+    """The sort of a compacted cast, the one place it runs: the keys are
+    distinct, so an unstable sort gives the one order."""
+    return Compaction(torch.sort(skey).values, C, shift)
 
 
 def _compact_src(O, u, aabb, nc, cap, active, C, valid_n):
     """Key and sort in one step: (src (C,) int32, n_act)."""
     skey, n_act, shift = _compact_key(O, u, aabb, nc, cap, active, valid_n)
-    return _compact_sort(skey, C, shift), n_act
+    keys = _compact_sort(skey, C, shift).keys
+    return keys[:C] & ((1 << shift) - 1), n_act
 
 
 def _compact_ok(compact: float, nc: int, R: int, blk: int) -> int:
@@ -570,47 +589,78 @@ def _ladder_tiers(tab, fractions, key_coarse: int, Rp: int, blk: int):
 
 
 def _live_rows(O, u, cap, active) -> torch.Tensor:
-    """The rows a cast's rays carry through the gather: [u, w, O], then
-    ``cap`` (row 9) and the shadow mask (row 10, 1.0 where active) when
-    given."""
-    extra = () if cap is None else (cap,)
-    if active is not None:
-        extra = (torch.zeros_like(O.x) if cap is None else cap,
-                 active.to(torch.float32))
-    return _ray_feature_rows(O, u, extra, pad=False)
+    """The rows a cast's rays carry: [u, w, O], then ``cap`` (row 9) and
+    the shadow mask (row 10, 1.0 where active) when given (``ray_rows``
+    in the ``live`` layout)."""
+    return ray_rows(O, u, cap, active, layout="live")
+
+
+def compact_rows_plain(keys, C: int, shift: int, O, u, cap=None,
+                       active=None):
+    """Plain PyTorch: the rows of a compacted cast (the contract of the
+    kernel ``rt_compact_rows``): (rows, src, active) with src the C source
+    lanes of the sorted ``keys`` (``Compaction``), (C,) int32, rows the
+    live rows (``_live_rows``) of those lanes, (9-11, C) f32, and active
+    their shadow mask, (C,) bool, or None without one."""
+    src = keys[:C] & ((1 << shift) - 1)
+    rows = ray_rows_plain(O, u, cap, active, "live").index_select(
+        1, src.long())
+    return rows, src, None if active is None else rows[10] > 0.5
+
+
+def compact_rows(keys, C: int, shift: int, O, u, cap=None, active=None):
+    """``compact_rows_plain`` on the rays' device: the kernel
+    ``rt_compact_rows`` of ``csrc/glue.cu`` for CUDA tensors, which
+    computes the rows at the C lanes alone, the plain version for CPU
+    tensors."""
+    if _on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.compact_rows(keys, C, shift, O, u, cap, active)
+    return compact_rows_plain(keys, C, shift, O, u, cap, active)
+
+
+def scatter_plain(keys, C: int, shift: int, outs, defaults):
+    """Plain PyTorch: a compacted cast's outputs at full width (the
+    contract of the kernel ``rt_scatter``): each (Rp,) output holds the
+    cast's (C,) output at its source lanes (``Compaction``) and its
+    default (the kernel's no-hit result) on the lanes the cast skipped."""
+    Rp = keys.shape[0]
+    src = (keys[:C] & ((1 << shift) - 1)).long()
+    return [torch.full((Rp,), d, dtype=o.dtype, device=o.device)
+            .index_copy_(0, src, o) for o, d in zip(outs, defaults)]
+
+
+def scatter(keys, C: int, shift: int, outs, defaults):
+    """``scatter_plain`` on the keys' device: the kernel ``rt_scatter`` of
+    ``csrc/glue.cu`` for CUDA tensors, one launch for every output, the
+    plain version for CPU tensors."""
+    if _on_cuda(keys):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.scatter(keys, C, shift, outs, defaults)
+    return scatter_plain(keys, C, shift, outs, defaults)
 
 
 def _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, valid_n):
-    """The ray rows of one cast under the ladder: (rf, src).
+    """The ray rows of one cast under the ladder: (rf, plan, active).
 
-    rf holds the live rows (``_live_rows``) of the src lanes: src is None
-    when the cast runs at full width on all of its rays, else the (C,)
-    int64 source lanes of the compacted cast.  Returns None when the
-    fractions give no tier (the cast is the plain full-width one)."""
+    plan is None when the cast runs at full width on all of its rays (rf
+    its live rows, ``_live_rows``, active the caller's), else its
+    ``Compaction``, rf the live rows of its C source lanes and active
+    their shadow mask (``compact_rows``).  Returns None when the fractions
+    give no tier (the cast is the plain full-width one)."""
     tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse,
                                       O.x.shape[0], blk)
     if not tiers:
         return None
     skey, n_act, shift = _compact_key(O, u, boxes, knc, cap, active, valid_n)
-    count = _count_pending(n_act)
-    rows = _live_rows(O, u, cap, active)  # queued before the wait
-    C = _tier(tiers, count)
+    C = _tier(tiers, _count_pending(n_act))
     if not C:
-        return rows, None
-    src = _compact_sort(skey, C, shift).long()
-    return _gather(rows, src), src
-
-
-def _gather(rows, src):
-    """The compacted cast's rows: the live rows of its src lanes."""
-    return rows.index_select(1, src)
-
-
-def _scatter(src, out, Rp: int, defaults):
-    """The compacted cast's outputs in place: each (Rp,) output holds its
-    default (the kernel's no-hit result) on the lanes the cast skipped."""
-    return [torch.full((Rp,), d, dtype=o.dtype, device=o.device)
-            .index_copy_(0, src, o) for o, d in zip(out, defaults)]
+        return _live_rows(O, u, cap, active), None, active
+    plan = _compact_sort(skey, C, shift)
+    rf, _, act = compact_rows(*plan, O, u, cap, active)
+    return rf, plan, act
 
 
 # --------------------------------------------- plain versions of B0-B3
@@ -723,7 +773,7 @@ def cast_inputs(O: Vec3, u: Vec3, tab: PairsMeshTables, subg: int,
     """The kernel inputs of one cast: (rfT (16, Rp), bits (W, Rp/subg), R)
     for the rays padded to Rp, a multiple of blk; outputs past R are
     padding."""
-    rfT, bits, _, _, R = _rows_bits(O, u, tab, subg, blk, cap, active, (), 1)
+    rfT, bits, _, R = _rows_bits(O, u, tab, subg, blk, cap, active, (), 1)
     return rfT, bits, R
 
 
@@ -734,20 +784,19 @@ def _bits(O, u, tab, subg, cap=None, active=None):
 
 
 def _rows_bits(O, u, tab, subg, blk, cap, active, fractions, key_coarse):
-    """(rfT, bits, src, Rp, R) of one cast: the kernel's inputs on the
-    rays the ladder keeps (src None: all of them, padded to Rp)."""
+    """(rfT, bits, plan, R) of one cast: the kernel's inputs on the rays
+    the ladder keeps (plan None: all of them, padded to a multiple of
+    blk; else the cast's ``Compaction``), and the rays' count unpadded."""
     O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
-    Rp = O.x.shape[0]
-    plan = _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, R)
-    if plan is None:
+    ladder = _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, R)
+    if ladder is None:
         return (_ray_feature_rows(O, u), _bits(O, u, tab, subg, cap, active),
-                None, Rp, R)
-    rf, src = plan
-    if src is not None:  # the culling again, exactly, on the C rays
+                None, R)
+    rf, plan, active = ladder
+    if plan is not None:  # the culling again, exactly, on the C rays
         O, u = Vec3(rf[6], rf[7], rf[8]), Vec3(rf[0], rf[1], rf[2])
         cap = None if cap is None else rf[9]
-        active = None if active is None else rf[10] > 0.5
-    return rf, _bits(O, u, tab, subg, cap, active), src, Rp, R
+    return rf, _bits(O, u, tab, subg, cap, active), plan, R
 
 
 def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
@@ -775,12 +824,12 @@ def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
     nearer of the mesh's t and the sphere's ``cap``, sees no difference."""
     kernel = {None: pairs_closest_idx, "geom": pairs_closest,
               "smooth": pairs_closest_smooth}[payload]
-    rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, None,
-                                       (compact, compact2, compact3),
-                                       key_coarse)
+    rfT, bits, plan, R = _rows_bits(O, u, tab, subg, blk, cap, None,
+                                    (compact, compact2, compact3),
+                                    key_coarse)
     out = kernel(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
-    if src is not None:
-        out = _scatter(src, out, Rp, (INF32, 0, 0.0, 0.0, 0.0))
+    if plan is not None:
+        out = scatter(*plan, out, NO_HIT[:len(out)])
     out = [o[:R] for o in out]
     hit = TriHit(t=out[0], idx=out[1])
     return (hit, Vec3(*out[2:])) if payload else hit
@@ -799,10 +848,10 @@ def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,
     inactive lane may (the integrator reads none of them).  The ladder's
     arguments and its contract as in ``intersect_tris_pairs``: the same t
     on every active lane whose full-width t is at most ``cap``."""
-    rfT, bits, src, Rp, R = _rows_bits(O, u, tab, subg, blk, cap, active,
-                                       (compact, compact2, compact3),
-                                       key_coarse)
+    rfT, bits, plan, R = _rows_bits(O, u, tab, subg, blk, cap, active,
+                                    (compact, compact2, compact3),
+                                    key_coarse)
     t = pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
-    if src is not None:
-        t = _scatter(src, (t,), Rp, (INF32,))[0]
+    if plan is not None:
+        t = scatter(*plan, (t,), NO_HIT[:1])[0]
     return t[:R]

@@ -164,14 +164,51 @@ def _unsort(perm, *arrays):
     return tuple(outs)
 
 
-def _ray_features16(O: Vec3, u: Vec3) -> torch.Tensor:
-    """(16, R) ray-feature rows [u(3), w = O x u(3), O(3), 1/u(3), 0(4)]:
-    the JAX package's (R, 16) features, transposed so that a kernel
-    thread per ray reads each row coalesced."""
+def ray_rows_plain(O: Vec3, u: Vec3, cap=None, active=None,
+                   layout: str = "pairs") -> torch.Tensor:
+    """Plain PyTorch: a cast's ray-feature rows, (nrows, R) f32, [u(3),
+    w = O x u(3), O(3), ...] (the contract of the kernel ``rt_ray_rows``).
+
+    layout ``pallas``: then 1/u(3) and 4 zero rows, the JAX package's
+    (R, 16) ``_ray_features16`` transposed so that a kernel thread per ray
+    reads each row coalesced.  ``pairs`` and ``live``: then the extras,
+    ``cap`` (row 9) and, with ``active``, cap or a zero row and the mask
+    as 1.0 / 0.0 (row 10), and in the ``pairs`` layout zero rows to 16
+    (the JAX package's ``_ray_feature_rows``; ``live`` keeps the live rows
+    only, its ``pad=False``)."""
+    from raytracinggpu_tpu_torch.ops._kernels import ray_row_count
+
+    n = ray_row_count(cap, active, layout)
     w = O.cross(u)
-    z = torch.zeros_like(u.x)
-    return torch.stack([u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z,
-                        1.0 / u.x, 1.0 / u.y, 1.0 / u.z, z, z, z, z])
+    rows = [u.x, u.y, u.z, w.x, w.y, w.z, O.x, O.y, O.z]
+    if layout == "pallas":
+        z = torch.zeros_like(u.x)
+        rows += [1.0 / u.x, 1.0 / u.y, 1.0 / u.z, z, z, z, z]
+    elif active is not None:
+        rows += [torch.zeros_like(O.x) if cap is None else cap,
+                 active.to(torch.float32)]
+    elif cap is not None:
+        rows.append(cap)
+    rows += [torch.zeros_like(u.x)] * (n - len(rows))
+    return torch.stack(rows, dim=0).contiguous()
+
+
+def ray_rows(O: Vec3, u: Vec3, cap=None, active=None,
+             layout: str = "pairs") -> torch.Tensor:
+    """The rows of ``ray_rows_plain`` on the rays' device: the kernel
+    ``rt_ray_rows`` of ``csrc/glue.cu`` for CUDA tensors, the plain
+    version for CPU tensors."""
+    if _on_cuda(O.x):
+        from raytracinggpu_tpu_torch.ops import _kernels
+
+        return _kernels.ray_rows(O, u, cap, active, layout)
+    return ray_rows_plain(O, u, cap, active, layout)
+
+
+def _ray_features16(O: Vec3, u: Vec3) -> torch.Tensor:
+    """(16, R) ray-feature rows [u(3), w = O x u(3), O(3), 1/u(3), 0(4)]
+    of a tiled cast (``ray_rows`` in the ``pallas`` layout)."""
+    return ray_rows(O, u, layout="pallas")
 
 
 # ------------------------------------------------------------------ culling

@@ -56,6 +56,7 @@ STAGES = (
     ("raytracinggpu_tpu_torch.integrator.wavefront", "shade"),
     ("raytracinggpu_tpu_torch.integrator.wavefront", "sphere_shadow"),
     ("raytracinggpu_tpu_torch.integrator.wavefront", "bounce"),
+    ("raytracinggpu_tpu_torch.integrator.wavefront", "composite"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_pair_bits"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_shadow"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pairs_closest"),
@@ -63,8 +64,10 @@ STAGES = (
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_ray_feature_rows"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_key"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_tier"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_live_rows"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_sort"),
-    ("raytracinggpu_tpu_torch.ops.pairs_trace", "_scatter"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "compact_rows"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "scatter"),
     ("raytracinggpu_tpu_torch.ops.pallas_trace", "_block_active_tiles"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pallas_closest"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pallas_shadow"),

@@ -188,7 +188,8 @@ def test_kernel_wrappers_check_their_inputs(bad):
                                       "pairs_closest_idx", "pallas_closest",
                                       "pallas_shadow", *_kernels.PROBES,
                                       "pair_bits", "compact_key",
-                                      "tile_lists", *_kernels.DEPTH_STEP}
+                                      "tile_lists", *_kernels.DEPTH_STEP,
+                                      *_kernels.GLUE}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -1287,11 +1288,17 @@ def test_small_frame_on_cuda_matches_cpu():
         frames.append(render_preset_frame(tables, cfg, seed=0))
     # the culling of every cast and the ladder's key of the depth-1 casts;
     # a sphere pass on the closest and on the shadow rays, the shading and
-    # the bounce at each depth, the primary rays of each sample
-    assert _launched() == {"pairs_closest": 2, "pairs_shadow": 2,
-                           "pair_bits": 4, "compact_key": 2,
-                           "sphere_hit": 4, "shade": 2, "bounce": 2,
-                           "primary_rays": 2}
+    # the bounce at each depth, the primary rays of each sample; each cast's
+    # rows (full width, or compacted and scattered back), one composite
+    launched = _launched()
+    glue = {k: launched.pop(k, 0) for k in _kernels.GLUE}
+    assert launched == {"pairs_closest": 2, "pairs_shadow": 2,
+                        "pair_bits": 4, "compact_key": 2,
+                        "sphere_hit": 4, "shade": 2, "bounce": 2,
+                        "primary_rays": 2}
+    assert glue["ray_rows"] + glue["compact_rows"] == 4
+    assert glue["scatter"] == glue["compact_rows"]
+    assert glue["composite"] == 1
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -1324,9 +1331,12 @@ def test_compaction_ladder_on_cuda_is_the_full_width_frame():
         frames.append((render_preset_frame(tables, c, seed=0), _launched()))
     ((img, st), on_launches), ((img0, st0), off_launches) = frames
     off_want = {"pairs_closest": 3, "pairs_shadow": 3, "pair_bits": 6,
-                "sphere_hit": 6, "shade": 3, "bounce": 3, "primary_rays": 2}
+                "sphere_hit": 6, "shade": 3, "bounce": 3, "primary_rays": 2,
+                "ray_rows": 6, "composite": 1}
     assert off_launches == off_want
-    assert on_launches == {**off_want, "compact_key": 4}
+    # the depth-0 casts at full width, the four others compacted
+    assert on_launches == {**off_want, "compact_key": 4, "ray_rows": 2,
+                           "compact_rows": 4, "scatter": 4}
     np.testing.assert_array_equal(img, img0)
     for a, b in zip(st, st0):
         np.testing.assert_array_equal(a, b)
@@ -1520,7 +1530,8 @@ def test_tiled_kernels_refuse_other_tile_widths(tile_t):
 def test_small_pallas_frame_on_cuda_matches_cpu():
     """The 48x48 spp2 d2 frame through the tiled traversal: one 5120-ray
     cast per depth (4608 rays and 512 zero-direction padding rays), B5 and
-    B6 once each per cast, each cast culled once (tile_lists); the bound of
+    B6 once each per cast, each cast culled once (tile_lists) and its rows
+    built once (ray_rows), one composite; the bound of
     test_small_frame_on_cuda_matches_cpu against the CPU frame."""
     _need_cuda()
     from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
@@ -1533,7 +1544,8 @@ def test_small_pallas_frame_on_cuda_matches_cpu():
         frames.append(render_preset_frame(tables, cfg, seed=0))
     assert _launched() == {"pallas_closest": 2, "pallas_shadow": 2,
                            "tile_lists": 4, "sphere_hit": 4, "shade": 2,
-                           "bounce": 2, "primary_rays": 2}
+                           "bounce": 2, "primary_rays": 2, "ray_rows": 4,
+                           "composite": 1}
     (img_c, _), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
     assert st_g.hit.tolist() == [48 * 48 * 2] * 2
@@ -2270,3 +2282,154 @@ def test_depth_step_kernels_bitwise_equal_plain(frame):
     np.testing.assert_array_equal(img, img_p)
     for a, b in zip(st, st_p):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------- the mesh casts' glue and the composite (csrc/glue.cu)
+
+def _glue_calls(bad):
+    """One call of each glue wrapper on meta tensors, with ``bad`` applied
+    to one input of the wrapper it names (see the test below)."""
+    R, C, f32 = 256, 100, torch.float32
+    meta = lambda *shape, dt=f32: torch.empty(shape, dtype=dt,
+                                              device="meta")
+    v3 = lambda: Vec3(*(meta(R) for _ in range(3)))
+    O, u, cap, act = v3(), v3(), meta(R), meta(R, dt=torch.bool)
+    keys = meta(R, dt=torch.int32)
+    shift, layout = 8, "live"
+    outs = (meta(C), meta(C, dt=torch.int32))
+    steps = [(meta(R, dt=torch.bool), meta(3, R), meta(3, R))] * 3
+    if bad == "ray_rows dtype":
+        O = Vec3(O.x.double(), O.y, O.z)
+    elif bad == "ray_rows layout":
+        layout = "tiled"
+    elif bad == "ray_rows pallas extras":
+        layout = "pallas"
+    elif bad == "ray_rows contiguity":
+        cap = torch.empty(2 * R, device="meta")[::2]
+    elif bad == "ray_rows active dtype":
+        act = meta(R)
+    elif bad == "compact_rows C":
+        C = R + 1
+    elif bad == "compact_rows shift":
+        shift = 7  # 256 lanes need 8 bits
+    elif bad == "compact_rows keys":
+        keys = meta(R, dt=torch.int64)
+    elif bad == "scatter shape":
+        outs = (meta(C + 1),)
+    elif bad == "scatter dtype":
+        outs = (meta(C, dt=torch.float64),)
+    elif bad == "scatter count":
+        outs = outs * 3
+    elif bad == "scatter C":
+        C = -1
+    elif bad == "composite depth":
+        steps = []
+    elif bad == "composite albedo":
+        steps = steps[:2] + [(steps[0][0], meta(3, R), meta(R, 3))]
+    elif bad == "composite mask":
+        steps = [(meta(R), meta(3, R), meta(3, R))]
+    kernel = bad.split()[0]
+    if kernel == "ray_rows":
+        return lambda: _kernels.ray_rows(O, u, cap, act, layout)
+    if kernel == "compact_rows":
+        return lambda: _kernels.compact_rows(keys, C, shift, O, u, cap, act)
+    if kernel == "scatter":
+        return lambda: _kernels.scatter(keys, C, shift, outs,
+                                        (0.0, 0) * (len(outs) // 2)
+                                        + (0.0,) * (len(outs) % 2))
+    return lambda: _kernels.composite(steps)
+
+
+@pytest.mark.parametrize("bad,why", [
+    ("ray_rows dtype", "O.x: need a contiguous"),
+    ("ray_rows layout", "unknown ray-row layout"),
+    ("ray_rows pallas extras", "no cap or active"),
+    ("ray_rows contiguity", "cap: need a contiguous"),
+    ("ray_rows active dtype", "active: need a contiguous"),
+    ("compact_rows C", "0 <= C <= Rp"),
+    ("compact_rows shift", "Rp <= 2\\^shift"),
+    ("compact_rows keys", "keys: need a contiguous"),
+    ("scatter shape", r"outs\[0\]: need a contiguous \(100,\)"),
+    ("scatter dtype", "float32 or int32"),
+    ("scatter count", "1 to 5 outputs"),
+    ("scatter C", "0 <= C <= Rp"),
+    ("composite depth", "at least one depth step"),
+    ("composite albedo", r"alb\[2\]: need a contiguous \(3, 256\)"),
+    ("composite mask", r"is_diff\[0\]: need a contiguous"),
+    ("ray_rows device", "one CUDA device"),
+    ("compact_rows device", "one CUDA device"),
+    ("scatter device", "one CUDA device"),
+    ("composite device", "one CUDA device")])
+def test_glue_wrappers_check_their_inputs(bad, why):
+    """The glue wrappers refuse a wrong dtype, shape, contiguity, layout,
+    width C past the cast, a key shift that does not hold its lanes, and
+    a composite of no depth, before anything is built or launched;
+    well-formed tensors that are not on a CUDA device (here meta tensors)
+    are refused last."""
+    assert set(_kernels.GLUE) <= set(_kernels.LAUNCHES)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=why):
+        _glue_calls(bad)()
+    assert _kernels.LAUNCHES == before
+
+
+GLUE_FRAMES = {
+    "array_bvh pairs, ladder at every depth": ("array_bvh", dict(
+        pairs_compact_min_depth=0, pairs_block=1024)),
+    "array_bvh pairs, one tier of 2%": ("array_bvh", dict(
+        pairs_compact_min_depth=0, pairs_block=1024, pairs_compact=0.02,
+        pairs_compact2=0.0, pairs_compact3=0.0)),
+    "array_bvh pallas": ("array_bvh", dict(traversal="pallas")),
+    "realtime": ("realtime", {}), "showcase": ("showcase", {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", list(GLUE_FRAMES))
+def test_glue_kernels_bitwise_equal_plain(frame):
+    """On the calls of a 64x64 spp4 d3 frame (each cast of the first
+    trace's depths 0-2, its composite) each kernel of csrc/glue.cu equals
+    its plain version bit for bit; the frame equals the frame with the
+    plain glue patched in, which launches none of them; each cast builds
+    its rows once (full width, or compacted and scattered back), each
+    trace composes once."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench import cast_glue as cg
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+
+    name, kw = GLUE_FRAMES[frame]
+    cfg, tables = build_preset(name, "cuda", width=64, height=64, spp=4,
+                               max_depth=3, **kw)
+    _kernels.reset_launches()
+    kept, (img, st) = cg.capture(lambda: render_preset_frame(tables, cfg, 0))
+    got = {k: _kernels.LAUNCHES[k] for k in _kernels.GLUE}
+    casts = sum(_kernels.LAUNCHES[k] for k in (*_kernels._SPECS,))
+    assert got["ray_rows"] + got["compact_rows"] == casts
+    assert got["scatter"] == got["compact_rows"]
+    assert got["composite"] == _kernels.LAUNCHES["shade"] // 3
+    assert all(r[-1] for r in cg.hold(kept, frame, {}, quiet=True))
+    with cg.plain_glue():
+        _kernels.reset_launches()
+        img_p, st_p = render_preset_frame(tables, cfg, 0)
+    assert not any(_kernels.LAUNCHES[k] for k in _kernels.GLUE)
+    np.testing.assert_array_equal(img, img_p)
+    for a, b in zip(st, st_p):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_glue_kernels_bitwise_on_hard_lanes(seed):
+    """bench/cast_glue.adversarial_calls: NaN, infinite, huge, zero, -0.0
+    and denormal rays in every layout, compacted widths 0 to Rp, scatters
+    of random bits, composites past one launch's depths; one launch a
+    composite of up to COMPOSITE_DEPTHS depths."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench import cast_glue as cg
+
+    calls = cg.adversarial_calls(torch.device("cuda"), R=65536, seed=seed)
+    assert cg.hold_calls(calls, f"seed {seed}", {}, quiet=True)
+    steps = next(a for k, _, _, a in calls if k == "composite"
+                 and len(a[0]) == 17)
+    n0 = _kernels.LAUNCHES["composite"]
+    cg.call("composite", steps, plain=False)
+    assert _kernels.LAUNCHES["composite"] == n0 + 3
