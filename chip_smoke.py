@@ -328,7 +328,14 @@ Phases, in order; any failed check exits nonzero:
       equal its plain version bit for bit (NaNs as one value: a NaN's
       payload follows the instruction that carried it), and so must it on
       bench/depth_step.adversarial_calls' hard lanes (65,536 rays, seeds 0
-      and 1, on the headline's, the showcase's and the realtime scene);
+      and 1, on the headline's, the showcase's and the realtime scene), and
+      sphere_hit on bench/depth_step.sphere_edge_calls (the edges of its
+      fast loop and its exact path, over those scenes' spheres, seed 0, 1
+      and 2 in turn); then the
+      identities its loop rests on hold over every f32 bit pattern
+      (_kernels.f32_identities: sqrtf the f64 root rounded to f32; for x,
+      x +- half its ulp and their neighbouring doubles, Veltkamp's split
+      the f32 rounding and narrow24 its f32 wherever the loop accepts it);
    b. the headline, the realtime frame 1, the showcase frame and the
       pallas headline must be bitwise (image and TraceStats) the frames
       with the four plain stages patched in, which launch none of them;
@@ -342,7 +349,11 @@ Phases, in order; any failed check exits nonzero:
    d. each kernel on the headline's depth-1 calls (sample 1 for the
       primary rays): its time replayed from a CUDA graph and eager, its
       plain version's, its bound (bench/depth_step.call_bound) and what
-      bounds it;
+      bounds it; and sphere_hit's loop from the built library's SASS (bench/
+      sphere_scatter_design.sass_report: its instructions a lane and sphere
+      by pipe and each pipe's time on the closest call; cuobjdump runs in
+      a thread while a-c run), each of its kernels with a sphere loop free
+      of F2F;
    e. the headline frame's and the realtime loop's wall times beside their
       device time (the union of the kernels' intervals) and busy share.
 22. the mesh casts' glue and the trace's composite (csrc/glue.cu:
@@ -3107,9 +3118,13 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
     20's (config, tables), ``soup`` phase 10's (config, tables).  Returns
     ({kernel: (ms, plain_ms, bound_ms, bound_by)}, the headline frame's
     launches of the four kernels)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
     from raytracinggpu_tpu_torch.bench import depth_step as ds
+    from raytracinggpu_tpu_torch.bench.sphere_scatter_design import (
+        disasm, sass_report)
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.render import realtime as rt
@@ -3118,6 +3133,10 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
     from raytracinggpu_tpu_torch.scene.presets import build_preset
     from raytracinggpu_tpu_torch.utils.profiling import device_kernels
 
+    # the library's SASS for d, read (cuobjdump, seconds) while a-c run
+    pool = ThreadPoolExecutor(1)
+    sass = pool.submit(disasm, _kernels.BUILD_INFO["library"])
+    pool.shutdown(wait=False)
     hcfg, htab, cam, n_steps = head
     rcfg, rtab = rt_scene
     pcfg, ptab = pallas_head
@@ -3151,15 +3170,40 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
         if not all(r[-1] for r in held):
             _fail(f"depth step {where}: a kernel differs from its plain "
                   "version")
-    for where, (tab, cfg) in (("headline scene", (htab, hcfg)),
-                              ("showcase scene", (ctab, ccfg)),
-                              ("realtime scene", (rtab, rcfg))):
+    t_hard = t_edge = 0.0
+    for edge_seed, (where, (tab, cfg)) in enumerate((
+            ("headline scene", (htab, hcfg)),
+            ("showcase scene", (ctab, ccfg)),
+            ("realtime scene", (rtab, rcfg)))):
+        t0 = time.perf_counter()
         for seed in (0, 1):
             if not ds.hold_calls(ds.adversarial_calls(tab, cfg, R=65536,
                                                       seed=seed),
                                  f"{where} seed {seed}", err):
                 _fail(f"depth step {where}: a kernel differs from its "
                       "plain version on the hard lanes")
+        t1 = time.perf_counter()
+        # the edges of rt_sphere_hit's fast loop, and its exact path
+        if not ds.hold_calls(ds.sphere_edge_calls(tab.spheres,
+                                                  seed=edge_seed),
+                             f"{where} seed {edge_seed}", err):
+            _fail(f"depth step {where}: sphere_hit differs from its "
+                  "plain version on the edge lanes")
+        t_hard += t1 - t0
+        t_edge += time.perf_counter() - t1
+    print(f"depth step: the hard lanes held in {t_hard:.2f} s, the sphere "
+          f"edge lanes in {t_edge:.2f} s")
+
+    # the identities of rt_sphere_hit's loop over every f32 bit pattern
+    t0 = time.perf_counter()
+    ids = _kernels.f32_identities(device=device)
+    torch.cuda.synchronize()
+    print(f"depth step: the sphere loop's identities over all 2^32 f32 "
+          f"patterns in {time.perf_counter() - t0:.3f} s: {ids} on {card}")
+    if ids["patterns"] != 2**32 or ids["sqrt_differs"] \
+            or ids["round_differs"] or ids["narrow_differs"] \
+            or not ids["accepted"]:
+        _fail(f"depth step: an identity of the sphere loop fails: {ids}")
 
     # b. whole frames, bitwise the frames with the plain stages patched in
     t_eq = lambda a, b: torch.equal(a[0], b[0]) and all(
@@ -3237,7 +3281,7 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
     # the L2 may hold its inputs; and with the L2 emptied before each call)
     # and eager, the plain version eager, the bound
     kept, _ = ds.capture(head_frame)
-    timing = {}
+    timing, sphere_calls = {}, {}
     for kernel, kind, label in (("sphere_hit", "closest", "depth 1"),
                                 ("sphere_hit", "shadow", "depth 1"),
                                 ("shade", "shade", "depth 1"),
@@ -3256,6 +3300,8 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
         bound, by = ds.call_bound(kernel, kind, args, kern())
         if kind != "shadow":
             timing[kernel] = (ms, plain_ms, bound, by)
+        if kernel == "sphere_hit":
+            sphere_calls[kind] = args
         lanes = kern()[0].shape[-1]
         print(f"timing {kernel} ({kind}) on the headline's {label} call "
               f"({lanes} lanes): kernel {ms:.4f} ms (graph replay; L2 "
@@ -3263,6 +3309,25 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
               f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({by}; roofline share {bound / ms:.1%}, L2 "
               f"emptied {bound / cold_ms:.1%}) on {card}")
+
+    # rt_sphere_hit's loop a lane and sphere, from its SASS, and each
+    # pipe's time on the depth-1 call
+    O, _, stab = sphere_calls["closest"]
+    t0 = time.perf_counter()
+    try:
+        funcs = {_kernels.CSRC: sass.result()}
+    except (OSError, subprocess.CalledProcessError, RuntimeError) as e:
+        _fail(f"depth step: the library's SASS not read ({e})")
+    per = sass_report({_kernels.CSRC: _kernels.BUILD_INFO["library"]}, card,
+                      lanes=O.x.shape[0], spheres=stab.radius.shape[0],
+                      funcs=funcs)
+    print(f"depth step: the library's SASS, read while a-c ran, waited "
+          f"for {time.perf_counter() - t0:.2f} s more")
+    if len(per) < 2 or not all(
+            any(not c["F2F (f32<->f64)"] for c in loops)
+            for loops in per.values()):
+        _fail(f"depth step: a sphere_hit kernel has no sphere loop free of "
+              f"F2F: {per}")
 
     # e. the headline's and the realtime loop's wall times beside their
     # device time

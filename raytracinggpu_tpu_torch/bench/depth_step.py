@@ -484,6 +484,85 @@ def adversarial_calls(scene, cfg, R: int = 16384, seed: int = 0) -> list:
     return calls
 
 
+def sphere_edge_calls(tab, R: int = 65536, seed: int = 0) -> list:
+    """[("sphere_hit", label, kind, args), ...] on ``tab``'s device: seeded
+    lanes at the edges of rt_sphere_hit's fast loop (csrc/wavefront.cu).
+    Ray components at 2^-40 and one f32 under it, at the largest f32
+    under 2^30 and at 2^30 (the bounds of its ``moderate``); origins a few
+    2^-33 from the origin; rays leaving a sphere of radius 2^-35 at the
+    origin from its surface, where e = |O - C|^2 - r^2 is 0 and b * b is
+    0, an f32 subnormal (delta under 2^-126: the exact path) or a normal;
+    zero directions, origins at the centres.  Over three tables: ``tab``
+    with that tiny sphere; the same with a sphere of radius 2^-100 (no
+    table check passes: every lane exact); and 100 spheres (two chunks of
+    the kernel's shared table).  The closest mode, the shadow mode with
+    the pairs cast's active lanes and lv2 (some lv2 = t * t), and without."""
+    from raytracinggpu_tpu_torch.ops.sphere import (SphereTable,
+                                                    sphere_hit_plain)
+
+    dev = tab.radius.device
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    C0 = np.stack([c.cpu().numpy() for c in tab[:3]], 1)
+    r0 = tab.radius.cpu().numpy()
+    tiny = f32(2.0**-35)
+    O = rng.uniform(-40, 40, (R, 3)).astype(f32)
+    d = rng.normal(size=(R, 3))
+    u = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(f32)
+    k = rng.integers(0, 10, R)
+    col = rng.integers(0, 3, R)
+    sign = np.where(rng.random(R) < 0.5, f32(-1), f32(1))
+    at = lambda m: (np.flatnonzero(m), col[m])
+    i, c = at(k == 1)
+    u[i, c] = f32(2.0**-40) * sign[i]
+    i, c = at(k == 2)
+    u[i, c] = np.nextafter(f32(2.0**-40), f32(0)) * sign[i]
+    i, c = at(k == 3)
+    O[i, c] = np.nextafter(f32(2.0**30), f32(0)) * sign[i]
+    i, c = at(k == 4)
+    O[i, c] = f32(2.0**30) * sign[i]
+    O[k == 5] = (rng.uniform(-4, 4, (int((k == 5).sum()), 3))
+                 * 2.0**-33).astype(f32)
+    # on the tiny sphere's surface, leaving it at a slant eps: b = eps * r
+    m = np.flatnonzero(k == 6)
+    eps = np.array([0.0, 2.0**-40, 2.0**-30, 2.0**-20], f32)[
+        rng.integers(0, 4, len(m))]
+    O[m] = 0.0
+    O[m, col[m]] = tiny * sign[m]
+    u[m] = 0.0
+    u[m, col[m]] = eps * sign[m]
+    u[m, (col[m] + 1) % 3] = 1.0
+    u[k == 7] = 0.0
+    s = rng.integers(0, len(r0), R)
+    O[k == 8] = C0[s[k == 8]]
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    Ov, uv = Vec3(*T(O.T)), Vec3(*T(u.T))
+    extra = rng.uniform(-50, 50, (100 - len(r0) - 1, 3)).astype(f32)
+    tables = {
+        "with a tiny sphere": (np.vstack([C0, [[0, 0, 0]]]),
+                               np.append(r0, tiny)),
+        "with a sphere of radius 2^-100": (
+            np.vstack([C0, [[0, 0, 0]], [[1, 2, 3]]]),
+            np.append(r0, [tiny, f32(2.0**-100)])),
+        "of 100 spheres": (np.vstack([C0, [[0, 0, 0]], extra]),
+                           np.concatenate([r0, [tiny], rng.uniform(
+                               0.5, 5, len(extra))]))}
+    calls = []
+    for name, (cen, rad) in tables.items():
+        cen, rad = cen.astype(f32), rad.astype(f32)
+        st = SphereTable(*(T(cen[:, j]) for j in range(3)), T(rad))
+        active = T(rng.random(R) < 0.7)
+        lv2 = T(rng.uniform(0, 3000, R).astype(f32))
+        t = sphere_hit_plain(Ov, uv, st)[0]
+        lv2 = torch.where(T(rng.random(R) < 0.3), t * t, lv2)
+        label = f"edge lanes, a table {name}"
+        calls += [("sphere_hit", label, "closest", (Ov, uv, st)),
+                  ("sphere_hit", label, "shadow", (Ov, uv, st, active, lv2)),
+                  ("sphere_hit", f"{label}, no active", "shadow",
+                   (Ov, uv, st, None, None))]
+    return calls
+
+
 def hold_calls(calls, where: str, err: dict) -> bool:
     """``hold`` on (kernel, label, kind, args) calls; True when all are
     bitwise equal."""

@@ -45,9 +45,11 @@
 // device pointers, never copied to the host.  rt_primary_rays does about a
 // thousand 32-bit integer operations a lane (12 threefry hashes at depth 5),
 // which at the card's INT32 rate is more than its bytes (chip_smoke.py's
-// phase 21 computes both).  The counts of rt_shade and rt_bounce are block
-// sums (__syncthreads_count) added with one 64-bit atomic a block, so their
-// order does not matter.
+// phase 21 computes both).  rt_sphere_hit's loop over the spheres is bound
+// by its instructions (its section); rt_f32_identities checks the
+// identities that loop rests on, over every f32.  The counts of rt_shade
+// and rt_bounce are block sums (__syncthreads_count) added with one 64-bit
+// atomic a block, so their order does not matter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,6 +132,78 @@ __device__ __forceinline__ void count(bool pred, long long* dst) {
 }
 
 // ------------------------------------------------------------ rt_sphere_hit
+//
+// The sphere loop holds every f32 value of sphere_hit_plain in an f64
+// register and rounds it to f32 precision without a conversion (F2F.F64.F32
+// and F2F.F32.F64 issue at 16 a clock on an SM, an eighth of the f32 rate;
+// the loop of conversions took about 16 a sphere):
+//   - round24(x) = c - (c - x), c = x * (2^29 + 1), Veltkamp's split in three
+//     f64 operations, is x rounded to 24 significant bits, to nearest, ties
+//     to even: (double)(float)x wherever the result is 0 or its magnitude
+//     lies in [2^-126, 2^128), where an f32 rounds to 24 bits too
+//     (--fmad=false keeps c - x from becoming fma(x, 2^29 + 1, -x));
+//   - an f32 operation on f32 values is the f64 operation rounded by
+//     round24: the f64 result is the exact one rounded once to 53 bits, and
+//     53 >= 2 * 24 + 1 makes that first rounding harmless (Figueroa).  An
+//     fma64 (core/vec.fma) is one DFMA rounded by round24: the product of two
+//     f32 values is exact in f64, so DMUL then DADD and DFMA round the same
+//     sum once;
+//   - sqrt32 is sqrtf (IEEE without fast math): the f64 root rounded to f32
+//     is the f32 root (53 >= 2 * 24 + 2).  Both roots leave their fast
+//     sequence for a slow call on 0, which half the lanes give (their ray
+//     misses the sphere: delta < 0, clamped); the loop takes 0 for the root
+//     of 0 and hands sqrtf 1 there;
+//   - narrow24 reads the f32 out of an f64 that holds 0 or an f32 normal
+//     with four integer operations.
+// Where that is exact: a lane's O and u and the table's centres and radii
+// each 0 or of magnitude in [2^-40, 2^30) (moderate(): rays and scenes are,
+// by far).  Then an f32 of the loop is a multiple of 2^-63, so are the
+// differences oc; the products of two, their sums and every rounding of
+// them are multiples of 2^-126 below 2^65: 0 or f32 normals.  Only delta =
+// b * b - e, a multiple of 2^-252, can fall between 0 and 2^-126, so the
+// loop keeps the least tiny_key of its deltas (two integer operations a
+// sphere).  A lane that fails a check, or a table that does, runs the
+// loop of conversions (exact_nearest): the rare path, right for every
+// input (NaN, inf, huge, f32 subnormals).  The closest mode's normal keeps
+// the f32 sequence with its conversions, once a lane, beside the
+// conversion pipe the loop leaves free.  The table is widened once a block into shared
+// memory (c, and the f32 r * r), kSphereChunk spheres at a time.  One lane
+// a thread: two, sharing the table's reads between two chains, measured
+// no faster.
+// What bounds it: a lane and sphere issue about 90 instructions, 44 of them
+// f64 (bench/sphere_scatter_design.py counts them in the SASS);
+// exact_nearest's loop issues about 88, 15 of them F2F, and runs about as
+// long: both are bound by their instructions' issue and latency, not by
+// the conversion pipe.
+
+constexpr double kSplit = 536870913.0;  // 2^29 + 1
+constexpr int kSphereChunk = 64;        // spheres a block widens at a time
+// tiny_key(x) of an f64 x is below kTinyKey exactly when 0 < |x| < 2^-126
+// (an f64 biased exponent under 897), for x 0 or at least 2^-1042 in
+// magnitude (its high word not 0; a delta is a multiple of 2^-252)
+constexpr unsigned kTinyKey = (897u << 21) - 1u;
+
+__device__ __forceinline__ double round24(double x) {
+  const double c = x * kSplit;
+  return c - (c - x);
+}
+// (hi << 1) - 1 of x's bits: the sign dropped, 0 wrapped to the top
+__device__ __forceinline__ unsigned tiny_key(double x) {
+  return (static_cast<unsigned>(__double2hiint(x)) << 1) - 1u;
+}
+__device__ __forceinline__ float narrow24(double x) {
+  const unsigned hi = __double2hiint(x), lo = __double2loint(x);
+  // the f32 exponent in place of the f64 one (an f32 normal's biased f64
+  // exponent lies in [897, 1150]); a zero goes below 0 and is held at 0
+  const int e = max(static_cast<int>(hi & 0x7fffffffu) - (896 << 20), 0);
+  return __uint_as_float(__funnelshift_l(lo, static_cast<unsigned>(e), 3) |
+                         (hi & 0x80000000u));
+}
+// 0, or of magnitude in [2^-40, 2^30) (biased f32 exponents 87 to 156)
+__device__ __forceinline__ bool moderate(float v) {
+  const unsigned m = __float_as_uint(v) & 0x7fffffffu;
+  return m == 0u || m - (87u << 23) < (70u << 23);
+}
 
 struct SphereArgs {
   const float* O[3];
@@ -145,17 +219,13 @@ struct SphereArgs {
   int S;
 };
 
-// kFull: (t, obj, N) of ops/sphere.py::sphere_hit_plain; else t alone, and
-// with `active` the pairs shadow cast's active lanes, active & ~(t * t <=
-// lv2) (a lane a sphere occludes needs no mesh work).
-template <bool kFull>
-__global__ void __launch_bounds__(kThreads)
-    sphere_kernel(SphereArgs a, int R) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= R) return;
-  const V3 O = load3(a.O, i), u = load3(a.u, i);
-  float best = 0.0f;
-  int arg = 0;
+// sphere_hit_plain's loop with its conversions (fma64, sqrt32): the nearest
+// sphere's t and index, torch.argmin's choice (the first minimum, the first NaN before any number).
+// Inlined: an out-of-line call cost the fast lanes more than its registers
+__device__ void exact_nearest(const SphereArgs& a, V3 O, V3 u, float& best,
+                              int& arg) {
+  best = 0.0f;
+  arg = 0;
   for (int s = 0; s < a.S; ++s) {
     const float r = __ldg(a.radius + s);
     const V3 oc = sub(O, V3{__ldg(a.c[0] + s), __ldg(a.c[1] + s),
@@ -168,12 +238,77 @@ __global__ void __launch_bounds__(kThreads)
     const bool valid = (delta >= 0.0f) && (t2 >= 0.0f);
     float t = t1 < 0.0f ? t2 : t1;
     t = valid ? t : kInf;
-    // torch.argmin: the first minimum, and the first NaN before any number
     if (s == 0 || (isnan(t) ? !isnan(best) : t < best)) {
       best = t;
       arg = s;
     }
   }
+}
+
+// kFull: (t, obj, N) of ops/sphere.py::sphere_hit_plain; else t alone, and
+// with `active` the pairs shadow cast's active lanes, active & ~(t * t <=
+// lv2) (a lane a sphere occludes needs no mesh work).
+template <bool kFull>
+__global__ void __launch_bounds__(kThreads)
+    sphere_kernel(SphereArgs a, int R) {
+  __shared__ double4 tab[kSphereChunk];  // centre, the f32 r * r
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool in = i < R;
+  const V3 O = in ? load3(a.O, i) : V3{0.0f, 0.0f, 0.0f};
+  const V3 u = in ? load3(a.u, i) : V3{0.0f, 0.0f, 0.0f};
+  const bool fast = moderate(O.x) && moderate(O.y) && moderate(O.z) &&
+                    moderate(u.x) && moderate(u.y) && moderate(u.z);
+  const double ox = O.x, oy = O.y, oz = O.z, ux = u.x, uy = u.y, uz = u.z;
+  float best = INFINITY;
+  int arg = 0;
+  unsigned tiny = ~0u;
+  bool table_ok = true;
+  for (int s = threadIdx.x; s < a.S; s += kThreads)
+    table_ok = table_ok && moderate(__ldg(a.c[0] + s)) &&
+               moderate(__ldg(a.c[1] + s)) && moderate(__ldg(a.c[2] + s)) &&
+               moderate(__ldg(a.radius + s));
+  table_ok = __syncthreads_and(table_ok);
+  for (int base = 0; table_ok && base < a.S; base += kSphereChunk) {
+    const int n = min(kSphereChunk, a.S - base);
+    if (base) __syncthreads();  // the previous chunk is read
+    for (int s = threadIdx.x; s < n; s += kThreads) {
+      const float r = __ldg(a.radius + base + s);
+      tab[s] = double4{__ldg(a.c[0] + base + s), __ldg(a.c[1] + base + s),
+                       __ldg(a.c[2] + base + s), r * r};
+    }
+    __syncthreads();
+    for (int s = 0; s < n; ++s) {
+      const double4 q = tab[s];
+      // sphere_hit_plain's f32 values, each rounded by round24
+      const double ocx = round24(ox - q.x);
+      const double ocy = round24(oy - q.y);
+      const double ocz = round24(oz - q.z);
+      const double b = round24(
+          fma(uz, ocz, round24(fma(ux, ocx, round24(uy * ocy)))));
+      const double n2 = round24(
+          fma(ocz, ocz, round24(fma(ocx, ocx, round24(ocy * ocy)))));
+      const double delta = round24(fma(b, b, -round24(n2 - q.w)));
+      tiny = min(tiny, tiny_key(delta));
+      // the f32 steps in f32: delta is not NaN here, t never.  sqrtf takes
+      // a slow path for 0 (a ray that misses the sphere), so a root of 0
+      // is 0 itself
+      const float dl = narrow24(delta), nb = -narrow24(b);
+      const float c0 = fmaxf(dl, 0.0f);  // clamp_min0 but for NaN
+      const float root = sqrtf(c0 > 0.0f ? c0 : 1.0f);
+      const float sq = c0 > 0.0f ? root : c0;
+      const float t1 = nb - sq, t2 = nb + sq;
+      const bool valid = (dl >= 0.0f) && (t2 >= 0.0f);
+      float t = t1 < 0.0f ? t2 : t1;
+      t = valid ? t : kInf;
+      if (t < best) {
+        best = t;
+        arg = base + s;
+      }
+    }
+  }
+  if (!in) return;
+  if (!(table_ok && fast && tiny >= kTinyKey))
+    exact_nearest(a, O, u, best, arg);
   a.t[i] = best;
   const bool hit = best < kInf;
   if (kFull) {
@@ -187,6 +322,72 @@ __global__ void __launch_bounds__(kThreads)
     store3(a.N, i, divs(n, nn));
   } else if (a.active_out) {
     a.active_out[i] = a.active[i] && !(best * best <= a.lv2[i]);
+  }
+}
+
+// ------------------------------------------------- the sphere loop's checks
+//
+// rt_f32_identities: the identities rt_sphere_hit's loop rests on, over the
+// f32 bit patterns first, first + 1, ... (n of them, modulo 2^32), added to
+// counts (IDENTITY_COUNTS of ops/_kernels.py, in order):
+//   [0] patterns;
+//   [1] of them, sqrtf(x) unlike sqrt32(x) (NaN alike);
+//   [2] doubles d tested: for each finite x, x and x +- half its ulp, and
+//       each of those one f64 ulp up and down (ties, and next to ties),
+//       but for the f64 subnormals under 2^-1042 next to x = 0, which no
+//       delta is (tiny_key's domain);
+//   [3] of them, round24(d) accepted: tiny_key at least kTinyKey (the loop's
+//       test of delta) and below 2^128 (what moderate() inputs keep to);
+//   [4] accepted, and round24(d) unlike (double)(float)d;
+//   [5] accepted, and narrow24(round24(d)) unlike (float)d, bit for bit;
+//   [6] rejected, though (float)d is 0 or an f32 normal (the rare path taken
+//       where the fast one was right: coverage, not a fault).
+constexpr int kIdentityCounts = 7;
+
+__global__ void __launch_bounds__(kThreads)
+    identities_kernel(unsigned long long first, unsigned long long n,
+                      unsigned long long* counts) {
+  unsigned c[kIdentityCounts] = {};
+  const unsigned long long stride =
+      static_cast<unsigned long long>(gridDim.x) * kThreads;
+  for (unsigned long long k = blockIdx.x * kThreads + threadIdx.x; k < n;
+       k += stride) {
+    const unsigned bits = static_cast<unsigned>(first + k);
+    const float x = __uint_as_float(bits);
+    c[0] += 1;
+    const float s1 = sqrtf(x), s2 = sqrt32(x);
+    c[1] += !(__float_as_uint(s1) == __float_as_uint(s2) ||
+              (isnan(s1) && isnan(s2)));
+    if (!isfinite(x)) continue;
+    const int ex = max(static_cast<int>((bits >> 23) & 0xffu), 1);
+    const double h = __hiloint2double((ex - 151 + 1023) << 20, 0);
+    const double xd = x;
+    for (int m = -1; m <= 1; ++m) {
+      for (int step = -1; step <= 1; ++step) {
+        const double dv = __longlong_as_double(
+            __double_as_longlong(xd + m * h) + step);
+        if (dv != 0.0 && fabs(dv) < 0x1p-1042) continue;
+        const double r = round24(dv);
+        const float want = static_cast<float>(dv);
+        c[2] += 1;
+        const bool ok = tiny_key(r) >= kTinyKey && fabs(r) < 0x1p128;
+        if (ok) {
+          c[3] += 1;
+          c[4] += !(__double_as_longlong(r) ==
+                    __double_as_longlong(static_cast<double>(want)));
+          c[5] += __float_as_uint(narrow24(r)) != __float_as_uint(want);
+        } else {
+          c[6] += want == 0.0f ||
+                  (fabsf(want) >= 0x1p-126f && isfinite(want));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kIdentityCounts; ++j) {
+    const unsigned w = __reduce_add_sync(0xffffffffu, c[j]);
+    if ((threadIdx.x & 31) == 0 && w)
+      atomicAdd(counts + j, static_cast<unsigned long long>(w));
   }
 }
 
@@ -529,6 +730,17 @@ int rt_sphere_hit(void* const* p, int R, int S, int full, void* stream) {
     sphere_kernel<true><<<grid(R), kThreads, 0, st>>>(a, R);
   else
     sphere_kernel<false><<<grid(R), kThreads, 0, st>>>(a, R);
+  return finish();
+}
+
+// counts: n_counts zeroed 64-bit words on the card, n_counts
+// kIdentityCounts
+int rt_f32_identities(unsigned long long first, unsigned long long n,
+                      unsigned long long* counts, int n_counts,
+                      void* stream) {
+  if (n_counts != kIdentityCounts) return cudaErrorInvalidValue;
+  identities_kernel<<<132 * 8, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(first, n, counts);
   return finish();
 }
 

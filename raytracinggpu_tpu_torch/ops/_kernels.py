@@ -7,7 +7,8 @@ staging of ``csrc/stage.cuh``), ``csrc/cull.cu`` (the culling:
 ``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
 of the tiled one), ``csrc/wavefront.cu`` (the depth step's per-lane
 math: ``sphere_hit``, ``shade``, ``bounce``, and the primary rays,
-``primary_rays``) and ``csrc/glue.cu`` (the mesh casts' glue:
+``primary_rays``; and ``f32_identities``, the check of the identities
+``sphere_hit``'s loop rests on) and ``csrc/glue.cu`` (the mesh casts' glue:
 ``ray_rows``, ``compact_rows``, ``scatter``; the trace's backward
 ``composite``) are compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
@@ -84,6 +85,11 @@ CULLING = ("pair_bits", "compact_key", "tile_lists")
 # The depth step's kernels and the primary rays' of csrc/wavefront.cu (see
 # sphere_hit, shade, bounce and primary_rays).
 DEPTH_STEP = ("sphere_hit", "shade", "bounce", "primary_rays")
+
+# What rt_f32_identities counts (csrc/wavefront.cu, in order; see
+# f32_identities)
+IDENTITY_COUNTS = ("patterns", "sqrt_differs", "doubles", "accepted",
+                   "round_differs", "narrow_differs", "rejected_normal")
 
 # The mesh casts' glue and the trace's backward composite of csrc/glue.cu
 # (see ray_rows, compact_rows, scatter and composite).
@@ -198,6 +204,8 @@ def load():
                 ("rt_tile_lists_k", [p] * 7 + [i, p, i, i, i, p, p, i, p]),
                 # csrc/wavefront.cu: an array of pointers, then scalars
                 ("rt_sphere_hit", [p, i, i, i, p]),
+                ("rt_f32_identities", [ctypes.c_ulonglong,
+                                       ctypes.c_ulonglong, p, i, p]),
                 ("rt_shade", [p, i, i, fl, p]),
                 ("rt_bounce", [p, i, p]),
                 ("rt_primary_rays", [p, i, ctypes.c_uint, i, i, i,
@@ -654,6 +662,28 @@ def sphere_hit(O, u, spheres, full=True, active=None, lv2=None):
         _run("sphere_hit", dev, lambda lib, st: lib.rt_sphere_hit(
             ptrs, R, S, int(full), st))
     return (t, obj, N) if full else (t, act)
+
+
+def f32_identities(first: int = 0, n: int = 2**32, device="cuda") -> dict:
+    """Kernel rt_f32_identities on ``device``: the identities of
+    rt_sphere_hit's sphere loop over the f32 bit patterns first, ...,
+    first + n - 1 (modulo 2^32): {name: count} for ``IDENTITY_COUNTS``
+    (``sqrt_differs``, ``round_differs`` and ``narrow_differs`` are faults;
+    ``rejected_normal`` counts doubles the loop sends to its exact path
+    though the fast one was right).  A check, not a stage of the main path:
+    not counted in LAUNCHES."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not (0 <= first < 2**32 and 0 <= n <= 2**32):
+        raise ValueError("f32_identities: need a CUDA device, first in "
+                         "[0, 2^32) and n in [0, 2^32]")
+    counts = torch.zeros(len(IDENTITY_COUNTS), dtype=torch.int64, device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        err = lib.rt_f32_identities(first, n, counts.data_ptr(),
+                                    len(IDENTITY_COUNTS),
+                                    torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "f32_identities")
+    return dict(zip(IDENTITY_COUNTS, counts.tolist()))
 
 
 def shade(O, u, ri, sph, mesh, mats, L, intensity, eps, mesh_id, counts):

@@ -2284,6 +2284,44 @@ def test_depth_step_kernels_bitwise_equal_plain(frame):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sphere_hit_bitwise_on_edge_lanes(seed):
+    """bench/depth_step.sphere_edge_calls: the bounds of rt_sphere_hit's
+    fast loop, deltas under 2^-126, a table its check refuses, two chunks
+    of its shared table."""
+    _need_cuda()
+    from raytracinggpu_tpu_torch.bench import depth_step as ds
+
+    _, tables = build_preset("array_bvh", "cuda")
+    calls = ds.sphere_edge_calls(tables.spheres, seed=seed)
+    assert ds.hold_calls(calls, f"seed {seed}", {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [0, 0x3F000000, 0x7F7F0000, 0x80000000])
+def test_f32_identities_on_a_slice(first):
+    """rt_f32_identities over 2^20 f32 patterns (zero and the subnormals,
+    [0.5, 0.5 + 2^-4), the top binades and inf/NaN, -0 on): no fault."""
+    _need_cuda()
+    ids = _kernels.f32_identities(first, 2**20)
+    finite = sum(1 for b in (first, first + 2**20 - 1)
+                 if b & 0x7F800000 != 0x7F800000)
+    assert ids["patterns"] == 2**20 and ids["doubles"] <= 9 * 2**20
+    assert ids["doubles"] > (8 * 2**20 if finite == 2 else 0)
+    assert not (ids["sqrt_differs"] or ids["round_differs"]
+                or ids["narrow_differs"])
+    if first == 0x3F000000:
+        assert ids["accepted"] == ids["doubles"]
+
+
+def test_f32_identities_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        _kernels.f32_identities(device="cpu")
+    with pytest.raises(ValueError):
+        _kernels.f32_identities(first=2**32, device="cuda")
+
+
 # ------------- the mesh casts' glue and the composite (csrc/glue.cu)
 
 def _glue_calls(bad):
