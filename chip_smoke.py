@@ -8,10 +8,11 @@ Phases, in order; any failed check exits nonzero:
    CUDA and nvcc versions;
 2. build: compile the hand-written kernels (csrc/pairs_trace.cu: B0-B3,
    csrc/pallas_trace.cu: B5, B6, csrc/micro_kernel.cu: the probes B7a-e,
-   csrc/cull.cu: the culling, pair_bits, compact_key and tile_lists,
+   csrc/cull.cu: the culling, pair_bits, compact_key, compact_bits (a
+   compacted cast's rows and culling in one launch) and tile_lists,
    csrc/wavefront.cu: the depth step's sphere_hit, shade and bounce and
    the primary rays' primary_rays, csrc/glue.cu: the mesh casts'
-   ray_rows, compact_rows and scatter and the trace's composite) with
+   ray_rows and scatter and the trace's composite) with
    nvcc for sm_90a, one process per source, and load them;
 3. per-cast check: render the main-path frame (array_bvh, 512x512,
    spp 32, depth 5) once with the compaction ladder off (every cast at
@@ -25,12 +26,13 @@ Phases, in order; any failed check exits nonzero:
    zeroed just before; the image and TraceStats must be finite and equal
    the phase-3 frame's (same seed), every ray must hit the
    enclosed scene at every depth, some shadow rays must be occluded, B1
-   and B2 must have launched once per cast and B3 and B0 never, pair_bits
-   once per cast and compact_key once per cast at depth >= 1 (the
+   and B2 must have launched once per cast and B3 and B0 never, the
+   culling once per cast (pair_bits at full width, compact_bits on a
+   compacted cast) and compact_key once per cast at depth >= 1 (the
    ladder's key); then time three frames and print Mray/s.  Every other
    phase's launch counts leave the culling kernels out after holding them
-   to the casts (pair_bits once per launch of B0-B3, compact_key at most
-   as often);
+   to the casts (pair_bits and compact_bits once per launch of B0-B3
+   together, compact_key at most as often);
 5. timings: each kernel against its plain version on the casts kept in
    phase 3, with ps a Moller-Trumbore test and the no-FMA floor (see
    NO_FMA_OPS_S) beside the bound;
@@ -246,16 +248,19 @@ Phases, in order; any failed check exits nonzero:
    loops, each stage of a cast), are ``python -m
    raytracinggpu_tpu_torch.bench.ladder``'s, not this script's.
 19. the culling kernels (csrc/cull.cu: ``pair_bits``, the per-subgroup
-    active-tile bitmask of every pairs cast, and ``compact_key``, the
-    ladder's sort key and active count; ops/pairs_trace.py's
-    ``_pair_bits`` and ``_compact_key`` launch them on CUDA tensors):
+    active-tile bitmask of every full-width pairs cast, ``compact_bits``,
+    the same words of a compacted cast's C rays with their rows, and
+    ``compact_key``, the ladder's sort key and active count;
+    ops/pairs_trace.py's ``_pair_bits``, ``compact_bits`` and
+    ``_compact_key`` launch them on CUDA tensors):
    a. the inputs of the calls the frames make are kept (the headline with
       the ladder off: its depth-0 and depth-1 full-width casts; the
-      headline and the realtime frame 1: depths 0-2, compacted where a
-      tier held the cast, and the keys of depths 1 and 2; the soup: its
+      headline and the realtime frame 1: the full-width casts of depth 0,
+      the compacted casts of depths 1-2 and their keys; the soup: its
       depth-0 and depth-1 casts at subgroup 16, 65 words, and the keys
       over its 65 union boxes, mode 1); on each, the kernel must equal
-      its plain version bit for bit (bits; skey, n_act and shift);
+      its plain version bit for bit (bits; rows, mask and bits; skey,
+      n_act and shift);
    b. bench/cull.py's adversarial rays (65,536 rays, seeds 0 and 1:
       exactly-zero and -0.0 direction components, origins on box faces,
       zero-thickness boxes, caps at an enter distance) over 1,100 boxes
@@ -264,11 +269,12 @@ Phases, in order; any failed check exits nonzero:
       bitwise;
    c. the headline frame (phase 4's), the realtime frame 1 and the soup
       frame must be bitwise (image and TraceStats) the same frames with
-      the plain versions patched in for ``_pair_bits`` and
-      ``_compact_key`` (the previous torch-op path), which launch no
-      culling kernel and the same B0-B3;
-   d. each kernel on the cat's depth-1 casts (full width and compacted)
-      and the soup's: its time replayed from a CUDA graph and eager, its
+      the plain versions patched in for ``_pair_bits``, ``compact_bits``
+      and ``_compact_key`` (the torch-op path), which launch no culling
+      kernel and the same B0-B3;
+   d. each kernel on the cat's depth-1 casts (full width; and pair_bits
+      on a compacted cast's C rays, the rays compact_bits culls) and the
+      soup's: its time replayed from a CUDA graph and eager, its
       plain version's, and the bound and no-FMA floor of bench/cull.py;
       the kernels a headline frame launches and their device time,
       through the kernels and with the plain culling
@@ -286,10 +292,12 @@ Phases, in order; any failed check exits nonzero:
       two replays of one captured CUDA graph (the counter resets).
 20. the tiled culling kernel (csrc/cull.cu: ``tile_lists``, the
     per-subgroup list rows [count, active tiles, inactive tiles] of every
-    tiled cast, rt_pair_bits' kernel over the valid tile boxes and one
-    warp a row; ops/pallas_trace.py's ``_block_active_tiles`` launches it
-    on CUDA tensors, as often as B5 and B6 together, which _launched
-    holds in every phase):
+    tiled cast: in one launch where a block holds its subgroups' words in
+    one pass and the tile boxes in its shared memory (the cat's and the
+    soup's casts), else in two (rt_pair_bits' kernel over the valid tile
+    boxes, then one warp a row); ops/pallas_trace.py's
+    ``_block_active_tiles`` launches it on CUDA tensors, as often as B5
+    and B6 together, which _launched holds in every phase):
    a. the inputs of the calls the frames make are kept (the pallas
       headline's depth-0 and depth-1 closest and shadow casts, the soup's
       eight pallas casts over its 1,564 tiles, the posed first cast of
@@ -300,7 +308,11 @@ Phases, in order; any failed check exits nonzero:
       extent; subgroups 1-128; with and without cap) and on the tiled
       index cases at 1,037 subgroups (5,000 tiles in passes of a block's
       words, 140,000 tiles, every rays-a-thread;
-      bench/cull_design.hold_index_cases);
+      bench/cull_design.hold_index_cases); the frames' casts need no
+      scratch (one launch), the tables past one pass of a block's words
+      (140,000 tiles; 5,000 at subgroup 1) run in two, and the
+      adversarial tables through two launches forced (rt_tile_lists_ko)
+      give the same rows;
    b. the pallas headline frame and the soup pallas frame must be bitwise
       (image and TraceStats) the same frames with the plain version
       patched in for ``_block_active_tiles`` (the previous torch-op path),
@@ -358,10 +370,11 @@ Phases, in order; any failed check exits nonzero:
       device time (the union of the kernels' intervals) and busy share.
 22. the mesh casts' glue and the trace's composite (csrc/glue.cu:
     ``ray_rows``, a full-width cast's ray-feature rows in the pairs, live
-    and pallas layouts; ``compact_rows``, a compacted cast's source lanes
-    and rows from its sorted keys; ``scatter``, its outputs at full width
-    in one launch; ``composite``, the backward composite; bench/
-    cast_glue.py's tools), every launch counted in _launched:
+    and pallas layouts; ``scatter``, a compacted cast's outputs at full
+    width in one launch; ``composite``, the backward composite; and
+    csrc/cull.cu's ``compact_bits``, a compacted cast's rows from its
+    sorted keys with their culling; bench/cast_glue.py's tools), every
+    launch counted in _launched:
    a. the glue calls of the first trace's depths 0-2 and its composite in
       the headline, the realtime frame 1, the animated frame 1, the pallas
       headline, the soup (whose depth-1 casts overflow every tier) and
@@ -378,18 +391,24 @@ Phases, in order; any failed check exits nonzero:
    c. a headline frame's device operations (utils/profiling.device_kernels)
       in all and with its mesh casts replayed, a pairs cast's (their
       difference over the 160 casts) beside the parent's (PARENT_OPS,
-      PARENT_CAST_OPS), by wrapper; ray_rows + compact_rows one a pairs
-      cast, scatter as often as compact_rows, composite one a trace, and
-      the frame under half of the parent's operations; every operation's
-      name and count in both frames (what a cast launches is the
-      difference);
+      PARENT_CAST_OPS), by wrapper; ray_rows + compact_bits one a pairs
+      cast, scatter as often as compact_bits, composite one a trace, and
+      the frame under half of PARENT_OPS; a compacted cast's device
+      operations (the mesh casts' less FULL_CAST_OPS a full-width cast,
+      over the compacted casts), the sort's (counted alone on keys of a
+      cast's size, ``_sort_ops``: traced and from a CUDA graph, the larger)
+      and COMPACTED_OWN_OPS more (the key, the count's copy
+      to the host, compact_bits, the kernel, the scatter); every
+      operation's name and count in both frames (what a cast launches is
+      the difference);
    d. each kernel on the headline's casts (ray_rows on the depth-0
       closest cast, and in the live layout on the depth-1 closest cast's
-      rays; compact_rows and scatter on the depth-1 closest and shadow
+      rays; compact_bits and scatter on the depth-1 closest and shadow
       casts; the first trace's composite): its time replayed from a CUDA
       graph, with the L2 emptied before each call and eager, its plain
       version's, its bound (bench/cast_glue.call_bound) and what bounds
-      it, and for compact_rows torch.index_select of the live rows;
+      it, and for compact_bits torch.index_select of the live rows then
+      rt_pair_bits on them;
    e. the headline, pallas headline and soup frames' and the realtime
       loop's wall times beside their device time and busy share, and
       bench/ladder.py's frames part (3 frames each way): the ladder's on /
@@ -408,9 +427,10 @@ in phase 4's frame, and tile_lists' phase 20c's on the pallas headline's
 depth-1 closest cast with its launches in phase 9b's frame; the depth
 step's are phase 21d's on the headline's depth-1 calls, with their
 launches in phase 21c's headline frame; the glue's phase 22d's, ray_rows
-on the depth-0 closest cast, compact_rows and scatter on the depth-1
+on the depth-0 closest cast, compact_bits and scatter on the depth-1
 closest cast, the composite on the first trace, with their launches in
-phase 22c's headline frame); the last line is the JSON result.
+phase 22c's headline frame (compact_bits' in phase 4's)); the last line
+is the JSON result.
 Without a CUDA device the script exits nonzero at once and prints no
 result.  On its way out, passed or failed, it stops every process it
 started that still runs, however deep (see _stop_leftovers), and fails
@@ -508,14 +528,20 @@ _MODES = {"pairs_kernelILi0E": "pairs_shadow",
           "pair_slope_kernelILi8E": "probe_pair_slope (subgroup 4)",
           "pair_slope_kernelILi16E": "probe_pair_slope (subgroup 2)",
           "pair_slope_kernelILi32E": "probe_pair_slope (subgroup 1)",
+          "pair_bits_kernelILi1ELb1E": "compact_bits (1 ray a thread)",
+          "pair_bits_kernelILi2ELb1E": "compact_bits (2 rays a thread)",
+          "pair_bits_kernelILi1ELb0ELb1E": "tile_lists (one launch, k 1)",
+          "pair_bits_kernelILi2ELb0ELb1E": "tile_lists (one launch, k 2)",
+          "pair_bits_kernelILi4ELb0ELb1E": "tile_lists (one launch, k 4)",
           "pair_bits_kernel": "pair_bits (and tile_lists' words)",
           "compact_key_kernel": "compact_key",
+          "tile_lists_fused_kernel": "tile_lists (persistent variant)",
           "tile_lists_kernel": "tile_lists (rows)",
           "sphere_kernelILb1E": "sphere_hit (closest)",
           "sphere_kernelILb0E": "sphere_hit (shadow)",
           "shade_kernel": "shade", "bounce_kernel": "bounce",
           "primary_kernel": "primary_rays",
-          "rows_kernelILb0E": "ray_rows", "rows_kernelILb1E": "compact_rows",
+          "rows_kernel": "ray_rows",
           "scatter_kernel": "scatter", "composite_kernel": "composite"}
 # (source, the TPU kernel it replaces) per kernel
 _PAIRS = ("raytracinggpu_tpu_torch/csrc/pairs_trace.cu",
@@ -541,6 +567,10 @@ _ORIGIN = {
                     "_compact_key (XLA-side, no Pallas kernel)"),
     "tile_lists": (_CULL, "raytracinggpu_tpu/ops/pallas_trace.py:475 "
                    "_block_active_tiles (XLA-side, no Pallas kernel)"),
+    "compact_bits": (_CULL, "raytracinggpu_tpu/ops/pairs_trace.py:994 "
+                     "_compact_sort's lanes, the jnp.take of :1213, :1327 "
+                     "and :423 _pair_bits with members on those rays "
+                     "(XLA-side, no Pallas kernel)"),
     # the depth step's and the primary rays' math, XLA-side too
     "sphere_hit": (_WAVEFRONT, "raytracinggpu_tpu/ops/sphere.py:44 "
                    "intersect_spheres (XLA-side, no Pallas kernel)"),
@@ -557,9 +587,6 @@ _ORIGIN = {
     "ray_rows": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:386 "
                  "_ray_feature_rows and ops/pallas_trace.py:202 "
                  "_ray_features16 (XLA-side, no Pallas kernel)"),
-    "compact_rows": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:994 "
-                     "_compact_sort's lanes and the jnp.take of :1213, "
-                     ":1327 (XLA-side, no Pallas kernel)"),
     "scatter": (_GLUE, "raytracinggpu_tpu/ops/pairs_trace.py:1228, :1334 "
                 ".at[src].set (XLA-side, no Pallas kernel)"),
     "composite": (_GLUE, "raytracinggpu_tpu/integrator/wavefront.py:413 "
@@ -693,12 +720,13 @@ def _launched(culling: dict | None = None, depth: dict | None = None,
     """The launches since the last ``reset_launches()``, by kernel, without
     the culling kernels of csrc/cull.cu, the depth step's of
     csrc/wavefront.cu and the glue's of csrc/glue.cu, which are held here:
-    every pairs cast culls once, so pair_bits launched as often as B0-B3
+    every pairs cast culls once, at full width (pair_bits) or compacted
+    (compact_bits, its rows too), so those two launched as often as B0-B3
     together, and the ladder keys at most every cast (compact_key); every
     tiled cast culls once, so tile_lists launched as often as B5 and B6
     together; every depth step runs the sphere pass twice, the shading and
     the bounce once; every cast builds its rows once, at full width
-    (ray_rows) or compacted (compact_rows, then scatter), and every trace
+    (ray_rows) or compacted (compact_bits, then scatter), and every trace
     composes once (at most one composite a shading, one for some).
     ``culling``, ``depth`` and ``glue`` receive their counts."""
     from raytracinggpu_tpu_torch.ops import _kernels
@@ -709,7 +737,8 @@ def _launched(culling: dict | None = None, depth: dict | None = None,
     rows = {k: out.pop(k) for k in _kernels.GLUE}
     casts = sum(out[k] for k in _PAIRS_KERNELS)
     tiled = out["pallas_closest"] + out["pallas_shadow"]
-    if cull["pair_bits"] != casts or not 0 <= cull["compact_key"] <= casts \
+    if cull["pair_bits"] + cull["compact_bits"] != casts \
+            or not 0 <= cull["compact_key"] <= casts \
             or cull["tile_lists"] != tiled:
         _fail(f"culling launches {cull} for {casts} pairs casts and "
               f"{tiled} tiled casts")
@@ -719,8 +748,8 @@ def _launched(culling: dict | None = None, depth: dict | None = None,
               "the bounce not once, a shading")
     composed = (0 < rows["composite"] <= step["shade"] if step["shade"]
                 else not rows["composite"])
-    if rows["ray_rows"] + rows["compact_rows"] != casts + tiled \
-            or rows["scatter"] != rows["compact_rows"] or not composed:
+    if rows["ray_rows"] + cull["compact_bits"] != casts + tiled \
+            or rows["scatter"] != cull["compact_bits"] or not composed:
         _fail(f"glue launches {rows} for {casts} pairs casts, {tiled} tiled "
               f"casts and {step['shade']} shadings: the rows not once a "
               "cast, a compacted cast not scattered once, or no composite "
@@ -2595,24 +2624,43 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
 
 def _plain_culling(fn):
     """fn() with the plain culling of ops/pairs_trace patched in for
-    ``_pair_bits`` and ``_compact_key`` (the parent's path: torch ops);
-    the dispatching functions are put back afterwards."""
+    ``_pair_bits``, ``compact_bits`` and ``_compact_key`` (torch ops); the
+    dispatching functions are put back afterwards."""
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
-    saved = pt._pair_bits, pt._compact_key
-    pt._pair_bits, pt._compact_key = pt.pair_bits_plain, pt.compact_key_plain
+    saved = pt._pair_bits, pt.compact_bits, pt._compact_key
+    pt._pair_bits, pt.compact_bits, pt._compact_key = (
+        pt.pair_bits_plain, pt.compact_bits_plain, pt.compact_key_plain)
     try:
         return fn()
     finally:
-        pt._pair_bits, pt._compact_key = saved
+        pt._pair_bits, pt.compact_bits, pt._compact_key = saved
 
 
 def _hold_culling(kept, where, err):
     """19a/b: each kept call's kernel bitwise its plain version."""
     import torch
+    from raytracinggpu_tpu_torch.bench.depth_step import (
+        flatten, max_abs_err, same_bits)
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
 
+    for label, args in kept.get("compact_bits", ()):
+        keys, C, _, O, _, nc, subg, (boxes, _), cap, active = args
+        got = flatten(_kernels.compact_bits(*args))
+        want = flatten(pt.compact_bits_plain(*args))
+        torch.cuda.synchronize()
+        ok = same_bits(got, want)
+        e = 0.0 if ok else max_abs_err(got, want)
+        err["compact_bits"] = max(err["compact_bits"], e)
+        print(f"culling {where} {label}: compact_bits on C {C} of "
+              f"{O.x.shape[0]} rays, subgroup {subg}, {boxes.shape[0]} "
+              f"member boxes of {nc} tiles, cap {cap is not None}, active "
+              f"{active is not None}: "
+              + ("bitwise equal" if ok else f"DIFFER (max abs {e})"))
+        if not ok:
+            _fail(f"compact_bits differs from its plain version on {where} "
+                  f"{label}")
     for label, args in kept["pair_bits"]:
         O, _, nc, subg, (boxes, _), cap, active = args
         got = _kernels.pair_bits(*args)
@@ -2662,7 +2710,7 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
     from raytracinggpu_tpu_torch.bench.cull import (
         adversarial, call_bound, index_cases)
     from raytracinggpu_tpu_torch.bench.cull_design import (
-        capture, graph_nodes, hold_index_cases)
+        capture, graph_nodes, hold_index_cases, row_args)
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.core.vec import Vec3
     from raytracinggpu_tpu_torch.ops import _kernels
@@ -2682,19 +2730,21 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
 
     # a. bitwise on the frames' own casts
     captured = {}
-    for where, render, n_bits, n_keys in (
+    for where, render, n_bits, n_keys, n_compact in (
             ("headline, the ladder off", lambda: head_frame(
-                _ladder_off(hcfg)), 4, 0),
-            ("headline", lambda: head_frame(hcfg), 6, 4),
-            ("realtime frame 1", step1, 6, 4),
-            ("soup", soup_frame, 4, 2)):
-        kept, _ = capture(render, n_bits, n_keys)
+                _ladder_off(hcfg)), 4, 0, 0),
+            ("headline", lambda: head_frame(hcfg), 6, 4, 4),
+            ("realtime frame 1", step1, 6, 4, 4),
+            ("soup", soup_frame, 4, 2, 0)):
+        kept, _ = capture(render, n_bits, n_keys, 0, n_compact)
         torch.cuda.synchronize()
         if len(kept["pair_bits"]) != n_bits \
-                or len(kept["compact_key"]) != n_keys:
-            _fail(f"culling {where}: kept {len(kept['pair_bits'])} casts "
-                  f"and {len(kept['compact_key'])} keys, expected {n_bits} "
-                  f"and {n_keys}")
+                or len(kept["compact_key"]) != n_keys \
+                or len(kept["compact_bits"]) != n_compact:
+            _fail(f"culling {where}: kept {len(kept['pair_bits'])} casts, "
+                  f"{len(kept['compact_key'])} keys and "
+                  f"{len(kept['compact_bits'])} compacted casts, expected "
+                  f"{n_bits}, {n_keys} and {n_compact}")
         _hold_culling(kept, where, err)
         captured[where] = kept
     soup_subg = {a[3] for _, a in captured["soup"]["pair_bits"]}
@@ -2746,11 +2796,13 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
         else:   # phase 4's frame, counted there
             l_kern = None
         plain_out, l_plain = counted(lambda: _plain_culling(fn))
-        if l_plain["pair_bits"] or l_plain["compact_key"]:
+        if l_plain["pair_bits"] or l_plain["compact_key"] \
+                or l_plain["compact_bits"]:
             _fail(f"culling frames {name}: the patched frame launched "
                   f"{l_plain}")
         if l_kern is not None and (
-                l_kern["pair_bits"] != sum(l_kern[k] for k in _PAIRS_KERNELS)
+                l_kern["pair_bits"] + l_kern["compact_bits"]
+                != sum(l_kern[k] for k in _PAIRS_KERNELS)
                 or not l_kern["compact_key"]
                 or {k: v for k, v in l_kern.items()
                     if k not in _kernels.CULLING}
@@ -2766,9 +2818,10 @@ def _culling_phase(device, card, err, head, head_out, rt_scene, soup):
               f"the plain culling {l_plain}")
 
     # d. timings: the kernel replayed from a CUDA graph and eager, its
-    # plain version eager, the bound
-    def first(where, name, label):
-        return next(a for lab, a in captured[where][name] if lab == label)
+    # plain version eager, the bound (pair_bits on the compacted cast: on
+    # the C rays its compact_bits call culls, bench/cull_design.row_args)
+    first = lambda where, name, label: row_args(captured, where, name,
+                                                label)
 
     timing = {}
     for row, where, name, label in (
@@ -2927,7 +2980,7 @@ def _tile_culling_phase(device, card, err, soup):
     from raytracinggpu_tpu_torch.bench.cull import (
         TILE_SUBGROUPS, adversarial_tiles, call_bound, index_cases)
     from raytracinggpu_tpu_torch.bench.cull_design import (
-        capture, hold_index_cases)
+        capture, hold_index_cases, launch)
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.core.vec import Vec3
     from raytracinggpu_tpu_torch.ops import _kernels
@@ -2970,6 +3023,7 @@ def _tile_culling_phase(device, card, err, soup):
     # bench/cull.py's adversarial tables, and the tiled index cases (word
     # passes, a table past 131,072 tiles, every subgroup, every
     # rays-a-thread)
+    lib = _kernels.load()
     R = 65536
     for nt in (4, 31, 32, 33, 126, 127, 300):
         O, d, aabb, cap = (torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -2981,12 +3035,38 @@ def _tile_culling_phase(device, card, err, soup):
                            (O, u, aabb, nt, c, subg))
                           for subg in TILE_SUBGROUPS for c in (None, cap)],
                          "adversarial", err, quiet=True)
-    held = hold_index_cases([c for c in index_cases(device, n_sg=1037)
-                             if c[1] == "tile_lists"])
+        # the same tables through two launches forced (the words through
+        # device memory, then the rows), bitwise
+        for subg in TILE_SUBGROUPS:
+            for c in (None, cap):
+                args = (O, u, aabb, nt, c, subg)
+                if not torch.equal(launch(lib, "tile_lists", args,
+                                          ko=(0, 0)),
+                                   pat.block_active_tiles_plain(*args)):
+                    _fail(f"tile_lists in two launches differs from its "
+                          f"plain version on {nt} tiles, subgroup {subg}")
+    tiled_cases = [c for c in index_cases(device, n_sg=1037)
+                   if c[1] == "tile_lists"]
+    held = hold_index_cases(tiled_cases)
     bad = [(label, k) for label, k, ok in held if not ok]
     if bad:
         _fail(f"tile culling index cases differ from the plain version: "
               f"{bad}")
+    # the frames' casts run in one launch (no scratch); past one pass of a
+    # block's words (140,000 tiles; 5,000 at subgroup 1), two
+    one = {(a[0].x.shape[0], a[5], a[3], lib.rt_tile_lists_scratch(
+        a[0].x.shape[0], a[5], a[3], 0, 1))
+        for calls in captured.values() for _, a in calls}
+    wide = {(c[2][3], c[2][5], lib.rt_tile_lists_scratch(
+        c[2][0].x.shape[0], c[2][5], c[2][3], 0, 1))
+        for c in tiled_cases if c[2][3] > 300}
+    print(f"tile culling launches: the frames' casts (rays, subgroup, "
+          f"tiles, scratch words) {sorted(one)}; the wide tables (tiles, "
+          f"subgroup, scratch words) {sorted(wide)}")
+    if any(n for *_, n in one) or not all(
+            n > 0 for nt, subg, n in wide if nt > 4096 * 32 or subg == 1):
+        _fail("tile culling: a frame's cast does not run in one launch, or "
+              "a table past one pass of words does")
     print(f"tile culling index cases: {len(held)} calls on "
           f"{len({label for label, _, _ in held})} cases (subgroups 1-128 "
           "over 1,037 subgroups, 5,000 tiles in passes, 140,000 tiles, "
@@ -3359,8 +3439,44 @@ def _depth_step_phase(device, card, err, head, rt_scene, pallas_head,
 # 7,680 operations over 160 casts)
 PARENT_OPS = (8_844, 8_858)
 PARENT_CAST_OPS = 48
+# a compacted cast's device operations before csrc/cull.cu's compact_bits
+# (PERF.md: 20, 14 of them the sort's), and its own beside the sort's now:
+# the key, the count's copy to the host, compact_bits, the kernel, the
+# scatter
+PARENT_COMPACTED_OPS = 20
+COMPACTED_OWN_OPS = 5
+FULL_CAST_OPS = 3
 GLUE_DEPTHS = 3  # the first trace's depths whose glue calls are held
 GLUE_SOUP_TIER = 0.875  # a tier that the soup's depth-1 casts fit
+SORT_REPS, SORT_PROFILES = 8, 3
+
+
+def _sort_ops(device_kernels, keys):
+    """The device operations of one ``torch.sort(keys)``, counted twice:
+    by the tracer and from a CUDA graph.  A trace of a single sort, some
+    0.1 ms of work, has come back with one of its 14 operations, so
+    SORT_REPS sorts run in each of SORT_PROFILES profiles, after a pause
+    that lets the tracer start, and each kernel name counts the most
+    launches a sort that any profile saw, rounded up: a trace that misses
+    fewer than SORT_REPS launches of a name still counts it right.  The
+    graph's nodes (kernels, memsets and copies) need no tracer.  Returns
+    (traced, graph nodes)."""
+    import torch
+    from raytracinggpu_tpu_torch.bench.cull_design import graph_nodes
+
+    def run():
+        time.sleep(0.05)
+        for _ in range(SORT_REPS):
+            torch.sort(keys)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    most = {}
+    for _ in range(SORT_PROFILES):
+        for e in device_kernels(run, top=10**6)["by_name"]:
+            most[e["name"]] = max(most.get(e["name"], 0), e["count"])
+    traced = sum(-(-c // SORT_REPS) for c in most.values())
+    return traced, len(graph_nodes(lambda: torch.sort(keys)))
 
 
 def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
@@ -3376,6 +3492,8 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
     import torch
     from raytracinggpu_tpu_torch.bench import cast_glue as cg
     from raytracinggpu_tpu_torch.bench import depth_step as ds
+    from raytracinggpu_tpu_torch.bench.compact_bits_design import (
+        library_call)
     from raytracinggpu_tpu_torch.bench.ladder import frames_part
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.ops import _kernels
@@ -3420,7 +3538,7 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
         if not all(r[-1] for r in held):
             _fail(f"cast glue {where}: a kernel differs from its plain "
                   "version")
-        for label, _, args in kept["compact_rows"]:
+        for label, _, args in kept["compact_bits"]:
             tiers.add((where, args[1]))
             modes.add(int(label.rsplit(" ", 1)[1]))
         layouts |= {kind for _, kind, _ in kept["ray_rows"]}
@@ -3452,7 +3570,8 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
             _kernels.reset_launches()
             plain = frames[where]()
             torch.cuda.synchronize()
-            launched = {k: _kernels.LAUNCHES[k] for k in _kernels.GLUE}
+            launched = {k: _kernels.LAUNCHES[k]
+                        for k in (*_kernels.GLUE, "compact_bits")}
         if any(launched.values()) or not same(outs[where], plain):
             _fail(f"cast glue frames {where}: differs from the frame with "
                   f"the plain glue, or that launched {launched}")
@@ -3475,6 +3594,7 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
             torch.cuda.synchronize()
             cull, depth, glue = {}, {}, {}
             launched = _launched(cull, depth, glue)
+            glue["compact_bits"] = cull.pop("compact_bits")
         if not t_eq(box["out"], want):
             _fail(f"cast glue launches ({label}): the replayed frame "
                   "differs")
@@ -3491,15 +3611,37 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
           f"parent's {PARENT_OPS[0]:,}-{PARENT_OPS[1]:,}); a pairs cast "
           f"{cast_ops:.2f} (the parent's {PARENT_CAST_OPS}) over {casts} "
           f"casts; the glue kernels {g_all} ({traces} traces); on {card}")
-    if g_all["ray_rows"] + g_all["compact_rows"] != casts \
-            or g_all["scatter"] != g_all["compact_rows"] \
+    if g_all["ray_rows"] + g_all["compact_bits"] != casts \
+            or g_all["scatter"] != g_all["compact_bits"] \
             or g_all["composite"] != traces:
         _fail(f"cast glue: launches {g_all}, expected ray_rows + "
-              f"compact_rows {casts} (one a pairs cast), scatter = "
-              f"compact_rows, composite {traces} (one a trace)")
+              f"compact_bits {casts} (one a pairs cast), scatter = "
+              f"compact_bits, composite {traces} (one a trace)")
     if not 2 * k_all["kernels"] < PARENT_OPS[0]:
         _fail(f"cast glue: {k_all['kernels']} device operations, not under "
               f"half of the parent's {PARENT_OPS[0]}")
+    # a compacted cast's own device operations, from the frame's mesh
+    # casts (a full-width cast makes FULL_CAST_OPS: its rows, culling and
+    # kernel), beside the sort's alone on keys of a cast's size
+    compacted = g_all["compact_bits"]
+    per_compacted = (cast_ops * casts - FULL_CAST_OPS * g_all["ray_rows"]) \
+        / max(compacted, 1)
+    keys = torch.randint(0, 2**30, (512 * 1024,), dtype=torch.int32,
+                         device=device)
+    sort_traced, sort_nodes = _sort_ops(device_kernels, keys)
+    sort_ops = max(sort_traced, sort_nodes)
+    print(f"cast glue: a compacted cast makes {per_compacted:.2f} device "
+          f"operations ({compacted} compacted and {g_all['ray_rows']} "
+          f"full-width casts; the parent's {PARENT_COMPACTED_OPS}): the "
+          f"sort's {sort_ops} (traced {sort_traced}, graph nodes "
+          f"{sort_nodes}) and {COMPACTED_OWN_OPS} more (the key, the "
+          f"count's copy to the host, compact_bits, the kernel, the "
+          f"scatter); on {card}")
+    if not compacted or abs(per_compacted - sort_ops - COMPACTED_OWN_OPS) \
+            > 0.25:
+        _fail(f"cast glue: a compacted cast makes {per_compacted:.2f} "
+              f"device operations, not the sort's {sort_ops} + "
+              f"{COMPACTED_OWN_OPS}")
 
     # d. times on the headline's casts (the depth-0 rows, the depth-1
     # compacted casts, the first trace's composite): replayed from a CUDA
@@ -3508,15 +3650,15 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
     kept, _ = cg.capture(head_frame, depths=2)
     first = lambda kernel, start: next(
         (lab, a) for lab, _, a in kept[kernel] if lab.startswith(start))
-    closest1 = first("compact_rows", "trace 0 depth 1 closest")[1]
+    closest1 = first("compact_bits", "trace 0 depth 1 closest")[1]
     cases = [("ray_rows", *first("ray_rows", "trace 0 depth 0 closest")),
              # the depth-1 casts' rays at full width: what a cast that
              # overflows every tier builds
              ("ray_rows", "trace 0 depth 1 closest, at full width (live)",
-              closest1[3:] + ("live",)),
-             ("compact_rows", *first("compact_rows",
+              (*closest1[3:5], *closest1[8:10], "live")),
+             ("compact_bits", *first("compact_bits",
                                      "trace 0 depth 1 closest")),
-             ("compact_rows", *first("compact_rows",
+             ("compact_bits", *first("compact_bits",
                                      "trace 0 depth 1 shadow")),
              ("scatter", *first("scatter", "trace 0 depth 1 closest")),
              ("scatter", *first("scatter", "trace 0 depth 1 shadow")),
@@ -3531,14 +3673,11 @@ def _glue_phase(device, card, err, head, rt_scene, pallas_head, soup):
         plain_ms = _time_ms(plain, 3)
         bound, by = cg.call_bound(kernel, args, kern())
         line = ""
-        if kernel == "compact_rows":
-            keys, C, shift, O, u, cap, active = args
-            full = cg.call("ray_rows", (O, u, cap, active, "live"), True)[0]
-            src = (keys[:C] & ((1 << shift) - 1)).long()
-            lib_ms = _time_ms(lambda: torch.index_select(full, 1, src), 50,
-                              graph=True)
+        if kernel == "compact_bits":
+            lib_ms = _time_ms(library_call(args), 50, graph=True)
             library.setdefault(kernel, lib_ms)
-            line = f", torch.index_select of the live rows {lib_ms:.4f} ms"
+            line = (f", torch.index_select of the live rows + rt_pair_bits "
+                    f"{lib_ms:.4f} ms")
         timing.setdefault(kernel, (ms, plain_ms, bound, by))
         print(f"timing {kernel} on the headline's {label} "
               f"({cg.lanes(kernel, args)} lanes): kernel {ms:.4f} ms (graph "
@@ -3674,7 +3813,8 @@ def main() -> int:
     keyed = n_casts * (cfg.max_depth - 1) // cfg.max_depth
     print(f"headline frame: {counted_s:.3f} s, launches {launches} "
           f"(expected {n_casts} each) and of the culling {culling} "
-          f"(expected pair_bits {2 * n_casts}, compact_key {2 * keyed}), "
+          f"(expected pair_bits + compact_bits {2 * n_casts}, compact_key "
+          f"{2 * keyed}), "
           f"hit per depth {hit}, shadowed "
           f"{stats.shadowed.tolist()}, image mean {float(img.mean()):.3f}")
     if not bool(torch.isfinite(img).all()):
@@ -3692,11 +3832,11 @@ def main() -> int:
     if launches != expected or cap_launches != expected:
         _fail(f"launches in the frame {launches}, with the ladder off "
               f"{cap_launches}, expected {expected}")
-    if culling != {"pair_bits": 2 * n_casts, "compact_key": 2 * keyed,
-                   "tile_lists": 0}:
+    if culling["pair_bits"] + culling["compact_bits"] != 2 * n_casts \
+            or culling["compact_key"] != 2 * keyed or culling["tile_lists"]:
         _fail(f"culling launches in the frame {culling}, expected "
-              f"pair_bits {2 * n_casts}, compact_key {2 * keyed} and "
-              f"tile_lists 0")
+              f"pair_bits + compact_bits {2 * n_casts}, compact_key "
+              f"{2 * keyed} and tile_lists 0")
     # a depth step is one closest and one shadow cast
     once = {"sphere_hit": 2 * n_casts, "shade": n_casts, "bounce": n_casts,
             "primary_rays": cfg.spp}
@@ -3833,8 +3973,8 @@ def main() -> int:
 
     # no single PyTorch call computes a masked Moller-Trumbore closest hit
     # or nearest t, so library_ms is null for every kernel but B7b (2 x:
-    # torch.mul), the row gather and compact_rows' gather
-    # (torch.index_select)
+    # torch.mul), the row gather (torch.index_select) and compact_bits
+    # (torch.index_select of the live rows, then rt_pair_bits)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": _ORIGIN[k][0],
          "replaces": _ORIGIN[k][1], "launches": counts[k],
@@ -3852,6 +3992,7 @@ def main() -> int:
             ("pair_bits", culling, timing_cull),
             ("compact_key", culling, timing_cull),
             ("tile_lists", pallas_launches, timing_tiles),
+            ("compact_bits", culling, timing_glue),
             *((k, probe_launches, timing_probes) for k in _PROBE_ROW),
             *((k, depth_launches, timing_depth)
               for k in _kernels.DEPTH_STEP),

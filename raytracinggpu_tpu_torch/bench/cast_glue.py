@@ -1,7 +1,8 @@
 """The mesh casts' glue and the trace's backward composite
-(``csrc/glue.cu``: ``ray_rows``, ``compact_rows``, ``scatter`` and
-``composite``) against their plain versions: the calls a frame makes, hard
-inputs, the frames with the plain glue patched in, and each kernel's
+(``csrc/glue.cu``: ``ray_rows``, ``scatter`` and ``composite``; and a
+compacted cast's rows with its culling, ``csrc/cull.cu``'s
+``compact_bits``) against their plain versions: the calls a frame makes,
+hard inputs, the frames with the plain glue patched in, and each kernel's
 bound.
 
     python -m raytracinggpu_tpu_torch.bench.cast_glue [--size N]
@@ -18,7 +19,7 @@ phase 22 runs the same checks at the main path's size.
 The dispatchers and their plain versions (``STAGES``): ``ray_rows``
 (``ops/pallas_trace.py``; the pairs casts' ``_ray_feature_rows`` and
 ``_live_rows`` and the tiled casts' ``_ray_features16`` call it),
-``compact_rows`` and ``scatter`` (``ops/pairs_trace.py``) and
+``compact_bits`` and ``scatter`` (``ops/pairs_trace.py``) and
 ``composite`` (``integrator/wavefront.py``).  Their callers look each up
 in their own module, so ``plain_glue`` patches the plain versions in by
 name and ``capture`` wraps the dispatchers, both through
@@ -28,7 +29,8 @@ name and ``capture`` wraps the dispatchers, both through
 every output written once at the memory rate, or its f64 operations (the
 cross product's three multiplies and three adds a lane; the composite's
 multiply and add a channel on each diffuse lane of each depth) at the f64
-peak, whichever is larger; the f32 operations are left out.
+peak, whichever is larger; the f32 operations are left out, but for
+``compact_bits``, whose slab tests bound it (``bench/cull.call_bound``).
 """
 from __future__ import annotations
 
@@ -58,8 +60,8 @@ STAGES = {
                   "ops.pallas_trace", "ray_rows_plain"),
                  ("ops.pallas_trace", "ray_rows",
                   "ops.pallas_trace", "ray_rows_plain")),
-    "compact_rows": (("ops.pairs_trace", "compact_rows",
-                      "ops.pairs_trace", "compact_rows_plain"),),
+    "compact_bits": (("ops.pairs_trace", "compact_bits",
+                      "ops.pairs_trace", "compact_bits_plain"),),
     "scatter": (("ops.pairs_trace", "scatter",
                  "ops.pairs_trace", "scatter_plain"),),
     "composite": (("integrator.wavefront", "composite",
@@ -95,7 +97,7 @@ def capture(render, depths: int = 3, traces: int = 1):
     by the first ``traces`` traces at depths below ``depths`` (the
     dispatchers run as always; put back afterwards).  Returns ({kernel:
     [(label, kind, args), ...]}, render's result); kind is the ray rows'
-    layout, the cast (``closest`` or ``shadow``) of compact_rows and
+    layout, the cast (``closest`` or ``shadow``) of compact_bits and
     scatter, ``composite`` for the composite; labels name the trace, the
     depth, the cast and, for a compacted cast, its width and key mode."""
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
@@ -167,7 +169,7 @@ def call(kernel, args, plain: bool) -> list:
     from raytracinggpu_tpu_torch.ops import pallas_trace as pat
 
     fn = {"ray_rows": (pat.ray_rows, pat.ray_rows_plain),
-          "compact_rows": (pt.compact_rows, pt.compact_rows_plain),
+          "compact_bits": (pt.compact_bits, pt.compact_bits_plain),
           "scatter": (pt.scatter, pt.scatter_plain),
           "composite": (wf.composite, wf.composite_plain)}[kernel][plain]
     if kernel == "composite":
@@ -179,7 +181,7 @@ def call(kernel, args, plain: bool) -> list:
 def lanes(kernel, args) -> int:
     """The lanes a call covers: R, C, Rp or the trace's R."""
     return {"ray_rows": lambda: args[0].x.shape[0],
-            "compact_rows": lambda: args[1],
+            "compact_bits": lambda: args[1],
             "scatter": lambda: args[0].shape[0],
             "composite": lambda: args[1]}[kernel]()
 
@@ -233,12 +235,12 @@ def call_work(kernel, args, outs) -> tuple[int, int]:
         O, u, cap, active, _ = args
         R = O.x.shape[0]
         return _nbytes([*O, *u, cap, active]) + _nbytes(outs), 6 * R
-    if kernel == "compact_rows":
-        keys, C, _, O, u, cap, active = args
+    if kernel == "compact_bits":
+        keys, C, _, O, u, _, _, (boxes, tiles), cap, active = args
         per_lane = _nbytes([c[:1] for c in (*O, *u)]) + sum(
             x.element_size() for x in (cap, active) if x is not None)
-        return (keys[:C].numel() * 4 + C * per_lane + _nbytes(outs),
-                6 * C)
+        return (keys[:C].numel() * 4 + C * per_lane
+                + _nbytes([boxes[:, :6], tiles]) + _nbytes(outs), 6 * C)
     if kernel == "scatter":
         keys, _, _, ins, _ = args
         return _nbytes([keys, *ins]) + _nbytes(outs), 0
@@ -250,7 +252,12 @@ def call_work(kernel, args, outs) -> tuple[int, int]:
 
 def call_bound(kernel, args, outs) -> tuple[float, str]:
     """(bound_ms, bound_by) of one call: the larger of its bytes over the
-    memory rate and its f64 operations over the f64 peak (``call_work``)."""
+    memory rate and its f64 operations over the f64 peak (``call_work``);
+    compact_bits' of ``bench/cull.call_bound``, its slab tests too."""
+    if kernel == "compact_bits":
+        from raytracinggpu_tpu_torch.bench.cull import call_bound as cull_bound
+
+        return cull_bound(kernel, args, outs)[:2]
     nbytes, f64 = call_work(kernel, args, outs)
     bytes_s, ops_s = nbytes / PEAK_BYTES_S, f64 / PEAK_F64_FLOPS
     return max(bytes_s, ops_s) * 1e3, ("operations" if ops_s > bytes_s
@@ -302,6 +309,25 @@ def sorted_keys(R: int, shift: int, device, seed: int = 0):
     return torch.from_numpy(keys).to(device)
 
 
+def culled_rays(R: int, device, seed: int = 0):
+    """(O, u, cap, active, members, nc) of R seeded lanes for a compacted
+    cast's culling: ``bench/cull.adversarial``'s rays (zero direction
+    components, origins on box faces and corners, caps at an exact enter
+    distance) against its 1,100 member boxes in 300 tiles (flat, point and
+    inverted boxes), with a fifth of the lanes ``hard_rays``' (NaN,
+    infinite, huge, denormal and -0.0 components, the padding lanes')."""
+    from raytracinggpu_tpu_torch.bench.cull import adversarial
+
+    O, d, boxes, tiles, cap, act = adversarial(seed, R, 1100, 300)
+    hO, hu, hcap, hact = hard_rays(R, "cpu", seed)
+    hard = np.random.default_rng(seed + 7).random(R) < 0.2
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    pick = lambda h, x: torch.where(T(hard), h, T(x)).to(device)
+    return (Vec3(*(pick(h, x) for h, x in zip(hO, O))),
+            Vec3(*(pick(h, x) for h, x in zip(hu, d))), pick(hcap, cap),
+            pick(hact, act), (T(boxes).to(device), T(tiles).to(device)), 300)
+
+
 def _bit_patterns(n: int, rng, dtype):
     """n 32-bit words of ``dtype``: random bits (NaNs with payloads,
     infinities, denormals and -0.0 among the floats)."""
@@ -314,7 +340,8 @@ def _bit_patterns(n: int, rng, dtype):
 def adversarial_calls(device, R: int = 65536, seed: int = 0) -> list:
     """[(kernel, label, kind, args), ...] on ``device``: the ray rows of
     ``hard_rays`` in every layout and with every set of extras; compacted
-    rows of them at C = 0, a few lanes, a third and C = Rp; scatters of
+    casts' rows and culling (``culled_rays``) at C = 0, a few lanes, a
+    third and C = Rp, subgroups 1, 16 and 64; scatters of
     one, two and five outputs of random bits at the same widths, with the
     queries' defaults and with -0.0 and -1; composites of 1, 5, 8, 9 and
     17 depths (past a launch's COMPOSITE_DEPTHS) with is_diff all true,
@@ -332,12 +359,16 @@ def adversarial_calls(device, R: int = 65536, seed: int = 0) -> list:
     shift = (R - 1).bit_length()
     keys = sorted_keys(R, shift, device, seed)
     widths = (0, 7, R // 3, R)
-    for C in widths:
-        for c, a in ((None, None), (cap, None), (cap, active),
-                     (None, active)):
-            calls.append(("compact_rows", f"C {C} of {R}, cap {c is not None}"
-                          f", active {a is not None}", "hard",
-                          (keys, C, shift, O, u, c, a)))
+    Oc, uc, capc, actc, members, nc = culled_rays(R, device, seed)
+    # subgroups that divide C: one ray a thread at 1, up to four at 16, 64
+    for C, subg in ((0, 64), (7, 1), (R // 3, 1), (R // 3 // 16 * 16, 16),
+                    (R, 64)):
+        for c, a in ((None, None), (capc, None), (capc, actc),
+                     (None, actc)):
+            calls.append(("compact_bits", f"C {C} of {R}, subgroup {subg}, "
+                          f"cap {c is not None}, active {a is not None}",
+                          "hard", (keys, C, shift, Oc, uc, nc, subg, members,
+                                   c, a)))
     for C in widths:
         for n, dflt in ((1, NO_HIT[:1]), (2, NO_HIT[:2]), (5, NO_HIT),
                         (5, (-0.0, -1, float("inf"), -0.0, 0.0))):

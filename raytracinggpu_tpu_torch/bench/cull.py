@@ -1,6 +1,6 @@
 """Hard inputs and the bound of the culling kernels (``csrc/cull.cu``:
-``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
-of the tiled one; ``ops/_kernels.py``).
+``pair_bits``, ``compact_key`` and ``compact_bits`` of the pairs
+traversal, ``tile_lists`` of the tiled one; ``ops/_kernels.py``).
 
 ``adversarial`` makes seeded rays and boxes on which a slab test is easy
 to get wrong: direction components of exactly +0.0 and -0.0 (``1/u`` is
@@ -162,10 +162,25 @@ def call_bound(name: str, args, out):
     the bits), ``_compact_key`` ("compact_key", args (O, u, boxes, nc,
     cap, active, valid_n), out (skey, n_act, ...)) or
     ``ops/pallas_trace._block_active_tiles`` ("tile_lists", args (O, u,
-    aabb, n_tiles, cap, subg), out the list rows): its slab tests (for the
-    lists, against the valid tiles' boxes only, the work these boxes
-    need), and its inputs read and outputs written once."""
+    aabb, n_tiles, cap, subg), out the list rows) or
+    ``ops/pairs_trace.compact_bits`` ("compact_bits", args (keys, C,
+    shift, O, u, nc, subg, (boxes, tiles), cap, active), out (rows,
+    active, bits)): its slab tests (for the lists, against the valid
+    tiles' boxes only, the work these boxes need; for compact_bits on its
+    C rays), and its inputs read and outputs written once (compact_bits:
+    C keys and the C lanes' rays; its 6 C f64 operations, the cross
+    product of the rows, take under 0.02 us at the cast sizes and are left
+    out)."""
     active = None
+    if name == "compact_bits":
+        keys, C, _, _, _, _, _, (boxes, _), cap, active = args
+        nb = boxes.shape[0]
+        out_bytes = sum(x.numel() * x.element_size() for x in out
+                        if x is not None)
+        extra = 4 * C + nb * (6 + 1) * 4
+        extra += (0 if cap is None else 4 * C) + (
+            0 if active is None else C)
+        return bound_ms(C, nb, extra, out_bytes)
     if name == "pair_bits":
         O, _, _, _, (boxes, _), cap, active = args
         nb, out_bytes = boxes.shape[0], out.numel() * 4

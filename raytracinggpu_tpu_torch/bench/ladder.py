@@ -24,8 +24,9 @@ PARTS, comma-separated (all by default):
   casts and the soup's depth-1 casts, replayed through the public mesh
   queries with the arguments the frame gave them.  The functions of
   ``ops/pairs_trace.py`` that the cast runs (STAGES: the key, the sort,
-  the gather (``compact_rows``: the C rays' rows from the sorted keys),
-  the culling and the kernel on the C rays, the scatter; on a cast that
+  the gather and culling (``compact_bits``: the C rays' rows from the
+  sorted keys and their culling, one launch), the kernel on the C rays,
+  the scatter; on a cast that
   overflows every tier, the key, the live rows, the culling and the
   kernel) are each timed alone between CUDA events
   (``utils/profiling.stage_timers``), beside the rows, the culling and
@@ -59,12 +60,13 @@ _PT = "raytracinggpu_tpu_torch.ops.pairs_trace"
 # the function of ops/pairs_trace.py that each stage of a cast times
 STAGES = {"_compact_key": "key", "_ray_feature_rows": "rows",
           "_live_rows": "rows", "_compact_sort": "sort",
-          "compact_rows": "gather", "_bits": "culling",
+          "compact_bits": "gather and culling", "_bits": "culling",
           "pairs_closest": "kernel", "pairs_closest_smooth": "kernel",
           "pairs_closest_idx": "kernel", "pairs_shadow": "kernel",
           "scatter": "scatter"}
-# a compacted cast's rows are built at its C lanes by the gather
-COMPACTED = ("key", "sort", "gather", "culling", "kernel", "scatter")
+# a compacted cast's rows are built at its C lanes, and culled, by the
+# gather
+COMPACTED = ("key", "sort", "gather and culling", "kernel", "scatter")
 OVERFLOWED = ("key", "rows", "culling", "kernel")  # no tier holds the cast
 FULL_WIDTH = ("rows", "culling", "kernel")
 

@@ -9,10 +9,6 @@
 //                    and raytracinggpu_tpu/ops/pallas_trace.py::
 //                    _ray_features16 (port: ops/pallas_trace.py::
 //                    ray_rows_plain);
-//   rt_compact_rows  a compacted cast's source lanes and its rows at those
-//                    lanes: the mask of _compact_sort and the jnp.take of
-//                    the live rows (port: ops/pairs_trace.py::
-//                    compact_rows_plain);
 //   rt_scatter       a compacted cast's outputs at full width: the
 //                    .at[src].set over the no-hit defaults (port:
 //                    ops/pairs_trace.py::scatter_plain);
@@ -22,13 +18,11 @@
 //                    composite_plain).
 //
 // Contract:
-//   rt_ray_rows / rt_compact_rows write rows (nrows, n) f32 of lanes
-//   lane(i), i < n: lane(i) = i (rt_ray_rows, n = R), or key[i] & mask of
-//   the sorted keys (rt_compact_rows, n = C; src[i] = lane(i) and, with
-//   active, active_out[i] = active[lane(i)]).  Rows: u(3), w = O x u(3),
-//   O(3); then either (rcp) 1 / u(3) and zeros to 16, or the extras (cap;
-//   or, with active, cap or a zero row and active as 1.0 / 0.0) and zeros
-//   to nrows.
+//   rt_ray_rows writes rows (nrows, R) f32, column i of lane i: u(3), w =
+//   O x u(3), O(3); then either (rcp) 1 / u(3) and zeros to 16, or the
+//   extras (cap; or, with active, cap or a zero row and active as 1.0 /
+//   0.0) and zeros to nrows.  (A compacted cast's rows at its source
+//   lanes are csrc/cull.cu's rt_compact_bits, in its culling launch.)
 //   rt_scatter: for each i < Rp, lane = key[i] & mask, out_k[lane] =
 //   in_k[i] for i < C, else the k-th default; the sorted keys are a
 //   permutation of the lanes, so every lane is written once (a key whose
@@ -54,15 +48,13 @@
 // csrc/wavefront.cu.
 //
 // What bounds them on this card: bytes.  One thread a lane (a position of
-// the sorted keys for rt_compact_rows and rt_scatter), its rows written
-// coalesced.  rt_ray_rows reads 24 bytes a lane and writes 36 to 64;
-// rt_compact_rows reads a key and its lane's O and u (and cap, active)
-// scattered within a key group (the lanes of a group ascend) and writes
-// its rows coalesced; rt_scatter reads the whole sorted key array once,
-// which the sort already made, so that it needs no fill pass and no
-// inverse map: each position writes its lane's words once (the writes
-// scatter, reads coalesce); rt_composite keeps ans in registers across the
-// depths and reads each depth's 7 words a lane once.
+// the sorted keys for rt_scatter), its rows written coalesced.
+// rt_ray_rows reads 24 bytes a lane and writes 36 to 64; rt_scatter
+// reads the whole sorted key array once, which the sort already made, so
+// that it needs no fill pass and no inverse map: each position writes its
+// lane's words once (the writes scatter, reads coalesce); rt_composite
+// keeps ans in registers across the depths and reads each depth's 7 words
+// a lane once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,27 +70,22 @@ __device__ __forceinline__ float fma64(float a, float b, float c) {
                             static_cast<double>(c));
 }
 
-// ------------------------------------------- rt_ray_rows, rt_compact_rows
+// ------------------------------------------------------------ rt_ray_rows
 
 struct RowsArgs {
   const float* O[3];
   const float* u[3];
   const float* cap;      // or null
   const bool* active;    // or null
-  const int* keys;       // kCompact: the sorted keys
   float* rows;           // (nrows, n)
-  int* src;              // kCompact: (n,) the source lanes
-  bool* active_out;      // kCompact with active: (n,)
-  int n, nrows, rcp, mask;
+  int n, nrows, rcp;
 };
 
-template <bool kCompact>
 __global__ void __launch_bounds__(kThreads) rows_kernel(RowsArgs a) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= a.n) return;
-  const int lane = kCompact ? (__ldg(a.keys + i) & a.mask) : i;
-  const float ox = a.O[0][lane], oy = a.O[1][lane], oz = a.O[2][lane];
-  const float ux = a.u[0][lane], uy = a.u[1][lane], uz = a.u[2][lane];
+  const float ox = a.O[0][i], oy = a.O[1][i], oz = a.O[2][i];
+  const float ux = a.u[0][i], uy = a.u[1][i], uz = a.u[2][i];
   float* r = a.rows + i;
   const int n = a.n;
   r[0 * n] = ux;
@@ -118,17 +105,15 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(RowsArgs a) {
     r[11 * n] = 1.0f / uz;
     k = 12;
   } else if (a.active) {
-    const bool act = a.active[lane];
-    r[9 * n] = a.cap ? a.cap[lane] : 0.0f;
+    const bool act = a.active[i];
+    r[9 * n] = a.cap ? a.cap[i] : 0.0f;
     r[10 * n] = act ? 1.0f : 0.0f;
     k = 11;
-    if (kCompact) a.active_out[i] = act;
   } else if (a.cap) {
-    r[9 * n] = a.cap[lane];
+    r[9 * n] = a.cap[i];
     k = 10;
   }
   for (; k < a.nrows; ++k) r[k * n] = 0.0f;
-  if (kCompact) a.src[i] = lane;
 }
 
 // ------------------------------------------------------------ rt_scatter
@@ -219,30 +204,8 @@ int rt_ray_rows(void* const* p, int R, int nrows, int rcp, void* stream) {
   a.n = R;
   a.nrows = nrows;
   a.rcp = rcp;
-  rows_kernel<false><<<grid(R), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
-}
-
-// p: O(3), u(3), cap, active, keys, rows, src, active_out (cap, active and
-// active_out null when absent)
-int rt_compact_rows(void* const* p, int C, int nrows, int mask,
-                    void* stream) {
-  RowsArgs a{};
-  int k = 0;
-  take(a.O, p, k);
-  take(a.u, p, k);
-  take(a.cap, p, k);
-  take(a.active, p, k);
-  take(a.keys, p, k);
-  take(a.rows, p, k);
-  take(a.src, p, k);
-  take(a.active_out, p, k);
-  a.n = C;
-  a.nrows = nrows;
-  a.mask = mask;
-  rows_kernel<true><<<grid(C), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  rows_kernel<<<grid(R), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return finish();
 }
 

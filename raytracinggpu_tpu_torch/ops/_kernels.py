@@ -4,13 +4,14 @@
 ``csrc/micro_kernel.cu`` (the probes B7a-e), which share the
 Moller-Trumbore test of ``csrc/mt.cuh`` (and B0-B3, B5, B6 and B7e the
 staging of ``csrc/stage.cuh``), ``csrc/cull.cu`` (the culling:
-``pair_bits`` and ``compact_key`` of the pairs traversal, ``tile_lists``
-of the tiled one), ``csrc/wavefront.cu`` (the depth step's per-lane
-math: ``sphere_hit``, ``shade``, ``bounce``, and the primary rays,
+``pair_bits``, ``compact_key`` and ``compact_bits`` (a compacted cast's
+rows and culling in one launch) of the pairs traversal, ``tile_lists`` of
+the tiled one), ``csrc/wavefront.cu`` (the depth step's per-lane math:
+``sphere_hit``, ``shade``, ``bounce``, and the primary rays,
 ``primary_rays``; and ``f32_identities``, the check of the identities
 ``sphere_hit``'s loop rests on) and ``csrc/glue.cu`` (the mesh casts' glue:
-``ray_rows``, ``compact_rows``, ``scatter``; the trace's backward
-``composite``) are compiled by ``nvcc`` for
+``ray_rows``, ``scatter``; the trace's backward ``composite``) are
+compiled by ``nvcc`` for
 ``sm_90a``, one process per source, all started together,
 and linked into one shared library with a plain C interface, at first
 use, into ``raytracinggpu_tpu_torch/_build/`` under a name keyed by a hash
@@ -78,9 +79,9 @@ PROBE_BLK = 1024  # rays per block of B7b and B7e
 PROBE_SUBG = 64   # rays per subgroup of B7a and B7c
 PROBE_FIXED = 8   # tiles of B7c
 
-# The culling kernels of csrc/cull.cu (see pair_bits, compact_key and
-# tile_lists).
-CULLING = ("pair_bits", "compact_key", "tile_lists")
+# The culling kernels of csrc/cull.cu (see pair_bits, compact_key,
+# tile_lists and compact_bits).
+CULLING = ("pair_bits", "compact_key", "tile_lists", "compact_bits")
 
 # The depth step's kernels and the primary rays' of csrc/wavefront.cu (see
 # sphere_hit, shade, bounce and primary_rays).
@@ -92,8 +93,8 @@ IDENTITY_COUNTS = ("patterns", "sqrt_differs", "doubles", "accepted",
                    "round_differs", "narrow_differs", "rejected_normal")
 
 # The mesh casts' glue and the trace's backward composite of csrc/glue.cu
-# (see ray_rows, compact_rows, scatter and composite).
-GLUE = ("ray_rows", "compact_rows", "scatter", "composite")
+# (see ray_rows, scatter and composite).
+GLUE = ("ray_rows", "scatter", "composite")
 COMPOSITE_DEPTHS = 8  # depths one rt_composite launch takes (kMaxDepths)
 SCATTER_OUTPUTS = 5   # outputs one rt_scatter launch takes (kMaxOut)
 
@@ -202,6 +203,12 @@ def load():
                                                            i, p]),
                 ("rt_tile_lists", [p] * 7 + [i, p, i, i, i, p, p, p]),
                 ("rt_tile_lists_k", [p] * 7 + [i, p, i, i, i, p, p, i, p]),
+                # rays a thread, one launch or two
+                ("rt_tile_lists_ko", [p] * 7 + [i, p, i, i, i, p, p, i, i,
+                                                p]),
+                # an array of pointers, then scalars (rays a thread last)
+                ("rt_compact_bits", [p] + [i] * 7 + [p]),
+                ("rt_compact_bits_k", [p] + [i] * 8 + [p]),
                 # csrc/wavefront.cu: an array of pointers, then scalars
                 ("rt_sphere_hit", [p, i, i, i, p]),
                 ("rt_f32_identities", [ctypes.c_ulonglong,
@@ -212,13 +219,14 @@ def load():
                                      ctypes.c_longlong, fl, fl, fl, fl, p]),
                 # csrc/glue.cu likewise
                 ("rt_ray_rows", [p, i, i, i, p]),
-                ("rt_compact_rows", [p, i, i, i, p]),
                 ("rt_scatter", [p, p, i, i, i, i, p]),
                 ("rt_composite", [p, i, i, i, p]),
                 ("rt_composite_max_depths", [])):
             fn = getattr(lib, cfun)
             fn.argtypes = args
             fn.restype = i
+        lib.rt_tile_lists_scratch.argtypes = [i] * 5
+        lib.rt_tile_lists_scratch.restype = ctypes.c_longlong
         lib.rt_cuda_error_string.argtypes = [i]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         if lib.rt_composite_max_depths() != COMPOSITE_DEPTHS:
@@ -502,18 +510,24 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def pair_bits(O, u, nc, subg, members, cap=None, active=None):
-    """Culling kernel (rt_pair_bits): the (W, R/subg) int32 active-tile
-    bitmask of ``ops/pairs_trace.pair_bits_plain``, W = ceil(nc / 32);
-    members = (member boxes (nm, 8) f32, member_tile (nm,) int32)."""
+def _members(members):
+    """Member boxes (nm, >= 6) f32 and member_tile (nm,) int32."""
     boxes, member_tile = members
-    rows, cap, active, R = _ray_rows(O, u, cap, active)
     _boxes("member boxes", boxes)
     if member_tile.dtype != torch.int32 or member_tile.shape != (
             boxes.shape[0],) or not member_tile.is_contiguous():
         raise ValueError(f"member_tile: need a contiguous ({boxes.shape[0]},)"
                          f" int32 tensor, got {member_tile.dtype} "
                          f"{tuple(member_tile.shape)}")
+    return boxes, member_tile
+
+
+def pair_bits(O, u, nc, subg, members, cap=None, active=None):
+    """Culling kernel (rt_pair_bits): the (W, R/subg) int32 active-tile
+    bitmask of ``ops/pairs_trace.pair_bits_plain``, W = ceil(nc / 32);
+    members = (member boxes (nm, 8) f32, member_tile (nm,) int32)."""
+    rows, cap, active, R = _ray_rows(O, u, cap, active)
+    boxes, member_tile = _members(members)
     if subg <= 0 or R % subg or nc < 0:
         raise ValueError(f"subgroup {subg} does not divide the {R} rays, or "
                          f"nc {nc} < 0")
@@ -558,8 +572,9 @@ def compact_key(O, u, aabb, nc, mode, shift, cap, active, valid_n):
 def tile_lists(O, u, aabb, n_tiles, cap, subg):
     """Culling kernel (rt_tile_lists): the (R/subg, 1 + n_tiles) int32 list
     rows of ``ops/pallas_trace.block_active_tiles_plain`` over the first
-    n_tiles boxes of ``aabb`` (n, >= 6) f32; a (W, R/subg) int32 bitmask
-    is its scratch, W = ceil(n_tiles / 32)."""
+    n_tiles boxes of ``aabb`` (n, >= 6) f32, in one launch where one pass
+    of a block's shared words holds its subgroups' words; else in two,
+    with a (W, R/subg) int32 bitmask as scratch, W = ceil(n_tiles / 32)."""
     rows, cap, _, R = _ray_rows(O, u, cap, None)
     _boxes("tile boxes", aabb)
     if n_tiles < 1 or aabb.shape[0] < n_tiles:
@@ -574,11 +589,12 @@ def tile_lists(O, u, aabb, n_tiles, cap, subg):
     dev = rows[0].device
     lists = torch.empty((S, 1 + n_tiles), dtype=torch.int32, device=dev)
     if S:
-        bits = torch.empty((W, S), dtype=torch.int32, device=dev)
+        lib = load()
+        n = lib.rt_tile_lists_scratch(R, subg, n_tiles, 0, 1)
+        bits = torch.empty(n, dtype=torch.int32, device=dev) if n else None
         _run("tile_lists", dev, lambda lib, st: lib.rt_tile_lists(
             *(x.data_ptr() for x in rows), aabb.data_ptr(), aabb.shape[1],
-            _ptr(cap), R, subg, n_tiles, bits.data_ptr(), lists.data_ptr(),
-            st))
+            _ptr(cap), R, subg, n_tiles, _ptr(bits), lists.data_ptr(), st))
     return lists
 
 
@@ -848,25 +864,38 @@ def ray_rows(O, u, cap=None, active=None, layout="pairs"):
     return rows
 
 
-def compact_rows(keys, C, shift, O, u, cap=None, active=None):
-    """Kernel rt_compact_rows: (rows (nrows, C) f32, src (C,) int32, active
-    (C,) bool or None) of ``ops/pairs_trace.compact_rows_plain``: the live
-    rows of the C source lanes ``keys[:C] & (2^shift - 1)`` of the sorted
-    keys (Rp,) int32 of Rp rays."""
+def compact_bits(keys, C, shift, O, u, nc, subg, members, cap=None,
+                 active=None):
+    """Kernel rt_compact_bits: (rows (nrows, C) f32, active (C,) bool or
+    None, bits (W, C/subg) int32) of ``ops/pairs_trace.compact_bits_plain``
+    in one launch: the live rows of the C source lanes ``keys[:C] &
+    (2^shift - 1)`` of the sorted keys (Rp,) int32 of Rp rays, their
+    shadow mask, and ``pair_bits`` of those rays (O, u, cap and active at
+    their lanes) over members = (member boxes (nm, >= 6) f32, member_tile
+    (nm,) int32), W = ceil(nc / 32)."""
     dev, Rp = O[0].device, O[0].shape[0]
     nrows = ray_row_count(cap, active, "live")
     _glue_rays(O, u, cap, active, Rp, dev)
     mask = _plan(keys, C, shift, Rp, dev)
-    _on_card(keys)
+    boxes, member_tile = _members(members)
+    if subg <= 0 or C % subg or nc < 1:
+        raise ValueError(f"subgroup {subg} does not divide the {C} rays, or "
+                         f"nc {nc} < 1")
+    W, S = -(-nc // 32), C // subg
+    if max(W * S, nrows * C) >= 2**31:
+        raise ValueError("kernel indices are 32-bit: cast too large")
+    _on_card(keys, boxes, member_tile)
     rows = torch.empty((nrows, C), dtype=torch.float32, device=dev)
-    src = torch.empty(C, dtype=torch.int32, device=dev)
     act = None if active is None else torch.empty(C, dtype=torch.bool,
                                                    device=dev)
+    bits = torch.empty((W, S), dtype=torch.int32, device=dev)
     if C:
-        ptrs = _pointers(*O, *u, cap, active, keys, rows, src, act)
-        _run("compact_rows", dev, lambda lib, st: lib.rt_compact_rows(
-            ptrs, C, nrows, mask, st))
-    return rows, src, act
+        ptrs = _pointers(*O, *u, cap, active, keys, boxes, member_tile, rows,
+                         act, bits)
+        _run("compact_bits", dev, lambda lib, st: lib.rt_compact_bits(
+            ptrs, C, mask, nrows, boxes.shape[1], boxes.shape[0], subg, nc,
+            st))
+    return rows, act, bits
 
 
 def _bits32(d, dtype) -> int:

@@ -35,10 +35,11 @@ dispatch the same way: the kernels of ``csrc/cull.cu`` for CUDA tensors,
 ``pair_bits_plain`` and ``compact_key_plain`` for CPU tensors, bit for
 bit the same on the card.  So do the casts' glue, XLA-side work too: a
 full-width cast's ray-feature rows (``_ray_feature_rows``, ``_live_rows``:
-``ray_rows``), a compacted cast's rows at its source lanes
-(``compact_rows``) and its outputs scattered to full width
-(``scatter``), the kernels of ``csrc/glue.cu`` for CUDA tensors, the
-plain versions for CPU tensors.  The slab test, the ray padding, the ray
+``ray_rows``) and a compacted cast's outputs scattered to full width
+(``scatter``), the kernels of ``csrc/glue.cu`` for CUDA tensors, and a
+compacted cast's rows at its source lanes with their culling
+(``compact_bits``, one kernel of ``csrc/cull.cu``), the plain versions
+for CPU tensors.  The slab test, the ray padding, the ray
 rows, the plain Moller-Trumbore core and the device dispatch are the
 tiled traversal's (``ops/pallas_trace.py``), as in the JAX package.
 
@@ -59,12 +60,13 @@ keys each ray by the first and last tile box it hits (``_compact_key``),
 reads the count of rays that hit any, and when the tightest tier of
 ``_compact_tiers`` holds them, sorts the keys and runs the kernel on those
 C rays only (grouped by their tile span, so a subgroup's union stays
-tight; ``compact_rows`` builds their rows from the sorted keys), and
-``scatter`` writes each lane its result or the no-hit default; a cast that
-overflows every tier runs at full width and sorts nothing.  The compacted
-cast re-runs the exact member culling on its rays, so every ray's hit
-within its ``cap`` is the full-width cast's bit for bit.  XLA chooses the tier on the device
-(``lax.cond``); here the host reads the count, once a cast.
+tight; ``compact_bits`` builds their rows from the sorted keys and culls
+them), and ``scatter`` writes each lane its result or the no-hit default;
+a cast that overflows every tier runs at full width and sorts nothing.
+The compacted cast re-runs the exact member culling on its rays, so every
+ray's hit within its ``cap`` is the full-width cast's bit for bit.  XLA
+chooses the tier on the device (``lax.cond``); here the host reads the
+count, once a cast.
 """
 from __future__ import annotations
 
@@ -597,27 +599,44 @@ def _live_rows(O, u, cap, active) -> torch.Tensor:
 
 def compact_rows_plain(keys, C: int, shift: int, O, u, cap=None,
                        active=None):
-    """Plain PyTorch: the rows of a compacted cast (the contract of the
-    kernel ``rt_compact_rows``): (rows, src, active) with src the C source
-    lanes of the sorted ``keys`` (``Compaction``), (C,) int32, rows the
-    live rows (``_live_rows``) of those lanes, (9-11, C) f32, and active
-    their shadow mask, (C,) bool, or None without one."""
+    """Plain PyTorch: the rows of a compacted cast: (rows, src, active)
+    with src the C source lanes of the sorted ``keys`` (``Compaction``),
+    (C,) int32, rows the live rows (``_live_rows``) of those lanes, (9-11,
+    C) f32, and active their shadow mask, (C,) bool, or None without
+    one."""
     src = keys[:C] & ((1 << shift) - 1)
     rows = ray_rows_plain(O, u, cap, active, "live").index_select(
         1, src.long())
     return rows, src, None if active is None else rows[10] > 0.5
 
 
-def compact_rows(keys, C: int, shift: int, O, u, cap=None, active=None):
-    """``compact_rows_plain`` on the rays' device: the kernel
-    ``rt_compact_rows`` of ``csrc/glue.cu`` for CUDA tensors, which
-    computes the rows at the C lanes alone, the plain version for CPU
-    tensors."""
+def compact_bits_plain(keys, C: int, shift: int, O, u, nc: int, subg: int,
+                       members, cap=None, active=None):
+    """Plain PyTorch: a compacted cast's kernel inputs (the contract of the
+    kernel ``rt_compact_bits``): (rows, active, bits), the rows and shadow
+    mask of ``compact_rows_plain`` and ``pair_bits_plain`` of the C rays
+    they hold (O rows 6-8, u rows 0-2, cap row 9 where given, the mask),
+    the culling again, exactly, on the C rays."""
+    rows, _, act = compact_rows_plain(keys, C, shift, O, u, cap, active)
+    bits = pair_bits_plain(Vec3(rows[6], rows[7], rows[8]),
+                           Vec3(rows[0], rows[1], rows[2]), nc, subg,
+                           members, None if cap is None else rows[9], act)
+    return rows, act, bits
+
+
+def compact_bits(keys, C: int, shift: int, O, u, nc: int, subg: int,
+                 members, cap=None, active=None):
+    """``compact_bits_plain`` on the rays' device: the kernel
+    ``rt_compact_bits`` of ``csrc/cull.cu`` for CUDA tensors, which gathers
+    the C rays, writes their rows and culls them in one launch, the plain
+    version for CPU tensors."""
     if _on_cuda(O.x):
         from raytracinggpu_tpu_torch.ops import _kernels
 
-        return _kernels.compact_rows(keys, C, shift, O, u, cap, active)
-    return compact_rows_plain(keys, C, shift, O, u, cap, active)
+        return _kernels.compact_bits(keys, C, shift, O, u, nc, subg, members,
+                                     cap, active)
+    return compact_bits_plain(keys, C, shift, O, u, nc, subg, members, cap,
+                              active)
 
 
 def scatter_plain(keys, C: int, shift: int, outs, defaults):
@@ -642,14 +661,16 @@ def scatter(keys, C: int, shift: int, outs, defaults):
     return scatter_plain(keys, C, shift, outs, defaults)
 
 
-def _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, valid_n):
-    """The ray rows of one cast under the ladder: (rf, plan, active).
+def _ladder(O, u, tab, subg, cap, active, fractions, key_coarse, blk,
+            valid_n):
+    """The kernel inputs of one cast under the ladder: (rf, bits, plan), or
+    None when the fractions give no tier (the cast is the plain
+    full-width one).
 
     plan is None when the cast runs at full width on all of its rays (rf
-    its live rows, ``_live_rows``, active the caller's), else its
-    ``Compaction``, rf the live rows of its C source lanes and active
-    their shadow mask (``compact_rows``).  Returns None when the fractions
-    give no tier (the cast is the plain full-width one)."""
+    its live rows, ``_live_rows``, bits their culling), else its
+    ``Compaction``, rf the live rows of its C source lanes and bits their
+    culling (``compact_bits``, one launch)."""
     tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse,
                                       O.x.shape[0], blk)
     if not tiers:
@@ -657,10 +678,13 @@ def _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, valid_n):
     skey, n_act, shift = _compact_key(O, u, boxes, knc, cap, active, valid_n)
     C = _tier(tiers, _count_pending(n_act))
     if not C:
-        return _live_rows(O, u, cap, active), None, active
+        return (_live_rows(O, u, cap, active),
+                _bits(O, u, tab, subg, cap, active), None)
     plan = _compact_sort(skey, C, shift)
-    rf, _, act = compact_rows(*plan, O, u, cap, active)
-    return rf, plan, act
+    rf, _, bits = compact_bits(*plan, O, u, tab.tile_aabb.shape[0], subg,
+                               (tab.member_aabb, tab.member_tile), cap,
+                               active)
+    return rf, bits, plan
 
 
 # --------------------------------------------- plain versions of B0-B3
@@ -788,15 +812,12 @@ def _rows_bits(O, u, tab, subg, blk, cap, active, fractions, key_coarse):
     the ladder keeps (plan None: all of them, padded to a multiple of
     blk; else the cast's ``Compaction``), and the rays' count unpadded."""
     O, u, cap, active, R = pad_rays(O, u, cap, blk, active)
-    ladder = _ladder(O, u, tab, cap, active, fractions, key_coarse, blk, R)
+    ladder = _ladder(O, u, tab, subg, cap, active, fractions, key_coarse,
+                     blk, R)
     if ladder is None:
         return (_ray_feature_rows(O, u), _bits(O, u, tab, subg, cap, active),
                 None, R)
-    rf, plan, active = ladder
-    if plan is not None:  # the culling again, exactly, on the C rays
-        O, u = Vec3(rf[6], rf[7], rf[8]), Vec3(rf[0], rf[1], rf[2])
-        cap = None if cap is None else rf[9]
-    return rf, _bits(O, u, tab, subg, cap, active), plan, R
+    return (*ladder, R)
 
 
 def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,

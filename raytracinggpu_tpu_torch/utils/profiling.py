@@ -66,7 +66,7 @@ STAGES = (
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_tier"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_live_rows"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "_compact_sort"),
-    ("raytracinggpu_tpu_torch.ops.pairs_trace", "compact_rows"),
+    ("raytracinggpu_tpu_torch.ops.pairs_trace", "compact_bits"),
     ("raytracinggpu_tpu_torch.ops.pairs_trace", "scatter"),
     ("raytracinggpu_tpu_torch.ops.pallas_trace", "_block_active_tiles"),
     ("raytracinggpu_tpu_torch.ops._kernels", "pallas_closest"),

@@ -1,7 +1,8 @@
 """The mesh casts' glue and the trace's backward composite (ops/
-pallas_trace.py ``ray_rows``, ops/pairs_trace.py ``compact_rows`` and
+pallas_trace.py ``ray_rows``, ops/pairs_trace.py ``compact_bits`` and
 ``scatter``, integrator/wavefront.py ``composite``), whose kernels are
-csrc/glue.cu's, through their plain versions on the CPU.
+csrc/glue.cu's (and ``compact_bits``' csrc/cull.cu's), through their plain
+versions on the CPU.
 
 - ``ray_rows_plain`` against the JAX package's ``_ray_feature_rows`` (pad
   on and off, no extra, ``cap``, ``cap`` and the mask) and
@@ -509,7 +510,7 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                             max_depth=3, pairs_block=128,
                             pairs_compact_min_depth=0)
     want = render_preset_frame(tab, cfg, seed=0)
-    for name in _kernels.GLUE:
+    for name in (*_kernels.GLUE, "compact_bits"):
         monkeypatch.setattr(_kernels, name, refuse)
     before = dict(_kernels.LAUNCHES)
     img, _ = render_preset_frame(tab, cfg, seed=0)
@@ -524,7 +525,7 @@ def test_other_devices_raise():
     for call in (lambda: ppat.ray_rows(v, v),
                  lambda: ppat._ray_features16(v, v),
                  lambda: ppt._live_rows(v, v, None, None),
-                 lambda: ppt.compact_rows(k, 2, 2, v, v),
+                 lambda: ppt.compact_bits(k, 2, 2, v, v, 1, 2, (x, k)),
                  lambda: ppt.scatter(k, 2, 2, (x[:2],), (0.0,)),
                  lambda: pwf.composite([(x.bool(), x, x)], 4, "meta")):
         with pytest.raises(ValueError, match="CUDA or CPU"):
@@ -545,14 +546,14 @@ def test_capture_keeps_the_glue_calls_of_the_first_depths():
     kept, (img, _) = cg.capture(lambda: render_preset_frame(tab, cfg, 0),
                                 depths=2)
     labels = {k: [(lab, kind) for lab, kind, _ in v] for k, v in kept.items()}
-    assert [kind for _, kind in labels["compact_rows"]] == [
+    assert [kind for _, kind in labels["compact_bits"]] == [
         "closest", "shadow"] * 2
     assert [kind for _, kind in labels["scatter"]] == ["closest", "shadow"] * 2
-    assert labels["compact_rows"][2][0].startswith("trace 0 depth 1 closest")
-    assert "key mode 2" in labels["compact_rows"][0][0]
+    assert labels["compact_bits"][2][0].startswith("trace 0 depth 1 closest")
+    assert "key mode 2" in labels["compact_bits"][0][0]
     assert labels["ray_rows"] == []
     assert labels["composite"] == [("trace 0, 3 depths", "composite")]
-    assert ppt.compact_rows.__name__ == "compact_rows"
+    assert ppt.compact_bits.__name__ == "compact_bits"
     assert pwf.composite.__name__ == "composite"
     for kernel, calls in kept.items():
         for _, _, args in calls:
@@ -580,7 +581,7 @@ def test_capture_labels_the_full_width_and_tiled_rows(kw, size, layouts):
     assert [lab for lab, _, _ in kept["ray_rows"]] == [
         f"trace 0 depth {d} {q}" for d in (0, 1)
         for q in ("closest", "shadow")]
-    assert kept["compact_rows"] == kept["scatter"] == []
+    assert kept["compact_bits"] == kept["scatter"] == []
 
 
 def test_adversarial_calls_run_through_the_plain_versions():
@@ -592,9 +593,9 @@ def test_adversarial_calls_run_through_the_plain_versions():
         assert cg.same_bits(got, cg.call(kernel, args, True)), label
         ms, by = cg.call_bound(kernel, args, got)
         assert by in ("bytes", "operations")
-        assert ms > 0 or kernel == "compact_rows" and args[1] == 0
+        assert ms > 0 or kernel == "compact_bits" and args[1] == 0
     # the widths cover C = 0 and C = Rp, the composites a second launch
-    labels = [lab for k, lab, *_ in calls if k == "compact_rows"]
+    labels = [lab for k, lab, *_ in calls if k == "compact_bits"]
     assert any(lab.startswith("C 0 ") for lab in labels)
     assert any(lab.startswith("C 4096 of 4096") for lab in labels)
     assert max(len(a[0]) for k, _, _, a in calls if k == "composite") \
@@ -607,10 +608,16 @@ def test_bounds_count_each_input_once():
     assert cg.call_work("ray_rows", (O, u, cap, act, "live"), [rows]) == (
         1024 * (24 + 4 + 1) + 11 * 1024 * 4, 6 * 1024)
     keys = cg.sorted_keys(1024, 10, "cpu")
-    out = ppt.compact_rows_plain(keys, 100, 10, O, u, cap, act)
-    assert cg.call_work("compact_rows", (keys, 100, 10, O, u, cap, act),
-                        cg.flatten(out)) == (
-        100 * 4 + 100 * 29 + 100 * (11 * 4 + 4 + 1), 600)
+    boxes, tiles = torch.rand(50, 8), torch.arange(50, dtype=torch.int32)
+    args = (keys, 100, 10, O, u, 60, 4, (boxes, tiles), cap, act)
+    out = ppt.compact_bits_plain(*args)
+    assert out[2].shape == (2, 25)
+    # keys, the C lanes' rays, cap and mask, the member boxes and tiles;
+    # the rows, the mask and the words
+    assert cg.call_work("compact_bits", args, cg.flatten(out)) == (
+        100 * 4 + 100 * 29 + 50 * 28 + 100 * (11 * 4 + 1) + 2 * 25 * 4, 600)
+    assert cg.call_bound("compact_bits", args, cg.flatten(out))[1] \
+        == "bytes"
     steps = ((act, rows[:3].contiguous(), rows[3:6].contiguous()),)
     ans = pwf.composite_plain(steps, 1024, "cpu")
     assert cg.call_work("composite", (steps, 1024, "cpu"), [ans]) == (

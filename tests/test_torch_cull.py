@@ -344,3 +344,29 @@ def test_culling_inputs_of_a_frame_are_contiguous():
         ppt._pair_bits, ppt._compact_key = saved
     assert len(seen) > 10 and all(all(s) for s in seen)
     assert any(len(s) == 8 for s in seen)  # cap and mask both given
+
+
+def test_cull_design_keeps_the_compacted_casts_culling():
+    """bench/cull_design.capture on a pairs frame whose casts at depth >= 1
+    compact: the full-width casts cull in ``_pair_bits``, the compacted
+    ones in ``compact_bits`` (rows and words in one call), and
+    ``row_args`` gives rt_pair_bits' arguments on a compacted cast's C
+    rays, whose words are the ones compact_bits computed."""
+    from raytracinggpu_tpu_torch.bench import cull_design as cd
+    from raytracinggpu_tpu_torch.render.pipeline import render_preset_frame
+    from raytracinggpu_tpu_torch.scene.presets import build_preset as pbp
+
+    cfg, tables = pbp("array_bvh", "cpu", width=48, height=48, spp=2,
+                      max_depth=3, pairs_block=128)
+    kept, _ = cd.capture(lambda: render_preset_frame(tables, cfg, 0), 6, 4,
+                         0, 4)
+    labels = {k: [lab for lab, _ in v] for k, v in kept.items()}
+    assert labels["pair_bits"] == ["depth 0 closest", "depth 0 shadow"]
+    assert labels["compact_bits"] == labels["compact_key"] == [
+        f"depth {d} {q}" for d in (1, 2) for q in ("closest", "shadow")]
+    assert ppt.compact_bits.__name__ == "compact_bits"
+    args = cd.row_args({"f": kept}, "f", "pair_bits", "depth 1 shadow")
+    cb = kept["compact_bits"][1][1]
+    assert args[0].x.shape == (cb[1],) and args[6] is not None
+    assert torch.equal(ppt.pair_bits_plain(*args),
+                       ppt.compact_bits_plain(*cb)[2])

@@ -188,8 +188,8 @@ def test_kernel_wrappers_check_their_inputs(bad):
                                       "pairs_closest_idx", "pallas_closest",
                                       "pallas_shadow", *_kernels.PROBES,
                                       "pair_bits", "compact_key",
-                                      "tile_lists", *_kernels.DEPTH_STEP,
-                                      *_kernels.GLUE}
+                                      "tile_lists", "compact_bits",
+                                      *_kernels.DEPTH_STEP, *_kernels.GLUE}
     for name in names:
         with pytest.raises(ValueError):
             getattr(_kernels, name)(rfT, fields, bits, EPS, SUBG, 128)
@@ -1291,13 +1291,13 @@ def test_small_frame_on_cuda_matches_cpu():
     # the bounce at each depth, the primary rays of each sample; each cast's
     # rows (full width, or compacted and scattered back), one composite
     launched = _launched()
-    glue = {k: launched.pop(k, 0) for k in _kernels.GLUE}
+    glue = {k: launched.pop(k, 0) for k in (*_kernels.GLUE, "compact_bits")}
     assert launched == {"pairs_closest": 2, "pairs_shadow": 2,
-                        "pair_bits": 4, "compact_key": 2,
-                        "sphere_hit": 4, "shade": 2, "bounce": 2,
-                        "primary_rays": 2}
-    assert glue["ray_rows"] + glue["compact_rows"] == 4
-    assert glue["scatter"] == glue["compact_rows"]
+                        "pair_bits": 4 - glue["compact_bits"],
+                        "compact_key": 2, "sphere_hit": 4, "shade": 2,
+                        "bounce": 2, "primary_rays": 2}
+    assert glue["ray_rows"] + glue["compact_bits"] == 4
+    assert glue["scatter"] == glue["compact_bits"]
     assert glue["composite"] == 1
     (img_c, st_c), (img_g, st_g) = frames
     assert np.isfinite(img_g).all()
@@ -1334,9 +1334,10 @@ def test_compaction_ladder_on_cuda_is_the_full_width_frame():
                 "sphere_hit": 6, "shade": 3, "bounce": 3, "primary_rays": 2,
                 "ray_rows": 6, "composite": 1}
     assert off_launches == off_want
-    # the depth-0 casts at full width, the four others compacted
+    # the depth-0 casts at full width, the four others compacted: their
+    # rows and culling one launch (compact_bits)
     assert on_launches == {**off_want, "compact_key": 4, "ray_rows": 2,
-                           "compact_rows": 4, "scatter": 4}
+                           "pair_bits": 2, "compact_bits": 4, "scatter": 4}
     np.testing.assert_array_equal(img, img0)
     for a, b in zip(st, st0):
         np.testing.assert_array_equal(a, b)
@@ -2128,28 +2129,32 @@ def test_tile_lists_read_a_posed_table_on_every_call():
 
 @pytest.mark.cuda
 def test_tile_lists_replay_from_a_cuda_graph():
-    """One call is two kernels (the words, then the rows) and no memset:
-    a CUDA graph capturing it holds two kernel nodes, and its replays give
-    the plain rows again."""
+    """One call is one kernel where a block holds its subgroups' words in
+    one pass (300 tiles), two (the words, then the rows) where it does not
+    (5,000 tiles at subgroup 1), and no memset: a CUDA graph capturing it
+    holds that many kernel nodes, and its replays give the plain rows
+    again."""
     _need_cuda()
     from raytracinggpu_tpu_torch.bench.cull import adversarial_tiles
     from raytracinggpu_tpu_torch.bench.cull_design import graph_nodes
 
-    O, d, aabb, cap = adversarial_tiles(3, 70000 // 64 * 64, 300)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
-    O, u, aabb, cap = Vec3(*map(t, O)), Vec3(*map(t, d)), t(aabb), t(cap)
-    args = (O, u, aabb, 300, cap, 64)
-    want = pat.block_active_tiles_plain(*args)
-    assert graph_nodes(lambda: pat._block_active_tiles(*args)) == [0, 0]
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = pat._block_active_tiles(*args)
-    for _ in range(2):
-        captured.fill_(-1)
-        graph.replay()
+    for n_rays, n_tiles, subg, nodes in ((70000 // 64 * 64, 300, 64, [0]),
+                                         (4099, 5000, 1, [0, 0])):
+        O, d, aabb, cap = adversarial_tiles(3, n_rays, n_tiles)
+        O, u, aabb, cap = Vec3(*map(t, O)), Vec3(*map(t, d)), t(aabb), t(cap)
+        args = (O, u, aabb, n_tiles, cap, subg)
+        want = pat.block_active_tiles_plain(*args)
+        assert graph_nodes(lambda: pat._block_active_tiles(*args)) == nodes
         torch.cuda.synchronize()
-        assert torch.equal(captured, want)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = pat._block_active_tiles(*args)
+        for _ in range(2):
+            captured.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, want)
 
 
 # -------------- the depth step and the primary rays (csrc/wavefront.cu)
@@ -2334,6 +2339,7 @@ def _glue_calls(bad):
     O, u, cap, act = v3(), v3(), meta(R), meta(R, dt=torch.bool)
     keys = meta(R, dt=torch.int32)
     shift, layout = 8, "live"
+    members, subg = (meta(40, 8), meta(40, dt=torch.int32)), 4
     outs = (meta(C), meta(C, dt=torch.int32))
     steps = [(meta(R, dt=torch.bool), meta(3, R), meta(3, R))] * 3
     if bad == "ray_rows dtype":
@@ -2346,12 +2352,16 @@ def _glue_calls(bad):
         cap = torch.empty(2 * R, device="meta")[::2]
     elif bad == "ray_rows active dtype":
         act = meta(R)
-    elif bad == "compact_rows C":
+    elif bad == "compact_bits C":
         C = R + 1
-    elif bad == "compact_rows shift":
+    elif bad == "compact_bits shift":
         shift = 7  # 256 lanes need 8 bits
-    elif bad == "compact_rows keys":
+    elif bad == "compact_bits keys":
         keys = meta(R, dt=torch.int64)
+    elif bad == "compact_bits subgroup":
+        subg = 3  # does not divide C
+    elif bad == "compact_bits member tiles":
+        members = (members[0], meta(40))
     elif bad == "scatter shape":
         outs = (meta(C + 1),)
     elif bad == "scatter dtype":
@@ -2369,8 +2379,9 @@ def _glue_calls(bad):
     kernel = bad.split()[0]
     if kernel == "ray_rows":
         return lambda: _kernels.ray_rows(O, u, cap, act, layout)
-    if kernel == "compact_rows":
-        return lambda: _kernels.compact_rows(keys, C, shift, O, u, cap, act)
+    if kernel == "compact_bits":
+        return lambda: _kernels.compact_bits(keys, C, shift, O, u, 33, subg,
+                                             members, cap, act)
     if kernel == "scatter":
         return lambda: _kernels.scatter(keys, C, shift, outs,
                                         (0.0, 0) * (len(outs) // 2)
@@ -2384,9 +2395,11 @@ def _glue_calls(bad):
     ("ray_rows pallas extras", "no cap or active"),
     ("ray_rows contiguity", "cap: need a contiguous"),
     ("ray_rows active dtype", "active: need a contiguous"),
-    ("compact_rows C", "0 <= C <= Rp"),
-    ("compact_rows shift", "Rp <= 2\\^shift"),
-    ("compact_rows keys", "keys: need a contiguous"),
+    ("compact_bits C", "0 <= C <= Rp"),
+    ("compact_bits shift", "Rp <= 2\\^shift"),
+    ("compact_bits keys", "keys: need a contiguous"),
+    ("compact_bits subgroup", "subgroup 3 does not divide"),
+    ("compact_bits member tiles", "member_tile: need a contiguous"),
     ("scatter shape", r"outs\[0\]: need a contiguous \(100,\)"),
     ("scatter dtype", "float32 or int32"),
     ("scatter count", "1 to 5 outputs"),
@@ -2395,16 +2408,17 @@ def _glue_calls(bad):
     ("composite albedo", r"alb\[2\]: need a contiguous \(3, 256\)"),
     ("composite mask", r"is_diff\[0\]: need a contiguous"),
     ("ray_rows device", "one CUDA device"),
-    ("compact_rows device", "one CUDA device"),
+    ("compact_bits device", "one CUDA device"),
     ("scatter device", "one CUDA device"),
     ("composite device", "one CUDA device")])
 def test_glue_wrappers_check_their_inputs(bad, why):
-    """The glue wrappers refuse a wrong dtype, shape, contiguity, layout,
-    width C past the cast, a key shift that does not hold its lanes, and
-    a composite of no depth, before anything is built or launched;
-    well-formed tensors that are not on a CUDA device (here meta tensors)
-    are refused last."""
-    assert set(_kernels.GLUE) <= set(_kernels.LAUNCHES)
+    """The glue wrappers (and compact_bits, a compacted cast's rows with
+    their culling) refuse a wrong dtype, shape, contiguity, layout, width
+    C past the cast, a key shift that does not hold its lanes, a subgroup
+    that does not divide C, member tiles not int32, and a composite of no
+    depth, before anything is built or launched; well-formed tensors that
+    are not on a CUDA device (here meta tensors) are refused last."""
+    assert set(_kernels.GLUE) | {"compact_bits"} <= set(_kernels.LAUNCHES)
     before = dict(_kernels.LAUNCHES)
     with pytest.raises(ValueError, match=why):
         _glue_calls(bad)()
@@ -2439,16 +2453,17 @@ def test_glue_kernels_bitwise_equal_plain(frame):
                                max_depth=3, **kw)
     _kernels.reset_launches()
     kept, (img, st) = cg.capture(lambda: render_preset_frame(tables, cfg, 0))
-    got = {k: _kernels.LAUNCHES[k] for k in _kernels.GLUE}
+    got = {k: _kernels.LAUNCHES[k] for k in (*_kernels.GLUE, "compact_bits")}
     casts = sum(_kernels.LAUNCHES[k] for k in (*_kernels._SPECS,))
-    assert got["ray_rows"] + got["compact_rows"] == casts
-    assert got["scatter"] == got["compact_rows"]
+    assert got["ray_rows"] + got["compact_bits"] == casts
+    assert got["scatter"] == got["compact_bits"]
     assert got["composite"] == _kernels.LAUNCHES["shade"] // 3
     assert all(r[-1] for r in cg.hold(kept, frame, {}, quiet=True))
     with cg.plain_glue():
         _kernels.reset_launches()
         img_p, st_p = render_preset_frame(tables, cfg, 0)
-    assert not any(_kernels.LAUNCHES[k] for k in _kernels.GLUE)
+    assert not any(_kernels.LAUNCHES[k] for k in (*_kernels.GLUE,
+                                                   "compact_bits"))
     np.testing.assert_array_equal(img, img_p)
     for a, b in zip(st, st_p):
         np.testing.assert_array_equal(a, b)

@@ -20,17 +20,27 @@ ascending.  The inputs are made with numpy from a seed:
   same tables in both packages) and camera and scattered rays.
 
 The CUDA kernel of csrc/cull.cu (``rt_tile_lists``) is held bitwise
-against the plain version in tests/test_torch_kernels.py.
+against the plain version in tests/test_torch_kernels.py, and here, in
+``cuda`` cases (skipped without a card), in its one launch and in its two
+(the words through device memory, then the rows) on the adversarial
+tables at subgroups 1-128, with the words in more than one pass (5,000
+tiles) and past 131,072 tiles.  The card's machine has no JAX: this file
+imports it only where it is installed, and there runs its ``cuda`` cases
+alone (``-m cuda``).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from raytracinggpu_tpu.core.vec import Vec3 as JV
-from raytracinggpu_tpu.ops import pallas_trace as jpt
-from raytracinggpu_tpu.scene.presets import build_preset as j_build_preset
+try:
+    import jax
+    import jax.numpy as jnp
+    from raytracinggpu_tpu.core.vec import Vec3 as JV
+    from raytracinggpu_tpu.ops import pallas_trace as jpt
+    from raytracinggpu_tpu.scene.presets import (
+        build_preset as j_build_preset)
+except ImportError:  # the card's machine: the cuda cases only
+    jax = jnp = JV = jpt = j_build_preset = None
 from raytracinggpu_tpu_torch.bench.cull import adversarial_tiles, enter_of
 from raytracinggpu_tpu_torch.convert import scene_tables_from_numpy
 from raytracinggpu_tpu_torch.core.vec import Vec3 as PV
@@ -237,3 +247,91 @@ def test_tile_index_cases_reach_the_kernels_branches():
             rows = ppt._block_active_tiles(*args)
             assert torch.equal(rows, ppt.block_active_tiles_plain(*args))
             _check_rows(rows.numpy(), aabb.numpy(), nt)
+
+
+# ------------------------------------------------------------ CUDA cases
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _ko(args, k, one):
+    """rt_tile_lists_ko of the package's library on a _block_active_tiles
+    call: k rays a thread (0: the default), one launch where it fits (one
+    1) or two (one 0); returns (rows, scratch words it needed)."""
+    from raytracinggpu_tpu_torch.bench.cull_design import launch
+
+    O, u, aabb, nt, cap, subg = args
+    lib = _kernels.load()
+    rows = launch(lib, "tile_lists", args, ko=(k, one))
+    return rows, lib.rt_tile_lists_scratch(O.x.shape[0], subg, nt, k, one)
+
+
+def _cuda_tiles(seed, n_rays, n_tiles, capped):
+    O, u, aabb, cap = adversarial_tiles(seed, n_rays, n_tiles)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return (PV(*map(t, O)), PV(*map(t, u)), t(aabb), t(cap) if capped
+            else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("subg", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n_tiles", TILE_COUNTS)
+def test_tile_lists_kernel_one_and_two_launches(n_tiles, subg, capped):
+    """The wrapper (one launch on these tables: their words fit one pass)
+    and rt_tile_lists_ko forced to two launches, at every rays-a-thread
+    that divides the subgroup,
+    each bitwise the plain version on the adversarial tables (padding and
+    NaN boxes, a box of infinite extent); one launch a wrapper call."""
+    _need_cuda()
+    O, u, aabb, cap = _cuda_tiles(3 * n_tiles + subg, R, n_tiles, capped)
+    args = (O, u, aabb, n_tiles, cap, subg)
+    want = ppt.block_active_tiles_plain(*args)
+    n0 = _kernels.LAUNCHES["tile_lists"]
+    got = ppt._block_active_tiles(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["tile_lists"] == n0 + 1
+    assert torch.equal(got, want)
+    for k in (0, 1, 2, 4):
+        if k and subg % k:
+            continue
+        for one in (1, 0):
+            rows, scratch = _ko(args, k, one)
+            torch.cuda.synchronize()
+            assert torch.equal(rows, want), (k, one)
+            assert (scratch == 0) == bool(one), (k, one, scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles,subg,n_sub", [
+    (5000, 1, 37), (5000, 2, 37), (140000, 64, 7), (140000, 1, 449)])
+def test_tile_lists_kernel_past_one_pass_of_words(n_tiles, subg, n_sub):
+    """Tables whose words a block cannot hold in one pass (5,000 tiles:
+    157 words a subgroup, at subgroups 1 and 2 a block holds 64 or more;
+    140,000 tiles: 4,375 words, rows of 140,001 ints): the two launches,
+    with their scratch, bitwise the plain version, whether or not one
+    launch is asked for."""
+    _need_cuda()
+    O, u, aabb, cap = _cuda_tiles(n_tiles + subg, subg * n_sub, n_tiles,
+                                  True)
+    args = (O, u, aabb, n_tiles, cap, subg)
+    want = ppt.block_active_tiles_plain(*args)
+    assert torch.equal(ppt._block_active_tiles(*args), want)
+    for one in (1, 0):
+        rows, scratch = _ko(args, 0, one)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, want) and scratch == -(-n_tiles // 32) * (
+            O.x.shape[0] // subg)
+
+
+@pytest.mark.cuda
+def test_tile_lists_run_the_main_paths_casts_in_one_launch():
+    """The cat's pallas casts (524,288 rays, 32 tiles, subgroup 64) and
+    the soup's (1,564 tiles, subgroup 16) need no scratch: one launch."""
+    _need_cuda()
+    lib = _kernels.load()
+    assert lib.rt_tile_lists_scratch(524288, 64, 32, 0, 1) == 0
+    assert lib.rt_tile_lists_scratch(524288, 16, 1564, 0, 1) == 0
+    assert lib.rt_tile_lists_scratch(524288, 16, 1564, 0, 0) == 49 * 32768
