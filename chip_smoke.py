@@ -1078,9 +1078,9 @@ def _realtime(device, card, err, timing):
         _fail(f"realtime anchor mean {mean} off by {rel:.4%}")
 
     # c. the loop
-    # run_loop's own mean skips the first frame, whose time also holds the
-    # enqueue of frame 2; the whole call's wall time over the frame count
-    # is the rate the loop sustains, and is the one reported
+    # the whole call's wall time over the frame count is the rate the loop
+    # sustains, and is the one reported; run_loop's own mean times the same
+    # frames from one display's arrival to the next, its writes left out
     pipe = io.BytesIO()
     _kernels.reset_launches()
     t0 = time.perf_counter()

@@ -11,9 +11,10 @@ slots, where the JAX package's TPU kernel streams its field table in
     python -m raytracinggpu_tpu_torch.bench.big_mesh [--tris N] [--out FILE]
 
 Prints one row per traversal (host build seconds, the best of three
-warm frames, Mray/s by the reference ray-count formula), then the set-up
-phases (soup write, each host build, each warm-up frame) as a
-``PhaseTimer`` report, and, with ``--out``, writes the rows as JSON.
+warm frames, Mray/s by the reference ray-count formula), then the run's
+outermost spans of the program's tracer (``utils/profiling.py``: the
+soup write, each host build, each frame) with their seconds, and, with
+``--out``, writes the rows as JSON.
 Frames are timed on the host clock, ended by
 ``torch.cuda.synchronize()``.  Without a CUDA device it exits nonzero.
 """
@@ -66,7 +67,7 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
     returns the rows (and writes them to ``out`` as JSON when given)."""
     from raytracinggpu_tpu_torch.api import Renderer
     from raytracinggpu_tpu_torch.render.pipeline import rays_per_frame
-    from raytracinggpu_tpu_torch.utils.profiling import PhaseTimer
+    from raytracinggpu_tpu_torch.utils import profiling
 
     card = torch.cuda.get_device_name(0)
     rows = {
@@ -75,19 +76,17 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
               f"one {card}; pairs = B1/B2 over the whole field table, "
               "pallas = the tiled fallback (lbvh builder for both)"),
     }
-    timer = PhaseTimer()
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, profiling.tracing():
         path = os.path.join(d, f"soup_{n_tris}.obj")
-        with timer.phase("soup write"):
+        with profiling.span("soup write"):
             soup_obj(path, n_tris)
         for traversal in ("pairs", "pallas"):
-            build = f"{traversal} host build"
-            with timer.phase(build):
-                r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
-                             width=width, height=height, spp=spp,
-                             max_depth=max_depth, traversal=traversal)
-                torch.cuda.synchronize()
-            build_s = timer.phases[build]
+            t0 = time.perf_counter()
+            r = Renderer("array_bvh", obj_path=path, bvh_builder="lbvh",
+                         width=width, height=height, spp=spp,
+                         max_depth=max_depth, traversal=traversal)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
             if traversal == "pairs":
                 tab = r.scene.pairs_mesh
                 if tab is None:
@@ -95,8 +94,7 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
                                        "tables")
                 rows["pairs_tiles"] = int(tab.tile_aabb.shape[0])
                 rows["pairs_field_cols"] = int(tab.fields.shape[1])
-            with timer.phase(f"{traversal} warm-up frame"):
-                r.render_hdr(seed=0)  # builds the kernels, fills the allocator
+            r.render_hdr(seed=0)  # builds the kernels, fills the allocator
             times = []
             for i in range(1, 4):
                 torch.cuda.synchronize()
@@ -111,7 +109,9 @@ def run(n_tris: int = 200_000, out: str | None = None, width: int = 512,
                 "host_build_s": build_s,
             }
             print(traversal, rows[traversal], flush=True)
-    print(timer.report(), flush=True)
+    print(" | ".join(f"{s.name} {(s.end_ns - s.start_ns) * 1e-9:.3f} s"
+                     for s in profiling.collect().spans if s.parent < 0),
+          flush=True)
     if out:
         with open(out, "w") as f:
             json.dump(rows, f, indent=1)

@@ -511,15 +511,13 @@ def capture(render, n_bits: int, n_keys: int, n_lists: int = 0,
             return tuple(map(clone, x))
         return Vec3(*(c.clone() for c in x)) if isinstance(x, Vec3) else x
 
-    with TierLog() as log:
-        here = log.here
-
+    with TierLog():
         def keeping(name, n, fn):
             def call(*args):
                 if len(kept[name]) < n:
-                    kept[name].append(
-                        (f"depth {here['depth']} {here['query']}",
-                         tuple(map(clone, args))))
+                    depth, query = TierLog.where()
+                    kept[name].append((f"depth {depth} {query}",
+                                       tuple(map(clone, args))))
                 return fn(*args)
             return call
 

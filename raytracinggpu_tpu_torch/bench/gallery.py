@@ -209,8 +209,8 @@ def interactive_rows(device, quick=False, rows=None) -> dict:
                     "run_loop_mean_ms": summary["mean_ms"],
                     "note": "wall time over the frames of a pipelined "
                             "run_loop, PNG writes excluded; run_loop's own "
-                            "mean_ms reads low on short pipelined loops "
-                            "(478.8 against 616.3 ms, PERF.md)"}
+                            "mean_ms times the same frames inside the loop, "
+                            "from one display's arrival to the next"}
         out[name] = _row(name, run)
     return out
 

@@ -78,70 +78,82 @@ def ladder_off(cfg):
                                pairs_compact3=0.0)
 
 
+def _where(around) -> tuple:
+    """(depth, query) of a point from the (name, attribute) of the spans
+    around it, innermost first: the innermost ``depth`` span's index (-1
+    outside one) and ``closest`` or ``shadow`` of the innermost mesh cast
+    ("?" outside one)."""
+    depth, query = -1, "?"
+    for name, attr in around:
+        if name in ("cast.closest", "cast.shadow") and query == "?":
+            query = name[len("cast."):]
+        elif name == "depth" and depth < 0:
+            depth = attr
+    return depth, query
+
+
+def ladder_casts(trace, first: int = 0) -> list:
+    """The casts that ran the ladder in a tracer's record
+    (``utils/profiling.Trace``), from its span ``first`` on: for each
+    ``ladder`` span, its depth and query (``_where``), the cast's padded
+    rays R (``ladder.key``), the active count n and the host's seconds
+    waiting for it (``ladder.wait``), and the tier taken C (the span's own
+    attribute; 0: full width)."""
+    spans, log = trace.spans, []
+
+    def around(k):
+        while k >= 0:
+            yield spans[k].name, spans[k].attr
+            k = spans[k].parent
+
+    for i in range(first, len(spans)):
+        if spans[i].name != "ladder":
+            continue
+        depth, query = _where(around(spans[i].parent))
+        e = dict(query=query, depth=depth, C=spans[i].attr)
+        for j in range(i + 1, len(spans)):
+            s = spans[j]
+            if s.parent != i:
+                continue
+            if s.name == "ladder.key":
+                e["R"] = s.attr
+            elif s.name == "ladder.wait":
+                e.update(n=s.attr, wait=(s.end_ns - s.start_ns) * 1e-9)
+                break
+        log.append(e)
+    return log
+
+
 class TierLog:
-    """Record every ladder cast while active: query (``closest`` or
-    ``shadow``), depth, the cast's padded rays R, active count n, the tiers,
-    the tier taken C (0: full width) and the host's seconds in ``_tier``
-    (the wait for the count).  Wraps the functions it reads through, and
-    puts them back on exit."""
+    """Every ladder cast while active, read from the program's tracer
+    (``ladder_casts``: query, depth, R, n, C and the host's seconds in
+    ``_tier``) into ``log`` on exit.  The tracer is on for the block, or
+    shares the record of a block around it."""
 
     def __init__(self):
         self.log = []
 
     def __enter__(self):
-        from raytracinggpu_tpu_torch.integrator import wavefront as wf
-        from raytracinggpu_tpu_torch.ops import pairs_trace as pt
+        from raytracinggpu_tpu_torch.utils import profiling
 
-        # the cast being run: its depth, its query and its rays
-        self.here = here = {"depth": -1, "query": "?", "R": 0}
-        self._saved = [(m, a, getattr(m, a)) for m, a in (
-            (wf, "depth_configs"), (wf, "_depth_step"),
-            (wf, "intersect_tris_pairs"), (wf, "intersect_tris_pairs_shadow"),
-            (wf, "intersect_tris_pallas"), (wf, "intersect_tris_shadow"),
-            (pt, "_compact_key"), (pt, "_tier"))]
-        f = {a: fn for _, a, fn in self._saved}
-
-        def depth_configs(*a):
-            here["depth"] = -1
-            return f["depth_configs"](*a)
-
-        def depth_step(*a):
-            here["depth"] += 1
-            return f["_depth_step"](*a)
-
-        def query(name, fn):
-            def call(*a, **k):
-                here["query"] = name
-                return fn(*a, **k)
-            return call
-
-        def key(O, *a):
-            here["R"] = O.x.shape[0]
-            return f["_compact_key"](O, *a)
-
-        def tier(tiers, count):
-            t0 = time.perf_counter()
-            C = f["_tier"](tiers, count)
-            wait = time.perf_counter() - t0
-            self.log.append(dict(query=here["query"], depth=here["depth"],
-                                 R=here["R"], n=int(count[0]),
-                                 tiers=tuple(tiers), C=C, wait=wait))
-            return C
-
-        wf.depth_configs, wf._depth_step = depth_configs, depth_step
-        wf.intersect_tris_pairs = query("closest", f["intersect_tris_pairs"])
-        wf.intersect_tris_pairs_shadow = query(
-            "shadow", f["intersect_tris_pairs_shadow"])
-        # the tiled traversal's casts, labelled alike (no ladder)
-        wf.intersect_tris_pallas = query("closest",
-                                         f["intersect_tris_pallas"])
-        wf.intersect_tris_shadow = query("shadow", f["intersect_tris_shadow"])
-        pt._compact_key, pt._tier = key, tier
+        self._started = profiling.enable()
+        self._first = 0 if self._started else len(profiling.collect().spans)
         return self
 
     def __exit__(self, *exc):
-        for m, a, fn in self._saved:
-            setattr(m, a, fn)
+        from raytracinggpu_tpu_torch.utils import profiling
+
+        trace = profiling.collect()
+        if self._started:
+            profiling.disable()
+        self.log = ladder_casts(trace, self._first)
+
+    @staticmethod
+    def where() -> tuple:
+        """(depth, query) of the cast being run now (``_where``)."""
+        from raytracinggpu_tpu_torch.utils import profiling
+
+        return _where(reversed(profiling.open_spans()))
 
     def summary(self) -> list[str]:
         """One line per (query, depth): casts, the tiers taken, n / R."""
@@ -153,8 +165,7 @@ class TierLog:
             share = [e["n"] / e["R"] for e in es]
             took = Counter(e["C"] for e in es)
             out.append(
-                f"depth {d} {q}: {len(es)} casts of {es[0]['R']} rays, tiers "
-                f"{list(es[0]['tiers'])}, taken "
+                f"depth {d} {q}: {len(es)} casts of {es[0]['R']} rays, taken "
                 + ", ".join(f"{'full width' if C == 0 else C} x{k}"
                             for C, k in sorted(took.items()))
                 + f"; n_act / R {min(share):.4f} to {max(share):.4f} (mean "
@@ -371,8 +382,7 @@ def stages_part(scenes, card: str, device) -> None:
                                    f"{sorted(t_on)} ran, expected {want}")
             line = (f"ladder stages, {name} depth {i // 2} {query} cast: R "
                     f"{e['R']}, n_act {e['n']} ({e['n'] / e['R']:.4f}), "
-                    f"tiers {list(e['tiers'])}, taken "
-                    f"{e['C'] or 'full width'}; ms a cast: ")
+                    f"taken {e['C'] or 'full width'}; ms a cast: ")
             line += ", ".join(f"{s} {t_on[s]:.4f}" for s in want)
             line += (f" (sum {sum(t_on[s] for s in want):.4f}), the host's "
                      f"wait {wait:.4f}; at full width: ")

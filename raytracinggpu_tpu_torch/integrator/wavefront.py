@@ -69,6 +69,7 @@ from raytracinggpu_tpu_torch.ops.triangle import (
     smooth_normal,
 )
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
+from raytracinggpu_tpu_torch.utils.profiling import span
 
 PI = float(np.float32(np.pi))
 
@@ -136,32 +137,34 @@ def _mesh_closest(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     normal) in contiguous rows, or None when the scene has no mesh."""
     if scene.mesh is None:
         return None
-    traversal = _effective_traversal(cfg, scene)
-    if traversal == "pairs":
-        # the kernel tracks the winner's normal
-        mh, N_m = intersect_tris_pairs(
-            O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
-            subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
-            payload="smooth" if cfg.smooth_normals else "geom",
-            **_ladder_args(cfg))
-    elif traversal == "pallas":
-        mh = intersect_tris_pallas(
-            O, u, scene.pallas_mesh, cfg.eps_leaf,
-            sort_rays=cfg.ray_sort, cap=t_s, subg=cfg.pallas_subgroup)
-        N_m = (_fused_smooth_recovery(scene, O, u, mh)
-               if cfg.smooth_normals else geometric_normal(scene.mesh, mh))
-    else:
-        if traversal == "dense":
-            mh = intersect_tris_dense(O, u, scene.mesh, cfg.eps_leaf,
-                                      cfg.tri_block)
-        else:  # bvh
-            mh = intersect_tris_bvh(O, u, scene.mesh, scene.bvh,
-                                    cfg.eps_leaf, cfg.bvh_max_leaf,
-                                    cfg.bvh_node_layout)
-        # both give the winner's barycentrics
-        N_m = (smooth_normal if cfg.smooth_normals
-               else geometric_normal)(scene.mesh, mh)
-    return mh.t, Vec3(*(c.contiguous() for c in N_m))
+    with span("cast.closest"):
+        traversal = _effective_traversal(cfg, scene)
+        if traversal == "pairs":
+            # the kernel tracks the winner's normal
+            mh, N_m = intersect_tris_pairs(
+                O, u, scene.pairs_mesh, cfg.eps_leaf, cap=t_s,
+                subg=cfg.pairs_subgroup, blk=cfg.pairs_block,
+                payload="smooth" if cfg.smooth_normals else "geom",
+                **_ladder_args(cfg))
+        elif traversal == "pallas":
+            mh = intersect_tris_pallas(
+                O, u, scene.pallas_mesh, cfg.eps_leaf,
+                sort_rays=cfg.ray_sort, cap=t_s, subg=cfg.pallas_subgroup)
+            N_m = (_fused_smooth_recovery(scene, O, u, mh)
+                   if cfg.smooth_normals
+                   else geometric_normal(scene.mesh, mh))
+        else:
+            if traversal == "dense":
+                mh = intersect_tris_dense(O, u, scene.mesh, cfg.eps_leaf,
+                                          cfg.tri_block)
+            else:  # bvh
+                mh = intersect_tris_bvh(O, u, scene.mesh, scene.bvh,
+                                        cfg.eps_leaf, cfg.bvh_max_leaf,
+                                        cfg.bvh_node_layout)
+            # both give the winner's barycentrics
+            N_m = (smooth_normal if cfg.smooth_normals
+                   else geometric_normal)(scene.mesh, mh)
+        return mh.t, Vec3(*(c.contiguous() for c in N_m))
 
 
 def _merge(cfg: RenderConfig, O: Vec3, u: Vec3, sph, mesh) -> Hit:
@@ -203,14 +206,15 @@ def _mesh_shadow(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     """The mesh's shadow cast (pairs or pallas): its nearest hit distance,
     tiles past ``cap`` (the distance to the light) culled; the pairs
     traversal skips the lanes ``active`` leaves out."""
-    if _effective_traversal(cfg, scene) == "pallas":
-        return intersect_tris_shadow(
-            O, u, scene.pallas_mesh, cfg.eps_leaf, cap=cap,
-            sort_rays=cfg.ray_sort, subg=cfg.pallas_subgroup)
-    return intersect_tris_pairs_shadow(
-        O, u, scene.pairs_mesh, cfg.eps_leaf, cap=cap,
-        subg=cfg.pairs_subgroup, blk=cfg.pairs_block, active=active,
-        **_ladder_args(cfg))
+    with span("cast.shadow"):
+        if _effective_traversal(cfg, scene) == "pallas":
+            return intersect_tris_shadow(
+                O, u, scene.pallas_mesh, cfg.eps_leaf, cap=cap,
+                sort_rays=cfg.ray_sort, subg=cfg.pallas_subgroup)
+        return intersect_tris_pairs_shadow(
+            O, u, scene.pairs_mesh, cfg.eps_leaf, cap=cap,
+            subg=cfg.pairs_subgroup, blk=cfg.pairs_block, active=active,
+            **_ladder_args(cfg))
 
 
 def _shadow_distances(scene: SceneTables, cfg: RenderConfig, O: Vec3,
@@ -361,31 +365,33 @@ def shade(scene: SceneTables, cfg: RenderConfig, ray: RayBatch, sph, mesh,
           counts) -> Shade:
     """``shade_plain`` on the rays' device: the kernel ``rt_shade`` for CUDA
     tensors, the plain version for CPU tensors."""
-    if not on_cuda(ray.u.x):
-        return shade_plain(scene, cfg, ray, sph, mesh, counts)
-    from raytracinggpu_tpu_torch.ops import _kernels
+    with span("shade"):
+        if not on_cuda(ray.u.x):
+            return shade_plain(scene, cfg, ray, sph, mesh, counts)
+        from raytracinggpu_tpu_torch.ops import _kernels
 
-    m = scene.materials
-    O2, u2, ri2, S, d, cap, lv2, N, alb, lum, is_diff, sh_active = \
-        _kernels.shade(ray.O, ray.u, ray.ri, sph, mesh,
-                       (m.albedo, m.mirror, m.in_ri, m.out_ri), scene.L,
-                       scene.intensity, float(np.float32(cfg.eps_bounce)),
-                       cfg.mesh_object_id, counts)
-    return Shade(Vec3(*O2), Vec3(*u2), ri2, Vec3(*S), Vec3(*d), cap, lv2,
-                 Vec3(*N), alb, lum, is_diff, sh_active)
+        m = scene.materials
+        O2, u2, ri2, S, d, cap, lv2, N, alb, lum, is_diff, sh_active = \
+            _kernels.shade(ray.O, ray.u, ray.ri, sph, mesh,
+                           (m.albedo, m.mirror, m.in_ri, m.out_ri), scene.L,
+                           scene.intensity, float(np.float32(cfg.eps_bounce)),
+                           cfg.mesh_object_id, counts)
+        return Shade(Vec3(*O2), Vec3(*u2), ri2, Vec3(*S), Vec3(*d), cap, lv2,
+                     Vec3(*N), alb, lum, is_diff, sh_active)
 
 
 def bounce(sh: Shade, t_sph, t_mesh, r1, r2, counts):
     """``bounce_plain`` on the rays' device: the kernel ``rt_bounce`` for
     CUDA tensors, the plain version for CPU tensors."""
-    if not on_cuda(r1):
-        return bounce_plain(sh, t_sph, t_mesh, r1, r2, counts)
-    from raytracinggpu_tpu_torch.ops import _kernels
+    with span("bounce"):
+        if not on_cuda(r1):
+            return bounce_plain(sh, t_sph, t_mesh, r1, r2, counts)
+        from raytracinggpu_tpu_torch.ops import _kernels
 
-    u3, direct = _kernels.bounce(sh.u2, sh.N, sh.alb, sh.lum, sh.lv2,
-                                 sh.is_diff, sh.sh_active, t_sph, t_mesh, r1,
-                                 r2, counts)
-    return Vec3(*u3), direct
+        u3, direct = _kernels.bounce(sh.u2, sh.N, sh.alb, sh.lum, sh.lv2,
+                                     sh.is_diff, sh.sh_active, t_sph, t_mesh,
+                                     r1, r2, counts)
+        return Vec3(*u3), direct
 
 
 def _depth_step(scene: SceneTables, cfg: RenderConfig, ray: RayBatch, r1, r2,
@@ -421,11 +427,12 @@ def composite(steps, R: int, device) -> torch.Tensor:
     of ``csrc/glue.cu`` for CUDA tensors, one launch for up to eight
     depths, the plain version for CPU tensors.  A trace of no depth
     composes nothing: its (zero) result is the plain version's."""
-    if not steps or not on_cuda(steps[0][0]):
-        return composite_plain(steps, R, device)
-    from raytracinggpu_tpu_torch.ops import _kernels
+    with span("composite"):
+        if not steps or not on_cuda(steps[0][0]):
+            return composite_plain(steps, R, device)
+        from raytracinggpu_tpu_torch.ops import _kernels
 
-    return _kernels.composite(steps)
+        return _kernels.composite(steps)
 
 
 def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
@@ -436,14 +443,16 @@ def trace(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     — the two per-depth uniforms of the diffuse bounce, drawn outside so a
     test can inject identical numbers.  Returns (color Vec3 (R,),
     TraceStats)."""
-    ray = RayBatch.make(O, u)  # primary rays start in medium 1.0
-    D, dev = uniforms.shape[0], O.x.device
-    counts = torch.zeros((D, 6), dtype=torch.int64, device=dev)
-    steps = []
-    for d, cfg_d in enumerate(depth_configs(scene, cfg, D)):
-        ray, *out = _depth_step(scene, cfg_d, ray, uniforms[d, 0],
-                                uniforms[d, 1], counts[d])
-        steps.append(out)
+    with span("trace"):
+        ray = RayBatch.make(O, u)  # primary rays start in medium 1.0
+        D, dev = uniforms.shape[0], O.x.device
+        counts = torch.zeros((D, 6), dtype=torch.int64, device=dev)
+        steps = []
+        for d, cfg_d in enumerate(depth_configs(scene, cfg, D)):
+            with span("depth", d):
+                ray, *out = _depth_step(scene, cfg_d, ray, uniforms[d, 0],
+                                        uniforms[d, 1], counts[d])
+            steps.append(out)
 
-    ans = composite(steps, O.x.shape[0], dev)
-    return Vec3(*ans), TraceStats(*counts.T)
+        ans = composite(steps, O.x.shape[0], dev)
+        return Vec3(*ans), TraceStats(*counts.T)

@@ -26,7 +26,10 @@ and ``render/pipeline.py`` bit for bit.
 
 Each launch wrapper checks its tensors, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
-entry in ``LAUNCHES``.
+entry in ``LAUNCHES``.  While the tracer of ``utils/profiling.py`` is on,
+each call of a launch wrapper adds its host ns, from entering the wrapper
+to its return (the checks, the output allocations, the ctypes call), to
+the counter ``launch.<wrapper>.ns`` and one to ``launch.<wrapper>.calls``.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ import subprocess
 import time
 
 import torch
+
+from raytracinggpu_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -104,6 +109,11 @@ LAUNCHES = {name: 0 for name in (*_SPECS, *PROBES, *CULLING, *DEPTH_STEP,
 
 _lib = None
 BUILD_INFO: dict = {}
+
+
+def _launcher(fn):
+    """A launch wrapper, timed while tracing is on (module docstring)."""
+    return profiling.timed(f"launch.{fn.__name__}")(fn)
 
 
 def reset_launches() -> None:
@@ -299,12 +309,14 @@ def _launch(name, rfT, fields, cull, eps_leaf, subg, tile_t):
     return outs
 
 
+@_launcher
 def pairs_closest(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B1 kernel: (t, idx, nx, ny, nz) per ray, N the winner's Ng; see
     ops/pairs_trace."""
     return _launch("pairs_closest", rfT, fields, bits, eps_leaf, subg, tile_t)
 
 
+@_launcher
 def pairs_closest_smooth(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B3 kernel: (t, idx, nx, ny, nz) per ray, N the winner's
     Phong-interpolated vertex normal; see ops/pairs_trace."""
@@ -312,18 +324,21 @@ def pairs_closest_smooth(rfT, fields, bits, eps_leaf, subg, tile_t):
                    tile_t)
 
 
+@_launcher
 def pairs_closest_idx(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B0 kernel: (t, idx) per ray; see ops/pairs_trace."""
     return _launch("pairs_closest_idx", rfT, fields, bits, eps_leaf, subg,
                    tile_t)
 
 
+@_launcher
 def pairs_shadow(rfT, fields, bits, eps_leaf, subg, tile_t):
     """B2 kernel: the nearest hit t per ray; see ops/pairs_trace."""
     return _launch("pairs_shadow", rfT, fields, bits, eps_leaf, subg,
                    tile_t)[0]
 
 
+@_launcher
 def pallas_closest(rfT, fields, lists, eps_leaf, subg):
     """B5 kernel: (t, idx) per ray over the tiles listed for its subgroup;
     see ops/pallas_trace."""
@@ -331,6 +346,7 @@ def pallas_closest(rfT, fields, lists, eps_leaf, subg):
                    TILE_T)
 
 
+@_launcher
 def pallas_shadow(rfT, fields, lists, eps_leaf, subg):
     """B6 kernel: the nearest hit t per ray; see ops/pallas_trace."""
     return _launch("pallas_shadow", rfT, fields, lists, eps_leaf, subg,
@@ -390,6 +406,7 @@ def _run(name, dev, call):
     LAUNCHES[name] += 1
 
 
+@_launcher
 def probe_tile_slope(lists, rf, tri):
     """B7a kernel: t (R / 128, 128), per ray the min of the MT pass over
     the tiles listed for its 64-ray subgroup; see bench/micro_kernel."""
@@ -404,6 +421,7 @@ def probe_tile_slope(lists, rf, tri):
     return t
 
 
+@_launcher
 def probe_uniform_branch(mask, rf, tri):
     """B7c kernel: as B7a over the first 8 tiles, tile j visited iff
     mask[subgroup, j] > 0; see bench/micro_kernel."""
@@ -422,6 +440,7 @@ def probe_uniform_branch(mask, rf, tri):
     return t
 
 
+@_launcher
 def probe_block_mask(x, mask=True):
     """B7b kernel: 2 x, each 1024-row block first computing a (32, 16)
     mask into shared memory and bounding a loop with two of its words;
@@ -438,6 +457,7 @@ def probe_block_mask(x, mask=True):
     return out
 
 
+@_launcher
 def probe_row_gather(idx, table):
     """B7d kernel: out[i, :] = table[idx[i, 0], :] for a (n, 128) f32
     table; the indices must lie in [0, n) (the kernel clamps one that does
@@ -458,6 +478,7 @@ def probe_row_gather(idx, table):
     return out
 
 
+@_launcher
 def probe_pair_slope(pairs, rf, tri, subg):
     """B7e kernel: t (R / 128, 128), per ray the min of the MT pass over
     the (subgroup, tile) pairs of its 1024-ray block's flat list that name
@@ -522,6 +543,7 @@ def _members(members):
     return boxes, member_tile
 
 
+@_launcher
 def pair_bits(O, u, nc, subg, members, cap=None, active=None):
     """Culling kernel (rt_pair_bits): the (W, R/subg) int32 active-tile
     bitmask of ``ops/pairs_trace.pair_bits_plain``, W = ceil(nc / 32);
@@ -545,6 +567,7 @@ def pair_bits(O, u, nc, subg, members, cap=None, active=None):
     return bits
 
 
+@_launcher
 def compact_key(O, u, aabb, nc, mode, shift, cap, active, valid_n):
     """Culling kernel (rt_compact_key): the ladder's (skey (R,) int32,
     n_act 0-d int64) of ``ops/pairs_trace.compact_key_plain`` over the nc
@@ -569,6 +592,7 @@ def compact_key(O, u, aabb, nc, mode, shift, cap, active, valid_n):
     return skey, n_act
 
 
+@_launcher
 def tile_lists(O, u, aabb, n_tiles, cap, subg):
     """Culling kernel (rt_tile_lists): the (R/subg, 1 + n_tiles) int32 list
     rows of ``ops/pallas_trace.block_active_tiles_plain`` over the first
@@ -650,6 +674,7 @@ def _pointers(*xs):
     return (ctypes.c_void_p * len(xs))(*(_ptr(x) for x in xs))
 
 
+@_launcher
 def sphere_hit(O, u, spheres, full=True, active=None, lv2=None):
     """Kernel rt_sphere_hit: the nearest sphere of each ray of
     ``ops/sphere.sphere_hit_plain``.  full: (t, obj, (Nx, Ny, Nz)); else
@@ -702,6 +727,7 @@ def f32_identities(first: int = 0, n: int = 2**32, device="cuda") -> dict:
     return dict(zip(IDENTITY_COUNTS, counts.tolist()))
 
 
+@_launcher
 def shade(O, u, ri, sph, mesh, mats, L, intensity, eps, mesh_id, counts):
     """Kernel rt_shade: the outputs of ``integrator/wavefront.shade_plain``
     in the order of its ``Shade`` (the albedo a (3, R) tensor), adding the
@@ -748,6 +774,7 @@ def shade(O, u, ri, sph, mesh, mats, L, intensity, eps, mesh_id, counts):
     return O2, u2, ri2, S, d, cap, lv2, N, alb, lum, is_diff, sh_active
 
 
+@_launcher
 def bounce(u2, N, alb, lum, lv2, is_diff, sh_active, t_sph, t_mesh, r1, r2,
            counts):
     """Kernel rt_bounce: (u3, direct (3, R)) of
@@ -774,6 +801,7 @@ def bounce(u2, N, alb, lum, lv2, is_diff, sh_active, t_sph, t_mesh, r1, r2,
     return u3, direct
 
 
+@_launcher
 def primary_rays(key, sample, rows, cam, W, D, quirk, sigma, half_w, half_h,
                  z, O, u, un):
     """Kernel rt_primary_rays: one sample's primary rays and uniforms of
@@ -847,6 +875,7 @@ def _plan(keys, C, shift, Rp, dev):
     return (1 << shift) - 1
 
 
+@_launcher
 def ray_rows(O, u, cap=None, active=None, layout="pairs"):
     """Kernel rt_ray_rows: the (nrows, R) f32 ray-feature rows of
     ``ops/pallas_trace.ray_rows_plain`` (``ray_row_count`` rows)."""
@@ -864,6 +893,7 @@ def ray_rows(O, u, cap=None, active=None, layout="pairs"):
     return rows
 
 
+@_launcher
 def compact_bits(keys, C, shift, O, u, nc, subg, members, cap=None,
                  active=None):
     """Kernel rt_compact_bits: (rows (nrows, C) f32, active (C,) bool or
@@ -903,6 +933,7 @@ def _bits32(d, dtype) -> int:
     return int(torch.tensor([d], dtype=dtype).view(torch.int32)) & 0xFFFFFFFF
 
 
+@_launcher
 def scatter(keys, C, shift, outs, defaults):
     """Kernel rt_scatter: the (Rp,) outputs of
     ``ops/pairs_trace.scatter_plain``: each of the (C,) f32 or int32
@@ -930,6 +961,7 @@ def scatter(keys, C, shift, outs, defaults):
     return res
 
 
+@_launcher
 def composite(steps):
     """Kernel rt_composite: the (3, R) f32 backward composite of
     ``integrator/wavefront.composite_plain`` over the depth steps

@@ -91,6 +91,7 @@ from raytracinggpu_tpu_torch.ops.pallas_trace import (
     slab_enter_exit,
 )
 from raytracinggpu_tpu_torch.ops.triangle import TriHit
+from raytracinggpu_tpu_torch.utils.profiling import count, span
 
 NUM_FIELDS = 32       # rows 0-15: MT constants; 16: original tri id;
                       # 17-25: vertex normals na/nb/nc; 26-31: pad
@@ -562,14 +563,28 @@ def _count_pending(n_act):
     return host, done
 
 
-def _tier(tiers, count) -> int:
+def _tier(tiers, pending) -> int:
     """The tightest tier that holds the active count, 0 when none does
-    (the cast then runs at full width); waits for the count."""
-    host, done = count
-    if done is not None:
-        done.synchronize()
-    n = int(host)
-    return next((C for C in tiers if n <= C), 0)
+    (the cast then runs at full width); waits for the count (``pending``:
+    ``_count_pending``'s).  While tracing is on, the wait is the span
+    ``ladder.wait`` (its attribute the count) and the counters
+    ``ladder.casts``, ``ladder.wait_ns``, and over the casts that take a
+    tier ``ladder.compacted``, ``ladder.active`` (the counts) and
+    ``ladder.capacity`` (the tiers)."""
+    host, done = pending
+    with span("ladder.wait") as wait:
+        if done is not None:
+            done.synchronize()
+        n = int(host)
+        wait.set_attr(n)
+    C = next((C for C in tiers if n <= C), 0)
+    count("ladder.casts")
+    count("ladder.wait_ns", wait.ns)
+    if C:
+        count("ladder.compacted")
+        count("ladder.active", n)
+        count("ladder.capacity", C)
+    return C
 
 
 # the union boxes of each table's tile boxes, per key_coarse, built once a
@@ -670,21 +685,35 @@ def _ladder(O, u, tab, subg, cap, active, fractions, key_coarse, blk,
     plan is None when the cast runs at full width on all of its rays (rf
     its live rows, ``_live_rows``, bits their culling), else its
     ``Compaction``, rf the live rows of its C source lanes and bits their
-    culling (``compact_bits``, one launch)."""
-    tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse,
-                                      O.x.shape[0], blk)
+    culling (``compact_bits``, one launch).
+
+    While tracing is on, the span ``ladder`` (its attribute C, 0 at full
+    width) holds ``ladder.key`` (the key and the count's copy; its
+    attribute the cast's padded rays), ``ladder.wait`` (``_tier``), then
+    ``ladder.sort`` and ``ladder.bits``, or ``cast.rows_bits``."""
+    Rp = O.x.shape[0]
+    tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse, Rp, blk)
     if not tiers:
         return None
-    skey, n_act, shift = _compact_key(O, u, boxes, knc, cap, active, valid_n)
-    C = _tier(tiers, _count_pending(n_act))
-    if not C:
-        return (_live_rows(O, u, cap, active),
-                _bits(O, u, tab, subg, cap, active), None)
-    plan = _compact_sort(skey, C, shift)
-    rf, _, bits = compact_bits(*plan, O, u, tab.tile_aabb.shape[0], subg,
-                               (tab.member_aabb, tab.member_tile), cap,
-                               active)
-    return rf, bits, plan
+    with span("ladder") as ladder:
+        with span("ladder.key", Rp):
+            skey, n_act, shift = _compact_key(O, u, boxes, knc, cap, active,
+                                              valid_n)
+            pending = _count_pending(n_act)
+        C = _tier(tiers, pending)
+        ladder.set_attr(C)
+        if not C:
+            with span("cast.rows_bits"):
+                return (_live_rows(O, u, cap, active),
+                        _bits(O, u, tab, subg, cap, active), None)
+        with span("ladder.sort"):
+            plan = _compact_sort(skey, C, shift)
+        with span("ladder.bits"):
+            rf, _, bits = compact_bits(*plan, O, u, tab.tile_aabb.shape[0],
+                                       subg,
+                                       (tab.member_aabb, tab.member_tile),
+                                       cap, active)
+        return rf, bits, plan
 
 
 # --------------------------------------------- plain versions of B0-B3
@@ -815,8 +844,9 @@ def _rows_bits(O, u, tab, subg, blk, cap, active, fractions, key_coarse):
     ladder = _ladder(O, u, tab, subg, cap, active, fractions, key_coarse,
                      blk, R)
     if ladder is None:
-        return (_ray_feature_rows(O, u), _bits(O, u, tab, subg, cap, active),
-                None, R)
+        with span("cast.rows_bits"):
+            return (_ray_feature_rows(O, u),
+                    _bits(O, u, tab, subg, cap, active), None, R)
     return (*ladder, R)
 
 
@@ -848,9 +878,11 @@ def intersect_tris_pairs(O: Vec3, u: Vec3, tab: PairsMeshTables,
     rfT, bits, plan, R = _rows_bits(O, u, tab, subg, blk, cap, None,
                                     (compact, compact2, compact3),
                                     key_coarse)
-    out = kernel(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
+    with span("cast.kernel", rfT.shape[1]):
+        out = kernel(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
     if plan is not None:
-        out = scatter(*plan, out, NO_HIT[:len(out)])
+        with span("ladder.scatter"):
+            out = scatter(*plan, out, NO_HIT[:len(out)])
     out = [o[:R] for o in out]
     hit = TriHit(t=out[0], idx=out[1])
     return (hit, Vec3(*out[2:])) if payload else hit
@@ -872,7 +904,10 @@ def intersect_tris_pairs_shadow(O: Vec3, u: Vec3, tab: PairsMeshTables,
     rfT, bits, plan, R = _rows_bits(O, u, tab, subg, blk, cap, active,
                                     (compact, compact2, compact3),
                                     key_coarse)
-    t = pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg, tile_width(tab))
+    with span("cast.kernel", rfT.shape[1]):
+        t = pairs_shadow(rfT, tab.fields, bits, eps_leaf, subg,
+                         tile_width(tab))
     if plan is not None:
-        t = scatter(*plan, (t,), NO_HIT[:1])[0]
+        with span("ladder.scatter"):
+            t = scatter(*plan, (t,), NO_HIT[:1])[0]
     return t[:R]

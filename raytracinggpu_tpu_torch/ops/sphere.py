@@ -23,6 +23,7 @@ import torch
 
 from raytracinggpu_tpu_torch.core.device import on_cuda
 from raytracinggpu_tpu_torch.core.vec import Vec3, fma, sqrt
+from raytracinggpu_tpu_torch.utils.profiling import span
 
 INF = 1e9 + 9  # reference INF; 1e9 once rounded to float32
 
@@ -95,21 +96,23 @@ def sphere_shadow_plain(O: Vec3, u: Vec3, tab: SphereTable, active=None,
 def intersect_spheres(O: Vec3, u: Vec3, tab: SphereTable):
     """``sphere_hit_plain`` on the rays' device: the kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if on_cuda(O.x):
-        from raytracinggpu_tpu_torch.ops import _kernels
+    with span("spheres"):
+        if on_cuda(O.x):
+            from raytracinggpu_tpu_torch.ops import _kernels
 
-        t, obj, N = _kernels.sphere_hit(O, u, tuple(tab))
-        return t, obj, Vec3(*N)
-    return sphere_hit_plain(O, u, tab)
+            t, obj, N = _kernels.sphere_hit(O, u, tuple(tab))
+            return t, obj, Vec3(*N)
+        return sphere_hit_plain(O, u, tab)
 
 
 def sphere_shadow(O: Vec3, u: Vec3, tab: SphereTable, active=None,
                   lv2=None):
     """``sphere_shadow_plain`` on the rays' device (the kernel in its
     shadow mode for CUDA tensors)."""
-    if on_cuda(O.x):
-        from raytracinggpu_tpu_torch.ops import _kernels
+    with span("spheres"):
+        if on_cuda(O.x):
+            from raytracinggpu_tpu_torch.ops import _kernels
 
-        return _kernels.sphere_hit(O, u, tuple(tab), full=False,
-                                   active=active, lv2=lv2)
-    return sphere_shadow_plain(O, u, tab, active, lv2)
+            return _kernels.sphere_hit(O, u, tuple(tab), full=False,
+                                       active=active, lv2=lv2)
+        return sphere_shadow_plain(O, u, tab, active, lv2)

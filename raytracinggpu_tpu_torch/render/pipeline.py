@@ -40,6 +40,7 @@ from raytracinggpu_tpu_torch.integrator.wavefront import (
 )
 from raytracinggpu_tpu_torch.ops.pallas_trace import BLK_R
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
+from raytracinggpu_tpu_torch.utils.profiling import request, span
 
 
 class Camera(NamedTuple):
@@ -164,16 +165,18 @@ def primary_rays(cfg: RenderConfig, cam: Camera, key: Key, s: int, rows_t,
     rows) and un ((max_depth, 2, nr*W), unit stride along the rays): the
     kernel ``rt_primary_rays`` for CUDA tensors, the plain version for CPU
     tensors."""
-    if not on_cuda(rows_t):
-        primary_rays_into(cfg, cam, key, s, rows_t, rows, O, u, un)
-        return
-    from raytracinggpu_tpu_torch.ops import _kernels
+    with span("primary_rays"):
+        if not on_cuda(rows_t):
+            primary_rays_into(cfg, cam, key, s, rows_t, rows, O, u, un)
+            return
+        from raytracinggpu_tpu_torch.ops import _kernels
 
-    f32 = lambda v: float(np.float32(v))
-    _kernels.primary_rays(
-        key, s, rows_t, (*cam.C, *cam.bx, *cam.by, *cam.bz), cfg.width,
-        cfg.max_depth, cfg.camera_point_quirk, f32(cfg.sigma),
-        f32(cfg.width / 2.0), f32(cfg.height / 2.0), _focal_z(cfg), O, u, un)
+        f32 = lambda v: float(np.float32(v))
+        _kernels.primary_rays(
+            key, s, rows_t, (*cam.C, *cam.bx, *cam.by, *cam.bz), cfg.width,
+            cfg.max_depth, cfg.camera_point_quirk, f32(cfg.sigma),
+            f32(cfg.width / 2.0), f32(cfg.height / 2.0), _focal_z(cfg), O, u,
+            un)
 
 
 def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs",
@@ -283,12 +286,14 @@ def render_rows(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
     one sample at a time in sample order, from zero: the sum
     ``sum_samples`` forms from ``sample_colors``, bit for bit."""
     R = len(rows) * cfg.width
-    acc = Vec3.zeros((R,), device=scene.device)
-    stats = None
-    for col, g, st in _wavefronts(scene, cfg, cam, key, rows, sample_ids):
-        for i in range(g):
-            acc = acc + Vec3(*(c[i * R:(i + 1) * R] for c in col))
-        stats = _add_stats(stats, st)
+    with request("render"):
+        acc = Vec3.zeros((R,), device=scene.device)
+        stats = None
+        for col, g, st in _wavefronts(scene, cfg, cam, key, rows,
+                                      sample_ids):
+            for i in range(g):
+                acc = acc + Vec3(*(c[i * R:(i + 1) * R] for c in col))
+            stats = _add_stats(stats, st)
     return acc, stats
 
 
@@ -301,9 +306,12 @@ def sample_colors(scene: SceneTables, cfg: RenderConfig, cam: Camera,
     so each equals the term it adds."""
     R = len(rows) * cfg.width
     cols, stats = [], None
-    for col, g, st in _wavefronts(scene, cfg, cam, key, rows, sample_ids):
-        cols.append(torch.stack(tuple(col)).reshape(3, g, R).transpose(0, 1))
-        stats = _add_stats(stats, st)
+    with request("render"):
+        for col, g, st in _wavefronts(scene, cfg, cam, key, rows,
+                                      sample_ids):
+            cols.append(torch.stack(tuple(col)).reshape(3, g, R)
+                        .transpose(0, 1))
+            stats = _add_stats(stats, st)
     return torch.cat(cols), stats
 
 
@@ -337,11 +345,14 @@ def render_preset_frame(scene: SceneTables, cfg: RenderConfig, seed: int = 0,
                         cam: Camera | None = None):
     """Host entry: (numpy image HxWx3 float32, TraceStats of numpy arrays)
     at ``PRNGKey(seed)``."""
-    dev = scene.device
-    if cam is None:
-        cam = Camera.default(cfg, dev)
-    img, stats = render_frame(scene, cfg, cam, PRNGKey(seed, dev))
-    return img.cpu().numpy(), TraceStats(*(s.cpu().numpy() for s in stats))
+    with request("frame"):
+        dev = scene.device
+        if cam is None:
+            cam = Camera.default(cfg, dev)
+        img, stats = render_frame(scene, cfg, cam, PRNGKey(seed, dev))
+        with span("frame.readback"):
+            return img.cpu().numpy(), TraceStats(*(s.cpu().numpy()
+                                                   for s in stats))
 
 
 def rays_per_frame(cfg: RenderConfig) -> int:

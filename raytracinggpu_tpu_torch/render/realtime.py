@@ -39,6 +39,7 @@ from raytracinggpu_tpu_torch.render.image_io import tonemap_device, write_png
 from raytracinggpu_tpu_torch.render.pipeline import Camera, render_rows
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
 from raytracinggpu_tpu_torch.scene.transform import pose_mesh, rotation_y
+from raytracinggpu_tpu_torch.utils.profiling import request, span
 
 YAW_PITCH_STEP = 0.02   # realtime_render.cu arrow keys
 MOVE_STEP = 2.0         # realtime_render.cu a/d/r/f/w/s
@@ -100,26 +101,31 @@ def step(scene: SceneTables, cfg: RenderConfig, state: RenderState,
     Returns (new_state, display (H, W, 3) uint8 on the device).  Each
     angle advances as XLA:CPU rounds the JAX package's ``angle + speed *
     dt``: one fused multiply-add."""
-    dev = state.accum.device
-    angle = fma(np.float32(angular_speed), np.float32(dt), state.light_angle)
-    scene_t = orbit_light(scene, angle)
-    mesh_angle = state.mesh_angle
-    if cfg.animate_mesh:
-        mesh_angle = fma(np.float32(mesh_speed), np.float32(dt), mesh_angle)
-        scene_t = pose_mesh(scene_t, rotation_y(mesh_angle))
-    cam = Camera.from_yaw_pitch(state.cam_c, state.yaw, state.pitch, dev)
-    rows = np.arange(cfg.height, dtype=np.int32)
-    acc, _ = render_rows(scene_t, cfg, cam,
-                         fold_in(state.key, state.rng_frame), rows,
-                         range(cfg.spp))
-    frame = torch.stack([(c / float(cfg.spp)).reshape(cfg.height, cfg.width)
-                         for c in acc], dim=-1)
-    accum = state.accum + frame
-    frames = state.frames + 1
-    display = tonemap_device(accum / frames.to(torch.float32))
-    new_state = state._replace(accum=accum, frames=frames,
-                               rng_frame=state.rng_frame + 1,
-                               light_angle=angle, mesh_angle=mesh_angle)
+    with request("step"):
+        dev = state.accum.device
+        angle = fma(np.float32(angular_speed), np.float32(dt),
+                    state.light_angle)
+        scene_t = orbit_light(scene, angle)
+        mesh_angle = state.mesh_angle
+        if cfg.animate_mesh:
+            mesh_angle = fma(np.float32(mesh_speed), np.float32(dt),
+                             mesh_angle)
+            scene_t = pose_mesh(scene_t, rotation_y(mesh_angle))
+        cam = Camera.from_yaw_pitch(state.cam_c, state.yaw, state.pitch, dev)
+        rows = np.arange(cfg.height, dtype=np.int32)
+        acc, _ = render_rows(scene_t, cfg, cam,
+                             fold_in(state.key, state.rng_frame), rows,
+                             range(cfg.spp))
+        with span("step.accumulate_tonemap"):
+            frame = torch.stack([(c / float(cfg.spp))
+                                 .reshape(cfg.height, cfg.width)
+                                 for c in acc], dim=-1)
+            accum = state.accum + frame
+            frames = state.frames + 1
+            display = tonemap_device(accum / frames.to(torch.float32))
+        new_state = state._replace(accum=accum, frames=frames,
+                                   rng_frame=state.rng_frame + 1,
+                                   light_angle=angle, mesh_angle=mesh_angle)
     return new_state, display
 
 
@@ -215,9 +221,12 @@ def run_loop(scene: SceneTables, cfg: RenderConfig, n_frames: int,
     frames_per_dispatch (g): enqueue g frames before reading any of them
     back; the frames are bitwise those of g = 1.
 
-    Returns (final_state, {"frames", "mean_ms", "fps", "first_frame_ms"}):
-    frame times on the host clock, read-back included, PNG and pipe writes
-    excluded; the mean skips the first g frames."""
+    Returns (final_state, {"frames", "mean_ms", "fps", "p95_ms",
+    "first_frame_ms"}) over every frame's interval on the host clock: from
+    the arrival of the display before it (the first frame's from the
+    loop's start) to its own, the PNG and pipe writes between them left
+    out; the displays of one dispatch arrive together and share its
+    interval evenly.  ``mean_ms`` and ``fps`` are the loop's own rate."""
     state = init_state(cfg, scene, seed)
     times: list[float] = []
     g = max(1, int(frames_per_dispatch))
@@ -237,14 +246,17 @@ def run_loop(scene: SceneTables, cfg: RenderConfig, n_frames: int,
                       f"({1.0 / times[-1]:.1f} FPS)",
                       file=sys.stderr if raw_pipe is not None else sys.stdout)
 
-    def finish(i0, handle, t0):
+    last = time.perf_counter()  # the last arrival, after its writes
+
+    def finish(i0, handle):
+        nonlocal last
         displays = _ready(handle)
-        times.extend([(time.perf_counter() - t0) / len(displays)]
+        times.extend([(time.perf_counter() - last) / len(displays)]
                      * len(displays))
         emit(i0, displays)
+        last = time.perf_counter()
 
     pending = None  # (first index, fetch handle) not yet read back
-    t0 = time.perf_counter()
     i = 0
     while i < n_frames:
         gi = min(g, n_frames - i)
@@ -252,21 +264,20 @@ def run_loop(scene: SceneTables, cfg: RenderConfig, n_frames: int,
                                 mesh_speed=mesh_speed)
         handle = _fetch(displays)
         if pending is not None:
-            finish(*pending, t0)
+            finish(*pending)
             pending = None
-            t0 = time.perf_counter()  # after emit: writes are not timed
         if pipelined:
             pending = (i, handle)
         else:
-            finish(i, handle, t0)
-            t0 = time.perf_counter()
+            finish(i, handle)
         i += gi
     if pending is not None:
-        finish(*pending, t0)
+        finish(*pending)
     if not times:
         return state, {"frames": 0, "mean_ms": 0.0, "fps": 0.0,
-                       "first_frame_ms": 0.0}
-    steady = times[g:] or times
-    return state, {"frames": n_frames, "mean_ms": float(np.mean(steady) * 1e3),
-                   "fps": float(1.0 / np.mean(steady)),
+                       "p95_ms": 0.0, "first_frame_ms": 0.0}
+    mean = float(np.mean(times))
+    return state, {"frames": n_frames, "mean_ms": mean * 1e3,
+                   "fps": 1.0 / mean,
+                   "p95_ms": float(np.percentile(times, 95) * 1e3),
                    "first_frame_ms": float(times[0] * 1e3)}

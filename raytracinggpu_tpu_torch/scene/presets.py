@@ -37,6 +37,7 @@ from raytracinggpu_tpu_torch.scene.scene import (
     SceneTables,
     build_scene_tables,
 )
+from raytracinggpu_tpu_torch.utils.profiling import span
 
 PRESET_NAMES = ("cpu", "global", "optimized", "array_bvh", "realtime", "showcase")
 
@@ -127,19 +128,21 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
     spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
     L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
     if mesh is None:
-        mesh = load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset])
+        with span("build.mesh"):
+            mesh = load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset])
     if cfg.smooth_normals and not np.any(mesh.na):
         # A mesh without vertex normals: Phong interpolation of the all-zero
         # fallback normals would give N = 0 and NaN bounce rays.
         warnings.warn("mesh has no vertex normals; smooth_normals disabled "
                       "(geometric normals used instead)", stacklevel=2)
         cfg = replace(cfg, smooth_normals=False)
-    tables = build_scene_tables(
-        spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
-        mesh_albedo=(0.25, 0.25, 0.25), tri_block=cfg.tri_block,
-        pairs_tile=cfg.pairs_tile, pairs_cluster=cfg.pairs_cluster,
-        pairs_cut=cfg.pairs_cut, pairs_pack=cfg.pairs_pack,
-    )
+    with span("build.tables"):
+        tables = build_scene_tables(
+            spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
+            mesh_albedo=(0.25, 0.25, 0.25), tri_block=cfg.tri_block,
+            pairs_tile=cfg.pairs_tile, pairs_cluster=cfg.pairs_cluster,
+            pairs_cut=cfg.pairs_cut, pairs_pack=cfg.pairs_pack,
+        )
     return _autotune_pairs(cfg, tables, config_overrides), tables
 
 

@@ -1,7 +1,8 @@
 """Tracing and profiling (port of ``raytracinggpu_tpu/utils/profiling.py``):
-``PhaseTimer``, ``device_trace`` (a ``torch.profiler`` trace written to a
-directory), ``ray_report`` (a frame's ray counts from its TraceStats), and
-where a frame's time goes on the card:
+the program's tracer (below), ``device_trace`` (a ``torch.profiler`` trace
+written to a directory, the tracer's spans in it), ``ray_report`` (a
+frame's ray counts from its TraceStats), and where a frame's time goes on
+the card:
 
     python -m raytracinggpu_tpu_torch.utils.profiling [--preset P]
         [--traversal T] [--obj PATH [--bvh-builder B]] [--out FILE.json]
@@ -29,11 +30,44 @@ One frame warms up, then one frame for each of
 
 Prints a readable report and, with ``--out``, writes it as JSON.  Without
 a CUDA device it exits nonzero.
+
+The tracer records the program's spans and counters at its layer
+boundaries, in memory, on ``time.perf_counter_ns``:
+
+- ``span(name, attr=None)``, a context manager: a span's name, its
+  optional integer attribute (a depth index, a ray count; ``set_attr``
+  sets it inside the span), its start and end, the span that encloses it
+  and its request's id.  A span that no other encloses opens a new
+  request (a frame, a loop step, a build): the spans inside it share its
+  id.  ``request(name)`` is the span at an entry point;
+- ``count(name, n=1)``: a named sum; ``timed(name)`` decorates a
+  function whose calls add their host ns to ``<name>.ns`` and their
+  number to ``<name>.calls``;
+- ``tracing()`` (or ``enable()`` / ``disable()``) turns it on and off,
+  ``collect()`` returns the record (``Trace``) of the last time it was
+  on.  Besides, tracing follows a ``torch.profiler`` session: the first
+  request that starts while one records turns tracing on with a new
+  record, the first that starts after it ended turns it off.  So a
+  profiled window holds both the profiler's events and the program's
+  spans, and ``Trace.from_profiler_ns`` puts the first on the second's
+  clock from the clock pairs the tracer reads when it turns on and off
+  and at ``collect()`` (``time.perf_counter_ns`` beside
+  ``time.time_ns``, the Unix-epoch clock of the profiler's events).  That
+  holds for the profiler's host events (a kernel's launch call lies in
+  the span that made it); its device events carry the CUDA profiling
+  interface's own conversion of the device's clock, which can wander from
+  the host's by up to milliseconds within a window (PERF.md), so a kernel
+  is placed by its launch call.
+
+Off, the default, ``span`` returns one shared object that does nothing
+and ``count`` returns, each after one global check: no allocation and no
+clock read.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib
 import json
 import os
@@ -41,7 +75,9 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+from time import perf_counter_ns
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,34 +117,286 @@ PRESETS = {"array_bvh": dict(width=512, height=512, spp=32, max_depth=5),
 OBJ_FRAME = dict(width=512, height=512, spp=4, max_depth=2)
 
 
+# ---------------------------------------------------------------- the tracer
+
+class SpanRecord(NamedTuple):
+    """One span of a ``Trace``: ``parent`` is the index in ``Trace.spans``
+    of the span that encloses it (-1: none, it opened request ``frame``),
+    ``end_ns`` None while it is open."""
+
+    name: str
+    attr: int | None
+    start_ns: int
+    end_ns: int | None
+    parent: int
+    frame: int
+
+
 @dataclass
-class PhaseTimer:
-    """Named host-clock phases; synchronise the device before a phase ends
-    to time device work."""
+class Trace:
+    """What the tracer kept while it was on: the spans in the order they
+    started, the counters, and (perf_counter ns, profiler-clock ns) pairs
+    read back to back."""
 
-    phases: dict = field(default_factory=dict)
+    spans: list
+    counters: dict
+    clocks: list
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = (self.phases.get(name, 0.0)
-                                 + time.perf_counter() - t0)
+    def self_ns(self) -> list:
+        """Each closed span's duration less that of its closed children
+        (None for an open span)."""
+        out = [None if s.end_ns is None else s.end_ns - s.start_ns
+               for s in self.spans]
+        for s in self.spans:
+            if s.parent >= 0 and s.end_ns is not None \
+                    and out[s.parent] is not None:
+                out[s.parent] -= s.end_ns - s.start_ns
+        return out
 
-    def report(self) -> str:
-        total = sum(self.phases.values())
-        return " | ".join(f"{k}: {v:.3f}s ({v / total:.0%})"
-                          for k, v in self.phases.items())
+    def _line(self) -> tuple:
+        """(p0, a, b): the profiler clock less the span clock is a + b (p -
+        p0) at span-clock time p, the line through the first and the last
+        clock pair (b: the two clocks' drift)."""
+        (p0, w0), (p1, w1) = self.clocks[0], self.clocks[-1]
+        a = w0 - p0
+        return p0, a, 0.0 if p1 == p0 else ((w1 - p1) - a) / (p1 - p0)
+
+    def from_profiler_ns(self, t_ns: int) -> int:
+        """A ``torch.profiler`` timestamp (Unix-epoch ns) on the span
+        clock (perf_counter ns)."""
+        p0, a, b = self._line()
+        q = int(t_ns) - a
+        return q - round(b * (q - p0) / (1.0 + b))
+
+    def to_profiler_ns(self, t_ns: int) -> int:
+        """A span-clock time on the ``torch.profiler`` clock."""
+        p0, a, b = self._line()
+        return int(t_ns) + a + round(b * (int(t_ns) - p0))
+
+
+def _clock_pair() -> tuple:
+    """(perf_counter ns, time_ns) read back to back: of three tries, the
+    one whose two perf_counter reads lie closest, at their middle."""
+    best = None
+    for _ in range(3):
+        a = perf_counter_ns()
+        w = time.time_ns()
+        b = perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, w)
+    return best[1], best[2]
+
+
+class _Recorder:
+    """The record being written: one row (name, attr, start, end, parent,
+    request) a span, None until the span ends; the open spans, outermost
+    first; counters; clock pairs."""
+
+    __slots__ = ("spans", "stack", "counters", "clocks", "frames")
+
+    def __init__(self):
+        self.spans, self.stack, self.counters = [], [], {}
+        self.clocks = [_clock_pair()]
+        self.frames = 0
+
+    def trace(self) -> Trace:
+        spans = [None if row is None else SpanRecord(*row)
+                 for row in self.spans]
+        for k, open_ in enumerate(self.stack):
+            spans[open_.index] = SpanRecord(
+                open_.name, open_.attr, open_.t0,
+                None, self.stack[k - 1].index if k else -1, self.frames)
+        return Trace(spans, dict(self.counters), list(self.clocks))
+
+
+class _Span:
+    __slots__ = ("rec", "name", "attr", "index", "t0", "t1")
+
+    def __init__(self, rec, name, attr):
+        self.rec, self.name, self.attr = rec, name, attr
+
+    def __enter__(self):
+        rec = self.rec
+        if not rec.stack:
+            rec.frames += 1
+        self.index = len(rec.spans)
+        rec.spans.append(None)
+        rec.stack.append(self)
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = perf_counter_ns()
+        rec = self.rec
+        stack = rec.stack
+        stack.pop()
+        # a row of atoms only: the garbage collector stops tracking it
+        rec.spans[self.index] = (self.name, self.attr, self.t0, self.t1,
+                                 stack[-1].index if stack else -1,
+                                 rec.frames)
+        return False
+
+    def set_attr(self, attr) -> None:
+        self.attr = attr
+
+    @property
+    def ns(self) -> int:
+        """The span's duration, once it ended."""
+        return self.t1 - self.t0
+
+
+class _Off:
+    """The span while tracing is off: it does nothing."""
+
+    __slots__ = ()
+    ns = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set_attr(self, attr) -> None:
+        pass
+
+
+_OFF = _Off()
+_REC = None          # the record being written; None: tracing is off
+_LAST = None         # the record of the last time tracing was on
+_BY_PROFILER = False  # tracing was turned on by a torch.profiler session
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+def span(name: str, attr=None):
+    """A span of the program (see the module's docstring); with tracing
+    off, the shared object that does nothing."""
+    if _REC is None:
+        return _OFF
+    return _Span(_REC, name, attr)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter ``name`` while tracing is on."""
+    if _REC is None:
+        return
+    c = _REC.counters
+    c[name] = c.get(name, 0) + n
+
+
+def timed(name: str):
+    """Decorate a function so that, while tracing is on, each call adds
+    its host ns to the counter ``<name>.ns`` and one to ``<name>.calls``."""
+    ns_key, calls_key = f"{name}.ns", f"{name}.calls"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            rec = _REC
+            if rec is None:
+                return fn(*args, **kwargs)
+            t0 = perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                c = rec.counters
+                c[ns_key] = c.get(ns_key, 0) + perf_counter_ns() - t0
+                c[calls_key] = c.get(calls_key, 0) + 1
+        return call
+    return wrap
+
+
+def enable() -> bool:
+    """Turn tracing on with a new record; False (and nothing done) when it
+    is on already."""
+    global _REC, _BY_PROFILER
+    if _REC is not None:
+        return False
+    _REC, _BY_PROFILER = _Recorder(), False
+    return True
+
+
+def disable() -> None:
+    """Turn tracing off; ``collect()`` then returns its record."""
+    global _REC, _LAST, _BY_PROFILER
+    if _REC is not None:
+        _REC.clocks.append(_clock_pair())
+        _LAST, _REC, _BY_PROFILER = _REC, None, False
+
+
+def collect() -> Trace | None:
+    """The record of tracing while it is on (a clock pair read now added),
+    else of the last time it was on; None if it never was."""
+    if _REC is not None:
+        _REC.clocks.append(_clock_pair())
+        return _REC.trace()
+    return None if _LAST is None else _LAST.trace()
+
+
+@contextlib.contextmanager
+def tracing():
+    """Tracing on for the block (sharing the record when it is on
+    already); yields nothing: ``collect()`` after the block reads it."""
+    started = enable()
+    try:
+        yield
+    finally:
+        if started:
+            disable()
+
+
+def open_spans() -> list:
+    """(name, attribute) of each span open now, the outermost first; none
+    while tracing is off."""
+    if _REC is None:
+        return []
+    return [(s.name, s.attr) for s in _REC.stack]
+
+
+def request(name: str, attr=None):
+    """The span of a request's entry point (a frame, a loop step): a
+    ``span``, which besides turns tracing on when a ``torch.profiler``
+    session records and tracing is off, and off when tracing was turned on
+    by a session that has ended."""
+    global _BY_PROFILER
+    if _profiler_on():
+        if enable():
+            _BY_PROFILER = True
+    elif _BY_PROFILER:
+        disable()
+    return span(name, attr)
+
+
+def _write_spans(path: str, trace: Trace) -> None:
+    """Add the trace's closed spans to the Chrome trace at ``path`` as
+    complete events of one thread, "program spans", of this process, on
+    the profiler's clock (the file's times are us from its
+    ``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid, tid = os.getpid(), 0
+    events = doc.setdefault("traceEvents", [])
+    events.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                   "args": {"name": "program spans"}})
+    for s in trace.spans:
+        if s.end_ns is None:
+            continue
+        events.append({
+            "name": s.name, "ph": "X", "cat": "program", "pid": pid,
+            "tid": tid, "ts": (trace.to_profiler_ns(s.start_ns) - base) / 1e3,
+            "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"attr": s.attr, "frame": s.frame}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def device_trace(out_dir: str | None):
     """A ``torch.profiler`` trace of the block (host and, with a CUDA
-    device, the card), written to ``out_dir``/trace.json in the Chrome
-    trace format (chrome://tracing, Perfetto); nothing when out_dir is
-    None."""
+    device, the card), with the tracer on and its spans added, written to
+    ``out_dir``/trace.json in the Chrome trace format (chrome://tracing,
+    Perfetto); nothing when out_dir is None."""
     if out_dir is None:
         yield
         return
@@ -117,12 +405,14 @@ def device_trace(out_dir: str | None):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, tracing():
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path, collect())
 
 
 def ray_report(stats, spp: int, width: int, height: int, wall_s: float) -> dict:

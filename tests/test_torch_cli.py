@@ -7,7 +7,6 @@ device unless asked for the CPU, and the profiling helpers it reports
 with (utils/profiling.py)."""
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -192,19 +191,6 @@ def test_ray_report_matches_the_jax_package():
     assert ray_report(stats, 4, 16, 8, 0.25) == jax_report(stats_np, 4, 16, 8,
                                                            0.25)
     assert ray_report(stats, 4, 16, 8, 0.0)["mrays_per_sec"] == 0.0
-
-
-def test_phase_timer_accumulates_named_phases():
-    from raytracinggpu_tpu_torch.utils.profiling import PhaseTimer
-
-    pt = PhaseTimer()
-    for name in ("build", "render", "build"):
-        with pt.phase(name):
-            time.sleep(0.01)
-    assert list(pt.phases) == ["build", "render"]
-    assert pt.phases["build"] >= 0.02 and pt.phases["render"] >= 0.01
-    rep = pt.report()
-    assert rep.startswith("build: ") and " | render: " in rep and "%)" in rep
 
 
 def test_default_device_needs_cuda(monkeypatch):
