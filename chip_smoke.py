@@ -18,7 +18,8 @@ Phases, in order; any failed check exits nonzero:
    spp 32, depth 5) once with the compaction ladder off (every cast at
    full width, as in earlier versions of this script) while keeping the
    inputs the frame gives each kernel at depths 0 and 1 of its first cast
-   (4 samples fused, 524,288 rays); on those inputs B1 and B2 must equal
+   (4 samples fused, 1,048,576 rays: one cast of
+   ``render/pipeline.pairs_cast_width``); on those inputs B1 and B2 must equal
    their plain PyTorch versions bit for bit, and so must B0, whose (t,
    idx) must also equal B1's on the closest casts;
 4. headline frame: render the main-path frame through the public entry
@@ -45,14 +46,15 @@ Phases, in order; any failed check exits nonzero:
       off) with the inputs of B3's and B2's depth-0 and depth-1 casts
       kept; on them B3,
       B2 and B0 must equal their plain versions bit for bit, and B0's
-      (t, idx) B3's; B3 must launch 30 times and B1 never;
+      (t, idx) B3's; B3 must launch once a cast (``_casts``: 15 a frame
+      at the cat's 2^20-ray casts) and B1 never;
    b. realtime anchor: the same frame through ``render_rows`` (the ladder
       on) must equal the step's frame, hit the enclosed scene with every
       ray at every
       depth, and its mean must lie within 1% of the JAX package's CPU
       render (ANCHOR_RT_* below);
    c. ``run_loop`` over LOOP_FRAMES frames with the counters zeroed just
-      before: B3 launched 30 times a frame and B1 never; frames, rng_frame
+      before: B3 launched once a cast and B1 never; frames, rng_frame
       and the light angle advanced; the image finite; the last display
       the tonemap of the average; ms per frame (the call's wall time over
       its frames), FPS and Mray/s printed;
@@ -93,7 +95,8 @@ Phases, in order; any failed check exits nonzero:
     table):
    a. the host build: its seconds, the tables' sizes and the subgroup;
    b. one frame (the ladder off) with the inputs of the depth-0 and
-      depth-1 closest and shadow casts kept (524,288 rays each) and the
+      depth-1 closest and shadow casts kept (1,048,576 rays each, one cast
+      a wavefront) and the
       peak device memory; on
       the busiest WINDOW_RAYS rays of each kept cast B1, B2 and B0 must
       equal their plain versions bit for bit, and so must B3 on a copy of
@@ -101,7 +104,7 @@ Phases, in order; any failed check exits nonzero:
       and B3's (t, idx) must equal B1's;
    c. the frame again (the ladder on) with the counters zeroed: finite,
       equal to the capture frame, every ray hits at every depth, B1 and B2
-      launched once per cast (BIG_CASTS each) and no other kernel; three
+      launched once per cast (``_casts``) and no other kernel; three
       frames timed, Mray/s printed;
    d. the same frame at ``pairs_subgroup=64`` (the soup's is 16) must
       equal it bit for bit; three frames timed, and B1 and B2 on the
@@ -123,8 +126,9 @@ Phases, in order; any failed check exits nonzero:
     slope, B7b mask in the kernel, B7c uniform branch, B7d row gather, B7e
     pair slope):
    a. at the entry point's defaults (PROBE_DEFAULT: 131,072 rays, 31
-      tiles) and at the main path's cast size (PROBE_CAST: 524,288 rays,
-      the cat's 40 tiles) every configuration of every probe (B7a at each
+      tiles) and at a cast of the cat (PROBE_CAST: 524,288 rays, the
+      cat's 40 tiles; the main path's casts were that wide until they
+      took a whole wavefront) every configuration of every probe (B7a at each
       L, B7b and its control, B7c under both masks, B7d, B7e at subgroups
       8, 16, 32, 64 and each L) must equal its plain version bit for bit;
    b. the entry point, ``bench.micro_kernel.main([])``, with the counters
@@ -152,7 +156,7 @@ Phases, in order; any failed check exits nonzero:
     packing):
    a. ``run_loop`` of the ``realtime`` preset with ``animate_mesh`` over
       LOOP_FRAMES frames, the counters zeroed just before: B3 and B2
-      launched 30 times a frame and B1 never, the mesh angle advanced by
+      launched once a cast and B1 never, the mesh angle advanced by
       mesh_speed * dt a frame, the image finite; frame 2 from two
       ``step`` calls equals the loop's, and on its depth-0 and depth-1
       casts, which read the posed fields, B3, B2 and B0 must equal their
@@ -235,8 +239,9 @@ Phases, in order; any failed check exits nonzero:
       loop's frame 1, the animated loop's frame 1 and the soup frame
       (``pairs_key_coarse`` 32: its 2,053 tiles key as 65 boxes, key mode
       1) must be bitwise the same image with the same TraceStats, and
-      launch B1 and B2 80 times (headline), B3 and B2 30 (realtime and
-      animated), B1 and B2 4 (soup) both ways; per depth and query, the
+      launch B1 and B2 (headline; B3 and B2 realtime and animated) once
+      a cast both ways (``_casts``: 40, 15 and 15 at the cat's 2^20-ray
+      casts), B1 and B2 2 (soup); per depth and query, the
       tiers each cast took and its active count over its rays;
    b. B1 and B2 on the headline's, B3 and B2 on the realtime frame's
       captured depth-1 and depth-2 casts with the ladder on (compacted
@@ -390,7 +395,7 @@ Phases, in order; any failed check exits nonzero:
       versions patched in, which launch none of them;
    c. a headline frame's device operations (utils/profiling.device_kernels)
       in all and with its mesh casts replayed, a pairs cast's (their
-      difference over the 160 casts) beside the parent's (PARENT_OPS,
+      difference over the frame's casts) beside the parent's (PARENT_OPS,
       PARENT_CAST_OPS), by wrapper; ray_rows + compact_bits one a pairs
       cast, scatter as often as compact_bits, composite one a trace, and
       the frame under half of PARENT_OPS; a compacted cast's device
@@ -484,7 +489,6 @@ CLUSTERINGS = {"sah": ("sah", "morton", 0), "sah-pave": ("sah", "pave", 32),
 # ORACLE_RAYS
 BIG_TRIS = 200_000
 BIG_FRAME = dict(width=512, height=512, spp=4, max_depth=2)
-BIG_CASTS = 4   # casts of each kernel in that frame: 2 depths x 2 chunks
 ST_SLOTS = 32768
 WINDOW_RAYS = 16384
 ORACLE_RAYS = 8192
@@ -493,8 +497,8 @@ ORACLE_RAYS = 8192
 # O(1) sums in another order)
 EDGE_MARGIN = 1e-5
 
-# Phase 11: (rays, tiles) of the probe entry point's defaults and of the
-# main path's casts (the cat's pairs tiles)
+# Phase 11: (rays, tiles) of the probe entry point's defaults and of a
+# cast of the cat (its pairs tiles)
 PROBE_DEFAULT = (131072, 31)
 PROBE_CAST = (524288, 40)
 
@@ -773,6 +777,21 @@ def _none() -> dict:
             + _kernels.GLUE}
 
 
+def _casts(cfg, tables, rows=None, spp=None, traversal="pairs"):
+    """Casts of each mesh query in a frame of ``rows`` rows (all of them)
+    and ``spp`` samples (cfg.spp): a cast of each depth for every cast of
+    ``chunk_size`` rays in each wavefront."""
+    from raytracinggpu_tpu_torch.render.pipeline import chunk_size, group_size
+
+    rows = cfg.height if rows is None else rows
+    spp = cfg.spp if spp is None else spp
+    g = group_size(cfg, spp)
+    R = g * rows * cfg.width
+    n_tiles = tables.pallas_mesh.n_tiles if traversal == "pallas" else 0
+    return (spp // g) * cfg.max_depth * -(-R // chunk_size(
+        cfg, R, traversal, n_tiles, scene=tables))
+
+
 def _ladder_off(cfg):
     """``cfg`` with every tier of the compaction ladder at 0: each pairs
     cast at full width (the frame is the same)."""
@@ -1011,7 +1030,7 @@ def _realtime(device, card, err, timing):
     from raytracinggpu_tpu_torch.render import realtime as rt
     from raytracinggpu_tpu_torch.render.image_io import tonemap
     from raytracinggpu_tpu_torch.render.pipeline import (
-        Camera, chunk_size, group_size, rays_per_frame, render_rows)
+        Camera, rays_per_frame, render_rows)
     from raytracinggpu_tpu_torch.scene.presets import build_preset
     from raytracinggpu_tpu_torch.utils.checkpoint import load_state, save_state
 
@@ -1019,16 +1038,14 @@ def _realtime(device, card, err, timing):
     cfg, tables = build_preset("realtime", device)
     torch.cuda.synchronize()
     W, H, spp = cfg.width, cfg.height, cfg.spp
-    g = group_size(cfg, spp)
-    per_frame = (spp // g) * cfg.max_depth * -(-g * W * H
-                                               // chunk_size(cfg, g * W * H))
+    per_frame = _casts(cfg, tables)
     print(f"scene: realtime {W}x{H} spp {spp} depth {cfg.max_depth}, smooth "
           f"normals {cfg.smooth_normals}, {per_frame} closest casts a frame, "
           f"built in {time.perf_counter() - t0:.2f} s")
-    if ((W, H, spp, cfg.max_depth, per_frame) != (512, 512, 20, 3, 30)
+    if ((W, H, spp, cfg.max_depth) != (512, 512, 20, 3)
             or not cfg.smooth_normals):
         _fail("the realtime preset is not 512x512 spp 20 depth 3 with smooth "
-              "normals and 30 closest casts a frame")
+              "normals")
     want = lambda n: {**_none(),
                       "pairs_closest_smooth": n * per_frame,
                       "pairs_shadow": n * per_frame}
@@ -1371,7 +1388,7 @@ def _big_mesh(device, card, err):
     from raytracinggpu_tpu_torch.ops import pallas_trace as pat
     from raytracinggpu_tpu_torch.ops.triangle import intersect_tris_dense
     from raytracinggpu_tpu_torch.render.pipeline import (
-        chunk_size, group_size, rays_per_frame, render_preset_frame)
+        rays_per_frame, render_preset_frame)
 
     # a. the host build through the public entry point
     with tempfile.TemporaryDirectory() as d:
@@ -1397,14 +1414,7 @@ def _big_mesh(device, card, err):
           f"{tables.pallas_mesh.n_tiles} tiled-traversal tiles")
     if Tc <= ST_SLOTS:
         _fail(f"the soup's fields hold {Tc} slots, not past {ST_SLOTS}")
-    W_, H_, spp = cfg.width, cfg.height, cfg.spp
-    g = group_size(cfg, spp)
-    R_group = g * W_ * H_
-    n_casts = (spp // g) * cfg.max_depth * -(-R_group // chunk_size(cfg,
-                                                                   R_group))
-    if n_casts != BIG_CASTS:
-        _fail(f"the soup frame makes {n_casts} casts a kernel, expected "
-              f"{BIG_CASTS}")
+    n_casts = _casts(cfg, tables)
 
     # b. per cast, on the busiest window of each kept cast; B3 on a copy of
     # the fields with seeded unit vertex normals (the soup has none)
@@ -1436,7 +1446,7 @@ def _big_mesh(device, card, err):
     img, stats = r.render_hdr(seed=0)
     counted_s = time.perf_counter() - t0
     launches = _launched()
-    n_rays = W_ * H_ * spp
+    n_rays = cfg.width * cfg.height * cfg.spp
     print(f"soup frame: {counted_s:.3f} s, launches {launches}, hit per depth "
           f"{stats.hit.tolist()}, shadowed {stats.shadowed.tolist()}, image "
           f"mean {float(img.mean()):.3f}")
@@ -1498,7 +1508,8 @@ def _big_mesh(device, card, err):
     imgp, statsp = render_preset_frame(tables, cfgp, seed=0)
     launches_p = _launched()
     expected = _none()
-    expected.update(pallas_closest=n_casts, pallas_shadow=n_casts)
+    casts_p = _casts(cfgp, tables, traversal="pallas")
+    expected.update(pallas_closest=casts_p, pallas_shadow=casts_p)
     diff = float(np.abs(imgp.astype(np.float64) - img).max())
     print(f"soup pallas frame: launches {launches_p}, hit per depth "
           f"{statsp.hit.tolist()}, shadowed {statsp.shadowed.tolist()}; "
@@ -1705,15 +1716,12 @@ def _sweep_and_presets(device, card, headline_mrays):
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.render.pipeline import (
-        Camera, chunk_size, group_size, rays_per_frame, render_frame)
+        Camera, rays_per_frame, render_frame)
     from raytracinggpu_tpu_torch.scene.presets import (
         build_preset, make_config)
 
-    def casts(cfg):
-        g = group_size(cfg, cfg.spp)
-        R_group = g * cfg.width * cfg.height
-        return (cfg.spp // g) * cfg.max_depth * -(-R_group
-                                                  // chunk_size(cfg, R_group))
+    cat = build_preset("array_bvh", device)[1]  # the sweep's tables
+    casts = lambda cfg: _casts(cfg, cat)
 
     # a. the sweep through the public function
     spps, bounces, repeats = (8, 32), (3, 5), 3
@@ -1829,7 +1837,7 @@ def _animated_loop(device, card, err, unanimated_ms):
     if (W, H, cfg.spp, cfg.max_depth) != (512, 512, 20, 3) \
             or not cfg.animate_mesh:
         _fail("the animated realtime scene is not 512x512 spp 20 depth 3")
-    per_frame = 30
+    per_frame = _casts(cfg, tables)
     want = _none()
     want.update(pairs_closest_smooth=per_frame * LOOP_FRAMES,
                 pairs_shadow=per_frame * LOOP_FRAMES)
@@ -2064,8 +2072,7 @@ def _clustering(device, card, head_img):
     from raytracinggpu_tpu_torch.core.rng import PRNGKey
     from raytracinggpu_tpu_torch.ops import _kernels
     from raytracinggpu_tpu_torch.ops import pairs_trace as pt
-    from raytracinggpu_tpu_torch.render.pipeline import (
-        Camera, chunk_size, group_size, render_frame)
+    from raytracinggpu_tpu_torch.render.pipeline import Camera, render_frame
     from raytracinggpu_tpu_torch.scene.presets import build_preset
 
     for name, (tree, pack, cut) in (("ref", ("ref", "morton", 0)),
@@ -2077,10 +2084,7 @@ def _clustering(device, card, head_img):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         tab = tables.pairs_mesh
-        g = group_size(cfg, cfg.spp)
-        R_group = g * cfg.width * cfg.height
-        n_casts = (cfg.spp // g) * cfg.max_depth * -(
-            -R_group // chunk_size(cfg, R_group))
+        n_casts = _casts(cfg, tables)
         want = _none()
         want.update(pairs_closest=n_casts, pairs_shadow=n_casts)
         _kernels.reset_launches()
@@ -2133,8 +2137,7 @@ def _sharded_rank(device, out_dir):
     from raytracinggpu_tpu_torch.parallel.sharding import (
         make_mesh, merge_shards, render_frame_sharded, render_shard,
         shard_shape)
-    from raytracinggpu_tpu_torch.render.pipeline import (
-        Camera, chunk_size, group_size)
+    from raytracinggpu_tpu_torch.render.pipeline import Camera
     from raytracinggpu_tpu_torch.scene.presets import build_preset
 
     _kernels.load()  # phase 2's library: loaded, not built
@@ -2157,10 +2160,7 @@ def _sharded_rank(device, out_dir):
         cfg, tables = scenes[traversal]
         mesh = meshes[shape]
         rows, spp = shard_shape(cfg.height, cfg.spp, *shape)
-        g = group_size(cfg, spp)
-        R_group = g * rows * cfg.width
-        n_casts = (spp // g) * cfg.max_depth * -(
-            -R_group // chunk_size(cfg, R_group, traversal))
+        n_casts = _casts(cfg, tables, rows, spp, traversal)
         expected = _none()
         expected.update({f"{traversal}_closest": n_casts,
                          f"{traversal}_shadow": n_casts})
@@ -2580,13 +2580,16 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
     step1 = lambda tab, c: rt.step(tab, c, rt.init_state(c, tab, seed=0))
     _ladder_frames("headline (array_bvh 512x512 spp32 d5)",
                    lambda: head_frame(hcfg), lambda: head_frame(off(hcfg)),
-                   t_eq, dict(pairs_closest=80, pairs_shadow=80))
+                   t_eq, dict(pairs_closest=_casts(hcfg, htab),
+                              pairs_shadow=_casts(hcfg, htab)))
     _ladder_frames("realtime frame 1", lambda: step1(rtab, rcfg),
                    lambda: step1(rtab, off(rcfg)), st_eq,
-                   dict(pairs_closest_smooth=30, pairs_shadow=30))
+                   dict(pairs_closest_smooth=_casts(rcfg, rtab),
+                        pairs_shadow=_casts(rcfg, rtab)))
     _ladder_frames("animated frame 1", lambda: step1(atab, acfg),
                    lambda: step1(atab, off(acfg)), st_eq,
-                   dict(pairs_closest_smooth=30, pairs_shadow=30))
+                   dict(pairs_closest_smooth=_casts(acfg, atab),
+                        pairs_shadow=_casts(acfg, atab)))
     nc = stab.pairs_mesh.tile_aabb.shape[0]
     knc = -(-nc // scfg.pairs_key_coarse)
     slog = _ladder_frames(
@@ -2594,7 +2597,7 @@ def _ladder_phase(device, card, err, head, rt_scene, soup):
         f"{scfg.pairs_key_coarse}: {knc} key boxes)",
         lambda: render_preset_frame(stab, scfg, seed=0),
         lambda: render_preset_frame(stab, off(scfg), seed=0), n_eq,
-        dict(pairs_closest=4, pairs_shadow=4))
+        dict(pairs_closest=_casts(scfg, stab), pairs_shadow=_casts(scfg, stab)))
     modes = {pt._key_mode(knc, e["R"]) for e in slog.log}
     print(f"ladder soup: key (mode, shift) {sorted(modes)}")
     if scfg.pairs_key_coarse != 32 or {m for m, _ in modes} != {1}:
@@ -3774,9 +3777,8 @@ def main() -> int:
     tab = tables.pairs_mesh
     cam = Camera.default(cfg, device)
     g = group_size(cfg, cfg.spp)
-    R_group = g * cfg.width * cfg.height
-    chunk = chunk_size(cfg, R_group)
-    n_casts = (cfg.spp // g) * cfg.max_depth * -(-R_group // chunk)
+    chunk = chunk_size(cfg, g * cfg.width * cfg.height, scene=tables)
+    n_casts = _casts(cfg, tables)
     # The integrator launches each kernel once per depth, so the first two
     # launches of each are the depth-0 and depth-1 casts of the frame's
     # first wavefront (samples 0..g-1) and its first chunk of `chunk` rays.

@@ -4,8 +4,10 @@
     raygen (camera + Box-Muller jitter)  ->  wavefront trace  ->  average spp
 
 Samples run in groups of ``cfg.spp_fuse`` whose rays form one wavefront;
-each wavefront is traced in casts of at most ``cfg.pairs_chunk`` rays
-(pairs, pallas, bvh) or ``cfg.ray_chunk`` rays (dense; ``chunk_size``).  The
+each wavefront is traced in casts of ``chunk_size`` rays: as wide as the
+ladder's key, the kernels' indices and the card's memory allow (pairs,
+``pairs_cast_width``), at most ``CAST_CAP`` (pallas, bvh), or
+``cfg.ray_chunk`` (dense).  The
 uniforms are keyed per (sample, row) with the threefry key that
 ``render_frame`` is given, and every sample's radiance is added to the
 accumulator in sample order, so the frame is bitwise independent of the
@@ -38,6 +40,7 @@ from raytracinggpu_tpu_torch.integrator.wavefront import (
     _effective_traversal,
     trace,
 )
+from raytracinggpu_tpu_torch.ops.pairs_trace import key_lanes
 from raytracinggpu_tpu_torch.ops.pallas_trace import BLK_R
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
 from raytracinggpu_tpu_torch.utils.profiling import request, span
@@ -179,28 +182,88 @@ def primary_rays(cfg: RenderConfig, cam: Camera, key: Key, s: int, rows_t,
             un)
 
 
+# Rays a cast of the pallas and bvh traversals at most, and of a pairs cast
+# whose table takes no ladder key at this width (the TPU's bound on the
+# culling and integrator intermediates, kept where no key sets one).
+CAST_CAP = 524288
+# Device bytes that a lane of a pairs cast holds at its peak, a trace of
+# depth d: CAST_LANE_BYTES[0] + d * CAST_LANE_BYTES[1] (the composite's
+# per-depth stacks grow with d).  Measured on an H100 80GB HBM3 as the
+# growth of ``torch.cuda.max_memory_allocated`` over one ``trace`` of the
+# cat from 2^19 to 2^20 lanes, over the 2^19 lanes: 203.1, 245.2, 294.3
+# and 370.2 bytes at depths 1, 3, 5 and 8 (array_bvh), 244.3 at depth 3
+# (realtime); this line lies at or above each.
+CAST_LANE_BYTES = (180, 24)
+CAST_MEM_SHARE = 0.25   # of the device's memory, what a cast's lanes may take
+
+
+def pairs_cast_width(cfg: RenderConfig, R: int,
+                     scene: SceneTables | None) -> int:
+    """The most rays a pairs cast of an R-ray wavefront takes: the largest
+    multiple of cfg.pairs_block (one block at least) that is no larger
+    than each of
+
+    1. the lanes that the ladder's int32 sort key holds in the mode the
+       scene's table takes at CAST_CAP lanes (``ops/pairs_trace.key_lanes``
+       over its tile boxes, or their unions of cfg.pairs_key_coarse), so
+       that a wider cast never takes a coarser key: 2^20 for the cat's 40
+       tiles (mode 2), 2^24 for the 200,000-triangle soup's 65 union boxes
+       (mode 1); CAST_CAP where the table takes no key there, or the scene
+       has no pairs table;
+    2. the wavefront, R rounded up to whole blocks: a cast is never padded
+       past it;
+    3. the kernels' 32-bit indices (``ops/_kernels``): 16 ray rows a lane
+       and the culling's (ceil(tiles / 32), rays / cfg.pairs_subgroup)
+       words;
+    4. on a card, CAST_MEM_SHARE of its memory over the bytes a lane of
+       the cast holds (CAST_LANE_BYTES at cfg.max_depth);
+    5. cfg.pairs_chunk, where it is set.
+
+    Every ray's result, and the frame bit for bit, do not depend on the
+    width (``chunk_size``); the ladder's tiers are fractions of it."""
+    blk = cfg.pairs_block
+    tab = None if scene is None else scene.pairs_mesh
+    n_tiles = 0 if tab is None else tab.tile_aabb.shape[0]
+    bounds = [-(-R // blk) * blk, (2**31 - 1) // 16,
+              (2**31 - 1) // max(1, -(-n_tiles // 32)) * cfg.pairs_subgroup,
+              (key_lanes(n_tiles, cfg.pairs_key_coarse, CAST_CAP)
+               if tab is not None else 0) or CAST_CAP]
+    if scene is not None and scene.device.type == "cuda":
+        total = torch.cuda.get_device_properties(scene.device).total_memory
+        base, per_depth = CAST_LANE_BYTES
+        bounds.append(int(total * CAST_MEM_SHARE)
+                      // (base + per_depth * cfg.max_depth))
+    if cfg.pairs_chunk:
+        bounds.append(cfg.pairs_chunk)
+    return max(blk, min(bounds) // blk * blk)
+
+
 def chunk_size(cfg: RenderConfig, R: int, traversal: str = "pairs",
-               n_tiles: int = 0) -> int:
-    """Rays per cast for an R-ray wavefront.  pairs and pallas: near-equal
-    casts of at most cfg.pairs_chunk rays, each a whole number of
-    cfg.pairs_block (pairs) or BLK_R (pallas) rays, so that the culling
-    subgroups, and with them every ray's result, do not depend on the
-    cast size.  (The JAX package caps a pallas cast at 2^17 rays for the
-    TPU's scalar memory; the port takes the pairs cap, so both traversals
-    launch as many casts.)  A pallas cast over a table of ``n_tiles``
+               n_tiles: int = 0, scene: SceneTables | None = None) -> int:
+    """Rays per cast for an R-ray wavefront.  pairs, pallas and bvh:
+    near-equal casts of at most a width, each a whole number of
+    cfg.pairs_block (pairs, bvh) or BLK_R (pallas) rays, so that the
+    culling subgroups, and with them every ray's result, do not depend on
+    the cast size.  pairs: the width of ``pairs_cast_width`` for
+    ``scene``'s table.  pallas and bvh: cfg.pairs_chunk where set, else
+    CAST_CAP.  (The JAX package caps a pallas cast at 2^17 rays for the
+    TPU's scalar memory.)  A pallas cast over a table of ``n_tiles``
     tiles is also cut to whole BLK_R blocks whose tile lists,
     (rays / cfg.pallas_subgroup, 1 + n_tiles) int32, stay under the 2^31
     elements that the tiled kernels' 32-bit indices reach
     (``ops/_kernels._check``): a mesh past the pairs tables' ceiling has
     some 400,000 tiles, and its 524,288-ray cast's lists would pass it.
-    bvh: sized as pairs (the JAX package casts cfg.ray_chunk rays, a
-    bound it sets for the dense oracle's products; every ray of the walk
-    is its own, so the cast size changes no result, and the torch walk's
-    fixed cost a step is paid per cast).  dense: casts of cfg.ray_chunk
-    rays."""
+    bvh: the JAX package casts cfg.ray_chunk rays, a bound it sets for
+    the dense oracle's products; every ray of the walk is its own, so the
+    cast size changes no result, and the torch walk's fixed cost a step
+    is paid per cast.  dense: casts of cfg.ray_chunk rays."""
     if traversal == "dense":
         return min(cfg.ray_chunk, R)
-    cap, blk = cfg.pairs_chunk, cfg.pairs_block
+    blk = cfg.pairs_block
+    if traversal == "pairs":
+        cap = pairs_cast_width(cfg, R, scene)
+    else:
+        cap = cfg.pairs_chunk or CAST_CAP
     if traversal == "pallas":
         blk = BLK_R
         rows = (2**31 - 1) // (1 + n_tiles)   # list rows a cast may hold
@@ -219,7 +282,8 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     traversal = _effective_traversal(cfg, scene)
     tiled = scene.pallas_mesh if traversal == "pallas" else None
     chunk = chunk_size(cfg, R, traversal,
-                       n_tiles=0 if tiled is None else tiled.n_tiles)
+                       n_tiles=0 if tiled is None else tiled.n_tiles,
+                       scene=scene)
     pad = (-R) % chunk
     if pad:
         padv = lambda c: F.pad(c, (0, pad))
@@ -234,6 +298,8 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
         cols.append(col)
         stats = st if stats is None else TraceStats(*(a + b for a, b in
                                                       zip(stats, st)))
+    if len(cols) == 1:  # one cast holds the wavefront: nothing to join
+        return Vec3(*(c[:R] for c in cols[0])), stats
     col = Vec3(*(torch.cat(c)[:R] for c in zip(*cols)))
     return col, stats
 

@@ -133,9 +133,11 @@ class RenderConfig:
                                 # (1: the exact per-tile key)
     pairs_compact_min_depth: int = 1  # first depth that runs the ladder;
                                 # the depths below it run at full width
-    pairs_chunk: int = 524288   # rays per cast of the pairs and pallas
-                                # traversals (bounds the culling and
-                                # integrator intermediates)
+    pairs_chunk: int | None = None  # rays a cast of the pairs, pallas and
+                                # bvh traversals at most; None: pairs
+                                # casts sized by render/pipeline's
+                                # pairs_cast_width, the others by
+                                # pipeline.CAST_CAP
     bvh_node_layout: str = "soa"  # bvh: per-field columns, or the
                                 # reference's 10-float record ('aos10')
     bvh_max_leaf: int = 96      # bvh: triangles tested a leaf at most

@@ -395,7 +395,7 @@ def test_tiled_casts_keep_their_lists_under_the_32_bit_limit(subg):
     allocated); a table of the cat's size keeps full casts."""
     import dataclasses
 
-    from raytracinggpu_tpu_torch.render.pipeline import chunk_size
+    from raytracinggpu_tpu_torch.render.pipeline import CAST_CAP, chunk_size
     from raytracinggpu_tpu_torch.scene.scene import RenderConfig
 
     cfg = dataclasses.replace(RenderConfig(), pallas_subgroup=subg)
@@ -410,13 +410,78 @@ def test_tiled_casts_keep_their_lists_under_the_32_bit_limit(subg):
             "lists")
 
     chunk = chunk_size(cfg, R, "pallas", n_tiles=n_tiles)
-    assert chunk % pat.BLK_R == 0 and 0 < chunk < cfg.pairs_chunk
+    assert chunk % pat.BLK_R == 0 and 0 < chunk < CAST_CAP
     assert (chunk // subg) * (1 + n_tiles) < 2**31
     assert check(chunk) == (chunk, n_tiles * 128, 1 + n_tiles)
     with pytest.raises(ValueError, match="32-bit"):
-        check(cfg.pairs_chunk)
-    assert chunk_size(cfg, R, "pallas", n_tiles=32) == cfg.pairs_chunk
-    assert chunk_size(cfg, R, "pairs") == cfg.pairs_chunk
+        check(CAST_CAP)
+    assert chunk_size(cfg, R, "pallas", n_tiles=32) == CAST_CAP
+    assert chunk_size(cfg, R, "pairs") == CAST_CAP  # no table: no key
+
+
+# case: (tiles (None: the cat's tables), key_coarse, wavefront rays,
+# config fields, the card's memory in bytes (None: a CPU scene), width)
+WIDTH_CASES = {
+    "cat, 4 x 512^2": (None, 1, 4 * 512**2, {}, None, 2**20),
+    "cat, 32 x 512^2": (None, 1, 32 * 512**2, {}, None, 2**20),
+    "cat, 2 x 48^2": (None, 1, 2 * 48**2, {}, None, 2 * BLK),
+    "soup, 4 x 512^2": (2053, 32, 4 * 512**2, {}, None, 2**20),
+    "soup, 128 x 512^2": (2053, 32, 128 * 512**2, {}, None, 2**24),
+    "one tile": (1, 1, 2**28, {}, None, (2**31 - 1) // 16 // BLK * BLK),
+    "one tile, 3 blocks": (1, 1, 3 * BLK - 5, {}, None, 3 * BLK),
+    "no key at CAST_CAP": (4096, 1, 2**22, {}, None, 2**19),
+    "capped": (None, 1, 4 * 512**2, {"pairs_chunk": 262144}, None, 262144),
+    "capped off the blocks": (None, 1, 4 * 512**2, {"pairs_chunk": 100000},
+                              None, 24 * BLK),
+    "card memory": (2053, 32, 128 * 512**2, {}, 2**30, None),
+    "block 1024": (None, 1, 4 * 512**2, {"pairs_block": 1024}, None, 2**20)}
+
+
+@pytest.mark.parametrize("case", list(WIDTH_CASES))
+def test_pairs_cast_width_follows_the_key_the_wavefront_and_limits(
+        scene, monkeypatch, case):
+    """The pairs traversal's cast width: the largest multiple of
+    pairs_block no larger than the lanes of the key mode that the table
+    takes at CAST_CAP (the cat's 40 tiles: mode 2, 2^20; the soup's 65
+    union boxes: mode 1, 2^24), the wavefront in whole blocks, the
+    kernels' 32-bit indices (a one-tile table), a share of the card's
+    memory and an explicit pairs_chunk; a wavefront's casts are whole
+    blocks, as few as the width allows.  pallas and bvh keep CAST_CAP,
+    or pairs_chunk where set; dense ray_chunk."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from raytracinggpu_tpu_torch.render import pipeline as pp
+
+    n_tiles, coarse, R, over, mem, want = WIDTH_CASES[case]
+    cfg = dataclasses.replace(scene[0], pairs_key_coarse=coarse, **over)
+    blk = cfg.pairs_block
+    if n_tiles is None:
+        sc = scene[1]
+        assert sc.pairs_mesh.tile_aabb.shape[0] == 40
+        assert pt._key_mode(40, pp.CAST_CAP) == (2, 20)
+    else:  # what the width reads of a scene (meta: nothing allocated)
+        boxes = torch.empty((n_tiles, 8), device="meta")
+        sc = SimpleNamespace(pairs_mesh=SimpleNamespace(tile_aabb=boxes),
+                             device=torch.device("cpu" if mem is None
+                                                 else "cuda"))
+    if mem is not None:
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: SimpleNamespace(total_memory=mem))
+        lane = pp.CAST_LANE_BYTES[0] + pp.CAST_LANE_BYTES[1] * cfg.max_depth
+        want = int(mem * pp.CAST_MEM_SHARE) // lane // blk * blk
+        assert 0 < want < pt.key_lanes(n_tiles, coarse, pp.CAST_CAP)
+    width = pp.pairs_cast_width(cfg, R, sc)
+    assert width == want and width % blk == 0
+    chunk = pp.chunk_size(cfg, R, "pairs", scene=sc)
+    assert chunk % blk == 0 and chunk <= width
+    assert -(-R // chunk) == -(-R // width)
+    cap = cfg.pairs_chunk or pp.CAST_CAP
+    if R % cap == 0 and cap % blk == 0:
+        for traversal in ("pallas", "bvh"):
+            assert pp.chunk_size(cfg, R, traversal, n_tiles=40,
+                                 scene=sc) == cap
+    assert pp.chunk_size(cfg, R, "dense", scene=sc) == min(cfg.ray_chunk, R)
 
 
 @pytest.mark.parametrize("subg", [0, 48, 256])
@@ -2486,3 +2551,53 @@ def test_glue_kernels_bitwise_on_hard_lanes(seed):
     n0 = _kernels.LAUNCHES["composite"]
     cg.call("composite", steps, plain=False)
     assert _kernels.LAUNCHES["composite"] == n0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["array_bvh", "realtime"])
+def test_pairs_cast_width_frames_bitwise_the_524288_ray_casts(preset):
+    """A 512x512 spp4 depth-5 array_bvh frame and one realtime step (spp
+    20, depth 3): each 2^20-ray wavefront in one cast at the width of
+    ``pairs_cast_width`` (the cat's key: 2^20) and in two at
+    pairs_chunk=524288, bitwise the same frame and stats (the step's
+    display and accumulation); the kernels of a cast launch once a cast
+    (the full-width culling and rows, or the compacted ones), the key
+    once a cast at depth >= 1, the composite once a trace, the primary
+    rays once a sample."""
+    _need_cuda()
+    import dataclasses
+
+    from raytracinggpu_tpu_torch.render import pipeline as pp
+    from raytracinggpu_tpu_torch.render import realtime as rt
+
+    kw = dict(spp=4, max_depth=5) if preset == "array_bvh" else {}
+    cfg, tables = build_preset(preset, "cuda", **kw)
+    R, D = 4 * cfg.width * cfg.height, cfg.max_depth
+    assert (cfg.spp_fuse, R) == (4, 2**20)
+    assert pp.chunk_size(cfg, R, scene=tables) == 2**20
+    closest = "pairs_closest_smooth" if cfg.smooth_normals else \
+        "pairs_closest"
+    outs = []
+    for cap, per_wavefront in ((None, 1), (524288, 2)):
+        c = dataclasses.replace(cfg, pairs_chunk=cap)
+        _kernels.reset_launches()
+        if preset == "array_bvh":
+            img, stats = pp.render_preset_frame(tables, c, seed=0)
+            out = (torch.from_numpy(img), *stats)
+        else:
+            state, disp = rt.step(tables, c, rt.init_state(c, tables, 0))
+            out = (disp, state.accum)
+        torch.cuda.synchronize()
+        got = _launched()
+        T = cfg.spp // 4 * per_wavefront   # traces, one a cast of each depth
+        want = {closest: T * D, "pairs_shadow": T * D,
+                "sphere_hit": 2 * T * D, "shade": T * D, "bounce": T * D,
+                "compact_key": 2 * T * (D - 1), "composite": T,
+                "primary_rays": cfg.spp}
+        pair = lambda a, b: got.pop(a, 0) + got.pop(b, 0)
+        assert pair("pair_bits", "compact_bits") == 2 * T * D
+        assert pair("ray_rows", "scatter") == 2 * T * D
+        assert got == want
+        outs.append(out)
+    for a, b in zip(*outs):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))

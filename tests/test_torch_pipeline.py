@@ -29,6 +29,7 @@ from raytracinggpu_tpu_torch.render.pipeline import (
     Camera,
     chunk_size,
     group_size,
+    pairs_cast_width,
     rays_per_frame,
     render_preset_frame,
 )
@@ -46,6 +47,12 @@ def port():
     cfg, tables = build_preset("array_bvh", "cpu", **SIZE)
     img, stats = render_preset_frame(tables, cfg, seed=0)
     return cfg, tables, img, stats
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """Frames of the port's tables by config, rendered once a module."""
+    return {}
 
 
 @pytest.fixture(scope="module")
@@ -86,18 +93,29 @@ def test_same_seed_same_frame(port):
     assert not np.array_equal(other, img)
 
 
-@pytest.mark.parametrize("over", [{"spp_fuse": 1}, {"pairs_chunk": 4096}])
-def test_grouping_and_chunking_bitwise(port, over):
+@pytest.mark.parametrize("over,against", [
+    ({"spp_fuse": 1}, {}), ({"pairs_chunk": 4096}, {}),
+    ({"pairs_chunk": None}, {"pairs_chunk": 4096})])
+def test_grouping_and_chunking_bitwise(port, frames, over, against):
     """One sample per wavefront instead of two, or 4096-ray casts instead
-    of one 8192-ray cast, give the same frame bit for bit."""
+    of one 8192-ray cast, give the same frame bit for bit; so does the
+    default config, whose pairs casts ``pairs_cast_width`` sizes (one
+    cast holds the wavefront here), against 4096-ray casts."""
     cfg, tables, img, stats = port
-    cfg2 = dataclasses.replace(cfg, **over)
-    n = cfg.width * cfg.height
-    assert (group_size(cfg2, cfg.spp), chunk_size(cfg2, n * cfg.spp)) != (
-        group_size(cfg, cfg.spp), chunk_size(cfg, n * cfg.spp))
-    img2, stats2 = render_preset_frame(tables, cfg2, seed=0)
-    np.testing.assert_array_equal(img2, img)
-    for a, b in zip(stats, stats2):
+    cfg1, cfg2 = (dataclasses.replace(cfg, **o) for o in (over, against))
+    R = cfg.width * cfg.height * cfg.spp
+    casts = lambda c: (group_size(c, cfg.spp),
+                       chunk_size(c, R, scene=tables))
+    assert casts(cfg1) != casts(cfg2)
+    if cfg1.pairs_chunk is None:
+        assert casts(cfg1)[1] == pairs_cast_width(cfg1, R, tables) == 8192
+    frames.setdefault(cfg, (img, stats))
+    for c in (cfg1, cfg2):
+        if c not in frames:
+            frames[c] = render_preset_frame(tables, c, seed=0)
+    (img1, stats1), (img2, stats2) = frames[cfg1], frames[cfg2]
+    np.testing.assert_array_equal(img1, img2)
+    for a, b in zip(stats1, stats2):
         np.testing.assert_array_equal(a, b)
 
 
