@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from benchmark import check, drivers, faults, spec
+from benchmark import check, drivers, faults, meshes, spec
 
 
 def main(argv=None) -> int:
@@ -34,14 +34,14 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=0,
                    help="frames kept a seed (default: the check's)")
     a = p.parse_args(argv)
-    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
-
     cell = spec.load_cell(a.workload)
     chk = check.load(cell.name)
+    mesh = meshes.resolve(cell.config)
+    obj_path = mesh.path if mesh is not None else None
     for i, seed in enumerate(a.seeds):
         undo = faults.plant(a.fault) if a.fault else []
         try:
-            drv = drivers.make(cell, seed, "cuda", None,
+            drv = drivers.make(cell, seed, "cuda", mesh, None,
                                a.frames or chk["frames"])
             drv.build()
             drv.window(a.seconds, drv.warm())
@@ -55,12 +55,12 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         each: list = []
         line = {"seed": seed, "fault": a.fault,
-                "program": check.compare(cell, items, CAT_OBJ_PATH, "cuda",
+                "program": check.compare(cell, items, obj_path, "cuda",
                                          chk["rows"], each=each),
                 "frames": each}
         line["reference_s"] = time.perf_counter() - t
         if i < a.control and not a.fault:
-            line["control"] = check.control(cell, items, CAT_OBJ_PATH,
+            line["control"] = check.control(cell, items, obj_path,
                                             "cuda", chk["rows"])
         print(json.dumps(line), flush=True)
     return 0

@@ -42,9 +42,10 @@ class Reservoir:
 class Driver:
     """Set-up, the window and what the check needs, for one cell."""
 
-    def __init__(self, cell, seed: int, device, settings=None,
+    def __init__(self, cell, seed: int, device, mesh, settings=None,
                  checked_frames: int = 1):
         self.cell, self.seed, self.device = cell, int(seed), device
+        self.mesh = mesh  # meshes.Mesh of the configuration, or None
         self.traffic = cell.traffic
         self.settings = dict(cell.config["program"]["settings"],
                              spp=self.traffic["spp"],
@@ -58,12 +59,15 @@ class Driver:
 
     def build(self):
         """The program's renderer for the configuration: the preset's host
-        build from its OBJ and the tables' upload; returns its seconds."""
+        build from the configuration's OBJ (the preset's own cat, or the
+        resolved file through ``obj_path``) and the tables' upload;
+        returns its seconds."""
         from raytracinggpu_tpu_torch import Renderer
 
+        mesh = self.mesh.program_args() if self.mesh is not None else {}
         t0 = time.perf_counter()
         self.renderer = Renderer(self.cell.config["program"]["preset"],
-                                 device=self.device, **self.settings)
+                                 device=self.device, **mesh, **self.settings)
         return time.perf_counter() - t0
 
     def _sync(self):
@@ -209,8 +213,9 @@ class Realtime(Driver):
 DRIVERS = {"frames": Frames, "realtime": Realtime}
 
 
-def make(cell, seed: int, device, settings=None, checked_frames: int = 1
-         ) -> Driver:
-    """The driver of the cell's traffic."""
-    return DRIVERS[cell.traffic["driver"]](cell, seed, device, settings,
-                                           checked_frames)
+def make(cell, seed: int, device, mesh, settings=None,
+         checked_frames: int = 1) -> Driver:
+    """The driver of the cell's traffic; ``mesh`` is the configuration's,
+    resolved (``meshes.resolve``)."""
+    return DRIVERS[cell.traffic["driver"]](cell, seed, device, mesh,
+                                           settings, checked_frames)

@@ -4,8 +4,10 @@ program looks up by module attribute at each call.  The test of the check
 plants them under a whole run on the CPU (``tests/test_bench_faults.py``);
 ``calibrate.py --fault`` reads them on the card at a cell's own size.
 
-Global faults touch every pixel; mesh faults touch only what the cat
-makes: its shading, its shadows, the light it bounces.
+Global faults touch every pixel; mesh faults touch only what the mesh
+makes: its shading, its shadows, the light it bounces.  Where a fault
+applies is read from a cell's configuration and traffic, never from its
+name.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ def flat_normals(fn):
 
 
 def tenth_dropped(fn):
-    """Every tenth triangle of the OBJ left out of the program's mesh."""
+    """Every tenth triangle of the OBJ left out of the program's mesh,
+    the preset's cat or a custom mesh."""
     def call(*a, **k):
         obj = fn(*a, **k)
         keep = np.arange(obj.vtx.shape[0]) % 10 != 0
@@ -79,33 +82,52 @@ def tenth_dropped(fn):
     return call
 
 
-# fault -> (the (module, attribute) pairs it replaces, its wrapper, the
-# configurations it applies to); the realtime module holds its own binding
-# of render_rows
+def everywhere(cell) -> bool:
+    return True
+
+
+def has_mesh(cell) -> bool:
+    return cell.config["scene"].get("mesh") is not None
+
+
+def smooth_mesh(cell) -> bool:
+    return bool(has_mesh(cell)
+                and cell.config["scene"]["mesh"].get("smooth_normals"))
+
+
+def loop(cell) -> bool:
+    return cell.traffic["driver"] == "realtime"
+
+
+# fault -> (the (module, attribute) pairs it replaces, its wrapper, whether
+# a cell can have it, read from the cell's configuration and traffic); the
+# realtime module holds its own binding of render_rows, and the preset's
+# cat (scene.mesh.load_cat_mesh) and a custom mesh (api._custom_mesh) each
+# read their OBJ through their module's own binding of read_obj
 FAULTS = {
     "half_the_samples": ((("render.pipeline", "render_rows"),
                           ("render.realtime", "render_rows")),
-                         half_the_samples, ("array_bvh", "realtime")),
+                         half_the_samples, everywhere),
     "altered_paths": ((("integrator.wavefront", "composite"),),
-                      altered_paths, ("array_bvh", "realtime")),
+                      altered_paths, everywhere),
     "state_unchanged": ((("render.realtime", "step"),), state_unchanged,
-                        ("realtime",)),
+                        loop),
     "display_altered": ((("render.realtime", "tonemap_device"),),
-                        display_altered, ("realtime",)),
+                        display_altered, loop),
     "shadow_ignores_mesh": ((("integrator.wavefront",
                               "intersect_tris_pairs_shadow"),),
-                            shadow_ignores_mesh, ("array_bvh", "realtime")),
+                            shadow_ignores_mesh, has_mesh),
     "flat_normals": ((("integrator.wavefront", "intersect_tris_pairs"),),
-                     flat_normals, ("realtime",)),
-    "tenth_dropped": ((("scene.mesh", "read_obj"),), tenth_dropped,
-                      ("array_bvh", "realtime")),
+                     flat_normals, smooth_mesh),
+    "tenth_dropped": ((("scene.mesh", "read_obj"), ("api", "read_obj")),
+                      tenth_dropped, has_mesh),
 }
 MESH_FAULTS = ("shadow_ignores_mesh", "flat_normals", "tenth_dropped")
 
 
-def applies(fault: str, config: str) -> bool:
-    """Whether the cell of configuration ``config`` can have ``fault``."""
-    return config in FAULTS[fault][2]
+def applies(fault: str, cell) -> bool:
+    """Whether ``cell`` (a ``spec.Cell``) can have ``fault``."""
+    return FAULTS[fault][2](cell)
 
 
 def plant(fault: str) -> list:

@@ -30,7 +30,7 @@ import sys  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import check, drivers, frozen, spec, trace  # noqa: E402
+from benchmark import check, drivers, frozen, meshes, spec, trace  # noqa: E402
 
 # top-level module names that may not be loaded in the measured process
 FORBIDDEN = ("jax", "jaxlib", "flax", "raytracinggpu_tpu")
@@ -93,18 +93,17 @@ def execute(cell, seed: int, seconds: float, traced: bool, device="cuda",
     compared and their limits last.  ``settings`` overrides the
     configuration's renderer settings (tests run a small frame on the CPU
     with it)."""
-    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
-
     t_start = T_START if t_start is None else t_start
     on_card = torch.device(device).type == "cuda"
     chk = check.load(cell.name)
     run = Run(cell, settings)
+    mesh = meshes.resolve(cell.config)
     phases = {"imports": time.perf_counter() - t_start}
     if on_card:
         torch.cuda.init()
         torch.empty(1, device=device)
     phases["device"] = time.perf_counter() - t_start
-    drv = drivers.make(cell, seed, device, settings, chk["frames"])
+    drv = drivers.make(cell, seed, device, mesh, settings, chk["frames"])
     run.host_build_s = drv.build()
     phases["build"] = time.perf_counter() - t_start
     run.t0 = drv.warm()
@@ -150,7 +149,8 @@ def execute(cell, seed: int, seconds: float, traced: bool, device="cuda",
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = check.compare(cell, items, CAT_OBJ_PATH, device, chk["rows"],
+    obj_path = mesh.path if mesh is not None else None
+    numbers = check.compare(cell, items, obj_path, device, chk["rows"],
                             settings)
     check_s = time.perf_counter() - t_check
     correct = check.verdict(numbers, chk["limits"])

@@ -46,7 +46,7 @@ import timeit
 
 import torch
 
-from benchmark import drivers, frozen, program, spec, trace
+from benchmark import drivers, frozen, meshes, program, spec, trace
 from benchmark.run import Run
 
 MESH_QUERY = "pairs_kernel<"
@@ -284,7 +284,7 @@ def main(argv=None) -> int:
         print("spancheck: needs a CUDA device", file=sys.stderr)
         return 3
     cell = spec.load_cell(a.workload)
-    drv = drivers.make(cell, a.seed, "cuda")
+    drv = drivers.make(cell, a.seed, "cuda", meshes.resolve(cell.config))
     build_s = drv.build()
     res = {"cell": cell.name, "card": frozen.card_line()}
     res["cost_on"], res["sites_per_frame"] = cost_on(drv, a.seconds)

@@ -21,7 +21,7 @@ import time
 import numpy as np
 import pytest
 
-from benchmark import check, drivers, faults, run, spec
+from benchmark import check, drivers, faults, meshes, run, spec
 
 CELLS = ("array_bvh.spp32_d5", "realtime.loop_spp20_d3")
 SEED = 2**31 + 1234
@@ -50,7 +50,7 @@ def execute(name):
 
 
 CASES = [(c, f) for c in CELLS for f in faults.FAULTS
-         if faults.applies(f, spec.load_cell(c).config["name"])]
+         if faults.applies(f, spec.load_cell(c))]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -82,17 +82,16 @@ def test_every_mesh_fault_is_planted_where_the_cell_has_it():
 
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_not_correct(name):
-    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
-
     cell, settings = small(name)
     chk = check.load(name)
-    drv = drivers.make(cell, SEED, "cpu", settings, chk["frames"])
+    mesh = meshes.resolve(cell.config)
+    drv = drivers.make(cell, SEED, "cpu", mesh, settings, chk["frames"])
     drv.build()
     drv.window(0.2, drv.warm())
     items = drv.checked()
-    sound = check.compare(cell, items, CAT_OBJ_PATH, "cpu", chk["rows"],
+    sound = check.compare(cell, items, mesh.path, "cpu", chk["rows"],
                           settings)
-    low = check.control(cell, items, CAT_OBJ_PATH, "cpu", chk["rows"],
+    low = check.control(cell, items, mesh.path, "cpu", chk["rows"],
                         settings)
     assert check.verdict(sound, chk["limits"]), sound
     assert not check.verdict(low, chk["limits"]), low

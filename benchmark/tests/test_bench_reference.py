@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, reference, spec
+from benchmark import check, meshes, reference, spec
 
 HERE = spec.HERE
 W, SPP, D = 32, 4, 3
@@ -37,7 +37,6 @@ def config(name):
 def test_reference_matches_program_cpu_frame(name):
     from raytracinggpu_tpu_torch import Renderer
     from raytracinggpu_tpu_torch.render import realtime as rt
-    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
 
     cfg = config(name)
     seed = 2**31 + 77
@@ -56,7 +55,7 @@ def test_reference_matches_program_cpu_frame(name):
     else:
         prog, _ = r.render_hdr(seed=seed)
         L = L0
-    sc = reference.build_scene(cfg["scene"], CAT_OBJ_PATH, "cpu")
+    sc = reference.build_scene(cfg["scene"], meshes.resolve(cfg).path, "cpu")
     view = dict(cfg["view"], width=W, height=W)
     ref = reference.render_rows(sc, view, key, np.arange(W), SPP, D,
                                 L).numpy()
@@ -78,10 +77,8 @@ def test_reference_rng_is_the_programs():
 
 
 def test_grouped_mesh_query_is_the_brute_force_one():
-    from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
-
-    sc = reference.build_scene(config("array_bvh")["scene"], CAT_OBJ_PATH,
-                               "cpu")
+    cfg = config("array_bvh")
+    sc = reference.build_scene(cfg["scene"], meshes.resolve(cfg).path, "cpu")
     g = torch.Generator().manual_seed(11)
     R = 2000
     O = torch.randn(3, R, generator=g) * 8
