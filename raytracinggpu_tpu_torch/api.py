@@ -55,28 +55,31 @@ from raytracinggpu_tpu_torch.scene.presets import (
     PRESET_NAMES,
     build_preset,
 )
-from raytracinggpu_tpu_torch.utils.profiling import span
+from raytracinggpu_tpu_torch.utils.profiling import build_span
 
 
 def _custom_mesh(preset, obj_path, obj_scale, obj_offset, bvh_builder):
     """The mesh a Renderer puts in the preset's cat's place (the span
-    ``build.mesh``): the OBJ at ``obj_path``, or the preset's cat built
-    with another BVH builder; None for the preset's own cat, which
-    ``build_preset`` loads."""
+    ``build.mesh``, the parse and the placement ``build.obj`` in it): the
+    OBJ at ``obj_path``, or the preset's cat built with another BVH
+    builder; None for the preset's own cat, which ``build_preset``
+    loads."""
     if obj_path is None and (bvh_builder == "reference"
                              or preset not in _MESH_TRANSFORM):
         return None
-    with span("build.mesh"):
+    with build_span("build.mesh"):
         if obj_path is None:
             # the preset's cat with the requested BVH builder
             return load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset],
                                  builder=bvh_builder)
-        obj = read_obj(obj_path)
-        if obj_scale is not None or tuple(obj_offset) != (0.0, 0.0, 0.0):
-            # v -> v*scale + offset; an offset alone keeps scale 1
-            obj.vertices = rescale(obj.vertices,
-                                   1.0 if obj_scale is None else obj_scale,
-                                   obj_offset)
+        with build_span("build.obj"):
+            obj = read_obj(obj_path)
+            if obj_scale is not None or \
+                    tuple(obj_offset) != (0.0, 0.0, 0.0):
+                # v -> v*scale + offset; an offset alone keeps scale 1
+                obj.vertices = rescale(obj.vertices,
+                                       1.0 if obj_scale is None
+                                       else obj_scale, obj_offset)
         return build_mesh(obj, builder=bvh_builder)
 
 
@@ -103,7 +106,7 @@ class Renderer:
                 "the 'showcase' preset has no mesh slot; use a mesh preset "
                 "(e.g. 'array_bvh') with obj_path")
         self.device = render_device(device)
-        with span("build"):
+        with build_span("build"):
             mesh = _custom_mesh(preset, obj_path, obj_scale, obj_offset,
                                 bvh_builder)
             self.cfg, self.scene = build_preset(preset, self.device,

@@ -440,13 +440,17 @@ def _key_mode(nc: int, R: int) -> tuple[int, int]:
     return 0, 0
 
 
+def key_boxes(n_tiles: int, key_coarse: int) -> int:
+    """The boxes the ladder's key runs over (``_ladder_tiers``): the
+    n_tiles tile boxes, or their unions of ``key_coarse``."""
+    return n_tiles if key_coarse <= 1 else -(-n_tiles // key_coarse)
+
+
 def key_lanes(n_tiles: int, key_coarse: int, R: int) -> int:
     """The most lanes of a cast whose ladder key keeps the mode it takes at
-    R lanes: ``1 << shift`` of ``_key_mode`` over the key boxes (the
-    n_tiles tile boxes, or their unions of ``key_coarse``, as
-    ``_ladder_tiers`` keys them); 0 when no key fits R lanes."""
-    nc = n_tiles if key_coarse <= 1 else -(-n_tiles // key_coarse)
-    mode, shift = _key_mode(nc, R)
+    R lanes: ``1 << shift`` of ``_key_mode`` over the key boxes
+    (``key_boxes``); 0 when no key fits R lanes."""
+    mode, shift = _key_mode(key_boxes(n_tiles, key_coarse), R)
     return 1 << shift if mode else 0
 
 

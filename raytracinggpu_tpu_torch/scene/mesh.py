@@ -14,6 +14,7 @@ import numpy as np
 from raytracinggpu_tpu_torch.accel.bvh import FlatBVH, build_bvh
 from raytracinggpu_tpu_torch.accel.lbvh import build_lbvh
 from raytracinggpu_tpu_torch.scene.obj import ObjMesh, read_obj
+from raytracinggpu_tpu_torch.utils.profiling import build_count, build_span
 
 BUILDERS = {"reference": build_bvh, "lbvh": build_lbvh}
 
@@ -57,7 +58,9 @@ def build_mesh(obj: ObjMesh, builder: str = "reference") -> MeshData:
     reorder the per-triangle tables into BVH leaf order.
 
     builder: "reference" (the midpoint split, the reference's semantics)
-    or "lbvh" (Morton-code linear BVH); both emit the same flat layout."""
+    or "lbvh" (Morton-code linear BVH); both emit the same flat layout.
+    The builder's work is the span ``build.bvh`` (its attribute the
+    triangles), and the triangles the counter ``mesh.triangles``."""
     if builder not in BUILDERS:
         raise ValueError(f"unknown BVH builder {builder!r}; choose from "
                          f"{tuple(BUILDERS)}")
@@ -65,7 +68,9 @@ def build_mesh(obj: ObjMesh, builder: str = "reference") -> MeshData:
     A = V[obj.vtx[:, 0]]
     B = V[obj.vtx[:, 1]]
     C = V[obj.vtx[:, 2]]
-    bvh = BUILDERS[builder](A, B, C)
+    with build_span("build.bvh", A.shape[0]):
+        bvh = BUILDERS[builder](A, B, C)
+    build_count("mesh.triangles", A.shape[0])
     o = bvh.order
 
     has_n = obj.normals.shape[0] > 0 and (obj.nrm >= 0).all()
@@ -92,8 +97,10 @@ def build_mesh(obj: ObjMesh, builder: str = "reference") -> MeshData:
 def load_cat_mesh(path: str, embed_transform: bool, scale: float | None,
                   offset, builder: str = "reference") -> MeshData:
     """Load + transform the cat mesh per launcher config
-    (array_bvh and realtime: rescale(0.6, (0,-10,0)) only)."""
-    obj = read_obj(path, embed_transform=embed_transform)
-    if scale is not None:
-        obj.vertices = rescale(obj.vertices, scale, offset)
+    (array_bvh and realtime: rescale(0.6, (0,-10,0)) only); the parse
+    and the placement are the span ``build.obj``."""
+    with build_span("build.obj"):
+        obj = read_obj(path, embed_transform=embed_transform)
+        if scale is not None:
+            obj.vertices = rescale(obj.vertices, scale, offset)
     return build_mesh(obj, builder=builder)

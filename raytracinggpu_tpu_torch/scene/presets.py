@@ -30,6 +30,7 @@ from dataclasses import replace
 
 import numpy as np
 
+from raytracinggpu_tpu_torch.ops.pairs_trace import key_boxes
 from raytracinggpu_tpu_torch.scene.mesh import MeshData, load_cat_mesh
 from raytracinggpu_tpu_torch.scene.obj import CAT_OBJ_PATH
 from raytracinggpu_tpu_torch.scene.scene import (
@@ -37,7 +38,7 @@ from raytracinggpu_tpu_torch.scene.scene import (
     SceneTables,
     build_scene_tables,
 )
-from raytracinggpu_tpu_torch.utils.profiling import span
+from raytracinggpu_tpu_torch.utils.profiling import build_count, build_span
 
 PRESET_NAMES = ("cpu", "global", "optimized", "array_bvh", "realtime", "showcase")
 
@@ -128,7 +129,7 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
     spheres, mats = wall_spheres(floor_radius=940.0 if realtime else 990.0)
     L = (0.0, 15.0, 40.0) if realtime else (-10.0, 20.0, 40.0)
     if mesh is None:
-        with span("build.mesh"):
+        with build_span("build.mesh"):
             mesh = load_cat_mesh(CAT_OBJ_PATH, *_MESH_TRANSFORM[preset])
     if cfg.smooth_normals and not np.any(mesh.na):
         # A mesh without vertex normals: Phong interpolation of the all-zero
@@ -136,14 +137,19 @@ def build_preset(preset: str, device, mesh: MeshData | None = None,
         warnings.warn("mesh has no vertex normals; smooth_normals disabled "
                       "(geometric normals used instead)", stacklevel=2)
         cfg = replace(cfg, smooth_normals=False)
-    with span("build.tables"):
+    with build_span("build.tables"):
         tables = build_scene_tables(
             spheres, mats, L=L, intensity=3e10, mesh=mesh, device=device,
             mesh_albedo=(0.25, 0.25, 0.25), tri_block=cfg.tri_block,
             pairs_tile=cfg.pairs_tile, pairs_cluster=cfg.pairs_cluster,
             pairs_cut=cfg.pairs_cut, pairs_pack=cfg.pairs_pack,
         )
-    return _autotune_pairs(cfg, tables, config_overrides), tables
+    cfg = _autotune_pairs(cfg, tables, config_overrides)
+    if tables.pairs_mesh is not None:
+        build_count("ladder.key_boxes",
+                    key_boxes(tables.pairs_mesh.tile_aabb.shape[0],
+                              cfg.pairs_key_coarse))
+    return cfg, tables
 
 
 def _autotune_pairs(cfg, tables, overrides):

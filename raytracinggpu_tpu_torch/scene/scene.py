@@ -33,6 +33,7 @@ from raytracinggpu_tpu_torch.scene.transform import (
     MeshSource,
     build_mesh_source,
 )
+from raytracinggpu_tpu_torch.utils.profiling import build_count, build_span
 
 
 class Materials(NamedTuple):
@@ -156,6 +157,17 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _to_device(x, device):
+    """``x`` with every tensor in it (tuples and NamedTuples walked) on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        items = [_to_device(v, device) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
 def build_scene_tables(
     spheres: list,
     materials: list,
@@ -181,7 +193,12 @@ def build_scene_tables(
     lists' 32-bit indices).  pairs_cluster ``sah`` cuts the pairs
     clusters from an auxiliary SAH tree (``accel/sah.py``), whose
     ``order`` maps its leaves back to the canonical slot ids.
+
+    The tables are built on the host, then copied to ``device`` in one
+    step, the span ``build.upload``; the pairs tables' tiles and member
+    boxes are the counters ``pairs.tiles`` and ``pairs.members``.
     """
+    final_device, device = device, torch.device("cpu")
     mats = list(materials)
     if mesh is not None:
         mats.append((mesh_albedo, False, 1.0, 1.0))
@@ -210,6 +227,9 @@ def build_scene_tables(
             warnings.warn(f"pairs kernel unavailable for this mesh ({e}); "
                           "traversal='pairs' will fall back to 'pallas'",
                           stacklevel=2)
+        else:
+            build_count("pairs.tiles", pairs.tile_aabb.shape[0])
+            build_count("pairs.members", pairs.member_aabb.shape[0])
         src = build_mesh_source(mesh, pad_to, device)
         b = mesh.bvh
         max_leaf = int((b.tri_end - b.tri_start)[b.right == -1].max())
@@ -228,7 +248,7 @@ def build_scene_tables(
             mn=Vec3(*(col(b.mn[:, i]) for i in range(3))),
             mx=Vec3(*(col(b.mx[:, i]) for i in range(3))))
     Lf = np.asarray(L, np.float32)
-    return SceneTables(
+    tables = SceneTables(
         spheres=SphereTable.from_list(spheres, device),
         materials=Materials(
             albedo=Vec3(t(alb[:, 0]), t(alb[:, 1]), t(alb[:, 2])),
@@ -244,3 +264,5 @@ def build_scene_tables(
         bvh=bvh,
         mesh_src=src,
     )
+    with build_span("build.upload"):
+        return _to_device(tables, final_device)

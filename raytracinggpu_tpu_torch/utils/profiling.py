@@ -62,6 +62,16 @@ boundaries, in memory, on ``time.perf_counter_ns``:
 Off, the default, ``span`` returns one shared object that does nothing
 and ``count`` returns, each after one global check: no allocation and no
 clock read.
+
+The host build is the exception: a few spans a process, so
+``build_span`` and ``build_count`` keep the build's spans (``build`` ⊃
+``build.mesh`` ⊃ ``build.obj``, ``build.bvh``; ``build.tables`` ⊃
+``build.upload``) and counters (``mesh.triangles``, ``pairs.tiles``,
+``pairs.members``, ``ladder.key_boxes``) in a build record of their own
+whether or not tracing is on, and in tracing's record too while it is
+on.  ``collect()`` returns the build record as ``Trace.build``, beside
+the record of tracing (whose spans and counters are then empty if
+tracing never was on).
 """
 from __future__ import annotations
 
@@ -141,6 +151,7 @@ class Trace:
     spans: list
     counters: dict
     clocks: list
+    build: Trace | None = None  # the build record (``build_span``)
 
     def self_ns(self) -> list:
         """Each closed span's duration less that of its closed children
@@ -263,6 +274,7 @@ class _Off:
 
 _OFF = _Off()
 _REC = None          # the record being written; None: tracing is off
+_BUILD = _Recorder()  # the build record, kept whether tracing is on or not
 _LAST = None         # the record of the last time tracing was on
 _BY_PROFILER = False  # tracing was turned on by a torch.profiler session
 _profiler_on = torch._C._autograd._profiler_enabled
@@ -282,6 +294,42 @@ def count(name: str, n: int = 1) -> None:
         return
     c = _REC.counters
     c[name] = c.get(name, 0) + n
+
+
+class _BuildSpan:
+    """A span of the host build: one in the build record, and one in
+    tracing's record while tracing is on."""
+
+    __slots__ = ("spans",)
+
+    def __init__(self, name, attr):
+        self.spans = [_Span(_BUILD, name, attr)]
+        if _REC is not None:
+            self.spans.append(_Span(_REC, name, attr))
+
+    def __enter__(self):
+        for s in self.spans:
+            s.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for s in reversed(self.spans):
+            s.__exit__(*exc)
+        return False
+
+
+def build_span(name: str, attr=None):
+    """A span of the host build, kept whether or not tracing is on (see
+    the module's docstring)."""
+    return _BuildSpan(name, attr)
+
+
+def build_count(name: str, n: int = 1) -> None:
+    """Add n to the build record's counter ``name``, and to tracing's
+    while it is on."""
+    for rec in (_BUILD, _REC):
+        if rec is not None:
+            rec.counters[name] = rec.counters.get(name, 0) + n
 
 
 def timed(name: str):
@@ -326,11 +374,19 @@ def disable() -> None:
 
 def collect() -> Trace | None:
     """The record of tracing while it is on (a clock pair read now added),
-    else of the last time it was on; None if it never was."""
+    else of the last time it was on, with the build record as its
+    ``build``; None if tracing never was on and nothing was built."""
     if _REC is not None:
         _REC.clocks.append(_clock_pair())
-        return _REC.trace()
-    return None if _LAST is None else _LAST.trace()
+        trace = _REC.trace()
+    elif _LAST is not None:
+        trace = _LAST.trace()
+    elif _BUILD.spans or _BUILD.counters:
+        trace = Trace([], {}, [_clock_pair()])
+    else:
+        return None
+    trace.build = _BUILD.trace()
+    return trace
 
 
 @contextlib.contextmanager

@@ -35,7 +35,10 @@ SMALL = dict(width=24, height=24, spp=2, max_depth=2, pairs_block=128)
 PARENTS = {
     "build": {None},
     "build.mesh": {"build"},
+    "build.obj": {"build.mesh"},
+    "build.bvh": {"build.mesh"},
     "build.tables": {"build"},
+    "build.upload": {"build.tables"},
     "frame": {None},
     "frame.readback": {"frame"},
     "step": {None},
@@ -94,7 +97,14 @@ def traced():
     return profiling.collect(), waits.log, counts
 
 
+def _window(trace):
+    """The spans and counters of tracing's own record in ``trace``."""
+    return ([], {}) if trace is None else (trace.spans, trace.counters)
+
+
 def test_tracing_off_records_nothing():
+    """Off, tracing's record stays as it was; only the build record,
+    kept whether or not tracing is on, takes the Renderer's build."""
     before = profiling.collect()
     assert profiling.span("a") is profiling.span("b", 3)
     with profiling.span("a") as s:
@@ -105,10 +115,11 @@ def test_tracing_off_records_nothing():
                  max_depth=1)
     r.render_hdr(seed=0)
     after = profiling.collect()
-    assert (before is None) == (after is None)
-    if after is not None:
-        assert after.spans == before.spans
-        assert after.counters == before.counters
+    assert _window(after) == _window(before)
+    n = 0 if before is None else len(before.build.spans)
+    assert [s.name for s in after.build.spans[n:]] == [
+        "build", "build.mesh", "build.obj", "build.bvh", "build.tables",
+        "build.upload"]
 
 
 def test_spans_nest_by_layer(traced):
