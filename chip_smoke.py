@@ -785,7 +785,7 @@ def _casts(cfg, tables, rows=None, spp=None, traversal="pairs"):
 
     rows = cfg.height if rows is None else rows
     spp = cfg.spp if spp is None else spp
-    g = group_size(cfg, spp)
+    g = group_size(cfg, spp, rows * cfg.width, tables)
     R = g * rows * cfg.width
     n_tiles = tables.pallas_mesh.n_tiles if traversal == "pallas" else 0
     return (spp // g) * cfg.max_depth * -(-R // chunk_size(
@@ -1223,7 +1223,7 @@ def _pallas(device, card, err, timing, pairs_mrays):
           f"triangles, subgroup {cfg.pallas_subgroup}, ray sort "
           f"{cfg.ray_sort}, built in {time.perf_counter() - t0:.2f} s")
     cam = Camera.default(cfg, device)
-    g = group_size(cfg, cfg.spp)
+    g = group_size(cfg, cfg.spp, cfg.width * cfg.height, tables)
     R_group = g * cfg.width * cfg.height
     chunk = chunk_size(cfg, R_group, "pallas")
     n_casts = (cfg.spp // g) * cfg.max_depth * -(-R_group // chunk)
@@ -3776,7 +3776,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     tab = tables.pairs_mesh
     cam = Camera.default(cfg, device)
-    g = group_size(cfg, cfg.spp)
+    g = group_size(cfg, cfg.spp, cfg.width * cfg.height, tables)
     chunk = chunk_size(cfg, g * cfg.width * cfg.height, scene=tables)
     n_casts = _casts(cfg, tables)
     # The integrator launches each kernel once per depth, so the first two

@@ -103,12 +103,13 @@ def scene_tables_from_numpy(tables_np, device) -> SceneTables:
 
 def render_config_from_dict(d: dict) -> RenderConfig:
     """The port's RenderConfig from the fields of ``d`` it has; the JAX
-    package's other fields (its TPU tuning knobs) are dropped, and so is
-    its ``pairs_chunk``, the TPU's bound on a cast: the port sizes its
-    pairs casts itself (``render/pipeline.pairs_cast_width``; the frame
-    does not depend on the width)."""
+    package's other fields (its TPU tuning knobs) are dropped, and so are
+    its ``pairs_chunk``, the TPU's bound on a cast, and its ``spp_fuse``,
+    the samples of its wavefronts: the port sizes its pairs casts and
+    groups its samples itself (``render/pipeline.pairs_cast_width``,
+    ``group_size``; the frame does not depend on either)."""
     names = {f.name for f in dataclasses.fields(RenderConfig)} - {
-        "pairs_chunk"}
+        "pairs_chunk", "spp_fuse"}
     kw = {k: v for k, v in d.items() if k in names}
     if "camera_c" in kw:
         kw["camera_c"] = tuple(kw["camera_c"])

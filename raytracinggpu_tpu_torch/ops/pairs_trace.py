@@ -446,12 +446,11 @@ def key_boxes(n_tiles: int, key_coarse: int) -> int:
     return n_tiles if key_coarse <= 1 else -(-n_tiles // key_coarse)
 
 
-def key_lanes(n_tiles: int, key_coarse: int, R: int) -> int:
-    """The most lanes of a cast whose ladder key keeps the mode it takes at
-    R lanes: ``1 << shift`` of ``_key_mode`` over the key boxes
-    (``key_boxes``); 0 when no key fits R lanes."""
-    mode, shift = _key_mode(key_boxes(n_tiles, key_coarse), R)
-    return 1 << shift if mode else 0
+def key_lanes(n_tiles: int, key_coarse: int) -> int:
+    """The most lanes of a cast that the ladder's key holds in any mode:
+    ``1 << shift`` of ``_key_mode``'s mode 1 (the first box alone) over
+    the key boxes (``key_boxes``), which holds more lanes than mode 2."""
+    return 1 << (31 - key_boxes(n_tiles, key_coarse).bit_length())
 
 
 def _coarse_aabb(aabb, nc: int, g: int):
@@ -704,7 +703,9 @@ def _ladder(O, u, tab, subg, cap, active, fractions, key_coarse, blk,
     While tracing is on, the span ``ladder`` (its attribute C, 0 at full
     width) holds ``ladder.key`` (the key and the count's copy; its
     attribute the cast's padded rays), ``ladder.wait`` (``_tier``), then
-    ``ladder.sort`` and ``ladder.bits``, or ``cast.rows_bits``."""
+    ``ladder.sort`` and ``ladder.bits``, or ``cast.rows_bits``; the
+    counter ``ladder.key_mode1`` adds one a compacted cast whose key took
+    mode 1 (``_key_mode``: a cast wider than mode 2 holds)."""
     Rp = O.x.shape[0]
     tiers, boxes, knc = _ladder_tiers(tab, fractions, key_coarse, Rp, blk)
     if not tiers:
@@ -720,6 +721,7 @@ def _ladder(O, u, tab, subg, cap, active, fractions, key_coarse, blk,
             with span("cast.rows_bits"):
                 return (_live_rows(O, u, cap, active),
                         _bits(O, u, tab, subg, cap, active), None)
+        count("ladder.key_mode1", int(_key_mode(knc, Rp)[0] == 1))
         with span("ladder.sort"):
             plan = _compact_sort(skey, C, shift)
         with span("ladder.bits"):

@@ -3,11 +3,12 @@
 
     raygen (camera + Box-Muller jitter)  ->  wavefront trace  ->  average spp
 
-Samples run in groups of ``cfg.spp_fuse`` whose rays form one wavefront;
-each wavefront is traced in casts of ``chunk_size`` rays: as wide as the
-ladder's key, the kernels' indices and the card's memory allow (pairs,
-``pairs_cast_width``), at most ``CAST_CAP`` (pallas, bvh), or
-``cfg.ray_chunk`` (dense).  The
+Samples run in groups (``group_size``) whose rays form one wavefront: as
+many as one pairs cast holds (pairs), ``SPP_FUSE`` (pallas, bvh, dense),
+or at most ``cfg.spp_fuse`` where it is set.  Each wavefront is traced in
+casts of ``chunk_size`` rays: as wide as the ladder's key, the kernels'
+indices and the card's memory allow (pairs, ``pairs_cast_width``), at
+most ``CAST_CAP`` (pallas, bvh), or ``cfg.ray_chunk`` (dense).  The
 uniforms are keyed per (sample, row) with the threefry key that
 ``render_frame`` is given, and every sample's radiance is added to the
 accumulator in sample order, so the frame is bitwise independent of the
@@ -43,7 +44,7 @@ from raytracinggpu_tpu_torch.integrator.wavefront import (
 from raytracinggpu_tpu_torch.ops.pairs_trace import key_lanes
 from raytracinggpu_tpu_torch.ops.pallas_trace import BLK_R
 from raytracinggpu_tpu_torch.scene.scene import RenderConfig, SceneTables
-from raytracinggpu_tpu_torch.utils.profiling import request, span
+from raytracinggpu_tpu_torch.utils.profiling import count, request, span
 
 
 class Camera(NamedTuple):
@@ -183,7 +184,7 @@ def primary_rays(cfg: RenderConfig, cam: Camera, key: Key, s: int, rows_t,
 
 
 # Rays a cast of the pallas and bvh traversals at most, and of a pairs cast
-# whose table takes no ladder key at this width (the TPU's bound on the
+# whose table's ladder key holds fewer lanes (the TPU's bound on the
 # culling and integrator intermediates, kept where no key sets one).
 CAST_CAP = 524288
 # Device bytes that a lane of a pairs cast holds at its peak, a trace of
@@ -203,13 +204,13 @@ def pairs_cast_width(cfg: RenderConfig, R: int,
     multiple of cfg.pairs_block (one block at least) that is no larger
     than each of
 
-    1. the lanes that the ladder's int32 sort key holds in the mode the
-       scene's table takes at CAST_CAP lanes (``ops/pairs_trace.key_lanes``
-       over its tile boxes, or their unions of cfg.pairs_key_coarse), so
-       that a wider cast never takes a coarser key: 2^20 for the cat's 40
-       tiles (mode 2), 2^24 for the 200,000-triangle soup's 65 union boxes
-       (mode 1); CAST_CAP where the table takes no key there, or the scene
-       has no pairs table;
+    1. the most lanes that the ladder's int32 sort key holds in any mode
+       (``ops/pairs_trace.key_lanes`` over the table's tile boxes, or
+       their unions of cfg.pairs_key_coarse: mode 1, the first box
+       alone): 2^25 for the cat's 40 tiles, 2^24 for the dog skeleton's
+       89 union boxes.  A cast wider than the finest mode holds keys in
+       mode 1 (``_key_mode``), which changes no ray's result.  CAST_CAP
+       where that is fewer lanes, or the scene has no pairs table;
     2. the wavefront, R rounded up to whole blocks: a cast is never padded
        past it;
     3. the kernels' 32-bit indices (``ops/_kernels``): 16 ray rows a lane
@@ -226,8 +227,8 @@ def pairs_cast_width(cfg: RenderConfig, R: int,
     n_tiles = 0 if tab is None else tab.tile_aabb.shape[0]
     bounds = [-(-R // blk) * blk, (2**31 - 1) // 16,
               (2**31 - 1) // max(1, -(-n_tiles // 32)) * cfg.pairs_subgroup,
-              (key_lanes(n_tiles, cfg.pairs_key_coarse, CAST_CAP)
-               if tab is not None else 0) or CAST_CAP]
+              max(CAST_CAP, key_lanes(n_tiles, cfg.pairs_key_coarse)
+                  if tab is not None else 0)]
     if scene is not None and scene.device.type == "cuda":
         total = torch.cuda.get_device_properties(scene.device).total_memory
         base, per_depth = CAST_LANE_BYTES
@@ -304,10 +305,26 @@ def trace_chunked(scene: SceneTables, cfg: RenderConfig, O: Vec3, u: Vec3,
     return col, stats
 
 
-def group_size(cfg: RenderConfig, n_s: int) -> int:
-    """Samples per wavefront: the largest divisor of n_s not above
-    cfg.spp_fuse."""
-    g = max(1, min(cfg.spp_fuse, n_s))
+# Samples a wavefront of the pallas, bvh and dense traversals at most
+# where cfg.spp_fuse is not set.
+SPP_FUSE = 4
+
+
+def group_size(cfg: RenderConfig, n_s: int, lanes: int,
+               scene: SceneTables) -> int:
+    """Samples per wavefront of n_s samples of ``lanes`` rays each: the
+    largest divisor of n_s not above a cap.  The cap is cfg.spp_fuse
+    where it is set; else, for the pairs traversal, the samples whose rays
+    one cast of ``pairs_cast_width`` holds (at least one), so that a
+    frame's samples trace in as few and as wide casts as the key, the
+    card's memory and cfg.pairs_chunk allow; else SPP_FUSE."""
+    if cfg.spp_fuse:
+        cap = cfg.spp_fuse
+    elif _effective_traversal(cfg, scene) == "pairs":
+        cap = pairs_cast_width(cfg, n_s * lanes, scene) // lanes
+    else:
+        cap = SPP_FUSE
+    g = max(1, min(cap, n_s))
     while n_s % g:
         g -= 1
     return g
@@ -320,18 +337,21 @@ def _add_stats(a: TraceStats | None, b: TraceStats) -> TraceStats:
 def _wavefronts(scene: SceneTables, cfg: RenderConfig, cam: Camera, key: Key,
                 rows: np.ndarray, sample_ids):
     """Trace a set of global rows over a set of global sample ids in groups
-    of cfg.spp_fuse samples (the largest divisor of the sample count not
-    above it); a group's rays concatenate into one wavefront,
-    sample-major.  Yields, group by group in sample order, (color Vec3
-    (g*nr*W,), g, TraceStats of the group)."""
+    of ``group_size`` samples; a group's rays concatenate into one
+    wavefront, sample-major.  Yields, group by group in sample order,
+    (color Vec3 (g*nr*W,), g, TraceStats of the group).  While tracing is
+    on, the counters ``wavefront.count`` and ``wavefront.samples`` add
+    one and g a wavefront."""
     W, D = cfg.width, cfg.max_depth
     sample_ids = [int(s) for s in sample_ids]
     n_s = len(sample_ids)
-    g = group_size(cfg, n_s)
+    R = len(rows) * W
+    g = group_size(cfg, n_s, R, scene)
     dev = scene.device
     rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=dev)
-    R = len(rows) * W
     for g0 in range(0, n_s, g):
+        count("wavefront.count")
+        count("wavefront.samples", g)
         O, u = (torch.empty((3, g * R), dtype=torch.float32, device=dev)
                 for _ in range(2))
         un = torch.empty((D, 2, g * R), dtype=torch.float32, device=dev)

@@ -107,7 +107,10 @@ class RenderConfig:
                                 # | bvh (the reference's flat-BVH walk)
     ray_sort: bool = False      # pallas: sort rays into beam families
     ray_chunk: int = 65536      # dense: rays per cast
-    spp_fuse: int = 4           # samples folded into one wavefront
+    spp_fuse: int | None = None  # samples a wavefront at most; None:
+                                # render/pipeline's group_size (pairs:
+                                # as many as one cast holds; the others
+                                # pipeline.SPP_FUSE)
     tri_block: int = 512        # dense: triangles per scan block (and the
                                 # padding of the triangle tables)
     pallas_subgroup: int = 64   # pallas: rays per culling subgroup

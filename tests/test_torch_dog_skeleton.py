@@ -16,10 +16,14 @@ scene, built with LBVH through ``Renderer(obj_path=...)``.
   Renderer: one LBVH build fewer);
 - the build's spans and counters are in ``profiling.collect().build``
   after a build with tracing off, ``bvh_build_s`` reads the BVH's span
-  there, and the run's frames add nothing to either record.
+  there, and the run's frames add nothing to either record;
+- keyed on its 2,834 tile boxes, a small frame is bitwise the same in
+  one cast whose ladder key takes mode 1 and in casts of one sample,
+  narrow enough for mode 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import importlib.util
 import os
@@ -34,8 +38,11 @@ import torch
 
 import raytracinggpu_tpu_torch
 from benchmark import check, faults, meshes, run, spec
-from raytracinggpu_tpu_torch.ops.pairs_trace import key_lanes
-from raytracinggpu_tpu_torch.render.pipeline import CAST_CAP
+from raytracinggpu_tpu_torch.ops.pairs_trace import _key_mode, key_lanes
+from raytracinggpu_tpu_torch.render.pipeline import (
+    CAST_CAP,
+    render_preset_frame,
+)
 from raytracinggpu_tpu_torch.scene.obj import read_obj
 from raytracinggpu_tpu_torch.utils import profiling
 
@@ -134,7 +141,7 @@ def test_configuration_takes_the_large_mesh_path(sound):
     nc = int(tab.tile_aabb.shape[0])
     assert (nc, int(tab.member_aabb.shape[0])) == (2834, 4394)
     assert r.cfg.pairs_subgroup == 16 and r.cfg.pairs_key_coarse == 32
-    assert key_lanes(nc, r.cfg.pairs_key_coarse, CAST_CAP) == 2**24
+    assert key_lanes(nc, r.cfg.pairs_key_coarse) == 2**24 > CAST_CAP
     assert r.scene.mesh.n_tri == N_FACES
 
 
@@ -181,3 +188,41 @@ def test_build_spans_and_counters_kept_with_tracing_off(sound):
                      "pairs.members": 4394, "ladder.key_boxes": 89}
     window = lambda t: ([], {}) if t is None else (t.spans, t.counters)
     assert window(after) == window(before)
+
+
+# name: (config fields, (wavefronts, samples, compacted casts keyed in
+# mode 1: all or none))
+KEY_MODE_RUNS = {
+    "one 512-lane cast, mode 1": ({}, (1, 2, True)),
+    "a 256-lane cast a sample, mode 2": ({"spp_fuse": 1}, (2, 2, False))}
+
+
+def test_frame_does_not_depend_on_the_key_mode(sound):
+    """A 16 x 16 frame of 2 samples, depth 2, its ladder keyed on the 2,834
+    tile boxes (``pairs_key_coarse`` 1: mode 2 holds 256 lanes, mode 1
+    2^19): both samples in one 512-lane cast, whose key takes mode 1 (the
+    default grouping, spp_fuse unset), and one sample a wavefront
+    (spp_fuse 1), each in one 256-lane cast keyed in mode 2, bitwise the
+    same frame and stats; both runs compact casts, and the tracer's
+    counters say how many wavefronts of how many samples ran and how many
+    compacted casts keyed in mode 1."""
+    _, _, r = sound["made"]
+    base = dataclasses.replace(r.cfg, spp=2, max_depth=2, pairs_key_coarse=1)
+    nc = int(r.scene.pairs_mesh.tile_aabb.shape[0])
+    assert base.pairs_block == 128 and base.spp_fuse is None
+    assert _key_mode(nc, 256) == (2, 8) and _key_mode(nc, 512) == (1, 19)
+    frames = []
+    for over, (n_wave, n_samples, mode1) in KEY_MODE_RUNS.values():
+        with profiling.tracing():
+            img, stats = render_preset_frame(
+                r.scene, dataclasses.replace(base, **over), seed=SEED)
+        c = profiling.collect().counters
+        assert (c["wavefront.count"], c["wavefront.samples"]) == (
+            n_wave, n_samples)
+        assert c["ladder.compacted"] > 0
+        assert c["ladder.key_mode1"] == (c["ladder.compacted"] if mode1
+                                         else 0)
+        frames.append((img, *stats))
+    for other in frames[1:]:
+        for a, b in zip(frames[0], other):
+            np.testing.assert_array_equal(a, b)

@@ -423,7 +423,8 @@ def test_tiled_casts_keep_their_lists_under_the_32_bit_limit(subg):
 # config fields, the card's memory in bytes (None: a CPU scene), width)
 WIDTH_CASES = {
     "cat, 4 x 512^2": (None, 1, 4 * 512**2, {}, None, 2**20),
-    "cat, 32 x 512^2": (None, 1, 32 * 512**2, {}, None, 2**20),
+    "cat, 32 x 512^2": (None, 1, 32 * 512**2, {}, None, 2**23),
+    "cat, 256 x 512^2": (None, 1, 256 * 512**2, {}, None, 2**25),
     "cat, 2 x 48^2": (None, 1, 2 * 48**2, {}, None, 2 * BLK),
     "soup, 4 x 512^2": (2053, 32, 4 * 512**2, {}, None, 2**20),
     "soup, 128 x 512^2": (2053, 32, 128 * 512**2, {}, None, 2**24),
@@ -441,13 +442,14 @@ WIDTH_CASES = {
 def test_pairs_cast_width_follows_the_key_the_wavefront_and_limits(
         scene, monkeypatch, case):
     """The pairs traversal's cast width: the largest multiple of
-    pairs_block no larger than the lanes of the key mode that the table
-    takes at CAST_CAP (the cat's 40 tiles: mode 2, 2^20; the soup's 65
-    union boxes: mode 1, 2^24), the wavefront in whole blocks, the
-    kernels' 32-bit indices (a one-tile table), a share of the card's
-    memory and an explicit pairs_chunk; a wavefront's casts are whole
-    blocks, as few as the width allows.  pallas and bvh keep CAST_CAP,
-    or pairs_chunk where set; dense ray_chunk."""
+    pairs_block no larger than the most lanes the table's ladder key
+    holds in any mode (mode 1: the cat's 40 tiles 2^25, past mode 2's
+    2^20; the soup's 65 union boxes 2^24), CAST_CAP
+    where that is fewer, the wavefront in whole blocks, the kernels'
+    32-bit indices (a one-tile table), a share of the card's memory and
+    an explicit pairs_chunk; a wavefront's casts are whole blocks, as few
+    as the width allows.  pallas and bvh keep CAST_CAP, or pairs_chunk
+    where set; dense ray_chunk."""
     import dataclasses
     from types import SimpleNamespace
 
@@ -460,6 +462,7 @@ def test_pairs_cast_width_follows_the_key_the_wavefront_and_limits(
         sc = scene[1]
         assert sc.pairs_mesh.tile_aabb.shape[0] == 40
         assert pt._key_mode(40, pp.CAST_CAP) == (2, 20)
+        assert pt._key_mode(40, 2**20 + 1) == (1, 25)
     else:  # what the width reads of a scene (meta: nothing allocated)
         boxes = torch.empty((n_tiles, 8), device="meta")
         sc = SimpleNamespace(pairs_mesh=SimpleNamespace(tile_aabb=boxes),
@@ -470,7 +473,7 @@ def test_pairs_cast_width_follows_the_key_the_wavefront_and_limits(
                             lambda dev: SimpleNamespace(total_memory=mem))
         lane = pp.CAST_LANE_BYTES[0] + pp.CAST_LANE_BYTES[1] * cfg.max_depth
         want = int(mem * pp.CAST_MEM_SHARE) // lane // blk * blk
-        assert 0 < want < pt.key_lanes(n_tiles, coarse, pp.CAST_CAP)
+        assert 0 < want < pt.key_lanes(n_tiles, coarse)
     width = pp.pairs_cast_width(cfg, R, sc)
     assert width == want and width % blk == 0
     chunk = pp.chunk_size(cfg, R, "pairs", scene=sc)
@@ -482,6 +485,70 @@ def test_pairs_cast_width_follows_the_key_the_wavefront_and_limits(
             assert pp.chunk_size(cfg, R, traversal, n_tiles=40,
                                  scene=sc) == cap
     assert pp.chunk_size(cfg, R, "dense", scene=sc) == min(cfg.ray_chunk, R)
+
+
+# case: (tiles (None: the cat's tables), key_coarse, spp, depth, config
+# fields, the card's memory in bytes (None: the card's, 80 GiB; 0: a CPU
+# scene), samples a wavefront, its cast's width); 512 x 512 frames
+H100 = 80 * 2**30
+GROUP_CASES = {
+    "array_bvh.spp32_d5": (None, 1, 32, 5, {}, None, 32, 2**23),
+    "realtime.loop_spp20_d3": (None, 1, 20, 3, {}, None, 20, 5 * 2**20),
+    "array_bvh.spp256_d1": (None, 1, 256, 1, {}, None, 128, 2**25),
+    "dog_skeleton.spp4_d2": (2834, 32, 4, 2, {}, None, 4, 2**20),
+    "small card": (None, 1, 32, 5, {}, 2**30, 2, 2**19),
+    "spp_fuse 8": (None, 1, 32, 5, {"spp_fuse": 8}, None, 8, 2**21),
+    "pairs_chunk 2^20": (None, 1, 32, 5, {"pairs_chunk": 2**20}, None, 4,
+                         2**20),
+    "spp_fuse past pairs_chunk": (None, 1, 32, 5,
+                                  {"spp_fuse": 8, "pairs_chunk": 2**20},
+                                  None, 8, 2**20),
+    "CPU, 3 samples": (None, 1, 3, 5, {}, 0, 3, 3 * 2**18),
+    "pallas": (None, 1, 32, 5, {"traversal": "pallas"}, None, 4, None),
+    "dense, spp_fuse 2": (None, 1, 32, 5, {"traversal": "dense",
+                                           "spp_fuse": 2}, None, 2, None)}
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_wavefront_holds_the_samples_one_cast_holds(scene, monkeypatch,
+                                                    case):
+    """Samples a wavefront (``group_size``): with spp_fuse unset, the
+    pairs traversal groups the largest divisor of the samples whose rays
+    one cast of ``pairs_cast_width`` holds, so that each benchmark cell's
+    frame traces in the fewest casts: 32 samples in one 2^23-lane cast
+    at depth 5, 20 in one of 5 x 2^20, 256 samples at depth 1 in two
+    wavefronts of 128 (2^25 lanes, the cat's mode-1 key), the dog's 4 in
+    one 2^20-lane cast; a small card's memory, an explicit pairs_chunk or
+    spp_fuse caps the group, and the wavefront is then one cast or
+    several.  The other traversals group 4 samples, or spp_fuse.  The
+    tables are the cat's, or ``meta`` tensors (nothing allocated)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from raytracinggpu_tpu_torch.render import pipeline as pp
+
+    n_tiles, coarse, spp, depth, over, mem, want_g, want_w = \
+        GROUP_CASES[case]
+    cfg = dataclasses.replace(scene[0], spp=spp, max_depth=depth,
+                              pairs_key_coarse=coarse, **over)
+    boxes = (scene[1].pairs_mesh.tile_aabb if n_tiles is None
+             else torch.empty((n_tiles, 8), device="meta"))
+    sc = SimpleNamespace(pairs_mesh=SimpleNamespace(tile_aabb=boxes),
+                         mesh=scene[1].mesh, device=torch.device(
+                             "cpu" if mem == 0 else "cuda"))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(total_memory=mem or H100))
+    lanes = cfg.width * cfg.height
+    g = pp.group_size(cfg, spp, lanes, sc)
+    assert g == want_g and spp % g == 0
+    if want_w is not None:
+        assert pp.chunk_size(cfg, g * lanes, scene=sc) == want_w
+        one_cast = pp.pairs_cast_width(cfg, g * lanes, sc) >= g * lanes
+        assert one_cast == (case != "spp_fuse past pairs_chunk")
+    if not over:
+        assert g == max(d for d in range(1, spp + 1) if spp % d == 0 and (
+            d == 1 or d * lanes <= pp.pairs_cast_width(cfg, spp * lanes,
+                                                       sc)))
 
 
 @pytest.mark.parametrize("subg", [0, 48, 256])
@@ -2556,30 +2623,39 @@ def test_glue_kernels_bitwise_on_hard_lanes(seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("preset", ["array_bvh", "realtime"])
 def test_pairs_cast_width_frames_bitwise_the_524288_ray_casts(preset):
-    """A 512x512 spp4 depth-5 array_bvh frame and one realtime step (spp
-    20, depth 3): each 2^20-ray wavefront in one cast at the width of
-    ``pairs_cast_width`` (the cat's key: 2^20) and in two at
-    pairs_chunk=524288, bitwise the same frame and stats (the step's
-    display and accumulation); the kernels of a cast launch once a cast
-    (the full-width culling and rows, or the compacted ones), the key
-    once a cast at depth >= 1, the composite once a trace, the primary
-    rays once a sample."""
+    """A 512x512 spp32 depth-5 array_bvh frame and one realtime step (spp
+    20, depth 3), the cells' shapes: all samples in one wavefront and one
+    cast (the default: ``group_size`` and ``pairs_cast_width``, 2^23 and
+    5 x 2^20 lanes, keyed in mode 1), in 2^20-ray wavefronts of 4 samples
+    at one cast each (spp_fuse=4, pairs_chunk=2^20: the grouping before
+    the cast passed the key's mode 2) and in two 524,288-ray casts each,
+    bitwise the same frame and stats (the step's display and
+    accumulation); the kernels of a cast launch once a cast (the
+    full-width culling and rows, or the compacted ones), the key once a
+    cast at depth >= 1, the composite once a trace, the primary rays once
+    a sample."""
     _need_cuda()
     import dataclasses
 
     from raytracinggpu_tpu_torch.render import pipeline as pp
     from raytracinggpu_tpu_torch.render import realtime as rt
 
-    kw = dict(spp=4, max_depth=5) if preset == "array_bvh" else {}
+    kw = dict(spp=32, max_depth=5) if preset == "array_bvh" else {}
     cfg, tables = build_preset(preset, "cuda", **kw)
-    R, D = 4 * cfg.width * cfg.height, cfg.max_depth
-    assert (cfg.spp_fuse, R) == (4, 2**20)
-    assert pp.chunk_size(cfg, R, scene=tables) == 2**20
+    lanes, D = cfg.width * cfg.height, cfg.max_depth
+    R = cfg.spp * lanes
+    assert (cfg.spp_fuse, cfg.pairs_chunk) == (None, None)
+    assert pp.group_size(cfg, cfg.spp, lanes, tables) == cfg.spp
+    assert pp.chunk_size(cfg, R, scene=tables) == R == {
+        "array_bvh": 2**23, "realtime": 5 * 2**20}[preset]
     closest = "pairs_closest_smooth" if cfg.smooth_normals else \
         "pairs_closest"
     outs = []
-    for cap, per_wavefront in ((None, 1), (524288, 2)):
-        c = dataclasses.replace(cfg, pairs_chunk=cap)
+    # (config fields, traces: one a cast of each wavefront)
+    for over, T in (({}, 1), ({"spp_fuse": 4, "pairs_chunk": 2**20},
+                              cfg.spp // 4),
+                    ({"spp_fuse": 4, "pairs_chunk": 524288}, cfg.spp // 2)):
+        c = dataclasses.replace(cfg, **over)
         _kernels.reset_launches()
         if preset == "array_bvh":
             img, stats = pp.render_preset_frame(tables, c, seed=0)
@@ -2589,7 +2665,6 @@ def test_pairs_cast_width_frames_bitwise_the_524288_ray_casts(preset):
             out = (disp, state.accum)
         torch.cuda.synchronize()
         got = _launched()
-        T = cfg.spp // 4 * per_wavefront   # traces, one a cast of each depth
         want = {closest: T * D, "pairs_shadow": T * D,
                 "sphere_hit": 2 * T * D, "shade": T * D, "bounce": T * D,
                 "compact_key": 2 * T * (D - 1), "composite": T,
@@ -2597,7 +2672,8 @@ def test_pairs_cast_width_frames_bitwise_the_524288_ray_casts(preset):
         pair = lambda a, b: got.pop(a, 0) + got.pop(b, 0)
         assert pair("pair_bits", "compact_bits") == 2 * T * D
         assert pair("ray_rows", "scatter") == 2 * T * D
-        assert got == want
+        assert got == want, over
         outs.append(out)
-    for a, b in zip(*outs):
-        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))

@@ -99,16 +99,22 @@ def test_same_seed_same_frame(port):
 def test_grouping_and_chunking_bitwise(port, frames, over, against):
     """One sample per wavefront instead of two, or 4096-ray casts instead
     of one 8192-ray cast, give the same frame bit for bit; so does the
-    default config, whose pairs casts ``pairs_cast_width`` sizes (one
-    cast holds the wavefront here), against 4096-ray casts."""
+    default config, whose wavefront ``group_size`` sizes to both samples
+    and whose pairs casts ``pairs_cast_width`` sizes (one cast holds the
+    wavefront here), against 4096-ray casts of one sample each."""
     cfg, tables, img, stats = port
     cfg1, cfg2 = (dataclasses.replace(cfg, **o) for o in (over, against))
-    R = cfg.width * cfg.height * cfg.spp
-    casts = lambda c: (group_size(c, cfg.spp),
-                       chunk_size(c, R, scene=tables))
+    lanes = cfg.width * cfg.height
+    R = lanes * cfg.spp
+
+    def casts(c):
+        g = group_size(c, cfg.spp, lanes, tables)
+        return g, chunk_size(c, g * lanes, scene=tables)
+
     assert casts(cfg1) != casts(cfg2)
-    if cfg1.pairs_chunk is None:
-        assert casts(cfg1)[1] == pairs_cast_width(cfg1, R, tables) == 8192
+    if cfg1 == cfg:
+        assert casts(cfg1) == (2, pairs_cast_width(cfg1, R, tables)) \
+            == (2, 8192)
     frames.setdefault(cfg, (img, stats))
     for c in (cfg1, cfg2):
         if c not in frames:
